@@ -1,0 +1,190 @@
+"""Model configuration: the port's own copy of the JAX package's dataclasses.
+
+Only the trees the ReasonSeg ``predict`` path reads are kept.  Field names,
+defaults and presets match ``llmseg_tpu.config`` so one preset name means one
+architecture in both packages; the SAM tree (legacy pixel-decoder path) is
+not part of the port yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Tuple
+
+
+def replace(cfg, **kw):
+    return dataclasses.replace(cfg, **kw)
+
+
+@dataclass(frozen=True)
+class ViTConfig:
+    """Plain ViT: CLIP ViT-L/14 vision tower or DINOv2 ViT-L/14."""
+
+    img_size: int = 224
+    patch_size: int = 14
+    hidden_size: int = 1024
+    depth: int = 24
+    num_heads: int = 16
+    mlp_ratio: float = 4.0
+    num_prefix_tokens: int = 1     # CLS
+    use_class_embedding: bool = True
+    layernorm_pre: bool = True      # CLIP has pre-LN after embeddings
+    use_swiglu: bool = False
+    layerscale: bool = False        # DINOv2 uses LayerScale
+    use_quick_gelu: bool = True     # CLIP quick-gelu; DINOv2 tanh-gelu
+    ln_eps: float = 1e-5            # CLIP 1e-5, DINOv2 1e-6
+
+    @property
+    def grid(self) -> int:
+        return self.img_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid * self.grid
+
+
+def clip_vit_l14() -> ViTConfig:
+    """openai/clip-vit-large-patch14 @224: 256 patch tokens, hidden 1024."""
+    return ViTConfig()
+
+
+def dinov2_vit_l14() -> ViTConfig:
+    """dinov2_vitl14 @896: 64x64 patch tokens."""
+    return ViTConfig(img_size=896, layernorm_pre=False, layerscale=True,
+                     use_quick_gelu=False, ln_eps=1e-6)
+
+
+def vit_tiny(img_size: int = 28, patch_size: int = 14) -> ViTConfig:
+    return ViTConfig(img_size=img_size, patch_size=patch_size, hidden_size=32,
+                     depth=2, num_heads=2)
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    """LLaMA decoder."""
+
+    vocab_size: int = 32004          # 32000 + [SEG], <im_start>, <im_end>, pad
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32
+    head_dim: int = 128
+    max_seq_len: int = 1024          # 512 text + up to 255 image + margin
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+
+
+def llama_7b() -> LlamaConfig:
+    return LlamaConfig()
+
+
+def llama_tiny(vocab_size: int = 256) -> LlamaConfig:
+    return LlamaConfig(vocab_size=vocab_size, hidden_size=64,
+                       intermediate_size=128, num_layers=2, num_heads=4,
+                       num_kv_heads=4, head_dim=16, max_seq_len=512)
+
+
+@dataclass(frozen=True)
+class LoraConfig:
+    """LoRA on the attention q/v projections."""
+
+    rank: int = 8
+    alpha: float = 16.0
+    dropout: float = 0.05
+    target_modules: Tuple[str, ...] = ("q_proj", "v_proj")
+
+
+@dataclass(frozen=True)
+class LlavaConfig:
+    """CLIP tower + linear projector + LLaMA."""
+
+    vision: ViTConfig = field(default_factory=clip_vit_l14)
+    llm: LlamaConfig = field(default_factory=llama_7b)
+    mm_hidden_size: int = 1024
+    vision_select_layer: int = -2
+    num_image_tokens: int = 256       # 224/14 squared
+
+
+def llava_tiny() -> LlavaConfig:
+    v = vit_tiny()
+    l = llama_tiny()
+    return LlavaConfig(vision=v, llm=l, mm_hidden_size=v.hidden_size,
+                       num_image_tokens=v.num_patches)
+
+
+@dataclass(frozen=True)
+class SelectionHeadConfig:
+    """Mask-selection transformer: two two-way blocks (proposals <-> [SEG]
+    text), a final cross attention, the IoP and embedding heads; DINOv2
+    features enter through a 1x1 projection."""
+
+    dim: int = 256
+    num_heads: int = 8
+    mlp_dim: int = 2048
+    depth: int = 2
+    attention_downsample_rate: int = 2
+    dino_dim: int = 1024
+    llm_dim: int = 4096
+    iou_head_hidden: int = 128
+    embed_head_hidden: int = 2048
+
+
+def selection_head_tiny(llm_dim: int = 64, dino_dim: int = 32) -> SelectionHeadConfig:
+    return SelectionHeadConfig(dim=16, num_heads=2, mlp_dim=32, depth=2,
+                               dino_dim=dino_dim, llm_dim=llm_dim,
+                               iou_head_hidden=8, embed_head_hidden=32)
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    ce_weight: float = 1.0
+    align_weight: float = 1.0
+    regression_weight: float = 1.0
+    align_temperature: float = 0.05
+    regression_scale: float = 50.0
+    dice_weight: float = 0.5
+    bce_weight: float = 2.0
+
+
+@dataclass(frozen=True)
+class LLMSegConfig:
+    """Top-level composition: LLaVA + DINOv2 + selection head."""
+
+    llava: LlavaConfig = field(default_factory=LlavaConfig)
+    dino: ViTConfig = field(default_factory=dinov2_vit_l14)
+    select: SelectionHeadConfig = field(default_factory=SelectionHeadConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+
+    max_proposals: int = 50           # top-K SAM proposals
+    seg_grid: int = 256               # proposals resized to 256x256 for pooling
+    seg_token_id: int = 32000         # [SEG]
+    max_seq_len: int = 1024
+    dtype: str = "bfloat16"
+
+
+def llmseg_7b() -> LLMSegConfig:
+    return LLMSegConfig()
+
+
+def llmseg_small() -> LLMSegConfig:
+    """Full architecture at ~1B-class LLM scale (16-layer LLaMA)."""
+    llm = LlamaConfig(hidden_size=2048, intermediate_size=5504,
+                      num_layers=16, num_heads=16, num_kv_heads=16,
+                      head_dim=128)
+    llava = LlavaConfig(llm=llm)
+    return LLMSegConfig(
+        llava=llava,
+        select=SelectionHeadConfig(llm_dim=llm.hidden_size))
+
+
+def llmseg_tiny() -> LLMSegConfig:
+    llava = llava_tiny()
+    dino = vit_tiny(img_size=56, patch_size=14)  # 4x4 grid
+    return LLMSegConfig(
+        llava=llava, dino=dino,
+        select=selection_head_tiny(llm_dim=llava.llm.hidden_size,
+                                   dino_dim=dino.hidden_size),
+        max_proposals=8, seg_grid=16, seg_token_id=200, max_seq_len=512)

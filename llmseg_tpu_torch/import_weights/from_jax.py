@@ -1,0 +1,78 @@
+"""Load the JAX package's parameter tree into the port's modules.
+
+The tree is given as nested dicts / lists of numpy arrays (for example
+``jax.tree.map(np.asarray, params)``); nothing here imports JAX.  The port's
+module names mirror the tree's keys, so each leaf maps by its path:
+
+  * dense ``w`` (in, out)            -> ``<path>.weight`` (out, in)
+  * patch kernel ``w`` HWIO          -> ``<path>.weight`` OIHW
+  * ``b`` (1-D)                      -> ``<path>.bias``
+  * norm ``scale`` / ``bias``        -> ``<path>.weight`` / ``<path>.bias``
+  * ``embed_tokens`` (V, C)          -> ``embed_tokens.weight``
+  * ``pos_embed``, ``cls_token``, ``ls1``, ``ls2`` -> same name
+  * LoRA ``a`` (in, r), ``b`` (r, out) -> ``<path>.a.weight``, ``<path>.b.weight``
+
+LayerScale leaves missing from the tree (a folded DINOv2) are removed from
+the module too.  The load is strict: every parameter of the module must come
+from the tree and every leaf must land.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """{port parameter name: array in the port's layout}."""
+    out: Dict[str, np.ndarray] = {}
+    items = (tree.items() if isinstance(tree, dict)
+             else ((str(i), v) for i, v in enumerate(tree)))
+    for key, val in items:
+        path = f"{prefix}{key}"
+        if isinstance(val, (dict, list, tuple)):
+            out.update(flatten(val, path + "."))
+            continue
+        arr = np.asarray(val)
+        if key == "w":
+            name = f"{prefix}weight"
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        elif key == "b" and arr.ndim == 2:      # LoRA B
+            name, arr = f"{path}.weight", arr.T
+        elif key == "a":                         # LoRA A
+            name, arr = f"{path}.weight", arr.T
+        elif key in ("b", "bias"):
+            name = f"{prefix}bias"
+        elif key == "scale":
+            name = f"{prefix}weight"
+        elif key == "embed_tokens":
+            name = f"{path}.weight"
+        else:
+            name = path
+        out[name] = np.ascontiguousarray(arr)
+    return out
+
+
+@torch.no_grad()
+def load_(module: nn.Module, tree) -> nn.Module:
+    """Copy the JAX tree into ``module`` (cast to its dtype and device)."""
+    flat = flatten(tree)
+    for name, _ in list(module.named_parameters()):
+        owner_name, _, leaf = name.rpartition(".")
+        if leaf in ("ls1", "ls2") and name not in flat:
+            setattr(module.get_submodule(owner_name), leaf, None)
+    params = dict(module.named_parameters())
+    missing = sorted(set(params) - set(flat))
+    unexpected = sorted(set(flat) - set(params))
+    if missing or unexpected:
+        raise KeyError(f"tree/module mismatch: missing {missing[:5]}, "
+                       f"unexpected {unexpected[:5]}")
+    for name, p in params.items():
+        src = torch.tensor(flat[name])
+        if tuple(src.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: tree {tuple(src.shape)} vs module {tuple(p.shape)}")
+        p.copy_(src)
+    return module

@@ -1,0 +1,94 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Run on a machine with a CUDA card (tests/conftest.py needs JAX, which the card's
+machine may lack): ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
+Elsewhere every test skips.  Inputs from a seed; the plain version computes
+in float32 on the same (rounded) inputs.  Tolerances: bf16 outputs within
+1e-2 + 1e-2 * |ref| (bf16 keeps 8 significant bits; the kernels also round
+the probabilities to bf16 before the second product, as the TPU kernels do);
+float32 within 1e-4 (another summation order)."""
+
+import math
+
+import pytest
+import torch
+
+from llmseg_tpu_torch.ops import attention as A
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _card(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    # the float32 references stay float32
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+
+def _inputs(BH, T, S, D, dtype, seed=0, adversarial=False):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(device="cuda", dtype=torch.float32, generator=g)
+    if adversarial:
+        q = torch.zeros(BH, T, D, device="cuda")
+        k = torch.zeros(BH, S, D, device="cuda")
+        q[..., :D // 2] = torch.randn(BH, T, D // 2, **kw) * 30
+        k[..., D // 2:] = torch.randn(BH, S, D // 2, **kw) * 30
+        q[..., D // 2] = torch.randn(BH, T, **kw) * 0.3
+    else:
+        q, k = torch.randn(BH, T, D, **kw), torch.randn(BH, S, D, **kw)
+    v = torch.randn(BH, S, D, **kw)
+    q = q.to(dtype) * torch.tensor(A.LOG2E / math.sqrt(D), dtype=dtype, device="cuda")
+    return q.contiguous(), k.to(dtype).contiguous(), v.to(dtype).contiguous()
+
+
+def _assert_close(got, ref, dtype):
+    tol = dict(atol=1e-2, rtol=1e-2) if dtype == torch.bfloat16 else dict(atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,T,S,D", [(True, 767, 767, 128), (False, 300, 200, 64),
+                                          (True, 130, 130, 64)])
+def test_kernel_a_matches_plain(dtype, causal, T, S, D):
+    q, k, v = _inputs(8, T, S, D, dtype)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    bias = torch.randn(8, T, S, device="cuda", generator=g) * A.LOG2E
+    o, lse = A.flash_fwd(q, k, v, causal=causal, bias=bias, with_lse=True)
+    ro, rl = A.flash_fwd_plain(q.float(), k.float(), v.float(), causal=causal, bias=bias,
+                               with_lse=True)
+    _assert_close(o, ro, dtype)
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("adversarial", [False, True])
+@pytest.mark.parametrize("T,S,D", [(4097, 4097, 64), (200, 300, 128)])
+def test_kernel_b_matches_plain(dtype, adversarial, T, S, D):
+    q, k, v = _inputs(4, T, S, D, dtype, seed=1, adversarial=adversarial)
+    o = A.flash_fwd_1pass(q, k, v)
+    ro = A.flash_fwd_1pass_plain(q.float(), k.float(), v.float(), A.key_norm_max(k))
+    _assert_close(o, ro, dtype)
+
+
+def test_kernel_rejects_unsupported_inputs():
+    q, k, v = _inputs(2, 64, 64, 64, torch.bfloat16)
+    with pytest.raises(ValueError):
+        A.flash_fwd(q.half(), k.half(), v.half(), causal=True)
+    with pytest.raises(ValueError):
+        A.flash_fwd_1pass(q[:, :, :48].contiguous(), k[:, :, :48].contiguous(),
+                          v[:, :, :48].contiguous())
+
+
+def test_attention_dispatch_launches_the_kernels():
+    """Eligible CUDA shapes reach the kernels; short or biased ones do not."""
+    before = {kern.name: kern.launches for kern in A.KERNELS}
+    x = torch.randn(1, 300, 2, 128, device="cuda", dtype=torch.bfloat16)
+    A.attention(x, x, x, causal=True)
+    y = torch.randn(1, 2048, 2, 64, device="cuda", dtype=torch.bfloat16)
+    A.attention(y, y, y)
+    A.attention(x[:, :255], x[:, :255], x[:, :255], causal=True)
+    A.attention(y, y, y, bias=torch.zeros(1, 1, 1, 2048, device="cuda"))
+    after = {kern.name: kern.launches for kern in A.KERNELS}
+    assert after["flash_fwd"] - before["flash_fwd"] == 1
+    assert after["flash_fwd_1pass"] - before["flash_fwd_1pass"] == 1
