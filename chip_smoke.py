@@ -10,25 +10,41 @@ Phases, one JSON line each; any failure exits non-zero:
   1. build    compile every kernel in llmseg_tpu_torch/csrc with nvcc
               (one process per source, all at once);
   2. kernel   each kernel against its plain PyTorch version (float32 math on
-              the same inputs) at the shapes the main path gives it, plus the
+              the same inputs) at the shapes the main paths give it, plus the
               ragged-key, bias/lse, rescue and float32 cases; times of the
               kernel, the plain version and one PyTorch library call
-              (scaled_dot_product_attention, a yardstick the port never
-              calls), and the card's least time for the same work;
+              (scaled_dot_product_attention, forward or backward, a yardstick
+              the port never calls), and the card's least time for the same
+              work;
   3. modules  llmseg_tiny predict on the card against the same weights on
               the CPU;
      in_place llmseg_7b widths and sequence lengths at two blocks per
               tower and two LLaMA layers: predict through the kernels
               against predict with all attention on the plain path;
+     grad_in_place  the same cut model with LoRA: loss_fn and the gradient
+              of every trainable parameter through the kernels (remat
+              "dots") against the plain attention path (remat "none");
   4. main     llmseg_7b in bf16 (random weights from a seed, LayerScale
               folded), make_batch(4 images, text_len 512) and predict: launch
               counts of every kernel in that run, finite (4, 50) outputs,
               ms/step, img/s and peak memory;
-     breakdown  each stage of predict timed alone, and one step's device
-              time by kernel family (torch.profiler) with the device's idle
-              share;
-  5. kernels  one line with every kernel's numbers, then the card's name and
+  5. train    the LoRA train step at llmseg_7b in bf16 through the Trainer
+              (1 image, 1 row, text_len 512, remat "dots"): launch counts per
+              step, finite losses, frozen weights bit-identical and trainable
+              ones changed, ms/step and peak memory;
+     train_breakdown  forward, backward and optimizer times of one step,
+              the step under each remat policy, and one step's device time
+              by kernel family (torch.profiler) with the idle share;
+     breakdown  each stage of predict timed alone, and one predict step's
+              device time by kernel family with the idle share;
+     bwd_device_time  device time (torch.profiler) of kernels C and D and
+              of SDPA's backward at the training shape: SDPA's is C and
+              D's library_ms, and C + D on the same clock stands beside it;
+  6. kernels  one line with every kernel's numbers, then the card's name and
               power limit from nvidia-smi, then {"ok": true, "device": ...}.
+
+torch.profiler runs only after every timed phase: it leaves host cost on
+the calls that follow it, and both steps are partly host-bound.
 
 Without CUDA it exits 2 and prints no result.
 """
@@ -50,7 +66,13 @@ BF16_FLOP_PER_S = 989e12      # dense bf16 tensor-core peak
 # TPU kernels do; float32 differs only in summation order.
 BF16_TOL = (1e-2, 1e-2)
 F32_TOL = (1e-4, 0.0)
+# backward kernels C and D, normwise per output: max|err| <= tol * max|ref|.
+# p and ds are rounded to bf16 and summed over up to S (dq) or T (dk, dv)
+# terms, so the error of an entry scales with its whole row or column, not
+# with the entry: a pointwise atol + rtol*|ref| gate does not fit.
+BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 MODULE_LIMIT = 1e-4           # tiny predict, card vs CPU, float32
+GRAD_LIMIT = 1e-4             # grad_in_place, float32, per tensor vs max|ref|
 OUT_DIR = "chiprun_out"
 
 
@@ -69,6 +91,33 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_times(prof):
+    """The averaged events of a torch.profiler run, the name of their
+    device-time attribute (which differs between torch versions), and
+    (name, ms) of every device kernel that took time."""
+    import torch
+    events = prof.key_averages()
+    attr = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    kernels = [(e.key, getattr(e, attr) / 1e3) for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA and getattr(e, attr) > 0]
+    return events, attr, kernels
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time of ``fn`` per call: the sum of its kernels' times under
+    torch.profiler, for calls whose host work outlasts their kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ms for _, ms in kernel_times(prof)[2]) / iters
 
 
 def bound(nbytes: float, flops: float):
@@ -150,6 +199,339 @@ def kernel_case(A, name, *, BH, T, S, D, causal=None, dtype, adversarial=False,
     return rec
 
 
+def bwd_inputs(A, BH, T, S, D, dtype, seed):
+    """Seeded q (pre-scaled by scale*log2(e)), k, v and do for the backward."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = dict(device="cuda", dtype=torch.float32, generator=g)
+    q = (torch.randn(BH, T, D, **dev).to(dtype)
+         * torch.tensor(A.LOG2E / math.sqrt(D), dtype=dtype, device="cuda")).contiguous()
+    k, v = (torch.randn(BH, S, D, **dev).to(dtype) for _ in range(2))
+    return q, k, v, torch.randn(BH, T, D, **dev).to(dtype)
+
+
+def bwd_device_times(A, *, BH, T, S, D, causal, dtype, seed=0) -> dict:
+    """Device time under torch.profiler, on the same inputs as bwd_case, of
+    the backward alone of F.scaled_dot_product_attention (torch.autograd.grad
+    with a fixed do: the yardstick of kernels C and D together, which the
+    port never calls) and of C and D.  The SDPA backward's call costs more
+    host time than its kernels take, so CUDA events would time the host;
+    C and D are timed here on the same clock, so that the two compare.
+    Runs after every timed phase (the profiler adds host cost to later
+    calls)."""
+    import torch
+    import torch.nn.functional as F
+    q, k, v, do = bwd_inputs(A, BH, T, S, D, dtype, seed)
+    q4, k4, v4 = (x.unsqueeze(0).requires_grad_() for x in (q, k, v))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal, scale=1.0 / A.LOG2E)
+    do4 = do.unsqueeze(0)
+    out = {"sdpa_backward": device_ms(
+        lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True), 20)}
+    o, lse = A.flash_fwd(q, k, v, causal=causal, with_lse=True)
+    _, delta = A.flash_bwd_dq(q, k, v, o, do, lse, causal=causal)
+    out["flash_bwd_dq"] = device_ms(lambda: A.flash_bwd_dq(q, k, v, o, do, lse, causal=causal), 20)
+    out["flash_bwd_dkv"] = device_ms(
+        lambda: A.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal), 20)
+    return out
+
+
+def bwd_case(A, *, BH, T, S, D, causal, dtype, timed=False, seed=0):
+    """Kernels C and D against flash_bwd_plain (float32 math on the same
+    inputs; o and lse from kernel A).  With ``timed`` also each kernel's
+    time, the plain version's, and each kernel's bound: C does 3 products
+    and D 4, each 2*BH*D*pairs; C reads q, k, v, o, do and lse and writes
+    dq and the float32 delta, D reads q, k, v, do, lse and delta (not o)
+    and writes dk and dv."""
+    import torch
+    q, k, v, do = bwd_inputs(A, BH, T, S, D, dtype, seed)
+    o, lse = A.flash_fwd(q, k, v, causal=causal, with_lse=True)
+    run_c = lambda: A.flash_bwd_dq(q, k, v, o, do, lse, causal=causal)
+    dq, delta = run_c()
+    run_d = lambda: A.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
+    dk, dv = run_d()
+    torch.cuda.synchronize()
+    plain = lambda: A.flash_bwd_plain(q.float(), k.float(), v.float(), o.float(), do.float(),
+                                      lse, causal=causal)
+    ref = plain()
+    name = str(dtype).split(".")[-1]
+    err = {n: (got.float() - r).abs().max().item() for n, got, r in
+           zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
+    scale = {n: r.abs().max().item() for n, r in zip(("dq", "dk", "dv"), ref)}
+    tol = BWD_TOL[name]
+    rec = {"phase": "kernel", "kernel": "flash_bwd_dq+flash_bwd_dkv", "BH": BH, "T": T, "S": S,
+           "D": D, "causal": causal, "dtype": name, "max_abs_err": err, "max_abs_ref": scale,
+           "tol_vs_max_ref": tol}
+    rec["ok"] = all(math.isfinite(err[n]) and err[n] <= tol * scale[n] for n in err)
+    out = {}
+    if timed:
+        ms_c, ms_d = cuda_ms(run_c, 20), cuda_ms(run_d, 20)
+        plain_ms = cuda_ms(plain, 3)
+        pairs = causal_pairs(T, S) if causal else T * S
+        e = q.element_size()
+        stats = 2 * 4 * BH * T   # lse and delta, float32 rows
+        bc = bound(e * BH * D * (4 * T + 2 * S) + stats, 3 * 2.0 * BH * D * pairs)
+        bd = bound(e * BH * D * (2 * T + 4 * S) + stats, 4 * 2.0 * BH * D * pairs)
+        rec.update({"ms_c": ms_c, "ms_d": ms_d, "plain_ms": plain_ms,
+                    "bound_ms_c": bc[0], "bound_ms_d": bd[0]})
+        out = {"flash_bwd_dq": {"ms": ms_c, "bound_ms": bc[0], "bound_by": bc[1],
+                                "max_abs_err": err["dq"]},
+               "flash_bwd_dkv": {"ms": ms_d, "bound_ms": bd[0], "bound_by": bd[1],
+                                 "max_abs_err": max(err["dk"], err["dv"])}}
+        for r in out.values():
+            r["plain_ms"] = plain_ms
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"kernels C/D disagree with flash_bwd_plain: {rec}")
+    return out
+
+
+def cut_config(C):
+    """llmseg_7b widths and sequence lengths, towers 2-3 blocks, LLaMA 2 layers."""
+    full = C.llmseg_7b()
+    return C.replace(full, dino=C.replace(full.dino, depth=2),
+                     llava=C.replace(full.llava, llm=C.replace(full.llava.llm, num_layers=2),
+                                     vision=C.replace(full.llava.vision, depth=3)))
+
+
+def plain_attention(q, k, v, *, bias=None, causal=False, scale=None):
+    from llmseg_tpu_torch.ops import attention as A
+    return A.attention_plain(q, k, v, bias=bias, causal=causal, scale=scale)
+
+
+def grads_in_place(C, llmseg, make_batch, A) -> dict:
+    """The cut model with LoRA rank 8 on q/v: loss_fn and the gradient of
+    every trainable parameter through the kernels (A with lse, C, D, under
+    remat "dots", whose recompute runs A again) against LLaMA's attention
+    on the plain path with remat "none".  float32 gated per tensor at
+    GRAD_LIMIT * max|ref|, bf16 reported."""
+    import torch
+    from llmseg_tpu_torch.models import llama
+    from llmseg_tpu_torch.train import optim
+
+    cfg = cut_config(C)
+    lora = C.LoraConfig(rank=8)
+    batch = make_batch(cfg, num_images=1, rows_per_image=1, text_len=512, seed=4)
+    rec = {"phase": "grad_in_place",
+           "config": "llmseg_7b, towers 2-3 blocks, LLaMA 2 layers, LoRA rank 8",
+           "limit_float32": GRAD_LIMIT}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = llmseg.init(cfg, seed=2, device="cuda", dtype=dtype, lora_cfg=lora)
+        with torch.no_grad():   # LoRA B starts at zero: give it a value so A gets a gradient
+            g = torch.Generator(device="cuda").manual_seed(5)
+            for name, p in model.named_parameters():
+                if name.startswith("lora.") and name.endswith(".b.weight"):
+                    p.copy_(torch.randn(p.shape, device="cuda", generator=g) * 0.02)
+        trainable = optim.partition(model)
+
+        def grads(remat):
+            loss, _ = llmseg.loss_fn(model, batch, lora_cfg=lora, remat=remat)
+            loss.backward()
+            out = {n: p.grad.float() for n, p in trainable.items()}
+            model.zero_grad(set_to_none=True)
+            return loss.item(), out
+
+        for kern in A.KERNELS:
+            kern.launches = 0
+        loss_k, got = grads("dots")
+        launches = {kern.name: kern.launches for kern in A.KERNELS}
+        llama.attention = plain_attention
+        try:
+            loss_p, ref = grads("none")
+        finally:
+            llama.attention = A.attention
+        name = str(dtype).split(".")[-1]
+        # the selection head's attention key biases have an exact gradient of
+        # zero (a key bias shifts a whole softmax row), so both paths give
+        # rounding noise: they are held against the largest gradient instead
+        zero = {n for n in ref if n.startswith("select.") and n.endswith(".k.bias")}
+        top = max(r.abs().max().item() for r in ref.values())
+        # 0 / 0 counts as agreement (the final attention sees one text key,
+        # so its q and k get exact zeros on both paths)
+        ratios = sorted((((got[n] - ref[n]).abs().max()
+                          / ref[n].abs().max().clamp_min(1e-30)).item(), n)
+                        for n in ref if n not in zero)
+        noise = max(max(got[n].abs().max().item(), ref[n].abs().max().item()) for n in zero)
+        rec[name] = {"loss_kernels": loss_k, "loss_plain": loss_p,
+                     "worst_grad_err_vs_max_ref": ratios[-1][0], "worst_tensors": ratios[-3:],
+                     "zero_grad_tensors": len(zero), "zero_grad_max_vs_top": noise / top,
+                     "tensors": len(ref), "launches": launches}
+        del model, trainable, got, ref
+        torch.cuda.empty_cache()
+    expect = {"flash_fwd": 4, "flash_fwd_1pass": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    rec["expected_launches"] = expect
+    f = rec["float32"]
+    rec["ok"] = (f["worst_grad_err_vs_max_ref"] <= GRAD_LIMIT
+                 and f["zero_grad_max_vs_top"] <= GRAD_LIMIT and f["launches"] == expect)
+    if not rec["ok"]:
+        raise SystemExit(f"gradients through the kernels disagree with the plain path: {rec}")
+    return rec
+
+
+def device_families(fn, out_name: str) -> dict:
+    """One run of ``fn`` under torch.profiler: device time by kernel family,
+    the wall time and the device's idle share; the table goes to
+    chiprun_out/<out_name>."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events, attr, kernels = kernel_times(prof)   # operators' time is their kernels'
+    families = {"kernel_a": 0.0, "kernel_b": 0.0, "kernel_c": 0.0, "kernel_d": 0.0,
+                "matmul": 0.0, "other": 0.0}
+    for key, ms in kernels:
+        name = key.lower()
+        if "flash_bwd_dq" in name:
+            fam = "kernel_c"
+        elif "flash_bwd_dkv" in name:
+            fam = "kernel_d"
+        elif "flash_fwd_1pass" in name:
+            fam = "kernel_b"
+        elif "flash_fwd" in name:
+            fam = "kernel_a"
+        elif any(s in name for s in ("gemm", "nvjet", "cutlass", "xmma", "sm90")):
+            fam = "matmul"
+        else:
+            fam = "other"
+        families[fam] += ms
+    device_ms = sum(families.values())
+    with open(os.path.join(OUT_DIR, out_name), "w") as f:
+        f.write(events.table(sort_by=attr, row_limit=50))
+    return {"profiled_step_ms": wall_ms, "device_ms_by_family": families,
+            "device_ms": device_ms, "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms)}
+
+
+def checksums(tensors) -> "torch.Tensor":
+    """Two int64 checksums per tensor of its raw bits: the sum, and the sum
+    weighted by position (mod 65521)."""
+    import torch
+    out = []
+    for t in tensors:
+        x = t.detach().reshape(-1)
+        x = x.view(torch.int16 if x.element_size() == 2 else torch.int32).long()
+        w = torch.arange(x.numel(), device=x.device) % 65521 + 1
+        out.append(torch.stack([x.sum(), (x * w).sum()]))
+    return torch.stack(out).cpu()
+
+
+def train_phase(C, make_batch, A) -> dict:
+    """The LoRA train step at llmseg_7b, bf16, through the Trainer: random
+    weights from the config's seed, LoRA rank 8 on q/v, TrainConfig with no
+    warmup and no accumulation (remat "dots", the default), one image, one
+    row, text_len 512.  2 warm-up steps, then 5 timed."""
+    import torch
+    from llmseg_tpu_torch.train.trainer import Trainer
+
+    cfg = C.llmseg_7b()
+    exp = C.ExperimentConfig(model=cfg, train=C.TrainConfig(
+        warmup_steps=0, grad_accum_steps=1, lora=C.LoraConfig(rank=8),
+        log_dir=os.path.join(OUT_DIR, "train_runs")))
+    t0 = time.time()
+    trainer = Trainer(exp)
+    batch = make_batch(cfg, num_images=1, rows_per_image=1, text_len=512, seed=0)
+    frozen = {n: p for n, p in trainer.model.named_parameters() if not p.requires_grad}
+    before = checksums(frozen.values())
+    start = {n: p.detach().clone() for n, p in trainer.trainable.items()}
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+
+    # which trainable tensors get a nonzero gradient (a tensor whose exact
+    # gradient is zero, like the key bias of an attention, stays put)
+    nonzero = {n: torch.zeros((), dtype=torch.bool, device="cuda") for n in trainer.trainable}
+
+    def note_grad(name):
+        def hook(p):
+            nonzero[name].logical_or_(p.grad.ne(0).any())
+        return hook
+
+    hooks = [p.register_post_accumulate_grad_hook(note_grad(n))
+             for n, p in trainer.trainable.items()]
+    metrics = [trainer.step(batch) for _ in range(2)]
+    for h in hooks:
+        h.remove()
+    torch.cuda.synchronize()
+
+    steps = 5
+    for kern in A.KERNELS:
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        metrics.append(trainer.step(batch))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    per_step = {kern.name: kern.launches / steps for kern in A.KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    L = cfg.llava.llm.num_layers
+    expect = {"flash_fwd": 2 * L, "flash_fwd_1pass": cfg.dino.depth,
+              "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    losses = [{k: v.item() for k, v in m.items()} for m in metrics]
+    finite = all(math.isfinite(x) for m in losses for x in m.values())
+    frozen_same = bool(torch.equal(checksums(frozen.values()), before))
+    moved = {n for n, p in trainer.trainable.items() if not torch.equal(p, start[n])}
+    with_grad = {n for n, f in nonzero.items() if bool(f)}
+    # a bf16 entry x keeps its value under a step smaller than half its ulp,
+    # which is at least |x| * 2^-9; AdamW's steps are about lr, so a tensor
+    # whose every entry has |x| >= 1024 lr (LayerNorm scales of 1) stays put
+    lr = exp.train.lr
+    held = {n for n in with_grad - moved
+            if trainer.trainable[n].abs().min().item() >= 1024 * lr}
+    rec = {"phase": "train", "config": "llmseg_7b", "dtype": "bfloat16", "lora_rank": 8,
+           "batch_images": 1, "rows": 1, "text_len": 512, "remat": exp.train.remat_policy,
+           "setup_s": setup_s, "ms_per_step": step_ms, "peak_mem_gb": peak_gb,
+           "launches_per_step": per_step, "expected_launches_per_step": expect,
+           "losses": [m["loss"] for m in losses], "ce_loss": [m["ce_loss"] for m in losses],
+           "grad_norm": [m["grad_norm"] for m in losses], "finite": finite,
+           "frozen_tensors": len(frozen), "frozen_bit_identical": frozen_same,
+           "trainable_tensors": len(start), "trainable_with_grad": len(with_grad),
+           "trainable_changed": len(moved), "held_by_bf16_rounding": sorted(held),
+           "without_grad": sorted(set(start) - with_grad)}
+    rec["ok"] = (finite and frozen_same and with_grad - held <= moved and len(moved) > 0
+                 and per_step == {k: float(v) for k, v in expect.items()})
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit("train phase failed")
+
+    # where one step's time goes
+    from llmseg_tpu_torch.models import llmseg
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = llmseg.loss_fn(trainer.model, batch, lora_cfg=trainer.lora_cfg,
+                             remat=trainer.remat)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    trainer.opt.step()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    rec_b = {"phase": "train_breakdown", "forward_ms": (t1 - t0) * 1e3,
+             "backward_ms": (t2 - t1) * 1e3, "optimizer_ms": (t3 - t2) * 1e3}
+    # the same step under the other remat policies (1 warm-up, 2 timed)
+    rec_b["ms_per_step_by_remat"] = {exp.train.remat_policy: step_ms}
+    for policy in ("full", "none"):
+        trainer.remat = policy
+        trainer.step(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            trainer.step(batch)
+        torch.cuda.synchronize()
+        rec_b["ms_per_step_by_remat"][policy] = (time.perf_counter() - t0) * 1e3 / 2
+    # the profiler last: it adds host cost to what runs after it
+    trainer.remat = exp.train.remat_policy
+    rec_b.update(device_families(lambda: trainer.step(batch), "chip_smoke_train_profile.txt"))
+    emit(rec_b)
+    del trainer, frozen, start
+    torch.cuda.empty_cache()
+    return {"launches_per_step": per_step}
+
+
 def kernels_in_place(C, llmseg, make_batch, A) -> dict:
     """``llmseg_7b`` at full width and sequence lengths, depth cut to two
     blocks per tower and two LLaMA layers: predict through the kernels
@@ -159,14 +541,8 @@ def kernels_in_place(C, llmseg, make_batch, A) -> dict:
     import torch
     from llmseg_tpu_torch.models import llama, vit
 
-    full = C.llmseg_7b()
-    cfg = C.replace(full, dino=C.replace(full.dino, depth=2),
-                    llava=C.replace(full.llava, llm=C.replace(full.llava.llm, num_layers=2),
-                                    vision=C.replace(full.llava.vision, depth=3)))
+    cfg = cut_config(C)
     batch = make_batch(cfg, num_images=4, rows_per_image=1, text_len=512, seed=3)
-
-    def plain_attention(q, k, v, *, bias=None, causal=False, scale=None):
-        return A.attention_plain(q, k, v, bias=bias, causal=causal, scale=scale)
 
     rec = {"phase": "in_place", "config": "llmseg_7b, towers 2 blocks, LLaMA 2 layers",
            "limit_float32": MODULE_LIMIT}
@@ -187,19 +563,17 @@ def kernels_in_place(C, llmseg, make_batch, A) -> dict:
         rec[f"{name}_launches"] = launches
         del model
     rec["ok"] = (rec["float32"] <= MODULE_LIMIT
-                 and rec["float32_launches"] == {"flash_fwd": 2, "flash_fwd_1pass": 2})
+                 and rec["float32_launches"] == {"flash_fwd": 2, "flash_fwd_1pass": 2,
+                                                 "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
     if not rec["ok"]:
         raise SystemExit(f"kernels disagree with the plain path inside the model: {rec}")
     return rec
 
 
-def breakdown(model, batch, step_ms: float) -> dict:
-    """Where a predict step's time goes: each stage timed alone with CUDA
-    events, and the device time of one step by kernel family from
-    torch.profiler (its full table goes to chiprun_out/)."""
+def stage_times(model, batch, step_ms: float) -> dict:
+    """Each stage of a predict step timed alone with CUDA events."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from llmseg_tpu_torch.models import llmseg, vit
+    from llmseg_tpu_torch.models import vit
 
     with torch.inference_mode():
         img = model.llava.encode_images(batch["images_clip"])
@@ -211,36 +585,7 @@ def breakdown(model, batch, step_ms: float) -> dict:
         }
         stage_ms = {name: cuda_ms(fn, 3) for name, fn in stages.items()}
     stage_ms["rest"] = step_ms - sum(stage_ms.values())
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        llmseg.predict(model, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    attr = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
-            else "self_cuda_time_total")
-    families = {"kernel_b": 0.0, "kernel_a": 0.0, "matmul": 0.0, "other": 0.0}
-    for e in events:
-        us = getattr(e, attr)
-        if e.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
-            continue   # operators: their kernels are counted as kernels
-        name = e.key.lower()
-        if "flash_fwd_1pass" in name:
-            fam = "kernel_b"
-        elif "flash_fwd" in name:
-            fam = "kernel_a"
-        elif any(s in name for s in ("gemm", "nvjet", "cutlass", "xmma", "sm90")):
-            fam = "matmul"
-        else:
-            fam = "other"
-        families[fam] += us / 1e3
-    device_ms = sum(families.values())
-    with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), "w") as f:
-        f.write(events.table(sort_by=attr, row_limit=40))
-    return {"phase": "breakdown", "stage_ms": stage_ms, "profiled_step_ms": wall_ms,
-            "device_ms_by_family": families, "device_ms": device_ms,
-            "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms)}
+    return stage_ms
 
 
 def main() -> int:
@@ -288,6 +633,10 @@ def main() -> int:
     kernel_case(A, "flash_fwd_1pass", BH=2, T=200, S=300, D=64, dtype=f32,
                 adversarial=True)
     kernel_case(A, "flash_fwd_1pass", BH=2, T=200, S=300, D=64, dtype=f32)
+    main_cd = bwd_case(A, BH=32, T=767, S=767, D=128, causal=True, dtype=bf16, timed=True)
+    bwd_case(A, BH=8, T=300, S=200, D=64, causal=False, dtype=bf16)
+    bwd_case(A, BH=4, T=300, S=300, D=128, causal=True, dtype=f32)
+    bwd_case(A, BH=4, T=200, S=130, D=64, causal=False, dtype=f32)
 
     # 3. the port's modules on the card against the CPU, tiny config
     tiny = C.llmseg_tiny()
@@ -308,6 +657,7 @@ def main() -> int:
         raise SystemExit("tiny predict on the card disagrees with the CPU")
     del m_cpu, m_gpu
     emit(kernels_in_place(C, llmseg, make_batch, A))
+    emit(grads_in_place(C, llmseg, make_batch, A))
 
     # 4. the main path: llmseg_7b, bf16, batch 4
     cfg = C.llmseg_7b()
@@ -322,7 +672,8 @@ def main() -> int:
     out = llmseg.predict(model, batch)
     torch.cuda.synchronize()
     launches = {kern.name: kern.launches for kern in A.KERNELS}
-    expect = {"flash_fwd": cfg.llava.llm.num_layers, "flash_fwd_1pass": cfg.dino.depth}
+    expect = {"flash_fwd": cfg.llava.llm.num_layers, "flash_fwd_1pass": cfg.dino.depth,
+              "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     sim, iou = out["pred_similarity"], out["pred_iou"]
     finite = bool(torch.isfinite(sim).all() and torch.isfinite(iou).all())
     shape_ok = tuple(sim.shape) == (4, cfg.max_proposals) == tuple(iou.shape)
@@ -346,18 +697,43 @@ def main() -> int:
     emit(rec)
     if not rec["ok"]:
         raise SystemExit("main path failed")
-    emit(breakdown(model, batch, step_ms))
+    stage_ms = stage_times(model, batch, step_ms)
+    del model, out
+    torch.cuda.empty_cache()
 
-    # 5. summary
+    # 5. the train step, timed, then profiled
+    train = train_phase(C, make_batch, A)
+
+    # profiled after every timed phase: a predict step by kernel family, and
+    # the library yardstick of kernels C and D
+    model = llmseg.fold_frozen_inplace(llmseg.init(cfg, seed=0, device="cuda", dtype=bf16))
+    emit({"phase": "breakdown", "stage_ms": stage_ms,
+          **device_families(lambda: llmseg.predict(model, batch), "chip_smoke_profile.txt")})
+    del model
+    dev_cd = bwd_device_times(A, BH=32, T=767, S=767, D=128, causal=True, dtype=bf16)
+    emit({"phase": "bwd_device_time", "clock": "device (torch.profiler)", **dev_cd,
+          "c_plus_d": dev_cd["flash_bwd_dq"] + dev_cd["flash_bwd_dkv"]})
+    for r in main_cd.values():
+        r["library_ms"] = dev_cd["sdpa_backward"]
+
+    # 6. summary: A and B launches per predict, C and D per train step
     sources = {"flash_fwd": ("llmseg_tpu_torch/csrc/flash_fwd.cu",
                              "llmseg_tpu/ops/attention.py:100"),
                "flash_fwd_1pass": ("llmseg_tpu_torch/csrc/flash_fwd_1pass.cu",
-                                   "llmseg_tpu/ops/attention.py:285")}
+                                   "llmseg_tpu/ops/attention.py:285"),
+               "flash_bwd_dq": ("llmseg_tpu_torch/csrc/flash_bwd_dq.cu",
+                                "llmseg_tpu/ops/attention.py:458"),
+               "flash_bwd_dkv": ("llmseg_tpu_torch/csrc/flash_bwd_dkv.cu",
+                                 "llmseg_tpu/ops/attention.py:516")}
+    timed = {r["kernel"]: r for r in (main_a, main_b)}
+    timed.update(main_cd)
+    counts = {**launches, **{k: int(train["launches_per_step"][k])
+                             for k in ("flash_bwd_dq", "flash_bwd_dkv")}}
     rows = []
-    for r in (main_a, main_b):
-        src, rep = sources[r["kernel"]]
-        rows.append({"name": r["kernel"], "route": "cuda", "source": src, "replaces": rep,
-                     "launches": launches[r["kernel"]], "max_abs_err": r["max_abs_err"],
+    for name, (src, rep) in sources.items():
+        r = timed[name]
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                     "launches": counts[name], "max_abs_err": r["max_abs_err"],
                      "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     emit({"kernels": rows})

@@ -1,9 +1,9 @@
 """Model configuration: the port's own copy of the JAX package's dataclasses.
 
-Only the trees the ReasonSeg ``predict`` path reads are kept.  Field names,
-defaults and presets match ``llmseg_tpu.config`` so one preset name means one
-architecture in both packages; the SAM tree (legacy pixel-decoder path) is
-not part of the port yet.
+Only the trees the ReasonSeg ``predict`` and training paths read are kept.
+Field names, defaults and presets match ``llmseg_tpu.config`` so one preset
+name means one architecture in both packages; the SAM, data and AMG trees
+are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -188,3 +188,63 @@ def llmseg_tiny() -> LLMSegConfig:
         select=selection_head_tiny(llm_dim=llava.llm.hidden_size,
                                    dino_dim=dino.hidden_size),
         max_proposals=8, seg_grid=16, seg_token_id=200, max_seq_len=512)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh: data ('dp'), fsdp-style param shard ('fsdp'), tensor ('tp').
+    The port trains on one card, so only the one-device mesh is accepted."""
+
+    data: int = -1                    # -1 => all remaining devices
+    fsdp: int = 1
+    tensor: int = 1
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """``llmseg_tpu.config.TrainConfig``'s settings that the port reads, with
+    their defaults; the others (quantize_bits, the evaluation and naming
+    settings, resume, batch_size) come with the code that reads them.  Two
+    settings the port does not have yet raise instead of being ignored: the
+    quantized frozen base (QLoRA) and a mesh of more than one device."""
+
+    lr: float = 1e-4                  # stage-2 finetune uses 1e-5
+    beta1: float = 0.9
+    beta2: float = 0.95
+    weight_decay: float = 0.0
+    warmup_steps: int = 100
+    epochs: int = 10
+    steps_per_epoch: int = 500
+    grad_accum_steps: int = 10
+    grad_clip: float = 1.0
+    precision: str = "bf16"
+    quantize_frozen: bool = False
+    # gradient-checkpoint policy of the LLaMA layers: "dots" keeps the
+    # projection matmul outputs and recomputes the rest; "full" recomputes
+    # everything; "none" keeps every activation
+    remat_policy: str = "dots"
+    lora: LoraConfig = field(default_factory=LoraConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    seed: int = 42
+    log_dir: str = "./runs/llmseg"
+    print_freq: int = 1
+
+    def __post_init__(self):
+        if self.quantize_frozen:
+            raise NotImplementedError(
+                "quantize_frozen (the int8/int4 frozen base) needs ops/quant.py, "
+                "which is not ported yet (ROADMAP queue 1 item 8)")
+        m = self.mesh
+        if m.data not in (-1, 1) or m.fsdp != 1 or m.tensor != 1:
+            raise NotImplementedError(
+                f"the port trains on one device; mesh {m} needs DDP/FSDP "
+                "(ROADMAP queue 1 item 10)")
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    """The model and training trees of ``llmseg_tpu.config.ExperimentConfig``;
+    its data and AMG trees belong to parts of the package not ported yet."""
+
+    model: LLMSegConfig = field(default_factory=llmseg_7b)
+    train: TrainConfig = field(default_factory=TrainConfig)

@@ -14,7 +14,8 @@ module names mirror the tree's keys, so each leaf maps by its path:
 
 LayerScale leaves missing from the tree (a folded DINOv2) are removed from
 the module too.  The load is strict: every parameter of the module must come
-from the tree and every leaf must land.
+from the tree and every leaf must land.  The layout maps are linear, so a
+gradient tree flattens the same way as a parameter tree.
 """
 
 from __future__ import annotations
@@ -54,6 +55,20 @@ def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
             name = path
         out[name] = np.ascontiguousarray(arr)
     return out
+
+
+def flatten_paths(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """A flat ``{"a/b/0/w": array}`` dict, as the JAX package's
+    ``optim.partition`` returns its trainable subset (and a gradient or an
+    optimizer step over it), in the port's names and layouts."""
+    tree: dict = {}
+    for path, val in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = val
+    return flatten(tree)
 
 
 @torch.no_grad()

@@ -1,10 +1,12 @@
 """LLaMA decoder, bf16 path, the counterpart of ``llmseg_tpu.models.llama``.
 
 Takes token ids or pre-spliced input embeddings and returns the final-norm
-hidden states.  Causal attention goes through ``ops.attention.attention``,
-which sends the 767-token ReasonSeg sequences to kernel A on the card.  LoRA
-on q/v is an optional overlay module (:class:`LlamaLora`); the quantized
-branches of the JAX package are not part of the port yet.
+hidden states; :func:`logits` maps them to float32 logits.  Causal attention
+goes through ``ops.attention.attention``, which sends the 767-token
+ReasonSeg sequences to kernel A on the card (and, under autograd, kernels C
+and D backward).  Layers may be checkpointed (``remat``).  LoRA on q/v is an
+optional overlay module (:class:`LlamaLora`); the quantized branches of the
+JAX package are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from llmseg_tpu_torch.config import LlamaConfig, LoraConfig
 from llmseg_tpu_torch.models import layers as L
@@ -116,6 +120,30 @@ class LlamaLayer(nn.Module):
         return x + self.mlp(self.post_norm(x))
 
 
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the outputs of the
+    projection products (2-D mm / addmm: nn.Linear on (B, T, C), LoRA
+    included); recompute everything else, attention's batched products and
+    kernels included."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def remat_policy(remat) -> str:
+    """``llama.apply``'s remat argument as one of "none", "full", "dots"."""
+    policy = {False: "none", None: "none", True: "full"}.get(remat, remat)
+    if policy not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be False/'none', True/'full' or 'dots', got {remat!r}")
+    return policy
+
+
 class Llama(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, device=None, dtype=None):
         super().__init__()
@@ -131,9 +159,13 @@ class Llama(nn.Module):
     def forward(self, *, input_ids: Optional[torch.Tensor] = None,
                 inputs_embeds: Optional[torch.Tensor] = None,
                 lora: Optional[LlamaLora] = None,
-                lora_cfg: Optional[LoraConfig] = None) -> torch.Tensor:
-        """Final-norm hidden states (B, T, C)."""
+                lora_cfg: Optional[LoraConfig] = None, remat=False) -> torch.Tensor:
+        """Final-norm hidden states (B, T, C).  ``remat`` checkpoints each
+        layer: False/"none" keeps every activation, True/"full" recomputes
+        the whole layer in the backward, "dots" keeps the projection
+        products and recomputes the rest (``llama.apply``'s policies)."""
         cfg = self.cfg
+        policy = remat_policy(remat)
         x = self.embed_tokens(input_ids) if inputs_embeds is None else inputs_embeds
         T = x.shape[1]
         if T > cfg.max_seq_len:
@@ -142,6 +174,50 @@ class Llama(nn.Module):
                                       cfg.rope_theta, device=x.device)
         scaling = 1.0 if lora_cfg is None else lora_cfg.alpha / lora_cfg.rank
         for i, layer in enumerate(self.layers):
-            x = layer(x, cos[:T], sin[:T],
-                      None if lora is None else lora.layers[i], scaling)
+            args = (x, cos[:T], sin[:T], None if lora is None else lora.layers[i], scaling)
+            if policy == "none" or not torch.is_grad_enabled():
+                x = layer(*args)
+            elif policy == "full":
+                x = checkpoint(layer, *args, use_reentrant=False)
+            else:
+                x = checkpoint(layer, *args, use_reentrant=False, context_fn=_dots_context)
         return self.norm(x)
+
+
+class _LogitsMM(torch.autograd.Function):
+    """(N, C) x (V, C)^T in bf16 with float32 accumulation and a float32
+    result (``torch.mm``'s ``out_dtype``).  PyTorch has no derivative for
+    that overload, so the backward is written here: the float32 cotangent
+    is rounded to the weight's dtype for its two products, which is what
+    the gradients are stored in."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return torch.mm(h, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        g = g.to(w.dtype)
+        dh = g @ w if ctx.needs_input_grad[0] else None
+        dw = g.t() @ h if ctx.needs_input_grad[1] else None
+        return dh, dw
+
+
+_HAS_MM_OUT_DTYPE = hasattr(torch.ops.aten.mm, "dtype")
+
+
+def logits(model: Llama, hidden: torch.Tensor) -> torch.Tensor:
+    """(B, T, C) -> (B, T, V) float32 logits, the product accumulated in
+    float32 (``llama.logits``).  Low-precision CUDA tensors use
+    ``torch.mm(..., out_dtype=torch.float32)`` where the installed PyTorch
+    has it; otherwise both operands are cast to float32 first."""
+    w = model.embed_tokens.weight if model.cfg.tie_embeddings else model.lm_head.weight
+    lead = hidden.shape[:-1]
+    h = hidden.reshape(-1, hidden.shape[-1])
+    if h.is_cuda and h.dtype != torch.float32 and _HAS_MM_OUT_DTYPE:
+        out = _LogitsMM.apply(h, w)
+    else:
+        out = h.float() @ w.float().t()
+    return out.reshape(*lead, w.shape[0])

@@ -4,6 +4,7 @@
   * LLaVA forward -> hidden state left of the first [SEG] token -> text
     projection
   * selection head -> per-proposal similarity and IoP
+  * losses (training): LLaVA CE + KL alignment + weighted-MSE IoP regression
 
 Batch keys (B images, R conversation rows, K proposals, T text tokens,
 G seg_grid): images_dino (B, 896, 896, 3), images_clip (B, 224, 224, 3),
@@ -19,9 +20,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from llmseg_tpu_torch import losses as LS
 from llmseg_tpu_torch.config import LLMSegConfig, LoraConfig
 from llmseg_tpu_torch.device import require
-from llmseg_tpu_torch.models import vit
+from llmseg_tpu_torch.models import llama, llava, vit
 from llmseg_tpu_torch.models.llama import LlamaLora
 from llmseg_tpu_torch.models.llava import Llava
 from llmseg_tpu_torch.models.selection_head import SelectionHead, mask_pooling
@@ -119,11 +121,18 @@ def _bilinear_upsample(fmap: torch.Tensor, out: int) -> torch.Tensor:
     return torch.einsum("ow,bhwd->bhod", M, t)
 
 
+def _frozen_dino(model: LLMSeg, images: torch.Tensor) -> torch.Tensor:
+    """DINOv2 patch features with no gradient (the tower is frozen: the
+    JAX package's stop_gradient); the projection after it trains."""
+    with torch.no_grad():
+        return vit.dino_patch_features(model.dino, images)
+
+
 def dino_features(model: LLMSeg, images: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 3) -> (B, seg_grid^2, dim): projected features, float32
     bilinear upsample to seg_grid (the unfused route)."""
     cfg = model.cfg
-    feats = model.select.project_dino(vit.dino_patch_features(model.dino, images))
+    feats = model.select.project_dino(_frozen_dino(model, images))
     B, _, D = feats.shape
     g = cfg.dino.grid
     fmap = _bilinear_upsample(feats.reshape(B, g, g, D).float(), cfg.seg_grid)
@@ -136,8 +145,7 @@ def _pool_dino_proposals(model: LLMSeg, batch: Dict) -> torch.Tensor:
     feature map is never formed.  The denominator is the full-resolution
     mask area."""
     cfg = model.cfg
-    feats = model.select.project_dino(
-        vit.dino_patch_features(model.dino, batch["images_dino"]))
+    feats = model.select.project_dino(_frozen_dino(model, batch["images_dino"]))
     B = feats.shape[0]
     g = cfg.dino.grid
     segs = batch["sam_segs"].float()
@@ -164,20 +172,21 @@ def seg_hidden_index(input_ids: torch.Tensor, cfg: LLMSegConfig):
 
 
 def forward(model: LLMSeg, batch: Dict, *, pool: str = "adjoint",
-            lora_cfg: Optional[LoraConfig] = None) -> Dict:
-    """Shared forward; ``pool`` picks the pooling route ("adjoint", the
-    default, or "unfused": upsampled features, then mask_pooling)."""
+            lora_cfg: Optional[LoraConfig] = None, remat=False) -> Dict:
+    """Shared train/inference forward; ``pool`` picks the pooling route
+    ("adjoint", the default, or "unfused": upsampled features, then
+    mask_pooling); ``remat`` is passed to the LLaMA layers."""
     if pool not in POOL_ROUTES:
         raise ValueError(f"pool must be one of {POOL_ROUTES}, got {pool!r}")
     cfg = model.cfg
-    with torch.no_grad():  # the towers are frozen
-        if pool == "adjoint":
-            pooled = _pool_dino_proposals(model, batch)
-        else:
-            feat_flat = dino_features(model, batch["images_dino"])
-            B, K = batch["sam_segs"].shape[:2]
-            segs = batch["sam_segs"].reshape(B, K, -1).to(feat_flat.dtype)
-            pooled = mask_pooling(feat_flat, segs)
+    if pool == "adjoint":
+        pooled = _pool_dino_proposals(model, batch)
+    else:
+        feat_flat = dino_features(model, batch["images_dino"])
+        B, K = batch["sam_segs"].shape[:2]
+        segs = batch["sam_segs"].reshape(B, K, -1).to(feat_flat.dtype)
+        pooled = mask_pooling(feat_flat, segs)
+    with torch.no_grad():  # CLIP tower and projector are frozen
         img_embeds = model.llava.encode_images(batch["images_clip"])
 
     row_img = batch["row_to_image"].long()
@@ -186,7 +195,7 @@ def forward(model: LLMSeg, batch: Dict, *, pool: str = "adjoint",
     hidden = model.llava(input_ids=batch["input_ids"],
                          image_pos=batch["image_pos"],
                          image_embeds=img_embeds[row_img],
-                         lora=model.lora, lora_cfg=lora_cfg)
+                         lora=model.lora, lora_cfg=lora_cfg, remat=remat)
 
     seg_idx, has_seg = seg_hidden_index(batch["input_ids"], cfg)
     seg_hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device), seg_idx]
@@ -202,6 +211,50 @@ def forward(model: LLMSeg, batch: Dict, *, pool: str = "adjoint",
         "prop_valid": prop_valid,
         "row_valid": batch["row_valid"] & has_seg,
     }
+
+
+def loss_fn(model: LLMSeg, batch: Dict, *, pool: str = "adjoint",
+            lora_cfg: Optional[LoraConfig] = None, remat=False):
+    """Total training loss and its terms, ``llmseg.loss_fn``: causal-LM
+    cross entropy over the splice-adjusted labels, plus the KL alignment and
+    the IoP regression per row, averaged over the rows of each image and
+    then over the images with at least one valid row.  Extra batch keys:
+    labels (R, T), gt_ious (R, K), gt_iops (R, K).  Returns
+    (total, {"loss", "ce_loss", "align_loss", "regression_loss"})."""
+    cfg = model.cfg
+    out = forward(model, batch, pool=pool, lora_cfg=lora_cfg, remat=remat)
+    B = batch["images_dino"].shape[0]
+
+    lg = llama.logits(model.llava.llm, out["hidden"])
+    labels = llava.splice_labels(batch["labels"], batch["image_pos"],
+                                 cfg.llava.num_image_tokens)
+    labels = torch.where(batch["row_valid"][:, None], labels, llava.IGNORE_INDEX)
+    ce = llava.causal_lm_loss(lg, labels)
+
+    align_r = LS.softmax_align_loss(out["seg_features"], out["pred_embeddings"],
+                                    batch["gt_ious"], out["prop_valid"],
+                                    cfg.loss.align_temperature)
+    reg_r = LS.iou_regression_loss(out["pred_iou"], batch["gt_iops"], out["prop_valid"],
+                                   scale=cfg.loss.regression_scale)
+    rv = out["row_valid"].float()
+    row_img = batch["row_to_image"].long()
+
+    def per_image(x):  # jax.ops.segment_sum over images
+        return torch.zeros(B, dtype=x.dtype, device=x.device).index_add_(0, row_img, x)
+
+    rows_per_img = per_image(rv)
+    img_valid = rows_per_img > 0
+    denom = rows_per_img.clamp_min(1e-8)
+    n_img = img_valid.float().sum().clamp_min(1.0)
+    align = torch.where(img_valid, per_image(align_r * rv) / denom, 0.0).sum() / n_img
+    reg = torch.where(img_valid, per_image(reg_r * rv) / denom, 0.0).sum() / n_img
+
+    ce = ce * cfg.loss.ce_weight
+    align = align * cfg.loss.align_weight
+    reg = reg * cfg.loss.regression_weight
+    total = ce + align + reg
+    return total, {"loss": total, "ce_loss": ce, "align_loss": align,
+                   "regression_loss": reg}
 
 
 @torch.inference_mode()

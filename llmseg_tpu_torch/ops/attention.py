@@ -1,4 +1,4 @@
-"""Attention: the plain path and the two hand-written Hopper kernels.
+"""Attention: the plain path and the four hand-written Hopper kernels.
 
 Counterpart of ``llmseg_tpu.ops.attention``.  Layout at the public functions:
 q (B, T, H, D), k/v (B, S, H, D) -> (B, T, H, D).
@@ -10,16 +10,19 @@ q (B, T, H, D), k/v (B, S, H, D) -> (B, T, H, D).
   multiplied by ``scale * log2(e)`` in q's own dtype, logits live in the
   exp2 domain, statistics are float32, D other than 64/128 is zero-padded.
   The kernels mask the ragged key tile themselves, so T and S need no
-  padding and no query rows are sliced off.
+  padding and no query rows are sliced off.  Under autograd it enters
+  :class:`FlashAttentionFn`, the counterpart of ``_flash_attention``'s
+  ``custom_vjp``: kernel A with the lse forward, kernels C and D backward.
 * :func:`attention` dispatches on the tensors' device: CUDA tensors without
   a bias, causal with T >= 256 or non-causal with T >= 2048, go to the
   kernels (the layers that reach the Pallas kernels on the TPU: LLaMA and
   DINOv2); everything else, CPU tensors included, takes the plain path.
 
 Each kernel wrapper (:func:`flash_fwd`, kernel A; :func:`flash_fwd_1pass`,
-kernel B) takes (B*H, L, D) tensors.  For a CUDA tensor it launches its
-kernel or raises; only a tensor on the CPU goes to the plain version beside
-it, which computes the same function step by step.
+kernel B; :func:`flash_bwd_dq`, kernel C; :func:`flash_bwd_dkv`, kernel D)
+takes (B*H, L, D) tensors.  For a CUDA tensor it launches its kernel or
+raises; only a tensor on the CPU goes to the plain version beside it, which
+computes the same function step by step.
 """
 
 from __future__ import annotations
@@ -33,11 +36,14 @@ from llmseg_tpu_torch.ops.kernels import Kernel
 
 NEG_INF = -1e9   # finite: fully masked rows stay NaN-free
 LOG2E = 1.4426950408889634
+INV_LOG2E = 1.0 / LOG2E
 RESCUE_L = 1e-12  # kernel B redoes a row whose bound-shifted sum is this small
 
 FLASH_FWD = Kernel("flash_fwd")              # kernel A, csrc/flash_fwd.cu
 FLASH_FWD_1PASS = Kernel("flash_fwd_1pass")  # kernel B, csrc/flash_fwd_1pass.cu
-KERNELS = (FLASH_FWD, FLASH_FWD_1PASS)
+FLASH_BWD_DQ = Kernel("flash_bwd_dq")        # kernel C, csrc/flash_bwd_dq.cu
+FLASH_BWD_DKV = Kernel("flash_bwd_dkv")      # kernel D, csrc/flash_bwd_dkv.cu
+KERNELS = (FLASH_FWD, FLASH_FWD_1PASS, FLASH_BWD_DQ, FLASH_BWD_DKV)
 
 
 def attention_plain(q, k, v, *, bias=None, causal=False, scale=None):
@@ -168,13 +174,124 @@ def flash_fwd_1pass(q, k, v) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Kernels C and D: the backward (the ports of _bwd_dq_kernel, _bwd_dkv_kernel)
+# ---------------------------------------------------------------------------
+
+
+def bwd_delta(o, do) -> torch.Tensor:
+    """(BH, T) float32 rowsum(do * o), the backward's per-row correction."""
+    return (do.float() * o.float()).sum(-1)
+
+
+def _bwd_plain(q, k, v, do, lse, delta, *, causal: bool):
+    T, S = q.shape[1], k.shape[1]
+    s = torch.matmul(q.float(), k.float().transpose(1, 2))
+    if causal:
+        keep = torch.ones(T, S, dtype=torch.bool, device=q.device).tril()
+        s = torch.where(keep, s, NEG_INF)
+    p = torch.exp2(s - lse[..., None])
+    dp = torch.matmul(do.float(), v.float().transpose(1, 2))
+    ds = p * (dp - delta[..., None])
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * INV_LOG2E
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(1, 2), q.float()) * INV_LOG2E
+    dv = torch.matmul(p.to(do.dtype).float().transpose(1, 2), do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_plain(q, k, v, o, do, lse, *, causal: bool):
+    """Kernels C and D's function, step by step, in float32.  q, o, do
+    (BH, T, D) with q pre-scaled by scale*log2(e); k, v (BH, S, D); lse
+    (BH, T) float32 log2.  p is rounded to do's dtype before the dv product
+    and ds to the input dtype before the dq and dk products, as the TPU
+    kernels do.  Returns (dq, dk, dv)."""
+    return _bwd_plain(q, k, v, do, lse, bwd_delta(o, do), causal=causal)
+
+
+def _check_rows(name, x, like) -> None:
+    if (not x.is_cuda or x.dtype != like.dtype or x.shape != like.shape
+            or not x.is_contiguous() or x.data_ptr() % 16):
+        raise ValueError(f"{name} must be a contiguous CUDA tensor like q, "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _check_stat(name, x, q) -> None:
+    if (not x.is_cuda or x.dtype != torch.float32 or x.shape != q.shape[:2]
+            or not x.is_contiguous()):
+        raise ValueError(f"{name} must be contiguous CUDA float32 (BH, T), "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def flash_bwd_dq(q, k, v, o, do, lse, *, causal: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel C wrapper: (dq, delta).  Shapes as :func:`flash_bwd_plain`;
+    delta (BH, T) float32 is kernel D's input."""
+    if q.device.type == "cpu":
+        delta = bwd_delta(o, do)
+        return _bwd_plain(q, k, v, do, lse, delta, causal=causal)[0], delta
+    _check_cuda(q, k, v)
+    _check_rows("o", o, q)
+    _check_rows("do", do, q)
+    _check_stat("lse", lse, q)
+    BH, T, D = q.shape
+    dq = torch.empty_like(q)
+    delta = torch.empty((BH, T), dtype=torch.float32, device=q.device)
+    FLASH_BWD_DQ.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                        do.data_ptr(), lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
+                        BH, T, k.shape[1], D, int(q.dtype == torch.bfloat16), int(causal))
+    return dq, delta
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel D wrapper: (dk, dv), from kernel C's delta."""
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, do, lse, delta, causal=causal)[1:]
+    _check_cuda(q, k, v)
+    _check_rows("do", do, q)
+    _check_stat("lse", lse, q)
+    _check_stat("delta", delta, q)
+    BH, T, D = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    FLASH_BWD_DKV.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                         BH, T, k.shape[1], D, int(q.dtype == torch.bfloat16), int(causal))
+    return dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable flash attention on (BH, L, D) pre-scaled inputs, the
+    counterpart of ``_flash_attention``'s ``custom_vjp``: the forward is
+    kernel A with the lse output (``_flash_attention_fwd``), the backward
+    kernels C then D (``_flash_bwd``).  The kernels write through raw
+    pointers, so without this Function their outputs carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o, lse = flash_fwd(q, k, v, causal=causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        dq, delta = flash_bwd_dq(q, k, v, o, do, lse, causal=ctx.causal)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+# ---------------------------------------------------------------------------
 # Public entry
 # ---------------------------------------------------------------------------
 
 
 def flash_attention(q, k, v, *, causal=False, scale=None):
-    """q (B, T, H, D); k, v (B, S, H, D).  Causal attention runs kernel A,
-    non-causal kernel B (the inference forward)."""
+    """q (B, T, H, D); k, v (B, S, H, D).  Under autograd (grad enabled and
+    any of q, k, v requiring grad) it runs :class:`FlashAttentionFn`, on
+    every device.  Otherwise causal attention runs kernel A and non-causal
+    kernel B, the inference forward; the grad path never takes kernel B,
+    as in the JAX package."""
     B, T, H, D = q.shape
     S = k.shape[1]
     if D > 128:
@@ -190,7 +307,9 @@ def flash_attention(q, k, v, *, causal=False, scale=None):
     # scale*log2(e) folded into q in q's dtype, as the JAX package does
     qs = q * torch.tensor(scale * LOG2E, dtype=q.dtype, device=q.device)
     qf, kf, vf = prep(qs, T), prep(k, S), prep(v, S)
-    if causal:
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        o = FlashAttentionFn.apply(qf, kf, vf, causal)
+    elif causal:
         o, _ = flash_fwd(qf, kf, vf, causal=True)
     else:
         o = flash_fwd_1pass(qf, kf, vf)

@@ -27,6 +27,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "flash_fwd": [_P, _P, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "flash_fwd_1pass": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_P],
+    "flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,116 @@
+"""Training loop, the counterpart of ``llmseg_tpu.train.trainer.Trainer``:
+init, the trainable partition and the optimizer; epochs of micro-steps with
+grad accumulation, meters and progress printing; checkpoint resume.
+
+It trains on one card (``device="cuda"``, the default) or, when the caller
+asks, on the CPU.  Validation and the best-checkpoint policy need the
+evaluation loop (``train/evaluate.py``, ROADMAP queue 1 item 11) and raise.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Iterable, Optional
+
+import torch
+
+from llmseg_tpu_torch.config import ExperimentConfig, LoraConfig
+from llmseg_tpu_torch.device import require
+from llmseg_tpu_torch.models import llmseg
+from llmseg_tpu_torch.train import checkpoint as ckpt_lib
+from llmseg_tpu_torch.train import optim
+from llmseg_tpu_torch.train.train_step import train_step
+from llmseg_tpu_torch.utils.metrics import AverageMeter, ProgressMeter
+
+LOSS_KEYS = ("loss", "ce_loss", "align_loss", "regression_loss")
+
+
+class Trainer:
+    def __init__(self, cfg: ExperimentConfig, *, lora_cfg: Optional[LoraConfig] = None,
+                 model: Optional[llmseg.LLMSeg] = None, device="cuda",
+                 pool: str = "adjoint", writer=None):
+        self.cfg = cfg
+        self.device = require(device)
+        self.lora_cfg = lora_cfg if lora_cfg is not None else cfg.train.lora
+        self.pool = pool
+        dtype = torch.bfloat16 if cfg.train.precision == "bf16" else torch.float32
+        if model is None:
+            model = llmseg.init(cfg.model, seed=cfg.train.seed, device=self.device,
+                                dtype=dtype, lora_cfg=self.lora_cfg)
+        self.model = model
+        self.trainable = optim.partition(model)
+        self.opt = optim.make_trainable_optimizer(cfg.train, self.trainable)
+        self.remat = cfg.train.remat_policy
+        self.global_step = 0
+        self.writer = writer
+        self.log_dir = cfg.train.log_dir
+        os.makedirs(self.log_dir, exist_ok=True)
+
+    def step(self, batch) -> dict:
+        return train_step(self.model, self.opt, batch, lora_cfg=self.lora_cfg,
+                          remat=self.remat, pool=self.pool)
+
+    # -- checkpointing ------------------------------------------------------
+
+    def maybe_resume(self, weights_only: bool = False) -> bool:
+        step = ckpt_lib.latest_step(self.log_dir)
+        if step is None:
+            return False
+        params, opt_state, step = ckpt_lib.restore(self.log_dir, step,
+                                                   map_location=self.device)
+        with torch.no_grad():
+            for name, p in self.trainable.items():
+                p.copy_(params[name])
+        if not weights_only and opt_state is not None:
+            self.opt.load_state_dict(opt_state)
+            self.global_step = step
+        print(f"resumed from step {step} (weights_only={weights_only})")
+        return True
+
+    # -- loops --------------------------------------------------------------
+
+    def train_epoch(self, batches: Iterable, epoch: int) -> dict:
+        """One epoch over any iterable of batches (dicts of tensors, or
+        tuples whose first item is one); returns the meters' averages."""
+        tcfg = self.cfg.train
+        meters = {name: AverageMeter(name, ":.4f") for name in LOSS_KEYS}
+        batch_time = AverageMeter("time", ":.3f")
+        data_time = AverageMeter("data", ":.3f")
+        progress = ProgressMeter(tcfg.steps_per_epoch,
+                                 [batch_time, data_time] + list(meters.values()),
+                                 prefix=f"Epoch: [{epoch}]")
+        micro = 0
+        end = time.time()
+        for batch in batches:
+            if isinstance(batch, tuple):
+                batch = batch[0]
+            data_time.update(time.time() - end)
+            batch = {k: v.to(self.device) for k, v in batch.items()}
+            metrics = self.step(batch)
+            micro += 1
+            if micro % tcfg.grad_accum_steps == 0:
+                self.global_step += 1
+                for name, m in meters.items():
+                    m.update(float(metrics[name]))
+                batch_time.update(time.time() - end)
+                step_in_epoch = micro // tcfg.grad_accum_steps
+                if step_in_epoch % tcfg.print_freq == 0:
+                    progress.display(step_in_epoch)
+                    if self.writer is not None:
+                        for name, m in meters.items():
+                            self.writer.add_scalar(f"train/{name}", m.val, self.global_step)
+                        self.writer.add_scalar("metrics/total_secs_per_batch",
+                                               batch_time.avg, self.global_step)
+            end = time.time()
+        return {name: m.avg for name, m in meters.items()}
+
+    def validate(self, *args, **kwargs):
+        raise NotImplementedError(
+            "validation needs train/evaluate.py, which is not ported yet "
+            "(ROADMAP queue 1 item 11)")
+
+    def save_best(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the best-checkpoint policy keys on validation metrics, which need "
+            "train/evaluate.py (ROADMAP queue 1 item 11)")

@@ -3,10 +3,11 @@
 Run on a machine with a CUDA card (tests/conftest.py needs JAX, which the card's
 machine may lack): ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 Elsewhere every test skips.  Inputs from a seed; the plain version computes
-in float32 on the same (rounded) inputs.  Tolerances: bf16 outputs within
-1e-2 + 1e-2 * |ref| (bf16 keeps 8 significant bits; the kernels also round
-the probabilities to bf16 before the second product, as the TPU kernels do);
-float32 within 1e-4 (another summation order)."""
+in float32 on the same (rounded) inputs.  Tolerances: bf16 outputs of the
+forward kernels within 1e-2 + 1e-2 * |ref| (bf16 keeps 8 significant bits;
+the kernels also round the probabilities to bf16 before the second product,
+as the TPU kernels do); float32 within 1e-4 (another summation order); the
+backward kernels normwise, as their test states."""
 
 import math
 
@@ -69,6 +70,43 @@ def test_kernel_b_matches_plain(dtype, adversarial, T, S, D):
     o = A.flash_fwd_1pass(q, k, v)
     ro = A.flash_fwd_1pass_plain(q.float(), k.float(), v.float(), A.key_norm_max(k))
     _assert_close(o, ro, dtype)
+
+
+def _bwd_inputs(BH, T, S, D, dtype, causal, seed=3):
+    q, k, v = _inputs(BH, T, S, D, dtype, seed=seed)
+    o, lse = A.flash_fwd(q, k, v, causal=causal, with_lse=True)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    do = torch.randn(BH, T, D, device="cuda", generator=g).to(dtype)
+    return q, k, v, o, do, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,T,S,D", [(True, 767, 767, 128), (False, 300, 200, 64),
+                                          (True, 130, 130, 64), (False, 100, 257, 128)])
+def test_kernels_c_d_match_plain(dtype, causal, T, S, D):
+    """Kernels C and D against flash_bwd_plain in float32 on the same inputs.
+    bf16 is held normwise, max|err| <= 2e-2 * max|ref| per output: p and ds
+    are rounded to bf16 and summed over up to S (or T) terms, so the error
+    of a small entry scales with the whole row, not with the entry."""
+    q, k, v, o, do, lse = _bwd_inputs(8, T, S, D, dtype, causal)
+    dq, delta = A.flash_bwd_dq(q, k, v, o, do, lse, causal=causal)
+    dk, dv = A.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
+    ref = A.flash_bwd_plain(*(x.float() for x in (q, k, v, o, do)), lse, causal=causal)
+    torch.testing.assert_close(delta, A.bwd_delta(o, do), atol=1e-3, rtol=1e-4)
+    rel = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for got, r in zip((dq, dk, dv), ref):
+        assert (got.float() - r).abs().max().item() <= rel * r.abs().max().item()
+
+
+def test_flash_attention_grad_launches_c_and_d():
+    """Under autograd the CUDA path runs kernel A with lse, then C and D."""
+    x = torch.randn(1, 300, 2, 128, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    before = {kern.name: kern.launches for kern in A.KERNELS}
+    A.flash_attention(x, x, x, causal=True).float().square().sum().backward()
+    after = {kern.name: kern.launches for kern in A.KERNELS}
+    assert {n: after[n] - before[n] for n in after} == {
+        "flash_fwd": 1, "flash_fwd_1pass": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
 
 
 def test_kernel_rejects_unsupported_inputs():

@@ -20,7 +20,9 @@ def test_port_has_every_slice_module():
     for name in ("config", "device", "models.layers", "models.vit", "models.llama",
                  "models.llava", "models.selection_head", "models.llmseg",
                  "models.sam.two_way_transformer", "ops.attention", "ops.kernels",
-                 "data.synthetic", "import_weights.from_jax"):
+                 "data.synthetic", "import_weights.from_jax", "losses", "train.optim",
+                 "train.train_step", "train.checkpoint", "train.trainer",
+                 "utils.metrics"):
         assert f"llmseg_tpu_torch.{name}" in mods, name
 
 
