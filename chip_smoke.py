@@ -15,7 +15,9 @@ Phases, one JSON line each; any failure exits non-zero:
               kernel, the plain version and one PyTorch library call
               (scaled_dot_product_attention, forward or backward, a yardstick
               the port never calls), and the card's least time for the same
-              work;
+              work.  SAM's kernels E and F use random nonzero rel-pos tables
+              (the model's are zero at init); kernel G is also held on a
+              chunk that replays its recorded launch sequence;
   3. modules  llmseg_tiny predict on the card against the same weights on
               the CPU;
      in_place llmseg_7b widths and sequence lengths at two blocks per
@@ -24,6 +26,9 @@ Phases, one JSON line each; any failure exits non-zero:
      grad_in_place  the same cut model with LoRA: loss_fn and the gradient
               of every trainable parameter through the kernels (remat
               "dots") against the plain attention path (remat "none");
+     sam_in_place  sam_vit_h widths at two encoder blocks (one global):
+              the encoder through E and F, and two chunks of 64 prompts
+              through G, against the plain paths, float32;
   4. main     llmseg_7b in bf16 (random weights from a seed, LayerScale
               folded), make_batch(4 images, text_len 512) and predict: launch
               counts of every kernel in that run, finite (4, 50) outputs,
@@ -40,11 +45,18 @@ Phases, one JSON line each; any failure exits non-zero:
      bwd_device_time  device time (torch.profiler) of kernels C and D and
               of SDPA's backward at the training shape: SDPA's is C and
               D's library_ms, and C + D on the same clock stands beside it;
-  6. kernels  one line with every kernel's numbers, then the card's name and
+  6. amg      sam_vit_h in bf16 (random weights from a seed): generate() on
+              three synthetic images with the default AMGConfig, then with
+              the filters opened, then with NMS off too; launch counts per
+              image (E 4, F 28, G 16), annotation schema, ms/image, peak
+              memory and one image in parts;
+     amg_breakdown  one image's device time by kernel family and the idle
+              share;
+  7. kernels  one line with every kernel's numbers, then the card's name and
               power limit from nvidia-smi, then {"ok": true, "device": ...}.
 
 torch.profiler runs only after every timed phase: it leaves host cost on
-the calls that follow it, and both steps are partly host-bound.
+the calls that follow it, and the paths are partly host-bound.
 
 Without CUDA it exits 2 and prints no result.
 """
@@ -381,10 +393,16 @@ def device_families(fn, out_name: str) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     events, attr, kernels = kernel_times(prof)   # operators' time is their kernels'
     families = {"kernel_a": 0.0, "kernel_b": 0.0, "kernel_c": 0.0, "kernel_d": 0.0,
-                "matmul": 0.0, "other": 0.0}
+                "kernel_e": 0.0, "kernel_f": 0.0, "kernel_g": 0.0, "matmul": 0.0, "other": 0.0}
     for key, ms in kernels:
         name = key.lower()
-        if "flash_bwd_dq" in name:
+        if "relpos_fwd" in name:
+            fam = "kernel_e"
+        elif "relpos_window" in name:
+            fam = "kernel_f"
+        elif "fd_" in name:          # kernel G's launch sequence (csrc/factored_decode.cu)
+            fam = "kernel_g"
+        elif "flash_bwd_dq" in name:
             fam = "kernel_c"
         elif "flash_bwd_dkv" in name:
             fam = "kernel_d"
@@ -588,6 +606,366 @@ def stage_times(model, batch, step_ms: float) -> dict:
     return stage_ms
 
 
+# ---------------------------------------------------------------------------
+# SAM everything-mode mask generation (AMG): kernels E, F and G
+# ---------------------------------------------------------------------------
+
+G_TOL = {"bfloat16": 5e-2, "float32": 1e-4}    # kernel G vs its plain version, max|ref|
+SAM_IN_PLACE_LIMIT = 1e-4     # cut sam_vit_h encoder, kernels vs plain, float32, max|ref|
+# kernel G vs the plain mask-decoder tail, float32, max|ref|: the CPU tests' limits
+SAM_DECODE_LIMIT = {"masks": 2e-4, "iou": 2e-5}
+AMG_IMAGES = ((1024, 768), (683, 1024), (1024, 1024))
+
+
+def relpos_inputs(R, BH, G, D, dtype, seed):
+    """Seeded q (pre-scaled), k, v and random NONZERO rel-pos tables (the
+    model's own are zeros at init, so the main path never shows the bias)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = dict(device="cuda", dtype=torch.float32, generator=g)
+    T = G * G
+    q = (torch.randn(BH, T, D, **dev).to(dtype)
+         * torch.tensor(R.LOG2E / math.sqrt(D), dtype=dtype, device="cuda")).contiguous()
+    k, v = (torch.randn(BH, T, D, **dev).to(dtype).contiguous() for _ in range(2))
+    rh, rw = ((torch.randn(BH, T, G, **dev) * R.LOG2E).to(dtype).contiguous() for _ in range(2))
+    return q, k, v, rh, rw
+
+
+def relpos_case(R, name, *, BH, G, D, dtype, timed=False, seed=0):
+    """Kernel E (relpos_fwd) or F (relpos_window) against its plain version
+    (float32 math on the same inputs, BF16_TOL / F32_TOL).  With ``timed``
+    also the kernel's, the plain version's and SDPA's times (SDPA with the
+    bias materialised as a float attn_mask, built outside the timing) and
+    the bound: 4*BH*T*T*D operations, q/k/v/o and rh/rw bytes."""
+    import torch
+    import torch.nn.functional as F
+    T = G * G
+    q, k, v, rh, rw = relpos_inputs(R, BH, G, D, dtype, seed)
+    kern, plain = ((R.relpos_fwd, R.relpos_fwd_plain) if name == "relpos_fwd"
+                   else (R.relpos_window, R.relpos_window_plain))
+    run = lambda: kern(q, k, v, rh, rw)
+    o = run()
+    torch.cuda.synchronize()
+    atol, rtol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    err = excess = 0.0
+    step = 4 if T > 1024 else BH
+    for i in range(0, BH, step):
+        sl = slice(i, i + step)
+        ro = plain(q[sl].float(), k[sl].float(), v[sl].float(), rh[sl], rw[sl])
+        diff = (o[sl].float() - ro).abs()
+        err = max(err, diff.max().item())
+        excess = max(excess, (diff - atol - rtol * ro.abs()).max().item())
+    rec = {"phase": "kernel", "kernel": name, "BH": BH, "T": T, "G": G, "D": D,
+           "dtype": str(dtype).split(".")[-1], "rel_pos": "random nonzero tables",
+           "max_abs_err": err, "atol": atol, "rtol": rtol}
+    rec["ok"] = math.isfinite(err) and excess <= 0.0
+    if timed:
+        rec["ms"] = cuda_ms(run, 20)
+        rec["plain_ms"] = cuda_ms(lambda: plain(q, k, v, rh, rw), 3)
+        key = torch.arange(T, device="cuda")
+        bias = ((rh.float()[:, :, key // G] + rw.float()[:, :, key % G]) / R.LOG2E).to(dtype)
+        q4, k4, v4, b4 = (x.unsqueeze(0) for x in (q, k, v, bias))
+        rec["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=b4, scale=1.0 / R.LOG2E), 20)
+        rec["library_call"] = "SDPA with the materialised bias as attn_mask (bias built outside)"
+        del bias, b4
+        e = q.element_size()
+        rec["bound_ms"], rec["bound_by"] = bound(e * BH * T * (4 * D + 2 * G), 4.0 * BH * T * T * D)
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"{name} disagrees with its plain version: {rec}")
+    return rec
+
+
+def random_decoder(C, dtype, seed):
+    """sam_vit_h's mask decoder, random weights from a seed, with noise on
+    the LayerNorm scales and every bias so that none is trivial."""
+    import torch
+    from llmseg_tpu_torch.models.sam import sam as S
+    from llmseg_tpu_torch.models.sam.mask_decoder import MaskDecoder
+    dec = MaskDecoder(C.sam_vit_h().decoder, device="cuda", dtype=dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    S.random_init_(dec, g)
+    with torch.no_grad():
+        for p in dec.parameters():
+            if p.ndim == 1:
+                p.add_(0.1 * torch.randn(p.shape, device="cuda", generator=g).to(dtype))
+    return dec
+
+
+def g_case(C, TK, dtype, *, timed=False, seed=0):
+    """Kernel G against factored_decode_plain at the full decoder widths: 64
+    prompts of 7 tokens, L = 64*64, C = 256; gated normwise at G_TOL, on a
+    chunk that records the launch sequence, on a second chunk that replays
+    it (as every later chunk of an AMG image does), on a chunk of another
+    base given the same cache (which must record anew), and uncached.  With
+    ``timed``: G's time (CUDA events) replaying its recorded sequence, as
+    AMG does for every chunk of an image, and with the recording (the
+    shared precomputes and the sequence built anew, as for an image's first
+    chunk), the plain version's, the plain mask-decoder tail's on the same
+    chunk (no single PyTorch call computes G, so library_ms is null), and
+    the bound from the useful GEMM
+    operations of G's launch sequence and the bytes it must move (shared
+    precomputes, weights and tokens read, mask columns and IoU written)."""
+    import torch
+    name = str(dtype).split(".")[-1]
+    dec = random_decoder(C, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    base, base2 = ((torch.randn(1, 64, 64, 256, device="cuda", generator=g) * 0.5).to(dtype)
+                   for _ in range(2))
+    pe = (torch.randn(64, 64, 256, device="cuda", generator=g) * 0.5).to(dtype)
+    tokens, tokens2 = ((torch.randn(64, 7, 256, device="cuda", generator=g) * 0.5).to(dtype)
+                       for _ in range(2))
+    args = (dec.transformer, dec, base, pe, tokens, 8)
+    args2 = (dec.transformer, dec, base, pe, tokens2, 8)
+    args3 = (dec.transformer, dec, base2, pe, tokens2, 8)
+    with torch.inference_mode():
+        run = lambda: TK.factored_decode(*args)
+        # as AMG runs it: the sequence recorded on an image's first chunk of
+        # prompts and replayed on the next; then the same cache given another
+        # image's base, which records anew; all held against the plain version
+        cache = {}
+        got = [TK.factored_decode(*a, cache=cache) for a in (args, args2, args3)] + [run()]
+        ref = [TK.factored_decode_plain(*a) for a in (args, args2, args3, args)]
+        torch.cuda.synchronize()
+        err = {k: max((x[j].float() - r[j].float()).abs().max().item()
+                      for x, r in zip(got, ref)) for j, k in enumerate(("masks", "iou"))}
+        top = {k: min(r[j].float().abs().max().item() for r in ref)
+               for j, k in enumerate(("masks", "iou"))}
+        rec = {"phase": "kernel", "kernel": "factored_decode", "prompts": 64, "tokens": 7,
+               "L": 4096, "C": 256, "dtype": name, "checked": "recorded, replayed, another base on the same cache, fresh",
+               "max_abs_err": err, "max_abs_ref": top, "tol_vs_max_ref": G_TOL[name]}
+        rec["ok"] = all(math.isfinite(err[k]) and err[k] <= G_TOL[name] * top[k] for k in err)
+        if timed:
+            prog, _, _ = TK.g_program(*args)
+            rec["launches_in_sequence"] = len(prog.records)
+            rec["ms"] = cuda_ms(lambda: TK.factored_decode(*args, cache=cache), 5)
+            rec["ms_with_recording"] = cuda_ms(run, 5)
+            rec["plain_ms"] = cuda_ms(lambda: TK.factored_decode_plain(*args), 3)
+            rec["plain_tail_ms"] = cuda_ms(lambda: dec.plain_tail(base, pe[None], tokens), 3)
+            rec["library_ms"] = None
+            sh = TK.factored_shared(dec.transformer, base.reshape(4096, 256),
+                                    pe.reshape(4096, 256),
+                                    TK.convt_as_matmul(dec.upscale_conv1)[0].to(dtype))
+            shared = [t for t in sh.values() if torch.is_tensor(t)] + \
+                [t for blk in sh["blocks"] for t in blk.values()]
+            nbytes = (sum(t.numel() * t.element_size() for t in shared)
+                      + sum(p.numel() * p.element_size() for p in dec.parameters())
+                      + tokens.numel() * tokens.element_size()
+                      + sum(t.numel() * t.element_size() for t in got[0]))
+            rec["flops"] = prog.flops
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, prog.flops)
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"kernel G disagrees with factored_decode_plain: {rec}")
+    del dec
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sam_kernel_phase(C, R, TK) -> dict:
+    """E and F at sam_vit_h's shapes (global layer: 16 heads, 64 x 64 grid,
+    D 80; windowed layer: 25 windows x 16 heads, 14 x 14) in bf16, each also
+    in float32 at a smaller shape; G at the full decoder widths in bf16 and
+    float32."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    main = {"relpos_fwd": relpos_case(R, "relpos_fwd", BH=16, G=64, D=80, dtype=bf16, timed=True),
+            "relpos_window": relpos_case(R, "relpos_window", BH=400, G=14, D=80, dtype=bf16,
+                                         timed=True)}
+    relpos_case(R, "relpos_fwd", BH=4, G=32, D=80, dtype=f32)
+    relpos_case(R, "relpos_fwd", BH=4, G=23, D=64, dtype=bf16)     # ragged last key tile
+    relpos_case(R, "relpos_window", BH=16, G=14, D=80, dtype=f32)
+    relpos_case(R, "relpos_window", BH=8, G=5, D=32, dtype=bf16)
+    main["factored_decode"] = g_case(C, TK, bf16, timed=True)
+    g_case(C, TK, f32)
+    return main
+
+
+def cut_sam(C):
+    """sam_vit_h at full widths, depth cut to two blocks: block 0 windowed,
+    block 1 global."""
+    full = C.sam_vit_h()
+    return C.replace(full, encoder=C.replace(full.encoder, depth=2, global_attn_indexes=(1,)))
+
+
+def sam_in_place(C, S, R, TK, IE) -> dict:
+    """The cut sam_vit_h in float32, with random nonzero rel-pos tables: the
+    encoder through kernels F and E against the encoder with its attention
+    on the plain path (materialised bias); then two 64-prompt chunks of the
+    decoder through kernel G, sharing one cache as AMG's chunks of an image
+    do (the second replays the first's launch sequence), against the plain
+    mask-decoder tail."""
+    import torch
+    cfg = cut_sam(C)
+    model = S.init(cfg, seed=7, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    with torch.no_grad():
+        for blk in model.image_encoder.blocks:
+            for t in (blk.attn.rel_pos_h, blk.attn.rel_pos_w):
+                t.copy_(torch.randn(t.shape, device="cuda", generator=g) * 0.5)
+    x = torch.randn(1, 1024, 1024, 3, device="cuda", generator=g)
+    kernels = R.KERNELS + TK.KERNELS
+    for kern in kernels:
+        kern.launches = 0
+    with torch.inference_mode():
+        emb = S.encode_image(model, x)
+        pts = torch.rand(2, 64, 1, 2, device="cuda", generator=g) * 1024
+        labels = torch.ones(64, 1, dtype=torch.int32, device="cuda")
+        cache = {}
+        got = [S.decode_masks(model, emb, points=p, labels=labels, cache=cache) for p in pts]
+        launches = {kern.name: kern.launches for kern in kernels}
+
+        def plain_relpos(q, k, v, rel_h, rel_w, hw, scale=None):
+            from llmseg_tpu_torch.ops.attention import attention_plain
+            bias = R.decomposed_rel_pos_bias(q.transpose(1, 2), rel_h, rel_w, hw)
+            return attention_plain(q, k, v, bias=bias, scale=scale)
+
+        IE.relpos_flash_attention = plain_relpos
+        try:
+            ref = S.encode_image(model, x)
+        finally:
+            IE.relpos_flash_attention = R.relpos_flash_attention
+        pe = model.prompt_encoder.dense_pe(64)[None]
+        want = [model.mask_decoder(emb, pe, *model.prompt_encoder(points=p, labels=labels),
+                                   impl="xla") for p in pts]
+
+    def err(j):
+        return max(((k[j] - t[j]).abs().max() / t[j].abs().max()).item()
+                   for k, t in zip(got, want))
+
+    rec = {"phase": "sam_in_place", "config": "sam_vit_h widths, 2 encoder blocks (1 global)",
+           "dtype": "float32", "limit_encoder": SAM_IN_PLACE_LIMIT,
+           "limit_decoder": SAM_DECODE_LIMIT, "launches": launches,
+           "encoder_err_vs_max_ref": ((emb - ref).abs().max() / ref.abs().max()).item(),
+           "decoder_masks_err_vs_max_ref": err(0), "decoder_iou_err_vs_max_ref": err(1)}
+    expect = {"relpos_fwd": 1, "relpos_window": 1, "factored_decode": 2}
+    rec["expected_launches"] = expect
+    rec["ok"] = (rec["encoder_err_vs_max_ref"] <= SAM_IN_PLACE_LIMIT
+                 and rec["decoder_masks_err_vs_max_ref"] <= SAM_DECODE_LIMIT["masks"]
+                 and rec["decoder_iou_err_vs_max_ref"] <= SAM_DECODE_LIMIT["iou"]
+                 and launches == expect)
+    del model
+    torch.cuda.empty_cache()
+    if not rec["ok"]:
+        raise SystemExit(f"SAM through the kernels disagrees with the plain path: {rec}")
+    return rec
+
+
+def amg_images():
+    import numpy as np
+    rng = np.random.RandomState(11)
+    out = []
+    for h, w in AMG_IMAGES:
+        # smooth blobs plus noise, so masks have structure
+        yy, xx = np.mgrid[0:h, 0:w]
+        img = np.zeros((h, w, 3), np.float32)
+        for _ in range(6):
+            cy, cx, r = rng.rand() * h, rng.rand() * w, 60 + rng.rand() * 200
+            img += (((yy - cy) ** 2 + (xx - cx) ** 2) < r * r)[..., None] * rng.rand(3) * 120
+        img += rng.rand(h, w, 3) * 40
+        out.append(np.clip(img, 0, 255).astype(np.uint8))
+    return out
+
+
+ANN_KEYS = {"segmentation", "area", "bbox", "predicted_iou", "point_coords",
+            "stability_score", "crop_box"}
+
+
+def amg_phase(C, S, AMG, kernels_all) -> dict:
+    """sam_vit_h in bf16 from a seed, generate() with the default AMGConfig
+    on three synthetic images of different sizes, then with the filters
+    opened so that NMS, top-K, the upscale and the RLE run, then with NMS
+    off too.  Launch counts per image, annotation counts and schema,
+    ms/image (2 warm-up images, then the three timed; peak memory of the
+    default run), and a breakdown of one image."""
+    import torch
+    cfg = C.sam_vit_h()
+    t0 = time.time()
+    model = S.init(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    images = amg_images()
+    gen = AMG.AutomaticMaskGenerator(model, cfg)
+    opened = AMG.AutomaticMaskGenerator(model, cfg, C.AMGConfig(pred_iou_thresh=-1e9,
+                                                                stability_score_thresh=-1.0))
+    # random weights give near-identical masks, which NMS at 0.7 folds into
+    # one: with NMS off as well, top-K fills to max_masks and the upscale and
+    # RLE run on 512 masks
+    no_nms = AMG.AutomaticMaskGenerator(model, cfg, C.AMGConfig(
+        pred_iou_thresh=-1e9, stability_score_thresh=-1.0, box_nms_thresh=1.0))
+    for img in images[:2]:      # warm-up
+        gen.generate(img)
+    torch.cuda.synchronize()
+    per_image, counts, anns_opened = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for img in images:
+        for kern in kernels_all:
+            kern.launches = 0
+        anns = gen.generate(img)
+        per_image.append({kern.name: kern.launches for kern in kernels_all})
+        counts.append(len(anns))
+    torch.cuda.synchronize()
+    ms_image = (time.perf_counter() - t0) * 1e3 / len(images)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    for img in images:
+        anns_opened.append(opened.generate(img))
+    torch.cuda.synchronize()
+    ms_opened = (time.perf_counter() - t0) * 1e3 / len(images)
+    no_nms.generate(images[0])     # warm-up
+    t0 = time.perf_counter()
+    anns_no_nms = [no_nms.generate(img) for img in images]
+    torch.cuda.synchronize()
+    ms_no_nms = (time.perf_counter() - t0) * 1e3 / len(images)
+    anns_opened += anns_no_nms
+    expect = {k.name: 0 for k in kernels_all}
+    expect.update({"relpos_fwd": 4, "relpos_window": 28, "factored_decode": 16})
+    schema = all(set(a) == ANN_KEYS and a["area"] > 0 and a["segmentation"]["size"] == list(img.shape[:2])
+                 for anns, img in zip(anns_opened, images + images) for a in anns)
+    finite = all(math.isfinite(a["predicted_iou"]) and math.isfinite(a["stability_score"])
+                 for anns in anns_opened for a in anns)
+    sorted_ok = all([a["area"] for a in anns] == sorted((a["area"] for a in anns), reverse=True)
+                    for anns in anns_opened)
+
+    # one image in parts, synced: encoder, amg_select, finish
+    img = images[2]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = no_nms.submit(img)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        no_nms.finish(h)
+        t2 = time.perf_counter()
+        x = torch.from_numpy(img).cuda()[None]
+        xp = S.preprocess(x, cfg)
+        enc_ms = cuda_ms(lambda: S.encode_image(model, xp), 3)
+    rec = {"phase": "amg", "config": "sam_vit_h", "dtype": "bfloat16",
+           "amg": "AMGConfig() (32x32 points, 64 a batch, max_masks 512)",
+           "images": [list(i.shape[:2]) for i in images], "setup_s": setup_s,
+           "launches_per_image": per_image, "expected_launches_per_image": expect,
+           "annotations_default": counts,
+           "annotations_opened": [len(a) for a in anns_opened[:len(images)]],
+           "annotations_opened_nms_off": [len(a) for a in anns_no_nms],
+           "schema_ok": schema, "finite": finite, "sorted_by_area": sorted_ok,
+           "ms_per_image": ms_image, "images_per_s": 1e3 / ms_image,
+           "ms_per_image_opened": ms_opened, "ms_per_image_opened_nms_off": ms_no_nms,
+           "peak_mem_gb": peak,
+           "breakdown_opened_nms_off_ms": {"submit (encoder + amg_select)": (t1 - t0) * 1e3,
+                                   "encoder alone": enc_ms,
+                                   "amg_select (by difference)": (t1 - t0) * 1e3 - enc_ms,
+                                   "finish (prefetch, upscale, RLE, assembly)": (t2 - t1) * 1e3}}
+    rec["ok"] = (all(p == expect for p in per_image) and schema and finite and sorted_ok
+                 and all(len(a) > 0 for a in anns_opened)
+                 and all(len(a) > 1 for a in anns_no_nms))
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit("amg phase failed")
+    return {"model": model, "gen": gen, "images": images, "launches": per_image[0]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -597,9 +975,15 @@ def main() -> int:
     from llmseg_tpu_torch import config as C
     from llmseg_tpu_torch.data.synthetic import make_batch
     from llmseg_tpu_torch.models import llmseg
+    from llmseg_tpu_torch.models.sam import amg as AMG
+    from llmseg_tpu_torch.models.sam import image_encoder as IE
+    from llmseg_tpu_torch.models.sam import sam as S
     from llmseg_tpu_torch.ops import attention as A
     from llmseg_tpu_torch.ops import kernels
+    from llmseg_tpu_torch.ops import relpos_attention as R
+    from llmseg_tpu_torch.ops import twoway_kernel as TK
 
+    all_kernels = A.KERNELS + R.KERNELS + TK.KERNELS
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 references stay float32
     torch.backends.cudnn.allow_tf32 = False
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -615,8 +999,9 @@ def main() -> int:
           "ptxas": {n: [ln.strip() for ln in r.splitlines() if "registers" in ln or "spill" in ln]
                     for n, r in reports.items()}})
 
-    # 2. kernels against their plain versions, at the main path's shapes
+    # 2. kernels against their plain versions, at the main paths' shapes
     bf16, f32 = torch.bfloat16, torch.float32
+    timed = {}
     main_a = kernel_case(A, "flash_fwd", BH=4 * 32, T=767, S=767, D=128, causal=True,
                          dtype=bf16, timed=True)
     kernel_case(A, "flash_fwd", BH=4 * 32, T=767, S=700, D=128, causal=False, dtype=bf16)
@@ -637,13 +1022,17 @@ def main() -> int:
     bwd_case(A, BH=8, T=300, S=200, D=64, causal=False, dtype=bf16)
     bwd_case(A, BH=4, T=300, S=300, D=128, causal=True, dtype=f32)
     bwd_case(A, BH=4, T=200, S=130, D=64, causal=False, dtype=f32)
+    timed.update({r["kernel"]: r for r in (main_a, main_b)})
+    timed.update(main_cd)
+    timed.update(sam_kernel_phase(C, R, TK))
 
     # 3. the port's modules on the card against the CPU, tiny config
     tiny = C.llmseg_tiny()
     m_cpu = llmseg.init(tiny, seed=0, device="cpu")
     m_gpu = llmseg.build(tiny, device="cuda")
     m_gpu.load_state_dict(m_cpu.state_dict())
-    b_cpu = make_batch(tiny, num_images=2, rows_per_image=2, text_len=32, seed=1, device="cpu")
+    b_cpu = make_batch(tiny, num_images=2, rows_per_image=2, text_len=32, seed=1,
+                       device="cpu")
     b_gpu = {k: v.cuda() for k, v in b_cpu.items()}
     rec = {"phase": "modules", "config": "llmseg_tiny", "limit": MODULE_LIMIT}
     for pool in llmseg.POOL_ROUTES:
@@ -658,6 +1047,7 @@ def main() -> int:
     del m_cpu, m_gpu
     emit(kernels_in_place(C, llmseg, make_batch, A))
     emit(grads_in_place(C, llmseg, make_batch, A))
+    emit(sam_in_place(C, S, R, TK, IE))
 
     # 4. the main path: llmseg_7b, bf16, batch 4
     cfg = C.llmseg_7b()
@@ -667,7 +1057,7 @@ def main() -> int:
     batch = make_batch(cfg, num_images=4, rows_per_image=1, text_len=512, seed=0)
     torch.cuda.synchronize()
     setup_s = time.time() - t0
-    for kern in A.KERNELS:
+    for kern in all_kernels:
         kern.launches = 0
     out = llmseg.predict(model, batch)
     torch.cuda.synchronize()
@@ -703,9 +1093,21 @@ def main() -> int:
 
     # 5. the train step, timed, then profiled
     train = train_phase(C, make_batch, A)
+    launches.update({k: int(train["launches_per_step"][k])
+                     for k in ("flash_bwd_dq", "flash_bwd_dkv")})
 
-    # profiled after every timed phase: a predict step by kernel family, and
-    # the library yardstick of kernels C and D
+    # 6. SAM everything-mode mask generation at sam_vit_h
+    amg = amg_phase(C, S, AMG, all_kernels)
+    launches.update({k: amg["launches"][k] for k in ("relpos_fwd", "relpos_window",
+                                                     "factored_decode")})
+
+    # profiled after every timed phase: an AMG image, a predict step by kernel
+    # family, and the library yardstick of kernels C and D
+    emit({"phase": "amg_breakdown", "config": "sam_vit_h",
+          **device_families(lambda: amg["gen"].generate(amg["images"][2]),
+                            "chip_smoke_amg_profile.txt")})
+    del amg
+    torch.cuda.empty_cache()
     model = llmseg.fold_frozen_inplace(llmseg.init(cfg, seed=0, device="cuda", dtype=bf16))
     emit({"phase": "breakdown", "stage_ms": stage_ms,
           **device_families(lambda: llmseg.predict(model, batch), "chip_smoke_profile.txt")})
@@ -713,10 +1115,11 @@ def main() -> int:
     dev_cd = bwd_device_times(A, BH=32, T=767, S=767, D=128, causal=True, dtype=bf16)
     emit({"phase": "bwd_device_time", "clock": "device (torch.profiler)", **dev_cd,
           "c_plus_d": dev_cd["flash_bwd_dq"] + dev_cd["flash_bwd_dkv"]})
-    for r in main_cd.values():
-        r["library_ms"] = dev_cd["sdpa_backward"]
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        timed[name]["library_ms"] = dev_cd["sdpa_backward"]
 
-    # 6. summary: A and B launches per predict, C and D per train step
+    # 7. summary: A and B launches per predict, C and D per train step, E, F
+    # and G per AMG image
     sources = {"flash_fwd": ("llmseg_tpu_torch/csrc/flash_fwd.cu",
                              "llmseg_tpu/ops/attention.py:100"),
                "flash_fwd_1pass": ("llmseg_tpu_torch/csrc/flash_fwd_1pass.cu",
@@ -724,16 +1127,20 @@ def main() -> int:
                "flash_bwd_dq": ("llmseg_tpu_torch/csrc/flash_bwd_dq.cu",
                                 "llmseg_tpu/ops/attention.py:458"),
                "flash_bwd_dkv": ("llmseg_tpu_torch/csrc/flash_bwd_dkv.cu",
-                                 "llmseg_tpu/ops/attention.py:516")}
-    timed = {r["kernel"]: r for r in (main_a, main_b)}
-    timed.update(main_cd)
-    counts = {**launches, **{k: int(train["launches_per_step"][k])
-                             for k in ("flash_bwd_dq", "flash_bwd_dkv")}}
+                                 "llmseg_tpu/ops/attention.py:516"),
+               "relpos_fwd": ("llmseg_tpu_torch/csrc/relpos_fwd.cu",
+                              "llmseg_tpu/ops/relpos_attention.py:39"),
+               "relpos_window": ("llmseg_tpu_torch/csrc/relpos_window.cu",
+                                 "llmseg_tpu/ops/relpos_attention.py:88"),
+               "factored_decode": ("llmseg_tpu_torch/csrc/factored_decode.cu",
+                                   "llmseg_tpu/ops/twoway_kernel.py:709")}
     rows = []
     for name, (src, rep) in sources.items():
         r = timed[name]
+        err = r["max_abs_err"]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                     "launches": counts[name], "max_abs_err": r["max_abs_err"],
+                     "launches": launches[name],
+                     "max_abs_err": max(err.values()) if isinstance(err, dict) else err,
                      "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     emit({"kernels": rows})

@@ -1,9 +1,9 @@
 """Model configuration: the port's own copy of the JAX package's dataclasses.
 
-Only the trees the ReasonSeg ``predict`` and training paths read are kept.
-Field names, defaults and presets match ``llmseg_tpu.config`` so one preset
-name means one architecture in both packages; the SAM, data and AMG trees
-are not part of the port yet.
+Only the trees the ReasonSeg ``predict``, training and SAM everything-mode
+(AMG) paths read are kept.  Field names, defaults and presets match
+``llmseg_tpu.config`` so one preset name means one architecture in both
+packages; the data tree is not part of the port yet.
 """
 
 from __future__ import annotations
@@ -248,3 +248,106 @@ class ExperimentConfig:
 
     model: LLMSegConfig = field(default_factory=llmseg_7b)
     train: TrainConfig = field(default_factory=TrainConfig)
+
+
+# ---------------------------------------------------------------------------
+# SAM (image encoder, prompt encoder, mask decoder) and AMG
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class SamEncoderConfig:
+    """SAM ViT image encoder."""
+
+    img_size: int = 1024
+    patch_size: int = 16
+    in_chans: int = 3
+    embed_dim: int = 1280
+    depth: int = 32
+    num_heads: int = 16
+    mlp_ratio: float = 4.0
+    out_chans: int = 256           # neck output channels
+    use_rel_pos: bool = True
+    window_size: int = 14
+    global_attn_indexes: Tuple[int, ...] = (7, 15, 23, 31)
+
+    @property
+    def grid(self) -> int:
+        return self.img_size // self.patch_size  # 64 for ViT-H @1024
+
+
+@dataclass(frozen=True)
+class SamPromptConfig:
+    embed_dim: int = 256
+    image_embedding_size: int = 64   # grid of the encoder output
+    input_image_size: int = 1024
+    mask_in_chans: int = 16
+
+
+@dataclass(frozen=True)
+class SamDecoderConfig:
+    transformer_dim: int = 256
+    transformer_depth: int = 2
+    transformer_mlp_dim: int = 2048
+    transformer_num_heads: int = 8
+    num_multimask_outputs: int = 3
+    iou_head_depth: int = 3
+    iou_head_hidden_dim: int = 256
+
+
+@dataclass(frozen=True)
+class SamConfig:
+    encoder: SamEncoderConfig = field(default_factory=SamEncoderConfig)
+    prompt: SamPromptConfig = field(default_factory=SamPromptConfig)
+    decoder: SamDecoderConfig = field(default_factory=SamDecoderConfig)
+    pixel_mean: Tuple[float, float, float] = (123.675, 116.28, 103.53)
+    pixel_std: Tuple[float, float, float] = (58.395, 57.12, 57.375)
+    mask_threshold: float = 0.0
+
+
+def sam_vit_h() -> SamConfig:
+    return SamConfig()
+
+
+def sam_vit_l() -> SamConfig:
+    return SamConfig(encoder=SamEncoderConfig(
+        embed_dim=1024, depth=24, num_heads=16,
+        global_attn_indexes=(5, 11, 17, 23)))
+
+
+def sam_vit_b() -> SamConfig:
+    return SamConfig(encoder=SamEncoderConfig(
+        embed_dim=768, depth=12, num_heads=12,
+        global_attn_indexes=(2, 5, 8, 11)))
+
+
+def sam_tiny() -> SamConfig:
+    """Test-only configuration."""
+    return SamConfig(
+        encoder=SamEncoderConfig(
+            img_size=64, patch_size=16, embed_dim=32, depth=2, num_heads=2,
+            out_chans=16, window_size=2, global_attn_indexes=(1,)),
+        prompt=SamPromptConfig(embed_dim=16, image_embedding_size=4,
+                               input_image_size=64, mask_in_chans=4),
+        decoder=SamDecoderConfig(transformer_dim=16, transformer_depth=2,
+                                 transformer_mlp_dim=32, transformer_num_heads=2,
+                                 iou_head_hidden_dim=16),
+    )
+
+
+@dataclass(frozen=True)
+class AMGConfig:
+    """Everything-mode mask generation; the reference generator's defaults."""
+
+    points_per_side: int = 32
+    points_per_batch: int = 64
+    pred_iou_thresh: float = 0.88
+    stability_score_thresh: float = 0.95
+    stability_score_offset: float = 1.0
+    box_nms_thresh: float = 0.7
+    crop_n_layers: int = 0
+    crop_nms_thresh: float = 0.7
+    crop_overlap_ratio: float = 512 / 1500
+    crop_n_points_downscale_factor: int = 1
+    min_mask_region_area: int = 0
+    max_masks: int = 512              # static output capacity after filtering

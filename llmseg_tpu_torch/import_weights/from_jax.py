@@ -5,11 +5,16 @@ The tree is given as nested dicts / lists of numpy arrays (for example
 module names mirror the tree's keys, so each leaf maps by its path:
 
   * dense ``w`` (in, out)            -> ``<path>.weight`` (out, in)
-  * patch kernel ``w`` HWIO          -> ``<path>.weight`` OIHW
+  * conv kernel ``w`` HWIO           -> ``<path>.weight`` OIHW (patch
+    embeds, SAM's convs, and the mask decoder's (2, 2, in, out)
+    transposed-conv kernels, which ``ops.twoway_kernel.convt_as_matmul``
+    flips spatially as ``jax.lax.conv_transpose`` applies them)
   * ``b`` (1-D)                      -> ``<path>.bias``
   * norm ``scale`` / ``bias``        -> ``<path>.weight`` / ``<path>.bias``
   * ``embed_tokens`` (V, C)          -> ``embed_tokens.weight``
-  * ``pos_embed``, ``cls_token``, ``ls1``, ``ls2`` -> same name
+  * ``pos_embed``, ``cls_token``, ``ls1``, ``ls2`` and SAM's
+    ``rel_pos_h/w``, ``iou_token``, ``mask_tokens``, ``point_embeddings``,
+    ``not_a_point_embed``, ``no_mask_embed``, ``gaussian`` -> same name
   * LoRA ``a`` (in, r), ``b`` (r, out) -> ``<path>.a.weight``, ``<path>.b.weight``
 
 LayerScale leaves missing from the tree (a folded DINOv2) are removed from

@@ -9,6 +9,7 @@ type, as in the JAX package.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -110,6 +111,61 @@ class PatchEmbed(nn.Module):
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
                      stride=self.patch)
         return y.permute(0, 2, 3, 1)
+
+
+class Conv2d(nn.Module):
+    """``layers.conv2d``: NHWC in and out; the weight is OIHW (the bridge
+    transposes the JAX package's HWIO kernel).  ``padding`` is "SAME" (stride
+    1, odd kernel) or "VALID"."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, bias: bool = True,
+                 *, device=None, dtype=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel,
+                                               device=device, dtype=dtype))
+        self.bias = (nn.Parameter(torch.zeros(out_ch, device=device, dtype=dtype))
+                     if bias else None)
+
+    def forward(self, x: torch.Tensor, stride: int = 1,
+                padding: str = "SAME") -> torch.Tensor:
+        if padding == "SAME":
+            if stride != 1 or self.weight.shape[-1] % 2 == 0:
+                raise ValueError("SAME padding needs stride 1 and an odd kernel")
+            pad = self.weight.shape[-1] // 2
+        elif padding == "VALID":
+            pad = 0
+        else:
+            raise ValueError(f"padding {padding!r}")
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
+                     stride=stride, padding=pad)
+        return y.permute(0, 2, 3, 1)
+
+
+# ``layers.layernorm2d``: LayerNorm over the channels of an NHWC map
+LayerNorm2d = LayerNorm
+
+
+class PositionEmbeddingRandom(nn.Module):
+    """``layers.position_embedding_random``: random Fourier features of
+    coordinates in [0, 1]; the (2, F) ``gaussian`` leaf keeps its name."""
+
+    def __init__(self, num_pos_feats: int = 64, *, device=None, dtype=None):
+        super().__init__()
+        self.gaussian = nn.Parameter(torch.empty(2, num_pos_feats, device=device,
+                                                 dtype=dtype))
+
+    def forward(self, coords: torch.Tensor) -> torch.Tensor:
+        """(..., 2) -> (..., 2F) float32."""
+        c = 2.0 * coords.float() - 1.0
+        c = 2.0 * math.pi * (c @ self.gaussian.float())
+        return torch.cat([torch.sin(c), torch.cos(c)], -1)
+
+
+def position_grid(pe: PositionEmbeddingRandom, size: int) -> torch.Tensor:
+    """``layers.position_grid``: (size, size, 2F) over cell centres, x fastest."""
+    t = (torch.arange(size, dtype=torch.float32, device=pe.gaussian.device) + 0.5) / size
+    y, x = torch.meshgrid(t, t, indexing="ij")
+    return pe(torch.stack([x, y], -1))
 
 
 def rope_frequencies(head_dim: int, max_len: int, theta: float = 10000.0,

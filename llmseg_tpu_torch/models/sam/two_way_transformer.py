@@ -1,15 +1,24 @@
-"""SAM-style attention, the part of ``llmseg_tpu.models.sam.two_way_transformer``
-the selection head uses: ``attention_init`` / ``attention_apply`` as one
-module.  It always takes the plain attention path, as the JAX function calls
-``attention_xla`` directly."""
+"""SAM two-way transformer, the counterpart of
+``llmseg_tpu.models.sam.two_way_transformer``: ``Attention``
+(``attention_init`` / ``attention_apply``, which the selection head also
+uses), ``TwoWayBlock`` (``block_apply``) and ``TwoWayTransformer``
+(``apply``).  LayerNorm eps is 1e-6, as in the JAX package.
+
+Everything here takes the plain attention path, on every device.  On the
+TPU ``apply`` routes large prompt batches to the fused Pallas ``_kernel``;
+that kernel is not ported yet, so on the card ``apply`` runs what the JAX
+function runs with ``impl="xla"``.  The AMG path does not reach it: the
+mask decoder's fused route is the factored decode (``ops.twoway_kernel``).
+"""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
+from llmseg_tpu_torch.models import layers as L
 from llmseg_tpu_torch.ops.attention import NEG_INF, attention_plain
 
 
@@ -41,3 +50,68 @@ class Attention(nn.Module):
             bias = torch.where(key_mask, 0.0, NEG_INF)[:, None, None, :]
         out = attention_plain(qh, kh, vh, bias=bias)
         return self.out(out.reshape(B, Tq, -1))
+
+
+class TwoWayBlock(nn.Module):
+    """``block_apply``: token self attention, token-to-image, MLP (ReLU),
+    image-to-token, each followed by a LayerNorm."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_dim: int, downsample_rate: int = 2,
+                 skip_first_layer_pe: bool = False, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.skip_first_layer_pe = skip_first_layer_pe
+        self.self_attn = Attention(dim, num_heads, 1, **kw)
+        self.norm1 = L.LayerNorm(dim, **kw)
+        self.cross_attn_t2i = Attention(dim, num_heads, downsample_rate, **kw)
+        self.norm2 = L.LayerNorm(dim, **kw)
+        self.mlp = L.MLP(dim, mlp_dim, act=torch.relu, **kw)
+        self.norm3 = L.LayerNorm(dim, **kw)
+        self.cross_attn_i2t = Attention(dim, num_heads, downsample_rate, **kw)
+        self.norm4 = L.LayerNorm(dim, **kw)
+
+    def forward(self, queries, keys, query_pe, key_pe, key_mask=None, query_mask=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.skip_first_layer_pe:
+            queries = self.self_attn(queries, queries, queries, key_mask=query_mask)
+        else:
+            q = queries + query_pe
+            queries = queries + self.self_attn(q, q, queries, key_mask=query_mask)
+        queries = self.norm1(queries)
+        q = queries + query_pe
+        k = keys + key_pe
+        queries = self.norm2(queries + self.cross_attn_t2i(q, k, keys, key_mask=key_mask))
+        queries = self.norm3(queries + self.mlp(queries))
+        q = queries + query_pe
+        keys = self.norm4(keys + self.cross_attn_i2t(k, q, queries, key_mask=query_mask))
+        return queries, keys
+
+
+class TwoWayTransformer(nn.Module):
+    def __init__(self, depth: int, dim: int, num_heads: int, mlp_dim: int, *,
+                 device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.num_heads = num_heads
+        self.layers = nn.ModuleList(
+            TwoWayBlock(dim, num_heads, mlp_dim, skip_first_layer_pe=(i == 0), **kw)
+            for i in range(depth))
+        self.final_attn = Attention(dim, num_heads, 2, **kw)
+        self.norm_final = L.LayerNorm(dim, **kw)
+
+    def forward(self, image_embedding: torch.Tensor, image_pe: torch.Tensor,
+                point_embedding: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``apply``: image_embedding (B, S, S, C); image_pe (S, S, C) or
+        (1 | B, S, S, C); point_embedding (B, N, C).  Returns (queries
+        (B, N, C), keys (B, S*S, C))."""
+        B, Hs, Ws, C = image_embedding.shape
+        keys = image_embedding.reshape(B, Hs * Ws, C)
+        key_pe = image_pe.reshape(-1, Hs * Ws, C).to(keys.dtype)
+        queries = point_embedding.to(keys.dtype)
+        query_pe = queries
+        for layer in self.layers:
+            queries, keys = layer(queries, keys, query_pe, key_pe)
+        q = queries + query_pe
+        k = keys + key_pe
+        queries = self.norm_final(queries + self.final_attn(q, k, keys))
+        return queries, keys

@@ -29,6 +29,9 @@ SIGNATURES = {
     "flash_fwd_1pass": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_P],
     "flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_P],
+    "relpos_fwd": [_P] * 6 + [_I] * 5 + [_P],
+    "relpos_window": [_P] * 6 + [_I] * 5 + [_P],
+    "factored_decode": [_I] + [_P] * 5,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -4,17 +4,21 @@ Run on a machine with a CUDA card (tests/conftest.py needs JAX, which the card's
 machine may lack): ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 Elsewhere every test skips.  Inputs from a seed; the plain version computes
 in float32 on the same (rounded) inputs.  Tolerances: bf16 outputs of the
-forward kernels within 1e-2 + 1e-2 * |ref| (bf16 keeps 8 significant bits;
-the kernels also round the probabilities to bf16 before the second product,
-as the TPU kernels do); float32 within 1e-4 (another summation order); the
-backward kernels normwise, as their test states."""
+forward kernels (A, B, E, F) within 1e-2 + 1e-2 * |ref| (bf16 keeps 8
+significant bits; the kernels also round the probabilities to bf16 before
+the second product, as the TPU kernels do); float32 within 1e-4 (another
+summation order); the backward kernels and kernel G normwise, as their
+tests state."""
 
 import math
 
 import pytest
 import torch
 
+from llmseg_tpu_torch import config as C
 from llmseg_tpu_torch.ops import attention as A
+from llmseg_tpu_torch.ops import relpos_attention as R
+from llmseg_tpu_torch.ops import twoway_kernel as TK
 
 pytestmark = pytest.mark.cuda
 
@@ -130,3 +134,117 @@ def test_attention_dispatch_launches_the_kernels():
     after = {kern.name: kern.launches for kern in A.KERNELS}
     assert after["flash_fwd"] - before["flash_fwd"] == 1
     assert after["flash_fwd_1pass"] - before["flash_fwd_1pass"] == 1
+
+
+def _relpos_inputs(BH, G, D, dtype, seed=5):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(device="cuda", dtype=torch.float32, generator=g)
+    T = G * G
+    q = torch.randn(BH, T, D, **kw).to(dtype) * torch.tensor(A.LOG2E / math.sqrt(D), dtype=dtype,
+                                                             device="cuda")
+    k, v = (torch.randn(BH, T, D, **kw).to(dtype) for _ in range(2))
+    rh, rw = ((torch.randn(BH, T, G, **kw) * A.LOG2E).to(dtype) for _ in range(2))
+    return q.contiguous(), k, v, rh, rw
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("G,D", [(64, 80), (32, 80), (23, 64)])
+def test_kernel_e_matches_plain(dtype, G, D):
+    """Kernel E with random nonzero rel-pos tables (SAM's are zero at init)."""
+    x = _relpos_inputs(4, G, D, dtype)
+    _assert_close(R.relpos_fwd(*x), R.relpos_fwd_plain(*(t.float() if i < 3 else t
+                                                           for i, t in enumerate(x))), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("G,D", [(14, 80), (5, 32), (22, 64)])
+def test_kernel_f_matches_plain(dtype, G, D):
+    x = _relpos_inputs(16, G, D, dtype)
+    _assert_close(R.relpos_window(*x), R.relpos_window_plain(*(t.float() if i < 3 else t
+                                                               for i, t in enumerate(x))), dtype)
+
+
+def test_relpos_dispatch_launches_f_then_e():
+    """T <= 512 takes kernel F, larger grids kernel E, one launch each."""
+    before = (R.RELPOS_FWD.launches, R.RELPOS_WINDOW.launches)
+    rel = torch.zeros(2 * 64 - 1, 80, device="cuda", dtype=torch.bfloat16)
+    for G in (14, 64):
+        x = torch.randn(1, G * G, 2, 80, device="cuda", dtype=torch.bfloat16)
+        R.relpos_flash_attention(x, x, x, rel[:2 * G - 1], rel[:2 * G - 1], G)
+    assert (R.RELPOS_FWD.launches - before[0], R.RELPOS_WINDOW.launches - before[1]) == (1, 1)
+    with pytest.raises(ValueError):
+        R.relpos_window(*_relpos_inputs(1, 24, 64, torch.bfloat16))   # T = 576 > 512
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 5e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("S", [64, 16])
+def test_kernel_g_matches_plain(dtype, tol, S):
+    """Kernel G against factored_decode_plain at sam_vit_h's decoder widths,
+    64 prompts, held normwise: max|err| <= tol * max|ref| (bf16 rounds at
+    other places in another summation order)."""
+    from llmseg_tpu_torch.models.sam import sam as S_
+    from llmseg_tpu_torch.models.sam.mask_decoder import MaskDecoder
+    dec = MaskDecoder(C.sam_vit_h().decoder, device="cuda", dtype=dtype)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    S_.random_init_(dec, g)
+    base = (torch.randn(1, S, S, 256, device="cuda", generator=g) * 0.5).to(dtype)
+    pe = (torch.randn(S, S, 256, device="cuda", generator=g) * 0.5).to(dtype)
+    tok = (torch.randn(64, 7, 256, device="cuda", generator=g) * 0.5).to(dtype)
+    with torch.inference_mode():
+        before = TK.FACTORED_DECODE.launches
+        m, i = TK.factored_decode(dec.transformer, dec, base, pe, tok, 8)
+        assert TK.FACTORED_DECODE.launches == before + 1
+        rm, ri = TK.factored_decode_plain(dec.transformer, dec, base, pe, tok, 8)
+    for got, ref in ((m, rm), (i, ri)):
+        assert (got.float() - ref.float()).abs().max().item() <= tol * ref.float().abs().max().item()
+
+
+def test_kernel_g_replays_its_sequence_for_each_chunk():
+    """With a cache (one image, several chunks of prompts) G records its
+    sequence once and replays it on new tokens: each chunk's result equals
+    an uncached call's, and earlier results are not overwritten."""
+    from llmseg_tpu_torch.models.sam import sam as S_
+    from llmseg_tpu_torch.models.sam.mask_decoder import MaskDecoder
+    dec = MaskDecoder(C.sam_vit_h().decoder, device="cuda", dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    S_.random_init_(dec, g)
+    base = (torch.randn(1, 16, 16, 256, device="cuda", generator=g) * 0.5).bfloat16()
+    pe = (torch.randn(16, 16, 256, device="cuda", generator=g) * 0.5).bfloat16()
+    toks = [(torch.randn(8, 7, 256, device="cuda", generator=g) * 0.5).bfloat16()
+            for _ in range(3)]
+    cache = {}
+    with torch.inference_mode():
+        before = TK.FACTORED_DECODE.launches
+        cached = [TK.factored_decode(dec.transformer, dec, base, pe, t, 8, cache=cache)
+                  for t in toks]
+        plan = cache["factored_decode"][-1]
+        assert TK.FACTORED_DECODE.launches == before + 3
+        fresh = [TK.factored_decode(dec.transformer, dec, base, pe, t, 8) for t in toks]
+        assert cache["factored_decode"][-1] is plan
+    for (m, i), (rm, ri) in zip(cached, fresh):
+        assert torch.equal(m, rm) and torch.equal(i, ri)
+
+
+def test_kernel_g_cache_follows_the_base_and_the_weights():
+    """One cache given a second image's base, then new weights, records G's
+    sequence anew each time: every result equals an uncached call's, never
+    a replay against the first base or the old weights."""
+    from llmseg_tpu_torch.models.sam import sam as S_
+    from llmseg_tpu_torch.models.sam.mask_decoder import MaskDecoder
+    dec = MaskDecoder(C.sam_vit_h().decoder, device="cuda", dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    S_.random_init_(dec, g)
+    bases = [(torch.randn(1, 16, 16, 256, device="cuda", generator=g) * 0.5).bfloat16()
+             for _ in range(2)]
+    pe = (torch.randn(16, 16, 256, device="cuda", generator=g) * 0.5).bfloat16()
+    tok = (torch.randn(8, 7, 256, device="cuda", generator=g) * 0.5).bfloat16()
+    cache, plans = {}, []
+    with torch.no_grad():
+        for step, base in enumerate(bases + bases[1:]):
+            if step == 2:
+                dec.iou_head.layers[0].bias.add_(0.5)
+            m, i = TK.factored_decode(dec.transformer, dec, base, pe, tok, 8, cache=cache)
+            rm, ri = TK.factored_decode(dec.transformer, dec, base, pe, tok, 8)
+            assert torch.equal(m, rm) and torch.equal(i, ri)
+            plans.append(cache["factored_decode"][-1])
+    assert len({id(p) for p in plans}) == 3

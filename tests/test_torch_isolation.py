@@ -22,7 +22,10 @@ def test_port_has_every_slice_module():
                  "models.sam.two_way_transformer", "ops.attention", "ops.kernels",
                  "data.synthetic", "import_weights.from_jax", "losses", "train.optim",
                  "train.train_step", "train.checkpoint", "train.trainer",
-                 "utils.metrics"):
+                 "utils.metrics", "models.sam.image_encoder", "models.sam.prompt_encoder",
+                 "models.sam.mask_decoder", "models.sam.sam", "models.sam.amg",
+                 "ops.relpos_attention", "ops.twoway_kernel", "ops.amg_utils", "ops.nms",
+                 "ops.rle", "ops.device_rle"):
         assert f"llmseg_tpu_torch.{name}" in mods, name
 
 
@@ -40,6 +43,18 @@ def test_importing_the_port_loads_no_jax():
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py runs where JAX is absent: none of its imports, at any
+    depth of the file, names JAX or the JAX package."""
+    import ast
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert any(m.startswith("llmseg_tpu_torch") for m in names)
+    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "llmseg_tpu")]
+    assert not bad, bad
 
 
 def test_kernel_sources_are_in_the_package():
