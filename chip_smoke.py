@@ -17,7 +17,11 @@ Phases, one JSON line each; any failure exits non-zero:
               the port never calls), and the card's least time for the same
               work.  SAM's kernels E and F use random nonzero rel-pos tables
               (the model's are zero at init); kernel G is also held on a
-              chunk that replays its recorded launch sequence;
+              chunk that replays its recorded launch sequence; kernel H at
+              the pixel decoder's shape (8 prompts of 6 tokens), at 64
+              prompts of 7 with a base per prompt and with a shared base
+              (not factored), kernel I at 64 x 7, kernel J (the transposed
+              one-pass forward) at DINOv2-L's shape with adversarial norms;
   3. modules  llmseg_tiny predict on the card against the same weights on
               the CPU;
      in_place llmseg_7b widths and sequence lengths at two blocks per
@@ -29,10 +33,19 @@ Phases, one JSON line each; any failure exits non-zero:
      sam_in_place  sam_vit_h widths at two encoder blocks (one global):
               the encoder through E and F, and two chunks of 64 prompts
               through G, against the plain paths, float32;
+     pixel_in_place  the pixel decoder (models/pixel_decoder.py) at
+              llmseg_7b and sam_vit_h widths, two LLaMA layers, towers and
+              SAM encoder cut to 2-3 blocks, 8 images, 8 new tokens,
+              float32: generation (prefill through A), the SAM encoder (E,
+              F) and the decode (H) against the plain paths, with the
+              smallest top-1 / top-2 logit gap of the generated steps;
   4. main     llmseg_7b in bf16 (random weights from a seed, LayerScale
               folded), make_batch(4 images, text_len 512) and predict: launch
               counts of every kernel in that run, finite (4, 50) outputs,
               ms/step, img/s and peak memory;
+     onepass_t  the same predict with the non-causal forward switched to
+              kernel J (LLMSEG_ATTN_ONEPASS_T's flag): J 24 launches, B 0,
+              outputs within the bf16 gate of the default run;
   5. train    the LoRA train step at llmseg_7b in bf16 through the Trainer
               (1 image, 1 row, text_len 512, remat "dots"): launch counts per
               step, finite losses, frozen weights bit-identical and trainable
@@ -45,13 +58,20 @@ Phases, one JSON line each; any failure exits non-zero:
      bwd_device_time  device time (torch.profiler) of kernels C and D and
               of SDPA's backward at the training shape: SDPA's is C and
               D's library_ms, and C + D on the same clock stands beside it;
-  6. amg      sam_vit_h in bf16 (random weights from a seed): generate() on
+  6. pixel    the pixel-decoder entry point, evaluate(), at llmseg_7b +
+              sam_vit_h in bf16 (random weights from seeds), 8 images,
+              767-token prompts, 32 new tokens: launches per evaluate (A 32,
+              E 4, F 28, H 1), finite outputs of the right shapes (the
+              masks before the [SEG] select too), ms/evaluate, images/s,
+              peak memory and the split into CLIP, prefill, decode steps,
+              SAM encoder, and SAM decode with postprocess;
+     amg      sam_vit_h in bf16 (random weights from a seed): generate() on
               three synthetic images with the default AMGConfig, then with
               the filters opened, then with NMS off too; launch counts per
               image (E 4, F 28, G 16), annotation schema, ms/image, peak
               memory and one image in parts;
-     amg_breakdown  one image's device time by kernel family and the idle
-              share;
+     amg_breakdown, pixel_breakdown  one image's (one evaluate's)
+              device time by kernel family and the idle share;
   7. kernels  one line with every kernel's numbers, then the card's name and
               power limit from nvidia-smi, then {"ok": true, "device": ...}.
 
@@ -170,6 +190,10 @@ def kernel_case(A, name, *, BH, T, S, D, causal=None, dtype, adversarial=False,
         run = lambda: A.flash_fwd(q, k, v, causal=causal, bias=b, with_lse=lse)
         plain = lambda qq, kk, vv, bb: A.flash_fwd_plain(qq, kk, vv, causal=causal,
                                                         bias=bb, with_lse=lse)
+    elif name == "flash_fwd_1pass_t":   # kernel J: o^T (BH, D, T), held as it comes
+        run = lambda: (A.flash_fwd_1pass_t(q, k, v), None)
+        plain = lambda qq, kk, vv, bb: (A.flash_fwd_1pass_t_plain(qq, kk, vv, A.key_norm_max(kk)),
+                                        None)
     else:
         run = lambda: (A.flash_fwd_1pass(q, k, v), None)
         plain = lambda qq, kk, vv, bb: (A.flash_fwd_1pass_plain(qq, kk, vv, A.key_norm_max(kk)), None)
@@ -369,7 +393,8 @@ def grads_in_place(C, llmseg, make_batch, A) -> dict:
                      "tensors": len(ref), "launches": launches}
         del model, trainable, got, ref
         torch.cuda.empty_cache()
-    expect = {"flash_fwd": 4, "flash_fwd_1pass": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    expect = {"flash_fwd": 4, "flash_fwd_1pass": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+              "flash_fwd_1pass_t": 0}
     rec["expected_launches"] = expect
     f = rec["float32"]
     rec["ok"] = (f["worst_grad_err_vs_max_ref"] <= GRAD_LIMIT
@@ -379,10 +404,13 @@ def grads_in_place(C, llmseg, make_batch, A) -> dict:
     return rec
 
 
-def device_families(fn, out_name: str) -> dict:
+def device_families(fn, out_name: str, decode_family: str = "kernel_g") -> dict:
     """One run of ``fn`` under torch.profiler: device time by kernel family,
     the wall time and the device's idle share; the table goes to
-    chiprun_out/<out_name>."""
+    OUT_DIR/<out_name>.  Kernels G, H and I share their GEMM
+    (``fd_gemm*``, csrc/batched_gemm.cuh): its time and H's and I's own
+    kernels (``tw_*``) count to ``decode_family``, the one the traced path
+    runs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -393,19 +421,22 @@ def device_families(fn, out_name: str) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     events, attr, kernels = kernel_times(prof)   # operators' time is their kernels'
     families = {"kernel_a": 0.0, "kernel_b": 0.0, "kernel_c": 0.0, "kernel_d": 0.0,
-                "kernel_e": 0.0, "kernel_f": 0.0, "kernel_g": 0.0, "matmul": 0.0, "other": 0.0}
+                "kernel_e": 0.0, "kernel_f": 0.0, decode_family: 0.0, "kernel_j": 0.0,
+                "matmul": 0.0, "other": 0.0}
     for key, ms in kernels:
         name = key.lower()
         if "relpos_fwd" in name:
             fam = "kernel_e"
         elif "relpos_window" in name:
             fam = "kernel_f"
-        elif "fd_" in name:          # kernel G's launch sequence (csrc/factored_decode.cu)
-            fam = "kernel_g"
+        elif "fd_" in name or "tw_" in name:   # G's, H's or I's launch sequence
+            fam = decode_family
         elif "flash_bwd_dq" in name:
             fam = "kernel_c"
         elif "flash_bwd_dkv" in name:
             fam = "kernel_d"
+        elif "flash_fwd_1pass_t" in name:
+            fam = "kernel_j"
         elif "flash_fwd_1pass" in name:
             fam = "kernel_b"
         elif "flash_fwd" in name:
@@ -486,7 +517,7 @@ def train_phase(C, make_batch, A) -> dict:
 
     L = cfg.llava.llm.num_layers
     expect = {"flash_fwd": 2 * L, "flash_fwd_1pass": cfg.dino.depth,
-              "flash_bwd_dq": L, "flash_bwd_dkv": L}
+              "flash_bwd_dq": L, "flash_bwd_dkv": L, "flash_fwd_1pass_t": 0}
     losses = [{k: v.item() for k, v in m.items()} for m in metrics]
     finite = all(math.isfinite(x) for m in losses for x in m.values())
     frozen_same = bool(torch.equal(checksums(frozen.values()), before))
@@ -582,7 +613,8 @@ def kernels_in_place(C, llmseg, make_batch, A) -> dict:
         del model
     rec["ok"] = (rec["float32"] <= MODULE_LIMIT
                  and rec["float32_launches"] == {"flash_fwd": 2, "flash_fwd_1pass": 2,
-                                                 "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
+                                                 "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                                                 "flash_fwd_1pass_t": 0})
     if not rec["ok"]:
         raise SystemExit(f"kernels disagree with the plain path inside the model: {rec}")
     return rec
@@ -732,9 +764,12 @@ def g_case(C, TK, dtype, *, timed=False, seed=0):
                       for x, r in zip(got, ref)) for j, k in enumerate(("masks", "iou"))}
         top = {k: min(r[j].float().abs().max().item() for r in ref)
                for j, k in enumerate(("masks", "iou"))}
+        each = [[(x[j].float() - r[j].float()).abs().max().item() for j in range(2)]
+                for x, r in zip(got, ref)]
         rec = {"phase": "kernel", "kernel": "factored_decode", "prompts": 64, "tokens": 7,
                "L": 4096, "C": 256, "dtype": name, "checked": "recorded, replayed, another base on the same cache, fresh",
-               "max_abs_err": err, "max_abs_ref": top, "tol_vs_max_ref": G_TOL[name]}
+               "max_abs_err": err, "max_abs_err_each": each, "max_abs_ref": top,
+               "tol_vs_max_ref": G_TOL[name]}
         rec["ok"] = all(math.isfinite(err[k]) and err[k] <= G_TOL[name] * top[k] for k in err)
         if timed:
             prog, _, _ = TK.g_program(*args)
@@ -839,7 +874,8 @@ def sam_in_place(C, S, R, TK, IE) -> dict:
            "limit_decoder": SAM_DECODE_LIMIT, "launches": launches,
            "encoder_err_vs_max_ref": ((emb - ref).abs().max() / ref.abs().max()).item(),
            "decoder_masks_err_vs_max_ref": err(0), "decoder_iou_err_vs_max_ref": err(1)}
-    expect = {"relpos_fwd": 1, "relpos_window": 1, "factored_decode": 2}
+    expect = {"relpos_fwd": 1, "relpos_window": 1, "factored_decode": 2, "twoway_decode": 0,
+              "twoway_transformer": 0}
     rec["expected_launches"] = expect
     rec["ok"] = (rec["encoder_err_vs_max_ref"] <= SAM_IN_PLACE_LIMIT
                  and rec["decoder_masks_err_vs_max_ref"] <= SAM_DECODE_LIMIT["masks"]
@@ -966,6 +1002,328 @@ def amg_phase(C, S, AMG, kernels_all) -> dict:
     return {"model": model, "gen": gen, "images": images, "launches": per_image[0]}
 
 
+# ---------------------------------------------------------------------------
+# The pixel-decoder entry point: kernels H, I and J
+# ---------------------------------------------------------------------------
+
+TWOWAY_TOL = G_TOL            # kernels H and I vs their plain versions, max|ref|
+PIXEL_IMAGES = 8              # the smallest batch the JAX package sends to _decode_kernel
+PIXEL_HW = {"input_hw": (768, 1024), "original_hw": (480, 640)}
+
+
+def twoway_flops(dec, P: int, N: int, L: int, shared: bool, head: bool) -> float:
+    """The useful operations of kernel H (``head``) or I on P prompts of N
+    tokens against L image tokens: every product of the transformer
+    (layer 0's keys-side projections once for a shared base), of the
+    attention scores and values, and of the head (conv1, conv2, the
+    hypernetwork product, the MLPs)."""
+    twt = dec.transformer
+    C = twt.layers[0].norm1.weight.shape[0]
+    Ci = twt.layers[0].cross_attn_t2i.q.out_features
+    Csa = twt.layers[0].self_attn.q.out_features
+    mlp = twt.layers[0].mlp.fc1.out_features
+    depth = len(twt.layers)
+    tok = P * N
+    f = 0.0
+    for i in range(depth):
+        rows = L if (i == 0 and shared) else P * L
+        f += 3 * 2.0 * rows * C * Ci                      # t2i k, v; i2t q
+        f += 2.0 * P * L * Ci * C                         # i2t out
+        f += 2 * 2.0 * P * L * N * Ci                     # t2i and i2t scores and values
+        f += 4 * 2.0 * tok * C * Csa + 2 * 2.0 * tok * N * Csa   # self attention
+        f += 4 * 2.0 * tok * C * Ci + 2 * 2.0 * tok * C * mlp    # t2i q/out, i2t k/v, MLP
+    f += 2 * 2.0 * P * L * C * Ci + 2 * 2.0 * P * L * N * Ci    # final k, v, attention
+    f += 2 * 2.0 * tok * C * Ci
+    if head:
+        nt = len(dec.hyper_mlps)
+        co1, co2 = dec.upscale_conv2.weight.shape[1], dec.upscale_conv2.weight.shape[0]
+        f += 2.0 * P * L * C * 4 * co1 + 2.0 * 4 * P * L * co1 * 4 * co2
+        f += 2.0 * 4 * P * L * 4 * nt * co2
+        f += sum(2.0 * P * lin.in_features * lin.out_features
+                 for st in (dec.iou_head, *dec.hyper_mlps) for lin in st.layers)
+    return f
+
+
+def twoway_case(C, TK, name, dtype, *, P, N, shared=False, timed=False, seed=0):
+    """Kernel H (``twoway_decode``, through fused_decode_apply with
+    factored=False) or I (``twoway_transformer``) against its plain version
+    at sam_vit_h's decoder widths, L = 64*64, gated normwise at TWOWAY_TOL:
+    max|err| <= tol * max|ref| per output.  With ``timed``: the kernel's,
+    the plain version's and the plain route's times (the mask decoder's
+    plain tail for H, the transformer's plain route for I; no single
+    PyTorch call computes either, so library_ms is null), and the bound
+    from twoway_flops and the bytes read (base, pe, tokens, weights) and
+    written (masks and IoU, or queries and keys)."""
+    import torch
+    dt = str(dtype).split(".")[-1]
+    dec = random_decoder(C, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    base = (torch.randn(1 if shared else P, 64, 64, 256, device="cuda", generator=g) * 0.5
+            ).to(dtype)
+    pe = (torch.randn(64, 64, 256, device="cuda", generator=g) * 0.5).to(dtype)
+    tok = (torch.randn(P, N, 256, device="cuda", generator=g) * 0.5).to(dtype)
+    args = (dec.transformer, base, pe, tok, 8)
+    if name == "twoway_decode":
+        kern, outs = TK.TWOWAY_DECODE, ("masks", "iou")
+        run = lambda: TK.fused_decode_apply(dec.transformer, dec, base, pe, tok, 8, factored=False)
+        plain = lambda: TK.fused_decode_plain(dec.transformer, dec, base, pe, tok, 8)
+        plain_route = lambda: dec.plain_tail(base, pe, tok)
+    else:
+        kern, outs = TK.TWOWAY_TRANSFORMER, ("queries", "keys")
+        run = lambda: TK.fused_twoway_apply(*args)
+        plain = lambda: TK.fused_twoway_plain(*args)
+        plain_route = lambda: dec.transformer(base, pe, tok, impl="xla")
+    with torch.inference_mode():
+        before = kern.launches
+        got = run()
+        torch.cuda.synchronize()
+        launched = kern.launches - before
+        ref = plain()
+        err = {k: (x.float() - r.float()).abs().max().item() for k, x, r in zip(outs, got, ref)}
+        top = {k: r.float().abs().max().item() for k, r in zip(outs, ref)}
+        rec = {"phase": "kernel", "kernel": name, "prompts": P, "tokens": N, "L": 4096,
+               "C": 256, "shared_base": shared, "dtype": dt, "max_abs_err": err,
+               "max_abs_ref": top, "tol_vs_max_ref": TWOWAY_TOL[dt], "launches": launched}
+        rec["ok"] = launched == 1 and all(math.isfinite(err[k]) and err[k] <= TWOWAY_TOL[dt] * top[k]
+                                          for k in err)
+        if timed:
+            rec["ms"] = cuda_ms(run, 10)
+            rec["plain_ms"] = cuda_ms(plain, 3)
+            rec["plain_route_ms"] = cuda_ms(plain_route, 3)
+            rec["library_ms"] = None
+            e = base.element_size()
+            nbytes = (e * (base.numel() + pe.numel() + tok.numel())
+                      + sum(p.numel() * p.element_size() for p in
+                            (dec if name == "twoway_decode" else dec.transformer).parameters())
+                      + sum(x.numel() * x.element_size() for x in got))
+            rec["flops"] = twoway_flops(dec, P, N, 4096, shared, name == "twoway_decode")
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, rec["flops"])
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"{name} disagrees with its plain version: {rec}")
+    del dec
+    torch.cuda.empty_cache()
+    return rec
+
+
+def pixel_kernel_phase(C, A, TK) -> dict:
+    """H at the pixel decoder's shape and at 64 prompts (a base each, and a
+    shared one), I at 64 x 7, in bf16 (timed) and float32; J at DINOv2-L's
+    shape in bf16 (timed), with adversarial norms, at D = 128 and in
+    float32."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    main = {"twoway_decode": twoway_case(C, TK, "twoway_decode", bf16, P=8, N=6, timed=True)}
+    twoway_case(C, TK, "twoway_decode", f32, P=8, N=6)
+    main["twoway_decode_64"] = twoway_case(C, TK, "twoway_decode", bf16, P=64, N=7, timed=True)
+    twoway_case(C, TK, "twoway_decode", f32, P=64, N=7)
+    twoway_case(C, TK, "twoway_decode", bf16, P=64, N=7, shared=True, timed=True)
+    twoway_case(C, TK, "twoway_decode", f32, P=8, N=6, shared=True)
+    main["twoway_transformer"] = twoway_case(C, TK, "twoway_transformer", bf16, P=64, N=7,
+                                             timed=True)
+    twoway_case(C, TK, "twoway_transformer", f32, P=64, N=7)
+    main["flash_fwd_1pass_t"] = kernel_case(A, "flash_fwd_1pass_t", BH=4 * 16, T=4097, S=4097,
+                                            D=64, dtype=bf16, timed=True)
+    kernel_case(A, "flash_fwd_1pass_t", BH=16, T=4097, S=4097, D=64, dtype=bf16,
+                adversarial=True)
+    kernel_case(A, "flash_fwd_1pass_t", BH=4, T=200, S=300, D=128, dtype=bf16)
+    kernel_case(A, "flash_fwd_1pass_t", BH=2, T=200, S=300, D=64, dtype=f32, adversarial=True)
+    kernel_case(A, "flash_fwd_1pass_t", BH=2, T=4097, S=4097, D=64, dtype=f32)
+    return main
+
+
+def pixel_images(S, cfg, n: int, seed: int):
+    """n seeded uint8 images of 768 x 1024, preprocessed for the SAM encoder."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randint(0, 256, (n, *PIXEL_HW["input_hw"], 3), device="cuda", generator=g)
+    return S.preprocess(x, cfg)
+
+
+def top2_gap(logits) -> float:
+    """The smallest gap between the largest and second-largest logit."""
+    top = logits.float().topk(2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).min().item()
+
+
+def pixel_in_place(C, S, R, TK, IE, PD, GEN, make_batch, A) -> dict:
+    """The pixel decoder at llmseg_7b and sam_vit_h widths, depth cut (two
+    LLaMA layers, CLIP 3 blocks, SAM encoder 2 blocks, one global), float32,
+    8 images, 8 new tokens: generation (prefill through kernel A), the SAM
+    encoder (E, F) and the decode (H, a base per prompt) against the same
+    model with every attention on the plain path and the mask decoder's
+    plain tail.  Tokens must be equal, hiddens within MODULE_LIMIT of
+    max|ref|, masks (before the [SEG] select) and IoU within the decoder
+    limits.  The smallest top-1 / top-2 logit gap of the choices made
+    (the first token and the 7 after it) is printed beside the largest
+    logit error of the steps, which it must exceed."""
+    import torch
+    from llmseg_tpu_torch.models import llama, llmseg, vit
+    from llmseg_tpu_torch.models.llava import splice_image_tokens
+    cfg = cut_config(C)
+    scfg = cut_sam(C)
+    model = llmseg.init(cfg, seed=11, device="cuda")
+    sam_model = S.init(scfg, seed=12, device="cuda")
+    batch = make_batch(cfg, num_images=PIXEL_IMAGES, rows_per_image=1, text_len=512, seed=6)
+    images_sam = pixel_images(S, scfg, PIXEL_IMAGES, seed=7)
+    inputs = dict(images_clip=batch["images_clip"], input_ids=batch["input_ids"],
+                  image_pos=batch["image_pos"], max_new_tokens=8)
+    kernels = A.KERNELS + R.KERNELS + TK.KERNELS
+
+    def path():
+        tokens, hiddens = PD.generate_answer(model, **inputs)
+        prompts, _ = PD.seg_prompts(model, tokens, hiddens)
+        return tokens, hiddens, PD.decode_seg_masks(sam_model, images_sam, prompts, **PIXEL_HW)
+
+    for kern in kernels:
+        kern.launches = 0
+    tok_k, hid_k, (mask_k, iou_k) = path()
+    launches = {kern.name: kern.launches for kern in kernels if kern.launches}
+
+    def plain_relpos(q, k, v, rel_h, rel_w, hw, scale=None):
+        bias = R.decomposed_rel_pos_bias(q.transpose(1, 2), rel_h, rel_w, hw)
+        return A.attention_plain(q, k, v, bias=bias, scale=scale)
+
+    def plain_decode(sam_model_, images, prompts, input_hw, original_hw):
+        emb = S.encode_image(sam_model_, images)
+        pe_mod = sam_model_.prompt_encoder
+        sparse, dense = pe_mod(text_embeds=prompts[:, None, :], batch=emb.shape[0])
+        m, i = sam_model_.mask_decoder(emb, pe_mod.dense_pe(64)[None], sparse, dense,
+                                       multimask_output=False, impl="xla")
+        return S.postprocess_masks(m, input_hw, original_hw, sam_model_.cfg), i
+
+    saved = (GEN.attention, llama.attention, vit.attention, IE.relpos_flash_attention,
+             PD.decode_seg_masks)
+    GEN.attention = llama.attention = vit.attention = plain_attention
+    IE.relpos_flash_attention = plain_relpos
+    PD.decode_seg_masks = torch.inference_mode()(plain_decode)
+    llm = model.llava.llm
+    try:
+        tok_p, hid_p, (mask_p, iou_p) = path()
+        with torch.inference_mode():   # the prompt's last hidden state: the first choice
+            img = model.llava.encode_images(inputs["images_clip"])
+            text = llm.embed_tokens(inputs["input_ids"])
+            x = splice_image_tokens(text, img.to(text.dtype), inputs["image_pos"])
+            first = llm(inputs_embeds=x)[:, -1:]
+    finally:
+        (GEN.attention, llama.attention, vit.attention, IE.relpos_flash_attention,
+         PD.decode_seg_masks) = saved
+    with torch.inference_mode():
+        lg_p = llama.logits(llm, hid_p[:, :-1])
+        lg_k = llama.logits(llm, hid_k[:, :-1])
+        gaps = [top2_gap(lg_p), top2_gap(llama.logits(llm, first))]
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    rec = {"phase": "pixel_in_place", "config": "llmseg_7b (LLaMA 2 layers, towers 2-3 blocks) "
+           "+ sam_vit_h (2 encoder blocks, 1 global)", "dtype": "float32",
+           "images": PIXEL_IMAGES, "new_tokens": 8, "launches": launches,
+           "tokens_equal": bool(torch.equal(tok_k, tok_p)),
+           "hidden_err_vs_max_ref": rel(hid_k, hid_p),
+           "masks_err_vs_max_ref": rel(mask_k, mask_p), "iou_err_vs_max_ref": rel(iou_k, iou_p),
+           "min_top2_logit_gap": min(gaps),
+           "max_logit_err": (lg_k - lg_p).abs().max().item(),
+           "limits": {"hidden": MODULE_LIMIT, **SAM_DECODE_LIMIT}}
+    expect = {"flash_fwd": 2, "relpos_fwd": 1, "relpos_window": 1, "twoway_decode": 1}
+    rec["expected_launches"] = expect
+    rec["ok"] = (rec["tokens_equal"] and launches == expect
+                 and rec["hidden_err_vs_max_ref"] <= MODULE_LIMIT
+                 and rec["masks_err_vs_max_ref"] <= SAM_DECODE_LIMIT["masks"]
+                 and rec["iou_err_vs_max_ref"] <= SAM_DECODE_LIMIT["iou"]
+                 and rec["min_top2_logit_gap"] > rec["max_logit_err"])
+    emit(rec)
+    del model, sam_model
+    torch.cuda.empty_cache()
+    if not rec["ok"]:
+        raise SystemExit(f"the pixel path through the kernels disagrees with the plain path: {rec}")
+    return rec
+
+
+def pixel_phase(C, llmseg, S, PD, GEN, make_batch, kernels_all) -> dict:
+    """The pixel-decoder entry point, ``evaluate``, at llmseg_7b + sam_vit_h
+    in bf16 (random weights from seeds), 8 images, text_len 512 (767-token
+    prompts), 32 new tokens.  With random weights the model almost never
+    emits [SEG], so evaluate's masks are -1e9 and the masks before that
+    select are checked too.  1 warm-up, the launch counts of one run, then
+    3 timed; peak memory of those; the split of one evaluate, each part
+    timed alone with CUDA events (the decode steps, the SAM decode and the
+    rest by difference)."""
+    import torch
+    from llmseg_tpu_torch.models.llava import splice_image_tokens
+    bf16 = torch.bfloat16
+    cfg, scfg = C.llmseg_7b(), C.sam_vit_h()
+    t0 = time.time()
+    model = llmseg.init(cfg, seed=0, device="cuda", dtype=bf16)
+    sam_model = S.init(scfg, seed=0, device="cuda", dtype=bf16)
+    batch = make_batch(cfg, num_images=PIXEL_IMAGES, rows_per_image=1, text_len=512, seed=8)
+    images_sam = pixel_images(S, scfg, PIXEL_IMAGES, seed=9)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    new = 32
+    inputs = dict(images_clip=batch["images_clip"], input_ids=batch["input_ids"],
+                  image_pos=batch["image_pos"])
+    run = lambda: PD.evaluate(model, sam_model, images_sam=images_sam, max_new_tokens=new,
+                              **inputs, **PIXEL_HW)
+    run()
+    torch.cuda.synchronize()
+    for kern in kernels_all:
+        kern.launches = 0
+    tokens, masks = run()
+    torch.cuda.synchronize()
+    launches = {kern.name: kern.launches for kern in kernels_all}
+    steps = 3
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    with torch.inference_mode():
+        toks, hiddens = PD.generate_answer(model, max_new_tokens=new, **inputs)
+        prompts, has_seg = PD.seg_prompts(model, toks, hiddens)
+        pred, iou = PD.decode_seg_masks(sam_model, images_sam, prompts, **PIXEL_HW)
+        llm = model.llava.llm
+        img = model.llava.encode_images(inputs["images_clip"])
+        text = llm.embed_tokens(inputs["input_ids"])
+        x = splice_image_tokens(text, img.to(text.dtype), inputs["image_pos"])
+        T = x.shape[1]
+        split = {"clip": cuda_ms(lambda: model.llava.encode_images(inputs["images_clip"]), 3),
+                 "prefill": cuda_ms(lambda: GEN.prefill_cache(llm, x, T + new), 3)}
+        gen_ms = cuda_ms(lambda: PD.generate_answer(model, max_new_tokens=new, **inputs), 2)
+        split["decode_steps (by difference)"] = gen_ms - split["clip"] - split["prefill"]
+        split["sam_encoder"] = cuda_ms(lambda: S.encode_image(sam_model, images_sam), 3)
+        split["sam_decode_and_postprocess (by difference)"] = cuda_ms(
+            lambda: PD.decode_seg_masks(sam_model, images_sam, prompts, **PIXEL_HW), 3
+        ) - split["sam_encoder"]
+        split["rest (by difference)"] = ms - gen_ms - split["sam_encoder"] - split[
+            "sam_decode_and_postprocess (by difference)"]
+    expect = {k.name: 0 for k in kernels_all}
+    expect.update({"flash_fwd": cfg.llava.llm.num_layers, "relpos_fwd": 4, "relpos_window": 28,
+                   "twoway_decode": 1})
+    H, W = PIXEL_HW["original_hw"]
+    finite = bool(torch.isfinite(masks).all() and torch.isfinite(pred).all()
+                  and torch.isfinite(iou.float()).all())
+    shapes = (tuple(tokens.shape) == (PIXEL_IMAGES, new) and tuple(masks.shape) == (PIXEL_IMAGES, H, W)
+              and tuple(pred.shape) == (PIXEL_IMAGES, 1, H, W) and tuple(iou.shape) == (PIXEL_IMAGES, 1))
+    rec = {"phase": "pixel", "config": "llmseg_7b + sam_vit_h", "dtype": "bfloat16",
+           "images": PIXEL_IMAGES, "text_len": 512, "prompt_len": T, "new_tokens": new,
+           **{k: list(v) for k, v in PIXEL_HW.items()}, "setup_s": setup_s,
+           "launches": launches, "expected_launches": expect, "shapes_ok": shapes,
+           "finite": finite, "rows_with_seg": int(has_seg.sum()),
+           "tokens_repeat": bool(torch.equal(tokens, toks)),
+           "premask_range": [pred.float().min().item(), pred.float().max().item()],
+           "ms_per_evaluate": ms, "images_per_s": PIXEL_IMAGES * 1e3 / ms,
+           "peak_mem_gb": peak_gb, "split_ms": split}
+    rec["ok"] = launches == expect and shapes and finite and rec["tokens_repeat"]
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit("pixel phase failed")
+    return {"run": run, "launches": launches, "keep": (model, sam_model)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -974,7 +1332,9 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from llmseg_tpu_torch import config as C
     from llmseg_tpu_torch.data.synthetic import make_batch
+    from llmseg_tpu_torch.models import generate as GEN
     from llmseg_tpu_torch.models import llmseg
+    from llmseg_tpu_torch.models import pixel_decoder as PD
     from llmseg_tpu_torch.models.sam import amg as AMG
     from llmseg_tpu_torch.models.sam import image_encoder as IE
     from llmseg_tpu_torch.models.sam import sam as S
@@ -1025,6 +1385,7 @@ def main() -> int:
     timed.update({r["kernel"]: r for r in (main_a, main_b)})
     timed.update(main_cd)
     timed.update(sam_kernel_phase(C, R, TK))
+    timed.update(pixel_kernel_phase(C, A, TK))
 
     # 3. the port's modules on the card against the CPU, tiny config
     tiny = C.llmseg_tiny()
@@ -1048,6 +1409,7 @@ def main() -> int:
     emit(kernels_in_place(C, llmseg, make_batch, A))
     emit(grads_in_place(C, llmseg, make_batch, A))
     emit(sam_in_place(C, S, R, TK, IE))
+    pixel_in_place(C, S, R, TK, IE, PD, GEN, make_batch, A)
 
     # 4. the main path: llmseg_7b, bf16, batch 4
     cfg = C.llmseg_7b()
@@ -1063,7 +1425,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {kern.name: kern.launches for kern in A.KERNELS}
     expect = {"flash_fwd": cfg.llava.llm.num_layers, "flash_fwd_1pass": cfg.dino.depth,
-              "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+              "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_fwd_1pass_t": 0}
     sim, iou = out["pred_similarity"], out["pred_iou"]
     finite = bool(torch.isfinite(sim).all() and torch.isfinite(iou).all())
     shape_ok = tuple(sim.shape) == (4, cfg.max_proposals) == tuple(iou.shape)
@@ -1088,7 +1450,31 @@ def main() -> int:
     if not rec["ok"]:
         raise SystemExit("main path failed")
     stage_ms = stage_times(model, batch, step_ms)
-    del model, out
+
+    # the same predict with the non-causal forward on kernel J
+    A.ONEPASS_T = True
+    try:
+        for kern in all_kernels:
+            kern.launches = 0
+        out_t = llmseg.predict(model, batch)
+        torch.cuda.synchronize()
+    finally:
+        A.ONEPASS_T = False
+    launches_t = {kern.name: kern.launches for kern in A.KERNELS}
+    expect_t = dict(expect, flash_fwd_1pass=0, flash_fwd_1pass_t=cfg.dino.depth)
+    atol, rtol = BF16_TOL
+    diff = {k: (out_t[k].float() - out[k].float()).abs() for k in ("pred_similarity", "pred_iou")}
+    rec_t = {"phase": "onepass_t", "config": "llmseg_7b", "dtype": "bfloat16", "batch_images": 4,
+             "launches": launches_t, "expected_launches": expect_t, "atol": atol, "rtol": rtol,
+             "max_abs_diff_vs_default": {k: d.max().item() for k, d in diff.items()}}
+    rec_t["ok"] = launches_t == expect_t and all(
+        bool(torch.isfinite(d).all()) and (d - atol - rtol * out[k].float().abs()).max().item() <= 0
+        for k, d in diff.items())
+    emit(rec_t)
+    if not rec_t["ok"]:
+        raise SystemExit("predict through kernel J disagrees with the default run")
+    launches["flash_fwd_1pass_t"] = launches_t["flash_fwd_1pass_t"]
+    del model, out, out_t
     torch.cuda.empty_cache()
 
     # 5. the train step, timed, then profiled
@@ -1096,7 +1482,10 @@ def main() -> int:
     launches.update({k: int(train["launches_per_step"][k])
                      for k in ("flash_bwd_dq", "flash_bwd_dkv")})
 
-    # 6. SAM everything-mode mask generation at sam_vit_h
+    # 6. the pixel-decoder entry point, then SAM everything-mode mask
+    # generation at sam_vit_h
+    pixel = pixel_phase(C, llmseg, S, PD, GEN, make_batch, all_kernels)
+    launches.update({k: pixel["launches"][k] for k in ("twoway_decode", "twoway_transformer")})
     amg = amg_phase(C, S, AMG, all_kernels)
     launches.update({k: amg["launches"][k] for k in ("relpos_fwd", "relpos_window",
                                                      "factored_decode")})
@@ -1112,14 +1501,19 @@ def main() -> int:
     emit({"phase": "breakdown", "stage_ms": stage_ms,
           **device_families(lambda: llmseg.predict(model, batch), "chip_smoke_profile.txt")})
     del model
+    emit({"phase": "pixel_breakdown", "config": "llmseg_7b + sam_vit_h",
+          **device_families(pixel["run"], "chip_smoke_pixel_profile.txt",
+                            decode_family="kernel_h")})
+    del pixel
+    torch.cuda.empty_cache()
     dev_cd = bwd_device_times(A, BH=32, T=767, S=767, D=128, causal=True, dtype=bf16)
     emit({"phase": "bwd_device_time", "clock": "device (torch.profiler)", **dev_cd,
           "c_plus_d": dev_cd["flash_bwd_dq"] + dev_cd["flash_bwd_dkv"]})
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         timed[name]["library_ms"] = dev_cd["sdpa_backward"]
 
-    # 7. summary: A and B launches per predict, C and D per train step, E, F
-    # and G per AMG image
+    # 7. summary: A and B launches per predict, J per predict with its flag,
+    # C and D per train step, E, F and G per AMG image, H and I per evaluate
     sources = {"flash_fwd": ("llmseg_tpu_torch/csrc/flash_fwd.cu",
                              "llmseg_tpu/ops/attention.py:100"),
                "flash_fwd_1pass": ("llmseg_tpu_torch/csrc/flash_fwd_1pass.cu",
@@ -1133,7 +1527,13 @@ def main() -> int:
                "relpos_window": ("llmseg_tpu_torch/csrc/relpos_window.cu",
                                  "llmseg_tpu/ops/relpos_attention.py:88"),
                "factored_decode": ("llmseg_tpu_torch/csrc/factored_decode.cu",
-                                   "llmseg_tpu/ops/twoway_kernel.py:709")}
+                                   "llmseg_tpu/ops/twoway_kernel.py:709"),
+               "twoway_decode": ("llmseg_tpu_torch/csrc/twoway_fused.cu",
+                                 "llmseg_tpu/ops/twoway_kernel.py:214"),
+               "twoway_transformer": ("llmseg_tpu_torch/csrc/twoway_fused.cu",
+                                      "llmseg_tpu/ops/twoway_kernel.py:192"),
+               "flash_fwd_1pass_t": ("llmseg_tpu_torch/csrc/flash_fwd_1pass_t.cu",
+                                     "llmseg_tpu/ops/attention.py:374")}
     rows = []
     for name, (src, rep) in sources.items():
         r = timed[name]

@@ -95,8 +95,11 @@ class LlamaLayer(nn.Module):
         self.post_norm = L.RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
         self.mlp = LlamaMLP(cfg, **kw)
 
-    def attn_block(self, x_raw, cos, sin, lora: Optional[nn.ModuleDict],
-                   scaling: float):
+    def qkv(self, x_raw, cos, sin, lora: Optional[nn.ModuleDict], scaling: float,
+            positions: Optional[torch.Tensor] = None):
+        """RMSNorm, the q/k/v projections (LoRA on q/v) and RoPE at
+        ``positions`` (B, T) (0..T-1 when None): q (B, T, H, Dh), k and v
+        (B, T, H_kv, Dh)."""
         cfg = self.cfg
         B, T, _ = x_raw.shape
         x = self.input_norm(x_raw)
@@ -105,13 +108,22 @@ class LlamaLayer(nn.Module):
         q = _dense_lora(self.attn.q, lq, x, scaling)
         k = self.attn.k(x)
         v = _dense_lora(self.attn.v, lv, x, scaling)
-        q = L.apply_rope(q.reshape(B, T, cfg.num_heads, cfg.head_dim), cos, sin)
-        k = L.apply_rope(k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim), cos, sin)
-        v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-        if cfg.num_kv_heads != cfg.num_heads:
-            rep = cfg.num_heads // cfg.num_kv_heads
-            k = k.repeat_interleave(rep, dim=2)
-            v = v.repeat_interleave(rep, dim=2)
+        q = L.apply_rope(q.reshape(B, T, cfg.num_heads, cfg.head_dim), cos, sin, positions)
+        k = L.apply_rope(k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim), cos, sin, positions)
+        return q, k, v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+
+    def repeat_kv(self, k, v):
+        """Grouped-query heads: k and v repeated to the query heads."""
+        rep = self.cfg.num_heads // self.cfg.num_kv_heads
+        if rep == 1:
+            return k, v
+        return k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+
+    def attn_block(self, x_raw, cos, sin, lora: Optional[nn.ModuleDict],
+                   scaling: float):
+        B, T, _ = x_raw.shape
+        q, k, v = self.qkv(x_raw, cos, sin, lora, scaling)
+        k, v = self.repeat_kv(k, v)
         o = attention(q, k, v, causal=True).reshape(B, T, -1)
         return self.attn.o(o)
 

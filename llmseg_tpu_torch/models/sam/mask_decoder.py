@@ -4,12 +4,13 @@ transformer, the transposed-conv upscale (x4), hypernetwork MLPs and the
 IoU head.
 
 ``predict_masks`` routes as the JAX function does: AMG-scale prompt
-batches on the card (``twoway_kernel.should_fuse``) with a shared image
-embedding and dense prompt go to kernel G, inference only; under autograd
-(grad enabled and a parameter requiring grad) they take the plain tail,
-which is what the JAX ``custom_vjp`` computes value and gradient with.  A
-per-prompt base would reach the unported ``_decode_kernel`` on the TPU and
-takes the plain tail here.
+batches on the card (``twoway_kernel.should_fuse``), or any batch with
+``impl="fused"``, take ``twoway_kernel.fused_decode_apply`` for inference:
+a shared image embedding and dense prompt go to kernel G, a base per
+prompt (an image embedding per prompt, or a dense mask prompt) to kernel
+H.  Under autograd (grad enabled and a parameter requiring grad) they take
+the plain tail, which is what the JAX ``custom_vjp`` computes value and
+gradient with; ``impl="xla"`` takes it too.
 """
 
 from __future__ import annotations
@@ -73,7 +74,7 @@ class MaskDecoder(nn.Module):
         nt = self.cfg.num_multimask_outputs + 1
         if src.shape[0] == 1 and B > 1:
             src = src.expand(B, *src.shape[1:])
-        hs, keys = self.transformer(src, image_pe, tokens)
+        hs, keys = self.transformer(src, image_pe, tokens, impl="xla")
         up = self.upscale_conv1(keys.reshape(B, S, S, d))
         up = L.gelu_tanh(self.upscale_ln(up))
         up = L.gelu_tanh(self.upscale_conv2(up))
@@ -84,10 +85,10 @@ class MaskDecoder(nn.Module):
     def predict_masks(self, image_embeddings, image_pe, sparse_prompt, dense_prompt,
                       dense_shared: bool = False, impl: str = "auto", cache=None):
         """image_embeddings (B or 1, S, S, C); sparse (B, N, C); dense (B, S,
-        S, C).  Returns (masks (B, nt, 4S, 4S), iou (B, nt)): from kernel G in
-        the image dtype, from the plain tail in float32.  ``cache``: keeps the
-        shared base and kernel G's recorded sequence while their inputs are
-        unchanged (``twoway_kernel.cached``)."""
+        S, C).  Returns (masks (B, nt, 4S, 4S), iou (B, nt)): from kernels G
+        and H in the image dtype, from the plain tail in float32.  ``cache``:
+        keeps the shared base and kernel G's recorded sequence while their
+        inputs are unchanged (``twoway_kernel.cached``)."""
         B = sparse_prompt.shape[0]
         d = self.cfg.transformer_dim
         nt = self.cfg.num_multimask_outputs + 1
@@ -99,16 +100,20 @@ class MaskDecoder(nn.Module):
             B, S * S, image_pe, image_embeddings.device))
         shared = image_embeddings.shape[0] == 1 and dense_shared and B > 1
         grad = torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
+        nh = self.cfg.transformer_num_heads
         if fuse and shared and not grad:
             src = twoway_kernel.cached(cache, "base", [image_embeddings, dense_prompt[:1]],
                                        torch.add)
-            return twoway_kernel.fused_decode_apply(
-                self.transformer, self, src, image_pe, tokens,
-                self.cfg.transformer_num_heads, cache=cache)
+            return twoway_kernel.fused_decode_apply(self.transformer, self, src, image_pe,
+                                                    tokens, nh, cache=cache)
         src = image_embeddings
         if src.shape[0] == 1 and B > 1:
             src = src.expand(B, *src.shape[1:])
-        return self.plain_tail(src + dense_prompt, image_pe, tokens)
+        src = src + dense_prompt
+        if fuse and not grad:
+            return twoway_kernel.fused_decode_apply(self.transformer, self, src, image_pe,
+                                                    tokens, nh)
+        return self.plain_tail(src, image_pe, tokens)
 
     def forward(self, image_embeddings, image_pe, sparse_prompt, dense_prompt,
                 multimask_output: bool = True, dense_shared: bool = False,

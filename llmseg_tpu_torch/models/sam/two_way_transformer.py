@@ -4,11 +4,13 @@
 uses), ``TwoWayBlock`` (``block_apply``) and ``TwoWayTransformer``
 (``apply``).  LayerNorm eps is 1e-6, as in the JAX package.
 
-Everything here takes the plain attention path, on every device.  On the
-TPU ``apply`` routes large prompt batches to the fused Pallas ``_kernel``;
-that kernel is not ported yet, so on the card ``apply`` runs what the JAX
-function runs with ``impl="xla"``.  The AMG path does not reach it: the
-mask decoder's fused route is the factored decode (``ops.twoway_kernel``).
+``TwoWayTransformer.forward`` routes as ``apply`` does: with ``impl="auto"``
+large prompt batches on the card (``twoway_kernel.should_fuse``) go to
+kernel I (``twoway_kernel.fused_twoway_apply``, the port of the Pallas
+``_kernel``), ``"fused"`` forces it and ``"xla"`` takes the plain route.
+The kernel is forward-only, so under autograd (grad enabled and a
+parameter requiring grad) the plain route runs.  The mask decoder's plain
+tail pins ``"xla"``, as the JAX ``_xla_tail`` does.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from torch import nn
 
 from llmseg_tpu_torch.models import layers as L
+from llmseg_tpu_torch.ops import twoway_kernel
 from llmseg_tpu_torch.ops.attention import NEG_INF, attention_plain
 
 
@@ -100,11 +103,19 @@ class TwoWayTransformer(nn.Module):
         self.norm_final = L.LayerNorm(dim, **kw)
 
     def forward(self, image_embedding: torch.Tensor, image_pe: torch.Tensor,
-                point_embedding: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                point_embedding: torch.Tensor, impl: str = "auto"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``apply``: image_embedding (B, S, S, C); image_pe (S, S, C) or
         (1 | B, S, S, C); point_embedding (B, N, C).  Returns (queries
-        (B, N, C), keys (B, S*S, C))."""
+        (B, N, C), keys (B, S*S, C)); from kernel I in the image dtype."""
         B, Hs, Ws, C = image_embedding.shape
+        if impl not in ("auto", "fused", "xla"):
+            raise ValueError(f"impl must be 'auto', 'fused' or 'xla', got {impl!r}")
+        grad = torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
+        if not grad and (impl == "fused" or (impl == "auto" and twoway_kernel.should_fuse(
+                B, Hs * Ws, image_pe, image_embedding.device))):
+            return twoway_kernel.fused_twoway_apply(self, image_embedding, image_pe,
+                                                    point_embedding, self.num_heads)
         keys = image_embedding.reshape(B, Hs * Ws, C)
         key_pe = image_pe.reshape(-1, Hs * Ws, C).to(keys.dtype)
         queries = point_embedding.to(keys.dtype)

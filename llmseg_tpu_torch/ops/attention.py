@@ -1,4 +1,4 @@
-"""Attention: the plain path and the four hand-written Hopper kernels.
+"""Attention: the plain path and the five hand-written Hopper kernels.
 
 Counterpart of ``llmseg_tpu.ops.attention``.  Layout at the public functions:
 q (B, T, H, D), k/v (B, S, H, D) -> (B, T, H, D).
@@ -17,17 +17,22 @@ q (B, T, H, D), k/v (B, S, H, D) -> (B, T, H, D).
   a bias, causal with T >= 256 or non-causal with T >= 2048, go to the
   kernels (the layers that reach the Pallas kernels on the TPU: LLaMA and
   DINOv2); everything else, CPU tensors included, takes the plain path.
+  The inference forward of non-causal attention follows the JAX module's
+  flags, read at import: kernel B by default, kernel A with
+  ``LLMSEG_ATTN_ONEPASS=0``, kernel J with ``LLMSEG_ATTN_ONEPASS_T=1``.
 
 Each kernel wrapper (:func:`flash_fwd`, kernel A; :func:`flash_fwd_1pass`,
-kernel B; :func:`flash_bwd_dq`, kernel C; :func:`flash_bwd_dkv`, kernel D)
-takes (B*H, L, D) tensors.  For a CUDA tensor it launches its kernel or
-raises; only a tensor on the CPU goes to the plain version beside it, which
-computes the same function step by step.
+kernel B; :func:`flash_bwd_dq`, kernel C; :func:`flash_bwd_dkv`, kernel D;
+:func:`flash_fwd_1pass_t`, kernel J) takes (B*H, L, D) tensors.  For a
+CUDA tensor it launches its kernel or raises; only a tensor on the CPU goes
+to the plain version beside it, which computes the same function step by
+step.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -43,7 +48,13 @@ FLASH_FWD = Kernel("flash_fwd")              # kernel A, csrc/flash_fwd.cu
 FLASH_FWD_1PASS = Kernel("flash_fwd_1pass")  # kernel B, csrc/flash_fwd_1pass.cu
 FLASH_BWD_DQ = Kernel("flash_bwd_dq")        # kernel C, csrc/flash_bwd_dq.cu
 FLASH_BWD_DKV = Kernel("flash_bwd_dkv")      # kernel D, csrc/flash_bwd_dkv.cu
-KERNELS = (FLASH_FWD, FLASH_FWD_1PASS, FLASH_BWD_DQ, FLASH_BWD_DKV)
+FLASH_FWD_1PASS_T = Kernel("flash_fwd_1pass_t")  # kernel J, csrc/flash_fwd_1pass_t.cu
+KERNELS = (FLASH_FWD, FLASH_FWD_1PASS, FLASH_BWD_DQ, FLASH_BWD_DKV, FLASH_FWD_1PASS_T)
+
+# the JAX module's flags for the non-causal inference forward: the one-pass
+# kernel B (default), or A with ONEPASS=0; its transposed form J with ONEPASS_T=1
+ONEPASS = os.environ.get("LLMSEG_ATTN_ONEPASS", "1") == "1"
+ONEPASS_T = os.environ.get("LLMSEG_ATTN_ONEPASS_T", "0") == "1"
 
 
 def attention_plain(q, k, v, *, bias=None, causal=False, scale=None):
@@ -174,6 +185,46 @@ def flash_fwd_1pass(q, k, v) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Kernel J: kernel B's function, every tile transposed (the port of _fwd1t_kernel)
+# ---------------------------------------------------------------------------
+
+
+def flash_fwd_1pass_t_plain(q, k, v, kmax):
+    """Kernel J's function, step by step: s^T = k q^T, the bound b of each
+    query column, p^T = exp2(s^T - b) rounded to v's dtype, o^T = v^T p^T
+    over the column sums l.  q (BH, T, D) pre-scaled; k, v (BH, S, D); kmax
+    (BH,).  Returns o^T (BH, D, T).  The rescue is decided per column."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    b = torch.clamp_min(qf.square().sum(-1).sqrt()[:, None, :] * kmax[:, None, None], 1.0)
+    st = torch.matmul(kf, qf.transpose(1, 2))                   # (BH, S, T)
+    p = torch.exp2(st - b).to(v.dtype).float()
+    l = p.sum(1, keepdim=True)
+    ot = torch.matmul(vf.transpose(1, 2), p)                    # (BH, D, T)
+    ok = l > RESCUE_L
+    if bool(ok.all()):
+        return (ot / l).to(q.dtype)
+    p2 = torch.exp2(st - st.amax(1, keepdim=True)).to(v.dtype).float()
+    l2 = p2.sum(1, keepdim=True)
+    o2 = torch.matmul(vf.transpose(1, 2), p2)
+    return torch.where(ok, ot / l, o2 / l2.clamp_min(1e-30)).to(q.dtype)
+
+
+def flash_fwd_1pass_t(q, k, v) -> torch.Tensor:
+    """Kernel J wrapper.  q (BH, T, D) pre-scaled; k, v (BH, S, D).  Returns
+    o^T (BH, D, T)."""
+    kmax = key_norm_max(k)
+    if q.device.type == "cpu":
+        return flash_fwd_1pass_t_plain(q, k, v, kmax)
+    _check_cuda(q, k, v)
+    BH, T, D = q.shape
+    ot = torch.empty((BH, D, T), dtype=q.dtype, device=q.device)
+    FLASH_FWD_1PASS_T.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), kmax.data_ptr(),
+                             ot.data_ptr(), BH, T, k.shape[1], D,
+                             int(q.dtype == torch.bfloat16))
+    return ot
+
+
+# ---------------------------------------------------------------------------
 # Kernels C and D: the backward (the ports of _bwd_dq_kernel, _bwd_dkv_kernel)
 # ---------------------------------------------------------------------------
 
@@ -290,8 +341,9 @@ def flash_attention(q, k, v, *, causal=False, scale=None):
     """q (B, T, H, D); k, v (B, S, H, D).  Under autograd (grad enabled and
     any of q, k, v requiring grad) it runs :class:`FlashAttentionFn`, on
     every device.  Otherwise causal attention runs kernel A and non-causal
-    kernel B, the inference forward; the grad path never takes kernel B,
-    as in the JAX package."""
+    kernel B, the inference forward (A with ``ONEPASS`` off, J with
+    ``ONEPASS_T`` on); the grad path never takes kernel B or J, as in the
+    JAX package."""
     B, T, H, D = q.shape
     S = k.shape[1]
     if D > 128:
@@ -309,8 +361,10 @@ def flash_attention(q, k, v, *, causal=False, scale=None):
     qf, kf, vf = prep(qs, T), prep(k, S), prep(v, S)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         o = FlashAttentionFn.apply(qf, kf, vf, causal)
-    elif causal:
-        o, _ = flash_fwd(qf, kf, vf, causal=True)
+    elif causal or not ONEPASS:
+        o, _ = flash_fwd(qf, kf, vf, causal=causal)
+    elif ONEPASS_T:
+        o = flash_fwd_1pass_t(qf, kf, vf).transpose(1, 2)
     else:
         o = flash_fwd_1pass(qf, kf, vf)
     return o.reshape(B, H, T, Dp).permute(0, 2, 1, 3)[..., :D]

@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# C signature of each kernel's launcher, in csrc/<name>.cu
+# C signature of each source's launcher, in csrc/<name>.cu
 SIGNATURES = {
     "flash_fwd": [_P, _P, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "flash_fwd_1pass": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -32,6 +32,8 @@ SIGNATURES = {
     "relpos_fwd": [_P] * 6 + [_I] * 5 + [_P],
     "relpos_window": [_P] * 6 + [_I] * 5 + [_P],
     "factored_decode": [_I] + [_P] * 5,
+    "twoway_fused": [_I, _I, _P, _I, _P, _P],
+    "flash_fwd_1pass_t": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -102,18 +104,21 @@ def library(name: str) -> ctypes.CDLL:
 
 class Kernel:
     """A launcher with a count of its launches.  ``launch`` calls the C
-    function on the current stream and raises if it reports an error; the
-    count goes up only for a launch that was accepted."""
+    function ``source`` of ``csrc/<source>.cu`` (the kernel's name unless
+    given: two kernels may share one source) on the current stream and
+    raises if it reports an error; the count goes up only for a launch that
+    was accepted."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, source: str = ""):
         self.name = name
+        self.source = source or name
         self.launches = 0
 
     def launch(self, *args) -> None:
-        lib = library(self.name)
+        lib = library(self.source)
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, self.name)(*args, stream)
+        err = getattr(lib, self.source)(*args, stream)
         if err != 0:
-            msg = getattr(lib, f"{self.name}_error_string")(err).decode()
+            msg = getattr(lib, f"{self.source}_error_string")(err).decode()
             raise RuntimeError(f"{self.name} launch failed: {msg} ({err})")
         self.launches += 1

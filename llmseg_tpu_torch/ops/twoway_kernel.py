@@ -1,11 +1,32 @@
-"""The factored shared-base SAM decode: its plain version and kernel G.
+"""The SAM two-way decode on the card: plain versions and kernels G, H, I.
 
-Counterpart of the factored path of ``llmseg_tpu.ops.twoway_kernel``.  In
-everything-mode mask generation (AMG) every prompt of a chunk shares ONE
-image base (image embedding + the dense no-mask prompt).  A prompt's keys
-state diverges from it only through the image-to-token cross attentions,
-whose update has rank <= heads*tokens + 1, and LayerNorm acts per row and
-per column, so the keys state stays
+Counterpart of ``llmseg_tpu.ops.twoway_kernel``.
+
+* :func:`fused_twoway_plain` computes ``_kernel``'s function: the depth-2
+  two-way transformer and its final attention, per prompt.
+  :func:`fused_twoway_apply` is kernel I (``csrc/twoway_fused.cu``);
+  ``TwoWayTransformer`` routes large prompt batches on the card to it.
+* :func:`fused_decode_plain` computes ``_decode_kernel``'s function: the
+  transformer, the IoU head, the hypernetwork MLPs and the permuted
+  upscale, with a per-prompt base or a shared one (layer 0's keys-side
+  projections computed once).  :func:`twoway_decode` is kernel H, in the
+  same source as I.
+* :func:`factored_decode_plain` is the port of ``factored_decode_ref``, and
+  :func:`factored_decode` is kernel G, the port of
+  ``_decode_kernel_factored``.
+* :func:`fused_decode_apply` routes as the JAX function does: a shared base
+  (one image embedding for more than one prompt) with ``factored`` goes to
+  G, every other case to H.
+
+Each wrapper runs its plain version for a tensor on the CPU; for a CUDA
+tensor it launches its kernel or raises.
+
+Kernel G works on the factored keys state.  In everything-mode mask
+generation (AMG) every prompt of a chunk shares ONE image base (image
+embedding + the dense no-mask prompt).  A prompt's keys state diverges
+from it only through the image-to-token cross attentions, whose update has
+rank <= heads*tokens + 1, and LayerNorm acts per row and per column, so
+the keys state stays
 
     keys = rho (x)rows (base . diag sigma) + A^T B
 
@@ -13,24 +34,17 @@ with per-prompt rho (L,), A (R, L), B (R, C) and a shared column scale
 sigma.  Every keys-side projection becomes rho (x) G + A^T (B W) + PE + b
 with G = (base sigma) W and PE = pe W computed once per chunk
 (:func:`factored_shared`), and norm4 becomes closed-form row statistics.
-
-* :func:`factored_decode_plain` is the port of ``factored_decode_ref``
-  (the vmap over prompts written as a batch dimension).
-* :func:`factored_decode` is kernel G, the port of
-  ``_decode_kernel_factored``: the per-prompt transformer, the IoU head, the
-  hypernetwork MLPs and the permuted upscale, on the card.  For a CPU
-  tensor it runs the plain version.
-* :func:`fused_decode_apply` routes a shared base to G.  A per-prompt base
-  would reach ``_decode_kernel`` on the TPU; that kernel is not ported, so
-  the mask decoder sends it to its plain tail instead.
-
-Kernel G (``csrc/factored_decode.cu``) is a sequence of launches of a few
+G (``csrc/factored_decode.cu``) is a sequence of launches of a few
 hand-written kernels (a strided batched GEMM with fused epilogues, row and
 column softmaxes, LayerNorms, norm4's closed form and small layout ops),
 all 64 prompts of a chunk per launch.  :class:`Program` records that
 sequence with its operands; the C side runs the whole sequence from one
 call, which counts as one launch of G.  ``Program.run_torch`` interprets
 the same records with torch (the test of the sequence on the CPU).
+
+Kernels H and I keep the keys state materialised, (P, L, C) in device
+memory, and run a fixed sequence of launches written in C++, one C call a
+launch; :class:`_TwOperands` hands it the weights and buffers.
 """
 
 from __future__ import annotations
@@ -46,7 +60,9 @@ from llmseg_tpu_torch.models.layers import gelu_tanh
 from llmseg_tpu_torch.ops.kernels import Kernel
 
 FACTORED_DECODE = Kernel("factored_decode")   # kernel G, csrc/factored_decode.cu
-KERNELS = (FACTORED_DECODE,)
+TWOWAY_DECODE = Kernel("twoway_decode", source="twoway_fused")            # kernel H
+TWOWAY_TRANSFORMER = Kernel("twoway_transformer", source="twoway_fused")  # kernel I
+KERNELS = (FACTORED_DECODE, TWOWAY_DECODE, TWOWAY_TRANSFORMER)
 LN_EPS = 1e-6
 
 
@@ -108,13 +124,127 @@ def _scaled_bd(x: torch.Tensor, nh: int) -> torch.Tensor:
     return _bd(x, nh) * torch.tensor(1.0 / math.sqrt(hd), dtype=x.dtype, device=x.device)
 
 
-def _attn_small_q(p, q, k, v, nh: int):
-    """Attention whose query side is small (the prompt tokens')."""
-    qh, kh, vh = _dense(p.q, q), _dense(p.k, k), _dense(p.v, v)
+def _attn_small_q(p, q, k, v, nh: int, kh=None, vh=None):
+    """Attention whose query side is small (the prompt tokens').  kh / vh:
+    the keys-side projections, when they are computed beforehand."""
+    qh = _dense(p.q, q)
+    kh = _dense(p.k, k) if kh is None else kh
+    vh = _dense(p.v, v) if vh is None else vh
     Tq = qh.shape[-2]
     s = _contract(_scaled_bd(qh, nh), kh.transpose(-1, -2))
     o = _contract(_softmax(s).to(vh.dtype), vh)
     return _dense(p.out, _head_extract(o, Tq, nh).to(q.dtype))
+
+
+def _attn_small_k(p, q, k, v, nh: int, qh=None):
+    """Attention whose key side is small: image rows attend to the prompt
+    tokens, the softmax over the tokens of each head.  qh: the query
+    projection, when it is computed beforehand."""
+    qh = _dense(p.q, q) if qh is None else qh
+    kh, vh = _dense(p.k, k), _dense(p.v, v)
+    Tk = kh.shape[-2]
+    s = _contract(qh, _scaled_bd(kh, nh).transpose(-1, -2))       # (..., Tq, nh*Tk)
+    probs = _softmax(s.unflatten(-1, (nh, Tk))).flatten(-2).to(vh.dtype)
+    return _dense(p.out, _contract(probs, _bd(vh, nh)).to(v.dtype))
+
+
+def _attention(p, q, k, v, nh: int):
+    if k.shape[-2] < q.shape[-2]:
+        return _attn_small_k(p, q, k, v, nh)
+    return _attn_small_q(p, q, k, v, nh)
+
+
+def _block(p, queries, keys, query_pe, k_with_pe, nh: int, skip_first_pe: bool, pre=None):
+    """One two-way block on (P, ., C) states.  ``pre``: layer 0's keys-side
+    projections (kh, vh, qi) of a shared base, which then enters only
+    through them and the residual."""
+    if skip_first_pe:
+        queries = _attention(p.self_attn, queries, queries, queries, nh)
+    else:
+        q = queries + query_pe
+        queries = queries + _attention(p.self_attn, q, q, queries, nh)
+    queries = p.norm1(queries)
+    kh, vh, qi = (None, None, None) if pre is None else pre
+    q = queries + query_pe
+    queries = p.norm2(queries + _attn_small_q(p.cross_attn_t2i, q, k_with_pe, keys, nh,
+                                              kh=kh, vh=vh))
+    queries = p.norm3(queries + _dense(p.mlp.fc2, torch.relu(_dense(p.mlp.fc1, queries))))
+    q = queries + query_pe
+    keys = p.norm4(keys + _attn_small_k(p.cross_attn_i2t, k_with_pe, q, queries, nh, qh=qi))
+    return queries, keys
+
+
+def _transformer(twt, queries, keys, key_pe, nh: int, pre0=None):
+    """``_transformer`` with a leading prompt dimension: queries (P, N, C),
+    keys (P or 1, L, C), key_pe (L, C); ``pre0`` as ``_block``'s ``pre``."""
+    query_pe = queries
+    for i, p in enumerate(twt.layers):
+        if i == 0 and pre0 is not None:
+            queries, keys = _block(p, queries, keys, query_pe, None, nh, True, pre=pre0)
+        else:
+            queries, keys = _block(p, queries, keys, query_pe, keys + key_pe, nh, i == 0)
+    q, k = queries + query_pe, keys + key_pe
+    queries = twt.norm_final(queries + _attention(twt.final_attn, q, k, keys, nh))
+    return queries, keys
+
+
+def fused_twoway_plain(twt, image_embedding, image_pe, tokens, num_heads: int):
+    """``_kernel``'s function.  image_embedding (P, S, S, C); image_pe (S, S,
+    C) or (1, S, S, C); tokens (P, N, C).  Returns (queries (P, N, C), keys
+    (P, S*S, C)) in the image dtype."""
+    P, Hs, Ws, C = image_embedding.shape
+    L = Hs * Ws
+    keys = image_embedding.reshape(P, L, C)
+    pe = image_pe.reshape(-1, L, C)[0].to(keys.dtype)
+    return _transformer(twt, tokens.to(keys.dtype), keys, pe, num_heads)
+
+
+def _decode_head(head: Dict, queries, y1):
+    """The IoU head, the hypernetwork MLPs and the upscale in the permuted
+    layout, from conv1's output y1 (P, L, 4*co1).  Returns (mask columns
+    (P, L, 16*nt) float32, iou (P, 1, nt))."""
+    nt = len(head["hyper"])
+    iou = _mlp_stack(head["iou"], queries[:, 0:1])
+    hyper = torch.cat([_mlp_stack(head["hyper"][n], queries[:, 1 + n:2 + n])
+                       for n in range(nt)], 1)
+    hbd = _hbd(hyper)
+    co1 = y1.shape[-1] // 4
+    w2, b2 = head["conv2"]
+    parts = []
+    for g1 in range(4):
+        z = gelu_tanh(head["ln"](y1[..., g1 * co1:(g1 + 1) * co1]))
+        z = gelu_tanh((_contract(z, w2) + b2.float()).to(z.dtype))
+        parts.append(_contract(z, hbd.transpose(1, 2)))
+    return torch.cat(parts, -1), iou
+
+
+def fused_decode_plain(twt, decoder, image_embedding, image_pe, tokens, num_heads: int):
+    """``_decode_kernel``'s function, unpermuted as ``fused_decode_apply``
+    returns it.  image_embedding (P, S, S, C) per prompt, or (1, S, S, C)
+    shared by the P > 1 prompts (then layer 0's keys-side projections are
+    computed once from it); image_pe (S, S, C) or (1, S, S, C); tokens (P,
+    N, C).  Returns (masks (P, nt, 4S, 4S), iou (P, nt)) in the image dtype."""
+    Bi, Hs, Ws, C = image_embedding.shape
+    P = tokens.shape[0]
+    if Bi not in (1, P):
+        raise ValueError(f"image embeddings {Bi} for {P} prompts")
+    L = Hs * Ws
+    keys = image_embedding.reshape(Bi, L, C)
+    dt = keys.dtype
+    pe = image_pe.reshape(-1, L, C)[0].to(dt)
+    pre0 = None
+    if Bi == 1 and P > 1:
+        l0, base = twt.layers[0], keys[0]
+        k1pe = base + pe
+        pre0 = (_dense(l0.cross_attn_t2i.k, k1pe), _dense(l0.cross_attn_t2i.v, base),
+                _dense(l0.cross_attn_i2t.q, k1pe))
+    queries, keys = _transformer(twt, tokens.to(dt), keys, pe, num_heads, pre0)
+    head = decode_head_params(decoder)
+    w1, b1 = head["conv1"]
+    y1 = (_contract(keys, w1) + b1.float()).to(dt)
+    cols, iou = _decode_head(head, queries, y1)
+    nt = len(head["hyper"])
+    return unpermute_masks(cols.to(dt), P, Hs, Ws, nt), iou[:, 0].to(dt)
 
 
 def _mlp_stack(stack, x):
@@ -298,23 +428,11 @@ def _hbd(hyper: torch.Tensor) -> torch.Tensor:
 def factored_decode_tail(head: Dict, sh: Dict, queries, rho, At, Bmat):
     """IoU head, hypernetwork and the permuted-layout upscale on the factored
     keys state.  Returns (mask columns (P, L, 16*nt) float32, iou (P, 1, nt))."""
-    nt = len(head["hyper"])
-    iou = _mlp_stack(head["iou"], queries[:, 0:1])
-    hyper = torch.cat([_mlp_stack(head["hyper"][n], queries[:, 1 + n:2 + n])
-                       for n in range(nt)], 1)
-    hbd = _hbd(hyper)
     w1, b1 = head["conv1"]
     y1 = (sh["Gc1"].float() * rho.transpose(1, 2)
           + _contract(At.transpose(1, 2), _contract(Bmat, w1, At.dtype))
           + b1.float()).to(At.dtype)
-    co1 = y1.shape[-1] // 4
-    w2, b2 = head["conv2"]
-    parts = []
-    for g1 in range(4):
-        z = gelu_tanh(head["ln"](y1[..., g1 * co1:(g1 + 1) * co1]))
-        z = gelu_tanh((_contract(z, w2) + b2.float()).to(z.dtype))
-        parts.append(_contract(z, hbd.transpose(1, 2)))
-    return torch.cat(parts, -1), iou
+    return _decode_head(head, queries, y1)
 
 
 def convt_as_matmul(conv) -> tuple:
@@ -924,14 +1042,185 @@ def factored_decode(twt, decoder, image_embedding, image_pe, tokens, num_heads: 
     return plan.run(tokens)
 
 
+# ---------------------------------------------------------------------------
+# Kernels H and I: the materialised decode and transformer
+# ---------------------------------------------------------------------------
+
+_MODE_TRANSFORMER, _MODE_DECODE = 0, 1   # csrc/twoway_fused.cu
+_CROSS_HEAD_DIM, _MAX_TOKENS, _MAX_DEPTH, _MAX_STACK, _MAX_NT, _MAX_CO2 = 16, 16, 8, 8, 8, 32
+
+
+class _TwOperands:
+    """The int64 dims and the pointers of one call of csrc/twoway_fused.cu,
+    appended in the order its ``Reader`` reads them.  Float32 copies of the
+    biases and norm weights are made here; every tensor is kept until the
+    call has been enqueued (later allocations on the stream follow it)."""
+
+    def __init__(self, dtype):
+        self.dtype, self.dims, self.ptrs, self.keep = dtype, [], [], []
+
+    def ptr(self, t: Optional[torch.Tensor]) -> None:
+        self.keep.append(t)
+        self.ptrs.append(None if t is None else t.data_ptr())
+
+    def lin(self, w: torch.Tensor, b: torch.Tensor) -> None:
+        """y = x w^T + b, w (out, in)."""
+        w = w.detach().to(self.dtype).contiguous()
+        self.ptr(w)
+        self.ptr(b.detach().float().contiguous())
+        self.dims += [w.shape[1], w.shape[0]]
+
+    def linear(self, lin: nn.Linear) -> None:
+        self.lin(lin.weight, lin.bias)
+
+    def norm(self, ln) -> None:
+        self.ptr(ln.weight.detach().float().contiguous())
+        self.ptr(ln.bias.detach().float().contiguous())
+
+    def attn(self, a) -> None:
+        for lin in (a.q, a.k, a.v, a.out):
+            self.linear(lin)
+
+    def stack(self, st) -> None:
+        self.dims.append(len(st.layers))
+        for lin in st.layers:
+            self.linear(lin)
+
+    def launch(self, kernel: Kernel, mode: int) -> None:
+        dims = (ctypes.c_longlong * len(self.dims))(*self.dims)
+        ptrs = (ctypes.c_void_p * len(self.ptrs))(*self.ptrs)
+        kernel.launch(mode, len(self.dims), ctypes.addressof(dims), len(self.ptrs),
+                      ctypes.addressof(ptrs))
+
+
+def _check_fused(twt, decoder, image_embedding, image_pe, tokens, num_heads: int) -> None:
+    """Raise on what kernels H and I do not take."""
+    dt = image_embedding.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"expected bf16 or float32, got {dt}")
+    if not all(t.is_cuda for t in (image_embedding, image_pe, tokens)):
+        raise ValueError("expected CUDA tensors")
+    if image_pe.dim() == 4 and image_pe.shape[0] > 1:
+        raise ValueError("a per-batch positional encoding is not supported")
+    Bi, P, N = image_embedding.shape[0], tokens.shape[0], tokens.shape[1]
+    C = image_embedding.shape[-1]
+    if Bi not in (1, P):
+        raise ValueError(f"image embeddings {Bi} for {P} prompts")
+    mods = [twt] if decoder is None else [decoder]
+    if any(p.dtype != dt or not p.is_cuda for m in mods for p in m.parameters()):
+        raise ValueError(f"the weights must be CUDA tensors in {dt}")
+    l0 = twt.layers[0]
+    if (l0.cross_attn_t2i.q.out_features != _CROSS_HEAD_DIM * num_heads
+            or twt.final_attn.q.out_features != _CROSS_HEAD_DIM * num_heads
+            or l0.self_attn.q.out_features % num_heads or N > _MAX_TOKENS
+            or C % 8 or C > 1024 or len(twt.layers) > _MAX_DEPTH):
+        raise ValueError("unsupported widths: cross-attention heads of 16, at most 16 "
+                         "tokens, C a multiple of 8 up to 1024, depth up to 8")
+    if decoder is not None:
+        stacks = [decoder.iou_head, *decoder.hyper_mlps]
+        co2 = decoder.upscale_conv2.weight.shape[0]
+        if (len(decoder.hyper_mlps) > _MAX_NT or co2 > _MAX_CO2
+                or any(len(st.layers) > _MAX_STACK for st in stacks)):
+            raise ValueError("unsupported decoder head: at most 8 mask tokens, "
+                             "hypernetwork outputs up to 32, MLPs of up to 8 layers")
+
+
+def _twoway_fused(mode: int, twt, decoder, image_embedding, image_pe, tokens,
+                  num_heads: int):
+    """One launch of kernel I (mode 0) or H (mode 1) on CUDA tensors."""
+    _check_fused(twt, decoder, image_embedding, image_pe, tokens, num_heads)
+    Bi, Hs, Ws, C = image_embedding.shape
+    P, N, _ = tokens.shape
+    L = Hs * Ws
+    dt, dev = image_embedding.dtype, image_embedding.device
+    l0 = twt.layers[0]
+    Ci, mlp = l0.cross_attn_t2i.q.out_features, l0.mlp.fc1.out_features
+    wide = max(C, Ci, l0.self_attn.q.out_features)
+
+    def new(*shape):
+        return torch.empty(shape, dtype=dt, device=dev)
+
+    ops = _TwOperands(dt)
+    nt = len(decoder.hyper_mlps) if mode == _MODE_DECODE else 0
+    ops.dims += [P, N, Hs, Ws, C, num_heads, len(twt.layers), Bi,
+                 int(dt == torch.bfloat16), nt]
+    if mode == _MODE_DECODE:
+        outs = (new(P, nt, 4 * Hs, 4 * Ws), new(P, nt))
+    else:
+        outs = (new(P, N, C), new(P, L, C))
+    for t in (image_embedding.reshape(Bi, L, C).contiguous(),
+              image_pe.reshape(-1, L, C)[0].to(dt).contiguous(), tokens.to(dt).contiguous(),
+              *outs):
+        ops.ptr(t)
+    # the keys state (kernel I keeps it in its output), then the scratch
+    ops.ptr(new(P, L, C) if mode == _MODE_DECODE else None)
+    for shape in ((P, L, C), (P, L, Ci), (P, L, Ci), (P, L, Ci), (P, L, Ci), (P, L, C),
+                  (P, N, C), (P, N, C), (P, N, wide), (P, N, wide), (P, N, wide),
+                  (P, N, wide), (P, N, C), (P, N, mlp)):
+        ops.ptr(new(*shape))
+    if mode == _MODE_DECODE:
+        w1, b1 = convt_as_matmul(decoder.upscale_conv1)
+        w2, b2 = convt_as_matmul(decoder.upscale_conv2)
+        co1, co2 = w2.shape[0], w2.shape[1] // 4
+        hidden = max(lin.out_features for st in (decoder.iou_head, *decoder.hyper_mlps)
+                     for lin in st.layers)
+        for shape in ((P, L, w1.shape[1]), (P, L, 4, co1), (P, L, 4, 4 * co2), (P, nt, co2),
+                      (P, hidden), (P, hidden)):
+            ops.ptr(new(*shape))
+    for p in twt.layers:
+        ops.attn(p.self_attn)
+        ops.norm(p.norm1)
+        ops.attn(p.cross_attn_t2i)
+        ops.norm(p.norm2)
+        ops.linear(p.mlp.fc1)
+        ops.linear(p.mlp.fc2)
+        ops.norm(p.norm3)
+        ops.attn(p.cross_attn_i2t)
+        ops.norm(p.norm4)
+    ops.attn(twt.final_attn)
+    ops.norm(twt.norm_final)
+    if mode == _MODE_DECODE:
+        ops.lin(w1.t(), b1)
+        ops.norm(decoder.upscale_ln)
+        ops.lin(w2.t(), b2)
+        ops.stack(decoder.iou_head)
+        for st in decoder.hyper_mlps:
+            ops.stack(st)
+    ops.launch(TWOWAY_DECODE if mode == _MODE_DECODE else TWOWAY_TRANSFORMER, mode)
+    return outs
+
+
+def fused_twoway_apply(twt, image_embedding, image_pe, point_embedding, num_heads: int):
+    """Kernel I wrapper: shapes and result as :func:`fused_twoway_plain`.  A
+    CPU tensor takes the plain version; a CUDA tensor (bf16 or float32)
+    launches the kernel or raises."""
+    if image_embedding.device.type == "cpu":
+        return fused_twoway_plain(twt, image_embedding, image_pe, point_embedding, num_heads)
+    if image_embedding.shape[0] != point_embedding.shape[0]:
+        raise ValueError("the transformer needs an image embedding per prompt")
+    return _twoway_fused(_MODE_TRANSFORMER, twt, None, image_embedding, image_pe,
+                         point_embedding, num_heads)
+
+
+def twoway_decode(twt, decoder, image_embedding, image_pe, tokens, num_heads: int):
+    """Kernel H wrapper: shapes and result as :func:`fused_decode_plain`.  A
+    CPU tensor takes the plain version; a CUDA tensor (bf16 or float32)
+    launches the kernel or raises."""
+    if image_embedding.device.type == "cpu":
+        return fused_decode_plain(twt, decoder, image_embedding, image_pe, tokens, num_heads)
+    return _twoway_fused(_MODE_DECODE, twt, decoder, image_embedding, image_pe, tokens,
+                         num_heads)
+
+
 def fused_decode_apply(twt, decoder, image_embedding, image_pe, point_embedding,
-                       num_heads: int, cache: Optional[Dict] = None):
-    """The fused decode from the transformer onward: a shared base
-    (image_embedding (1, S, S, C), more than one prompt) goes to kernel G.
-    Returns (masks (P, nt, 4S, 4S), iou (P, nt)) in the image dtype."""
-    if image_embedding.shape[0] == 1 and point_embedding.shape[0] > 1:
+                       num_heads: int, factored: bool = True, cache: Optional[Dict] = None):
+    """The fused decode from the transformer onward, routed as the JAX
+    function: a shared base (image_embedding (1, S, S, C), more than one
+    prompt) with ``factored`` goes to kernel G (``cache`` as
+    :func:`factored_decode`); every other case, a base per prompt or a
+    shared one with ``factored=False``, to kernel H.  Returns (masks (P,
+    nt, 4S, 4S), iou (P, nt)) in the image dtype."""
+    if factored and image_embedding.shape[0] == 1 and point_embedding.shape[0] > 1:
         return factored_decode(twt, decoder, image_embedding, image_pe,
                                point_embedding, num_heads, cache=cache)
-    raise NotImplementedError(
-        "the materialised fused decode (_decode_kernel) is not ported; "
-        "mask_decoder.predict_masks sends this case to its plain tail")
+    return twoway_decode(twt, decoder, image_embedding, image_pe, point_embedding, num_heads)

@@ -149,3 +149,39 @@ def test_kernel_wrappers_reject_mismatched_shapes(shapes):
     q, k, v = (torch.zeros(s) for s in shapes)
     with pytest.raises(ValueError, match="expected q"):
         TA._check_cuda(q, k, v)
+
+
+@pytest.mark.parametrize("adversarial", [False, True])
+def test_kernel_j_plain_matches_fwd1t_kernel(adversarial):
+    """Kernel J's plain version (o^T, the rescue decided per column) against
+    the interpret-mode ``_fwd1t_kernel`` (decided per block); the
+    adversarial norms fire the rescue."""
+    q, k, v = _adversarial(3) if adversarial else _qkv(B=1, T=200, S=300, D=64, seed=8)
+    T, S = 200, 300
+    scale = np.float32(1.0 / np.sqrt(64) * JA.LOG2E)
+    qh, kh, vh = _heads(q) * scale, _heads(k), _heads(v)
+    if adversarial:
+        qt, kt = torch.tensor(qh), torch.tensor(kh)
+        b = torch.clamp_min(qt.norm(dim=-1) * TA.key_norm_max(kt)[:, None], 1.0)
+        l = torch.exp2(kt @ qt.transpose(1, 2) - b[:, None, :]).sum(1)
+        assert (l <= TA.RESCUE_L).any()
+    ref = JA._flash_fwd_1pass_t(jnp.asarray(np.pad(qh, ((0, 0), (0, 56), (0, 0)))),
+                                jnp.asarray(_heads(k, 384)), jnp.asarray(_heads(v, 384)),
+                                block_q=128, s_real=S)
+    got = TA.flash_fwd_1pass_t(*_t(qh, kh, vh))
+    assert got.shape == (2, 64, T)
+    np.testing.assert_allclose(np.asarray(ref)[:, :T], got.transpose(1, 2).numpy(), **TOL)
+
+
+@pytest.mark.parametrize("onepass,onepass_t", [(True, True), (False, False), (False, True)])
+def test_flash_attention_follows_the_onepass_flags(monkeypatch, onepass, onepass_t):
+    """The non-causal inference forward under the JAX module's flags (the
+    port reads ``LLMSEG_ATTN_ONEPASS`` and ``LLMSEG_ATTN_ONEPASS_T`` at
+    import into the same names): kernel J's path, and kernel A's."""
+    for mod in (JA, TA):
+        monkeypatch.setattr(mod, "ONEPASS", onepass)
+        monkeypatch.setattr(mod, "ONEPASS_T", onepass_t)
+    q, k, v = _qkv(B=1, T=200, S=300, D=64, seed=9)
+    ref = JA.flash_attention(*map(jnp.asarray, (q, k, v)))
+    got = TA.flash_attention(*_t(q, k, v))
+    np.testing.assert_allclose(np.asarray(ref), got.numpy(), **TOL)

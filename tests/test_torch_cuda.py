@@ -4,11 +4,11 @@ Run on a machine with a CUDA card (tests/conftest.py needs JAX, which the card's
 machine may lack): ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 Elsewhere every test skips.  Inputs from a seed; the plain version computes
 in float32 on the same (rounded) inputs.  Tolerances: bf16 outputs of the
-forward kernels (A, B, E, F) within 1e-2 + 1e-2 * |ref| (bf16 keeps 8
+forward kernels (A, B, E, F, J) within 1e-2 + 1e-2 * |ref| (bf16 keeps 8
 significant bits; the kernels also round the probabilities to bf16 before
 the second product, as the TPU kernels do); float32 within 1e-4 (another
-summation order); the backward kernels and kernel G normwise, as their
-tests state."""
+summation order); the backward kernels and kernels G, H and I normwise, as
+their tests state."""
 
 import math
 
@@ -109,7 +109,8 @@ def test_flash_attention_grad_launches_c_and_d():
     A.flash_attention(x, x, x, causal=True).float().square().sum().backward()
     after = {kern.name: kern.launches for kern in A.KERNELS}
     assert {n: after[n] - before[n] for n in after} == {
-        "flash_fwd": 1, "flash_fwd_1pass": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+        "flash_fwd": 1, "flash_fwd_1pass": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+        "flash_fwd_1pass_t": 0}
     assert x.grad is not None and bool(torch.isfinite(x.grad).all())
 
 
@@ -248,3 +249,128 @@ def test_kernel_g_cache_follows_the_base_and_the_weights():
             assert torch.equal(m, rm) and torch.equal(i, ri)
             plans.append(cache["factored_decode"][-1])
     assert len({id(p) for p in plans}) == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("adversarial", [False, True])
+@pytest.mark.parametrize("T,S,D", [(4097, 4097, 64), (200, 300, 128), (130, 100, 64)])
+def test_kernel_j_matches_plain(dtype, adversarial, T, S, D):
+    """Kernel J (o^T, the rescue per column) against its plain version."""
+    q, k, v = _inputs(4, T, S, D, dtype, seed=6, adversarial=adversarial)
+    ot = A.flash_fwd_1pass_t(q, k, v)
+    assert ot.shape == (4, D, T)
+    ref = A.flash_fwd_1pass_t_plain(q.float(), k.float(), v.float(), A.key_norm_max(k))
+    _assert_close(ot, ref, dtype)
+
+
+def test_onepass_flags_pick_the_non_causal_kernel(monkeypatch):
+    """Non-causal inference attention: B by default, J with ONEPASS_T, A
+    with ONEPASS off; one launch each."""
+    y = torch.randn(1, 2048, 2, 64, device="cuda", dtype=torch.bfloat16)
+    for onepass, onepass_t, name in ((True, False, "flash_fwd_1pass"),
+                                     (True, True, "flash_fwd_1pass_t"),
+                                     (False, True, "flash_fwd")):
+        monkeypatch.setattr(A, "ONEPASS", onepass)
+        monkeypatch.setattr(A, "ONEPASS_T", onepass_t)
+        before = {kern.name: kern.launches for kern in A.KERNELS}
+        A.attention(y, y, y)
+        after = {kern.name: kern.launches for kern in A.KERNELS}
+        assert {n for n in after if after[n] != before[n]} == {name}
+
+
+def _decoder(dtype, seed):
+    """sam_vit_h's mask decoder from a seed, with noise on every 1-D
+    parameter so that no bias or norm is trivial."""
+    from llmseg_tpu_torch.models.sam import sam as S_
+    from llmseg_tpu_torch.models.sam.mask_decoder import MaskDecoder
+    dec = MaskDecoder(C.sam_vit_h().decoder, device="cuda", dtype=dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    S_.random_init_(dec, g)
+    with torch.no_grad():
+        for p in dec.parameters():
+            if p.ndim == 1:
+                p.add_(0.1 * torch.randn(p.shape, device="cuda", generator=g).to(dtype))
+    return dec, g
+
+
+def _normwise(got, ref, tol):
+    for x, r in zip(got, ref):
+        assert x.shape == r.shape and x.dtype == r.dtype
+        err = (x.float() - r.float()).abs().max().item()
+        assert err <= tol * r.float().abs().max().item(), (err, r.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 5e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("P,N,shared", [(8, 6, False), (9, 7, False), (64, 7, False),
+                                        (8, 6, True), (64, 7, True)])
+def test_kernel_h_matches_plain(dtype, tol, P, N, shared):
+    """Kernel H against fused_decode_plain at sam_vit_h's decoder widths,
+    a base per prompt or one shared (``factored=False``), held normwise:
+    max|err| <= tol * max|ref| (bf16 rounds in another summation order)."""
+    dec, g = _decoder(dtype, P + N)
+    base = (torch.randn(1 if shared else P, 64, 64, 256, device="cuda", generator=g) * 0.5
+            ).to(dtype)
+    pe = (torch.randn(64, 64, 256, device="cuda", generator=g) * 0.5).to(dtype)
+    tok = (torch.randn(P, N, 256, device="cuda", generator=g) * 0.5).to(dtype)
+    args = (dec.transformer, dec, base, pe, tok, 8)
+    with torch.inference_mode():
+        before = (TK.TWOWAY_DECODE.launches, TK.FACTORED_DECODE.launches)
+        got = TK.fused_decode_apply(*args, factored=False)
+        assert (TK.TWOWAY_DECODE.launches, TK.FACTORED_DECODE.launches) == (before[0] + 1,
+                                                                          before[1])
+        ref = TK.fused_decode_plain(*args)
+    assert got[0].shape == (P, 4, 256, 256) and got[1].shape == (P, 4)
+    _normwise(got, ref, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 5e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("P,N", [(64, 7), (8, 6)])
+def test_kernel_i_matches_plain(dtype, tol, P, N):
+    """Kernel I against fused_twoway_plain, normwise as kernel H; the
+    transformer's routing on the card reaches it once."""
+    dec, g = _decoder(dtype, 3)
+    emb = (torch.randn(P, 64, 64, 256, device="cuda", generator=g) * 0.5).to(dtype)
+    pe = (torch.randn(1, 64, 64, 256, device="cuda", generator=g) * 0.5).to(dtype)
+    tok = (torch.randn(P, N, 256, device="cuda", generator=g) * 0.5).to(dtype)
+    with torch.inference_mode():
+        before = TK.TWOWAY_TRANSFORMER.launches
+        got = dec.transformer(emb, pe, tok)
+        assert TK.TWOWAY_TRANSFORMER.launches == before + 1
+        ref = TK.fused_twoway_plain(dec.transformer, emb, pe, tok, 8)
+    _normwise(got, ref, tol)
+
+
+def test_pixel_shaped_decode_routes_to_h():
+    """8 prompts, each with its own image embedding (the pixel decoder's
+    decode): predict_masks reaches H once, G never, and under autograd the
+    plain tail."""
+    dec, g = _decoder(torch.bfloat16, 5)
+    emb = (torch.randn(8, 64, 64, 256, device="cuda", generator=g) * 0.5).bfloat16()
+    pe = (torch.randn(1, 64, 64, 256, device="cuda", generator=g) * 0.5).bfloat16()
+    sparse = (torch.randn(8, 1, 256, device="cuda", generator=g) * 0.5).bfloat16()
+    dense = (torch.randn(1, 1, 1, 256, device="cuda", generator=g) * 0.5).bfloat16().expand(
+        8, 64, 64, 256)
+    with torch.inference_mode():
+        before = {k.name: k.launches for k in TK.KERNELS}
+        m, i = dec.predict_masks(emb, pe, sparse, dense, dense_shared=True)
+        after = {k.name: k.launches for k in TK.KERNELS}
+    assert {n: after[n] - before[n] for n in after} == {
+        "factored_decode": 0, "twoway_decode": 1, "twoway_transformer": 0}
+    assert m.dtype == torch.bfloat16 and bool(torch.isfinite(m.float()).all())
+    mg, _ = dec.predict_masks(emb, pe, sparse, dense, dense_shared=True)
+    assert mg.grad_fn is not None and mg.dtype == torch.float32
+
+
+def test_kernels_h_i_reject_unsupported_inputs():
+    dec, g = _decoder(torch.bfloat16, 7)
+    emb = torch.randn(8, 64, 64, 256, device="cuda", generator=g).bfloat16()
+    pe = torch.randn(64, 64, 256, device="cuda", generator=g).bfloat16()
+    tok = torch.randn(8, 6, 256, device="cuda", generator=g).bfloat16()
+    with pytest.raises(ValueError):     # a per-batch positional encoding
+        TK.twoway_decode(dec.transformer, dec, emb, pe.expand(8, 64, 64, 256), tok, 8)
+    with pytest.raises(ValueError):     # float16
+        TK.twoway_decode(dec.transformer, dec, emb.half(), pe.half(), tok.half(), 8)
+    with pytest.raises(ValueError):     # more tokens than the kernels take
+        TK.fused_twoway_apply(dec.transformer, emb, pe, tok.repeat(1, 3, 1), 8)
+    with pytest.raises(ValueError):     # 3 image embeddings for 8 prompts
+        TK.twoway_decode(dec.transformer, dec, emb[:3], pe, tok, 8)

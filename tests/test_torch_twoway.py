@@ -243,9 +243,20 @@ def test_should_fuse_is_keyed_on_the_device():
     assert not tk.should_fuse(64, 256, pe3, "cuda")
 
 
-def test_per_prompt_base_is_not_fused(decoders):
+def test_per_prompt_base_is_not_fused(decoders, monkeypatch):
+    """A base per prompt is not the factored decode: ``fused_decode_apply``
+    sends it to kernel H (``_decode_kernel``'s port; on the CPU its plain
+    version), never to G."""
     p, m = decoders
     emb, pe, sparse, _ = _chunk(B=3)
-    with pytest.raises(NotImplementedError):
-        tk.fused_decode_apply(m.transformer, m, torch.tensor(emb).expand(3, 8, 8, 64),
-                              torch.tensor(pe), torch.tensor(_tokens(p, sparse)), NH)
+    args = (m.transformer, m, torch.tensor(emb).expand(3, 8, 8, 64), torch.tensor(pe),
+            torch.tensor(_tokens(p, sparse)), NH)
+
+    def not_g(*a, **k):
+        raise AssertionError("a base per prompt reached the factored decode")
+
+    monkeypatch.setattr(tk, "factored_decode", not_g)
+    with torch.no_grad():
+        got = tk.fused_decode_apply(*args)
+        want = tk.fused_decode_plain(*args)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
