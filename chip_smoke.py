@@ -22,6 +22,9 @@ Phases, one JSON line each; any failure exits non-zero:
               prompts of 7 with a base per prompt and with a shared base
               (not factored), kernel I at 64 x 7, kernel J (the transposed
               one-pass forward) at DINOv2-L's shape with adversarial norms;
+              A and J also at lengths off their 128-row tiles, with one head,
+              A with a broadcast bias and with none, J with rescued rows
+              beside rows that are not;
   3. modules  llmseg_tiny predict on the card against the same weights on
               the CPU;
      in_place llmseg_7b widths and sequence lengths at two blocks per
@@ -45,7 +48,7 @@ Phases, one JSON line each; any failure exits non-zero:
               ms/step, img/s and peak memory;
      onepass_t  the same predict with the non-causal forward switched to
               kernel J (LLMSEG_ATTN_ONEPASS_T's flag): J 24 launches, B 0,
-              outputs within the bf16 gate of the default run;
+              outputs within the bf16 gate of the default run, ms/step;
   5. train    the LoRA train step at llmseg_7b in bf16 through the Trainer
               (1 image, 1 row, text_len 512, remat "dots"): launch counts per
               step, finite losses, frozen weights bit-identical and trainable
@@ -55,9 +58,14 @@ Phases, one JSON line each; any failure exits non-zero:
               by kernel family (torch.profiler) with the idle share;
      breakdown  each stage of predict timed alone, and one predict step's
               device time by kernel family with the idle share;
-     bwd_device_time  device time (torch.profiler) of kernels C and D and
+     bwd_device_time  device time (device_ms) of kernels C and D and
               of SDPA's backward at the training shape: SDPA's is C and
               D's library_ms, and C + D on the same clock stands beside it;
+     fwd_device_time  device time of kernels A and J and of SDPA's
+              forward at their main shapes (near 50 us the event clock of
+              the kernel phase also counts the wrappers' host time); both
+              go into the kernels line as device_ms and library_device_ms,
+              with J's exp2 bound (16 a clock an SM) as ex2_bound_ms;
   6. pixel    the pixel-decoder entry point, evaluate(), at llmseg_7b +
               sam_vit_h in bf16 (random weights from seeds), 8 images,
               767-token prompts, 32 new tokens: launches per evaluate (A 32,
@@ -139,17 +147,28 @@ def kernel_times(prof):
 
 
 def device_ms(fn, iters: int) -> float:
-    """Device time of ``fn`` per call: the sum of its kernels' times under
-    torch.profiler, for calls whose host work outlasts their kernels."""
+    """Device time of ``fn`` per call, for calls whose host work may outlast
+    their kernels: the calls are queued behind a spin kernel
+    (torch.cuda._sleep) that outlasts their host time, so the events around
+    them time the card's work back to back, without the host's gaps.
+    (torch.profiler does not serve here: it dropped some or all of the
+    kernels launched through ctypes, reading 0.0 ms for kernel A in one
+    run.)"""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(ms for _, ms in kernel_times(prof)[2]) / iters
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0   # host and device time of one call, a bound on the host's
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * (2 * iters * call_s + 0.005)))   # cycles, at about 2 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def bound(nbytes: float, flops: float):
@@ -157,16 +176,25 @@ def bound(nbytes: float, flops: float):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ex2_bound_ms(count: int) -> float:
+    """The least time of ``count`` float32 exp2 on the card's special
+    function units: 16 a clock on each SM, at the SM's top clock."""
+    import torch
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 1e3 * count / (16 * sms * mhz * 1e6)
+
+
 def causal_pairs(T: int, S: int) -> int:
     return sum(min(i + 1, S) for i in range(T))
 
 
-def kernel_case(A, name, *, BH, T, S, D, causal=None, dtype, adversarial=False,
-                bias=False, lse=False, timed=False, seed=0):
-    """One comparison of a kernel with its plain version; with ``timed``
-    also the kernel's, the plain version's and the library call's times."""
+def fwd_inputs(A, BH, T, S, D, dtype, adversarial=False, mixed=False, seed=0):
+    """Seeded q (pre-scaled by scale*log2(e)), k and v of a forward kernel
+    case, and the generator, for what the case draws next."""
     import torch
-    import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = dict(device="cuda", dtype=torch.float32)
     scale = 1.0 / math.sqrt(D)
@@ -178,13 +206,29 @@ def kernel_case(A, name, *, BH, T, S, D, causal=None, dtype, adversarial=False,
         q[..., :D // 2] = torch.randn(BH, T, D // 2, generator=g, **dev) * 30
         k[..., D // 2:] = torch.randn(BH, S, D // 2, generator=g, **dev) * 30
         q[..., D // 2] = torch.randn(BH, T, generator=g, **dev) * 0.3
+        if mixed:   # small rows: bound near 1, sums far above the rescue line
+            q[:, ::3] = torch.randn(BH, len(range(0, T, 3)), D, generator=g, **dev) * 0.01
     else:
         q = torch.randn(BH, T, D, generator=g, **dev)
         k = torch.randn(BH, S, D, generator=g, **dev)
     v = torch.randn(BH, S, D, generator=g, **dev)
     q = (q.to(dtype) * torch.tensor(scale * A.LOG2E, dtype=dtype, device="cuda")).contiguous()
-    k, v = k.to(dtype).contiguous(), v.to(dtype).contiguous()
-    b = (torch.randn(BH, T, S, generator=g, **dev) * A.LOG2E) if bias else None
+    return q, k.to(dtype).contiguous(), v.to(dtype).contiguous(), g
+
+
+def kernel_case(A, name, *, BH, T, S, D, causal=None, dtype, adversarial=False,
+                mixed=False, bias=False, lse=False, timed=False, seed=0):
+    """One comparison of a kernel with its plain version; with ``timed``
+    also the kernel's, the plain version's and the library call's times.
+    ``bias``: False, True (one per head) or "broadcast" (one for all heads,
+    stride 0); ``mixed``: with ``adversarial``, every third query row is a
+    small one that needs no rescue, beside rows that do."""
+    import torch
+    import torch.nn.functional as F
+    q, k, v, g = fwd_inputs(A, BH, T, S, D, dtype, adversarial, mixed, seed)
+    dev = dict(device="cuda", dtype=torch.float32)
+    b = (torch.randn(1 if bias == "broadcast" else BH, T, S, generator=g, **dev) * A.LOG2E
+         if bias else None)
 
     if name == "flash_fwd":
         run = lambda: A.flash_fwd(q, k, v, causal=causal, bias=b, with_lse=lse)
@@ -206,7 +250,7 @@ def kernel_case(A, name, *, BH, T, S, D, causal=None, dtype, adversarial=False,
     for i in range(0, BH, step):
         sl = slice(i, i + step)
         ro, rl = plain(q[sl].float(), k[sl].float(), v[sl].float(),
-                       None if b is None else b[sl])
+                       None if b is None else b if b.shape[0] == 1 else b[sl])
         diff = (o[sl].float() - ro).abs()
         err = max(err, diff.max().item())
         excess = max(excess, (diff - atol - rtol * ro.abs()).max().item())
@@ -214,7 +258,7 @@ def kernel_case(A, name, *, BH, T, S, D, causal=None, dtype, adversarial=False,
             err_lse = max(err_lse, (l2[sl] - rl).abs().max().item())
     rec = {"phase": "kernel", "kernel": name, "BH": BH, "T": T, "S": S, "D": D,
            "causal": causal, "dtype": str(dtype).split(".")[-1], "bias": bias,
-           "lse": lse, "adversarial": adversarial, "max_abs_err": err,
+           "lse": lse, "adversarial": adversarial, "mixed": mixed, "max_abs_err": err,
            "atol": atol, "rtol": rtol}
     if lse:
         rec["lse_max_abs_err"] = err_lse
@@ -247,14 +291,12 @@ def bwd_inputs(A, BH, T, S, D, dtype, seed):
 
 
 def bwd_device_times(A, *, BH, T, S, D, causal, dtype, seed=0) -> dict:
-    """Device time under torch.profiler, on the same inputs as bwd_case, of
+    """Device time (device_ms), on the same inputs as bwd_case, of
     the backward alone of F.scaled_dot_product_attention (torch.autograd.grad
     with a fixed do: the yardstick of kernels C and D together, which the
     port never calls) and of C and D.  The SDPA backward's call costs more
     host time than its kernels take, so CUDA events would time the host;
-    C and D are timed here on the same clock, so that the two compare.
-    Runs after every timed phase (the profiler adds host cost to later
-    calls)."""
+    C and D are timed here on the same clock, so that the two compare."""
     import torch
     import torch.nn.functional as F
     q, k, v, do = bwd_inputs(A, BH, T, S, D, dtype, seed)
@@ -268,6 +310,26 @@ def bwd_device_times(A, *, BH, T, S, D, causal, dtype, seed=0) -> dict:
     out["flash_bwd_dq"] = device_ms(lambda: A.flash_bwd_dq(q, k, v, o, do, lse, causal=causal), 20)
     out["flash_bwd_dkv"] = device_ms(
         lambda: A.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal), 20)
+    return out
+
+
+def fwd_device_times(A) -> dict:
+    """Device time (device_ms) of kernels A and J at their main shapes (J's
+    with its kmax reduction) and of SDPA's forward on the same inputs: near
+    50 us the event clock of kernel_case may also count the wrappers' host
+    time."""
+    import torch
+    import torch.nn.functional as F
+    out = {}
+    for name, (BH, T, D, causal) in (("flash_fwd", (128, 767, 128, True)),
+                                     ("flash_fwd_1pass_t", (64, 4097, 64, False))):
+        q, k, v, _ = fwd_inputs(A, BH, T, T, D, torch.bfloat16)
+        run = ((lambda: A.flash_fwd(q, k, v, causal=True)) if causal
+               else (lambda: A.flash_fwd_1pass_t(q, k, v)))
+        q4, k4, v4 = (x.unsqueeze(0) for x in (q, k, v))
+        out[name] = {"device_ms": device_ms(run, 20),
+                     "library_device_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                         q4, k4, v4, is_causal=causal, scale=1.0 / A.LOG2E), 20)}
     return out
 
 
@@ -1109,8 +1171,9 @@ def twoway_case(C, TK, name, dtype, *, P, N, shared=False, timed=False, seed=0):
 def pixel_kernel_phase(C, A, TK) -> dict:
     """H at the pixel decoder's shape and at 64 prompts (a base each, and a
     shared one), I at 64 x 7, in bf16 (timed) and float32; J at DINOv2-L's
-    shape in bf16 (timed), with adversarial norms, at D = 128 and in
-    float32."""
+    shape in bf16 (timed, with its exp2 bound), with adversarial norms, at
+    D = 128, in float32, at lengths off its tiles, with one head and with
+    rescued rows beside rows that are not."""
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
     main = {"twoway_decode": twoway_case(C, TK, "twoway_decode", bf16, P=8, N=6, timed=True)}
@@ -1124,11 +1187,19 @@ def pixel_kernel_phase(C, A, TK) -> dict:
     twoway_case(C, TK, "twoway_transformer", f32, P=64, N=7)
     main["flash_fwd_1pass_t"] = kernel_case(A, "flash_fwd_1pass_t", BH=4 * 16, T=4097, S=4097,
                                             D=64, dtype=bf16, timed=True)
+    main["flash_fwd_1pass_t"]["ex2_bound_ms"] = ex2_bound_ms(4 * 16 * 4097 * 4097)
     kernel_case(A, "flash_fwd_1pass_t", BH=16, T=4097, S=4097, D=64, dtype=bf16,
                 adversarial=True)
     kernel_case(A, "flash_fwd_1pass_t", BH=4, T=200, S=300, D=128, dtype=bf16)
     kernel_case(A, "flash_fwd_1pass_t", BH=2, T=200, S=300, D=64, dtype=f32, adversarial=True)
     kernel_case(A, "flash_fwd_1pass_t", BH=2, T=4097, S=4097, D=64, dtype=f32)
+    # lengths off the 128-row tiles, one head, and rescued rows beside rows
+    # that are not
+    kernel_case(A, "flash_fwd_1pass_t", BH=1, T=65, S=129, D=64, dtype=bf16)
+    kernel_case(A, "flash_fwd_1pass_t", BH=3, T=129, S=65, D=128, dtype=bf16)
+    kernel_case(A, "flash_fwd_1pass_t", BH=1, T=1, S=1, D=64, dtype=bf16)
+    kernel_case(A, "flash_fwd_1pass_t", BH=4, T=1000, S=1000, D=64, dtype=bf16,
+                adversarial=True, mixed=True)
     return main
 
 
@@ -1370,6 +1441,15 @@ def main() -> int:
     kernel_case(A, "flash_fwd", BH=2, T=300, S=300, D=128, causal=True, dtype=f32,
                 bias=True, lse=True)
     kernel_case(A, "flash_fwd", BH=2, T=128, S=100, D=64, causal=False, dtype=f32)
+    # lengths off the 128-row tiles (1, 65, 129), one head, a bias broadcast
+    # over the heads, and no bias with the lse
+    kernel_case(A, "flash_fwd", BH=3, T=65, S=129, D=64, causal=False, dtype=bf16, lse=True)
+    kernel_case(A, "flash_fwd", BH=2, T=129, S=65, D=128, causal=True, dtype=bf16, lse=True)
+    kernel_case(A, "flash_fwd", BH=1, T=1, S=1, D=128, causal=True, dtype=bf16, lse=True)
+    kernel_case(A, "flash_fwd", BH=1, T=767, S=767, D=128, causal=True, dtype=bf16)
+    kernel_case(A, "flash_fwd", BH=4, T=300, S=200, D=128, causal=False, dtype=bf16,
+                bias="broadcast", lse=True)
+    kernel_case(A, "flash_fwd", BH=8, T=300, S=300, D=64, causal=True, dtype=bf16, lse=True)
     main_b = kernel_case(A, "flash_fwd_1pass", BH=4 * 16, T=4097, S=4097, D=64,
                          dtype=bf16, timed=True)
     kernel_case(A, "flash_fwd_1pass", BH=16, T=4097, S=4097, D=64, dtype=bf16,
@@ -1458,14 +1538,20 @@ def main() -> int:
             kern.launches = 0
         out_t = llmseg.predict(model, batch)
         torch.cuda.synchronize()
+        launches_t = {kern.name: kern.launches for kern in A.KERNELS}
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            llmseg.predict(model, batch)
+        torch.cuda.synchronize()
+        step_ms_t = (time.perf_counter() - t0) * 1e3 / steps
     finally:
         A.ONEPASS_T = False
-    launches_t = {kern.name: kern.launches for kern in A.KERNELS}
     expect_t = dict(expect, flash_fwd_1pass=0, flash_fwd_1pass_t=cfg.dino.depth)
     atol, rtol = BF16_TOL
     diff = {k: (out_t[k].float() - out[k].float()).abs() for k in ("pred_similarity", "pred_iou")}
     rec_t = {"phase": "onepass_t", "config": "llmseg_7b", "dtype": "bfloat16", "batch_images": 4,
-             "launches": launches_t, "expected_launches": expect_t, "atol": atol, "rtol": rtol,
+             "launches": launches_t, "expected_launches": expect_t, "ms_per_step": step_ms_t,
+             "ms_per_step_default": step_ms, "atol": atol, "rtol": rtol,
              "max_abs_diff_vs_default": {k: d.max().item() for k, d in diff.items()}}
     rec_t["ok"] = launches_t == expect_t and all(
         bool(torch.isfinite(d).all()) and (d - atol - rtol * out[k].float().abs()).max().item() <= 0
@@ -1507,10 +1593,15 @@ def main() -> int:
     del pixel
     torch.cuda.empty_cache()
     dev_cd = bwd_device_times(A, BH=32, T=767, S=767, D=128, causal=True, dtype=bf16)
-    emit({"phase": "bwd_device_time", "clock": "device (torch.profiler)", **dev_cd,
+    emit({"phase": "bwd_device_time", "clock": "device (events behind a spin kernel)", **dev_cd,
           "c_plus_d": dev_cd["flash_bwd_dq"] + dev_cd["flash_bwd_dkv"]})
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         timed[name]["library_ms"] = dev_cd["sdpa_backward"]
+        timed[name]["device_ms"] = dev_cd[name]
+    dev_fwd = fwd_device_times(A)
+    emit({"phase": "fwd_device_time", "clock": "device (events behind a spin kernel)", **dev_fwd})
+    for name, r in dev_fwd.items():
+        timed[name].update(r)
 
     # 7. summary: A and B launches per predict, J per predict with its flag,
     # C and D per train step, E, F and G per AMG image, H and I per evaluate
@@ -1542,7 +1633,9 @@ def main() -> int:
                      "launches": launches[name],
                      "max_abs_err": max(err.values()) if isinstance(err, dict) else err,
                      "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                     **{k: r[k] for k in ("device_ms", "library_device_ms", "ex2_bound_ms")
+                        if k in r}})
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

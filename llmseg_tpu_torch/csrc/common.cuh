@@ -1,5 +1,9 @@
-// Shared pieces of the attention kernels (flash_fwd.cu, flash_fwd_1pass.cu,
-// flash_bwd_dq.cu, flash_bwd_dkv.cu).
+// Shared pieces of the mma.sync attention kernels: B (flash_fwd_1pass.cu),
+// C (flash_bwd_dq.cu), D (flash_bwd_dkv.cu), E and F (relpos_*.cu) and the
+// GEMM of G, H and I (batched_gemm.cuh).  Kernels A (flash_fwd.cu) and J
+// (flash_fwd_1pass_t.cu) run their bf16 paths on hopper.cuh and
+// fwd_core.cuh instead (wgmma, TMA); they take only the reductions, the
+// bf16 packing and the float32 paths' helpers from here.
 //
 // Layout contract of both kernels: q (BH, T, D), k and v (BH, S, D), all
 // contiguous, q already multiplied by scale*log2(e) in its own dtype, so

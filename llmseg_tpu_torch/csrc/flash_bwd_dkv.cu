@@ -232,9 +232,8 @@ static int launch(const void* q, const void* k, const void* v, const void* dO, c
                   int causal, cudaStream_t st) {
   if (is_bf16) {
     using L = DkvTiles<D>;
-    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_bf16<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L::BYTES);
+    static const cudaError_t e = cudaFuncSetAttribute(  // once
+        flash_bwd_dkv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
     if (e != cudaSuccess) return (int)e;
     dim3 grid((S + L::BKV - 1) / L::BKV, BH);
     flash_bwd_dkv_bf16<D><<<grid, L::THREADS, L::BYTES, st>>>(

@@ -195,9 +195,8 @@ static int launch(const void* q, const void* k, const void* v, const void* o, co
                   int causal, cudaStream_t st) {
   if (is_bf16) {
     using L = DqTiles<D>;
-    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_bf16<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L::BYTES);
+    static const cudaError_t e = cudaFuncSetAttribute(  // once
+        flash_bwd_dq_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
     if (e != cudaSuccess) return (int)e;
     dim3 grid((T + L::BQ - 1) / L::BQ, BH);
     flash_bwd_dq_bf16<D><<<grid, L::THREADS, L::BYTES, st>>>(

@@ -230,9 +230,8 @@ static int launch(const void* q, const void* k, const void* v, const void* kmax,
   if (is_bf16) {
     constexpr int NW = D == 64 ? 8 : 4;
     using L = Tiles<D, NW>;
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_1pass_bf16<D, NW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L::BYTES);
+    static const cudaError_t e = cudaFuncSetAttribute(  // once
+        flash_fwd_1pass_bf16<D, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
     if (e != cudaSuccess) return (int)e;
     dim3 grid((T + L::BQ - 1) / L::BQ, BH);
     flash_fwd_1pass_bf16<D, NW><<<grid, L::THREADS, L::BYTES, st>>>(

@@ -1,247 +1,255 @@
-// Kernel J: the one-pass attention forward with every tile transposed.
+// Kernel J: the one-pass attention forward that returns o^T.
 //
 // Replaces llmseg_tpu/ops/attention.py::_fwd1t_kernel (launched by
 // _flash_fwd_1pass_t when LLMSEG_ATTN_ONEPASS_T=1).  It computes kernel B's
-// function (flash_fwd_1pass.cu) in the transposed form: s^T = k q^T (keys x
-// queries), p^T = bf16(exp2(s^T - b)) with the Cauchy-Schwarz bound b =
-// max(|q| * max_j |k_j|, 1) of each query column, o^T = v^T p^T (D x
-// queries) and l = the column sums of the rounded p over real keys; it
-// writes o^T (BH, D, T), which the wrapper transposes back.  A column whose
-// l is <= 1e-12 is redone with its exact maximum over the real keys (the
-// TPU kernel decides per block).  On the TPU the transposed form put the
-// query block on the 128 output lanes of both products; on the card the
-// query block is the N dimension of both mma.sync products: a warp holds
-// its QW queries' q rows as B fragments, the k tile gives the A fragments
-// of s^T, and the C fragments of p^T become the B fragments of the second
-// product through movmatrix.trans, so p never leaves registers; v^T's A
-// fragments come from the v tile by ldmatrix.trans.
+// function (flash_fwd_1pass.cu): p = bf16(exp2(s - b)) with the
+// Cauchy-Schwarz bound b = max(|q_row| * max_j |k_j|, 1) of each query,
+// fixed before the loop (no running max, no rescale of O), o = p v / l with
+// l the sum of the rounded p over the real keys, as the TPU kernel's valid
+// lane sums it.  A query whose l is <= 1e-12 is redone with its exact
+// maximum over the real keys (the TPU kernel decides per block).  It writes
+// o^T (BH, D, T), as the TPU kernel does.  On the TPU the transposed form
+// filled the MXU's 128 output lanes with the query block; on the card it
+// would cost a transpose of every probability fragment, so the products
+// run in the straight form and only the epilogue transposes.
 //
-// What bounds it on an H100: as kernel B, the 4 BH T S D tensor-core
-// operations (275 GFLOP at DINOv2-L@896, B*H = 64, T = S = 4097, D = 64,
-// about 280 us at the bf16 peak).  k and v stream through a two-stage
-// cp.async ring of 64-key tiles, each serving the block's 128 queries.
+// What bounds it on an H100: the 4 BH T S D tensor-core operations (275
+// GFLOP at DINOv2-L@896, B*H = 64, T = S = 4097, D = 64: about 280 us at
+// the bf16 peak) and, as close, the exp2 of every logit: 1.07e9 of them at
+// 16 a clock on each of 132 SMs, about 290 us.  A kernel that does not
+// overlap the two pays their sum.
+//
+// What the design does: the bf16 path runs on the Hopper forward core
+// (fwd_core.cuh): 128 queries a CTA in two consumer warpgroups, 128-key
+// tiles of k and v by TMA through a three-stage ring (two at D = 128), both
+// products on wgmma with P from registers.  With the bound fixed there is
+// no running max and no rescale, so the probability step is one subtract
+// and one exp2 a logit; the row sums of the rounded P come from the tensor
+// cores (P times a column of ones, m64n8k16, beside each PV step), as the
+// TPU kernel's valid lane gives them, and keys past S are zeroed only on
+// the last tile.  At D = 64 the exp2 of tile j runs under the PV product
+// of tile j - 1, and the two warpgroups interleave, so the MUFU and tensor
+// work overlap.  The epilogue divides by l, transposes the warpgroup's
+// 64 x D block through shared memory and writes o^T rows of 64 queries
+// with coalesced stores.  max_j |k_j|^2 comes from a reduction kernel over
+// k (blocks of 512 keys, combined by atomicMax), launched by the same C
+// call.  The rescue is a plain warp per flagged query reading k and v from
+// device memory: it fires only on adversarial norms, so it is right, not
+// fast.
 //
 // float32 inputs take a plain SIMT kernel (one warp per query column).
-#include "common.cuh"
+#include "fwd_core.cuh"
 
 using namespace llmseg;
 
 namespace {
 
 constexpr float RESCUE_L = 1e-12f;
-constexpr int NW = 4;  // warps a block
+constexpr int LDO = 66;  // bf16 stride of the o^T staging rows
 
-template <int D>
-struct TTiles {
-  static constexpr int QW = 2048 / D;  // queries a warp: 32 at D = 64, 16 at D = 128
-  static constexpr int BQ = NW * QW;
-  static constexpr int LD = D + 8;
-  static constexpr int THREADS = NW * 32;
-  static constexpr size_t BYTES = sizeof(bf16) * (size_t)(BQ + 4 * BK) * LD;
-};
+constexpr int KN_ROWS = 512;  // k rows a block of the reduction
 
-// the transpose of an 8 x 8 bf16 matrix held one row pair a lane (lane 4g + t
-// holds row g, columns 2t and 2t + 1), in the same layout
-__device__ __forceinline__ uint32_t transpose8(uint32_t x) {
-  uint32_t y;
-  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
-  return y;
-}
-
-// One sweep of a warp's QW query columns over all key tiles.  MAX_ONLY:
-// fold the column maxima of the logits over real keys into mq.  Otherwise:
-// o^T += v^T p^T and l += the column sums of p^T = bf16(exp2(s^T - b)).
-// Per-lane partial results (this lane's keys g and g + 8 of each 16); the
-// caller reduces over the eight lanes of a column.
-template <int D, bool MAX_ONLY>
-__device__ __forceinline__ void sweep(const uint32_t (&qb)[D / 16][TTiles<D>::QW / 16][4],
-                                      bf16* sK, bf16* sV, const bf16* __restrict__ kb,
-                                      const bf16* __restrict__ vb, int S,
-                                      const float (&b)[TTiles<D>::QW / 8][2],
-                                      float (&o)[D / 16][TTiles<D>::QW / 8][4],
-                                      float (&l)[TTiles<D>::QW / 8][2],
-                                      float (&mq)[TTiles<D>::QW / 8][2]) {
-  using L = TTiles<D>;
-  constexpr int NJ = L::QW / 8;
-  const int lane = threadIdx.x & 31, g = lane >> 2, r8 = lane & 7, mi = lane >> 3;
-  const int n_tiles = (S + BK - 1) / BK;
-  load_tile_async<D, L::THREADS>(sK, kb, 0, BK, S, L::LD);
-  if (!MAX_ONLY) load_tile_async<D, L::THREADS>(sV, vb, 0, BK, S, L::LD);
-  cp_async_commit();
-  for (int it = 0; it < n_tiles; ++it) {
-    const int st = it & 1;
-    if (it + 1 < n_tiles) {
-      load_tile_async<D, L::THREADS>(sK + (st ^ 1) * BK * L::LD, kb, (it + 1) * BK, BK, S, L::LD);
-      if (!MAX_ONLY)
-        load_tile_async<D, L::THREADS>(sV + (st ^ 1) * BK * L::LD, vb, (it + 1) * BK, BK, S, L::LD);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* k_s = sK + st * BK * L::LD;
-    const bf16* v_s = sV + st * BK * L::LD;
+// kmax2[bh] = max_j |k_j|^2 over the S rows of each head: blocks of
+// KN_ROWS rows, 16-byte loads, the lanes of a row reduced by shuffles, the
+// blocks of a head combined by an integer atomicMax on the float's bits
+// (the order of non-negative floats); kmax2 starts at zero
+template <typename T>
+__global__ void __launch_bounds__(256) key_norm_max2(const T* __restrict__ k,
+                                                     float* __restrict__ kmax2, int S, int D) {
+  constexpr int EL = 16 / sizeof(T);
+  const int lpr = D / EL, rows = 256 / lpr;  // lanes a row, rows a pass
+  const int sub = threadIdx.x % lpr, r0 = threadIdx.x / lpr;
+  const T* kb = k + (size_t)blockIdx.x * S * D;
+  const int end = min(S, (int)(blockIdx.y + 1) * KN_ROWS);
+  float best = 0.f;
+  // a uniform trip count: the shuffles below need every lane
+  for (int base = blockIdx.y * KN_ROWS; base < end; base += rows) {
+    const int r = base + r0;
+    float ss = 0.f;
+    if (r < end) {
+      const uint4 u = *reinterpret_cast<const uint4*>(kb + (size_t)r * D + sub * EL);
+      const T* x = reinterpret_cast<const T*>(&u);
 #pragma unroll
-    for (int mt = 0; mt < BK / 16; ++mt) {
-      // s^T for keys mt*16 .. +15 (rows g, g + 8) x this warp's queries
-      float s[NJ][4];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4];
-        ldsm_x4(a, k_s + (mt * 16 + r8 + (mi & 1) * 8) * L::LD + kk * 16 + (mi >> 1) * 8);
-#pragma unroll
-        for (int np = 0; np < L::QW / 16; ++np) {
-          mma16816(s[2 * np], a, qb[kk][np][0], qb[kk][np][1]);
-          mma16816(s[2 * np + 1], a, qb[kk][np][2], qb[kk][np][3]);
-        }
-      }
-      const int key0 = it * BK + mt * 16 + g;
-      const bool real0 = key0 < S, real1 = key0 + 8 < S;
-      if (MAX_ONLY) {
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          if (real0) mq[j][0] = fmaxf(mq[j][0], s[j][0]), mq[j][1] = fmaxf(mq[j][1], s[j][1]);
-          if (real1) mq[j][0] = fmaxf(mq[j][0], s[j][2]), mq[j][1] = fmaxf(mq[j][1], s[j][3]);
-        }
-        continue;
-      }
-      uint32_t pb[NJ][2];  // p^T as the B fragments of keys mt*16.. x queries 8j..
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const __nv_bfloat162 h0 = __floats2bfloat162_rn(real0 ? exp2f(s[j][0] - b[j][0]) : 0.f,
-                                                        real0 ? exp2f(s[j][1] - b[j][1]) : 0.f);
-        const __nv_bfloat162 h1 = __floats2bfloat162_rn(real1 ? exp2f(s[j][2] - b[j][0]) : 0.f,
-                                                        real1 ? exp2f(s[j][3] - b[j][1]) : 0.f);
-        l[j][0] += __low2float(h0) + __low2float(h1);
-        l[j][1] += __high2float(h0) + __high2float(h1);
-        uint32_t u0, u1;
-        memcpy(&u0, &h0, sizeof(u0));
-        memcpy(&u1, &h1, sizeof(u1));
-        pb[j][0] = transpose8(u0);
-        pb[j][1] = transpose8(u1);
-      }
-#pragma unroll
-      for (int dt = 0; dt < D / 16; ++dt) {
-        uint32_t a[4];  // v^T rows dt*16 .. +15 x keys mt*16 .. +15, transposed on load
-        ldsm_x4_t(a, v_s + (mt * 16 + r8 + (mi >> 1) * 8) * L::LD + dt * 16 + (mi & 1) * 8);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) mma16816(o[dt][j], a, pb[j][0], pb[j][1]);
+      for (int i = 0; i < EL; ++i) {
+        const float f = (float)x[i];
+        ss = fmaf(f, f, ss);
       }
     }
-    __syncthreads();  // this stage is refilled two tiles on
+    for (int off = 1; off < lpr; off <<= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    best = fmaxf(best, ss);
   }
-  cp_async_wait<0>();
+  best = warp_max(best);
+  if ((threadIdx.x & 31) == 0) atomicMax(reinterpret_cast<int*>(kmax2) + blockIdx.x, __float_as_int(best));
 }
 
-// over the eight lanes (g = 0..7) that hold one query column
-__device__ __forceinline__ float col_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
-  x += __shfl_xor_sync(0xffffffffu, x, 8);
-  return x + __shfl_xor_sync(0xffffffffu, x, 16);
-}
-__device__ __forceinline__ float col_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 8));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 16));
-}
+// p = exp2(s - b) of one thread's two rows, zero on keys past S (only the
+// last tile has any); pack() rounds it to bf16, and the core sums the
+// rounded p of each row on the tensor cores (ROWSUM), as the TPU kernel's
+// valid lane does
+struct BoundSoftmax {
+  static constexpr bool ROWSUM = true;
+  int S;
+  float b[2], lsum[4];
 
-template <int D>
-__global__ void __launch_bounds__(NW * 32)
-flash_fwd_1pass_t_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const float* __restrict__ kmax,
-                       bf16* __restrict__ ot, int T, int S) {
-  using L = TTiles<D>;
-  constexpr int QW = L::QW, NJ = QW / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + L::BQ * L::LD;
-  bf16* sV = sK + 2 * BK * L::LD;
-  const int bh = blockIdx.y, q0 = blockIdx.x * L::BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, r8 = lane & 7, mi = lane >> 3;
-  const bf16* kb = k + (size_t)bh * S * D;
-  const bf16* vb = v + (size_t)bh * S * D;
-
-  load_tile_async<D, L::THREADS>(sQ, q + (size_t)bh * T * D, q0, L::BQ, T, L::LD);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qb[D / 16][QW / 16][4];  // this warp's q rows as B fragments (queries as N)
+  __device__ __forceinline__ void scores(float (&s)[64], int tile) {
+    const int k0 = tile * 128;
+    if (k0 + 128 <= S) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
+      for (int i = 0; i < 64; ++i) s[i] = hopper::ex2(s[i] - b[(i >> 1) & 1]);
+    } else {
+      const int t = threadIdx.x & 3;
 #pragma unroll
-    for (int np = 0; np < QW / 16; ++np)
-      ldsm_x4(qb[kk][np],
-              sQ + (warp * QW + np * 16 + r8 + (mi >> 1) * 8) * L::LD + kk * 16 + (mi & 1) * 8);
-
-  // the bound of each query column this lane holds: 8j + 2t + e of the warp's
-  const float km = kmax[bh];
-  float b[NJ][2];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const bf16* row = sQ + (warp * QW + 8 * j + 2 * t + e) * L::LD;
-      float qn = 0.f;
-      for (int d = 0; d < D; ++d) qn = fmaf(__bfloat162float(row[d]), __bfloat162float(row[d]), qn);
-      b[j][e] = fmaxf(sqrtf(qn) * km, 1.f);
-    }
-
-  float o[D / 16][NJ][4], l[NJ][2], mq[NJ][2];
-  auto reset = [&]() {
-#pragma unroll
-    for (int dt = 0; dt < D / 16; ++dt)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) o[dt][j][0] = o[dt][j][1] = o[dt][j][2] = o[dt][j][3] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) l[j][0] = l[j][1] = 0.f, mq[j][0] = mq[j][1] = NEG_INF;
-  };
-  // o^T / l for the columns whose ok flag equals want
-  auto store = [&](const bool (&ok)[NJ][2], bool want) {
-#pragma unroll
-    for (int dt = 0; dt < D / 16; ++dt)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
+      for (int j = 0; j < 16; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int col = q0 + warp * QW + 8 * j + 2 * t + (e & 1);
-          if (col >= T || ok[j][e & 1] != want) continue;
-          const int d = dt * 16 + g + (e >> 1) * 8;
-          const float den = want ? l[j][e & 1] : fmaxf(l[j][e & 1], 1e-30f);
-          ot[((size_t)bh * D + d) * T + col] = __float2bfloat16(o[dt][j][e] / den);
+          const float x = hopper::ex2(s[4 * j + e] - b[e >> 1]);
+          s[4 * j + e] = k0 + 8 * j + 2 * t + (e & 1) < S ? x : 0.f;
         }
-  };
-
-  reset();
-  sweep<D, false>(qb, sK, sV, kb, vb, S, b, o, l, mq);
-  bool ok[NJ][2], rescue = false;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      l[j][e] = col_sum(l[j][e]);
-      ok[j][e] = l[j][e] > RESCUE_L;
-      rescue |= !ok[j][e] && q0 + warp * QW + 8 * j + 2 * t + e < T;
     }
-  store(ok, true);
-  if (!__syncthreads_or(rescue)) return;
+  }
+  template <int N>
+  __device__ __forceinline__ void rescale(float (&)[N]) {}
+};
 
-  // rescue: the exact column maxima, then the sums again with them
-  reset();
-  sweep<D, true>(qb, sK, sV, kb, vb, S, b, o, l, mq);
-  float m[NJ][2];
+// The rescue of one query (a whole warp): the exact maximum of its logits
+// over the real keys, then p = bf16(exp2(s - m)) and o^T's column = p v /
+// max(l, 1e-30).  sq: D floats of this warp's shared memory.
+template <int D>
+__device__ void rescue_row(const bf16* __restrict__ qr, const bf16* __restrict__ kb,
+                           const bf16* __restrict__ vb, bf16* __restrict__ otc, int S, int T,
+                           float* sq) {
+  constexpr int E = D / 32;
+  const int lane = threadIdx.x & 31;
+  for (int c = lane; c < D; c += 32) sq[c] = __bfloat162float(qr[c]);
+  __syncwarp();
+  auto logit = [&](int j) {
+    const uint4* kr = reinterpret_cast<const uint4*>(kb + (size_t)j * D);
+    float x = 0.f;
 #pragma unroll
-  for (int j = 0; j < NJ; ++j)
+    for (int c8 = 0; c8 < D / 8; ++c8) {
+      const uint4 u = kr[c8];
+      const bf16* h = reinterpret_cast<const bf16*>(&u);
 #pragma unroll
-    for (int e = 0; e < 2; ++e) m[j][e] = col_max(mq[j][e]);
-  reset();
-  sweep<D, false>(qb, sK, sV, kb, vb, S, m, o, l, mq);
+      for (int i = 0; i < 8; ++i) x = fmaf(sq[8 * c8 + i], __bfloat162float(h[i]), x);
+    }
+    return x;
+  };
+  float m = NEG_INF;
+  for (int j = lane; j < S; j += 32) m = fmaxf(m, logit(j));
+  m = warp_max(m);
+  float acc[E], l = 0.f;
 #pragma unroll
-  for (int j = 0; j < NJ; ++j)
+  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+  for (int j0 = 0; j0 < S; j0 += 32) {
+    const int j = j0 + lane;
+    const float p = j < S ? __bfloat162float(__float2bfloat16_rn(exp2f(logit(j) - m))) : 0.f;
+    l += warp_sum(p);
+    const int n = min(32, S - j0);
+    for (int jj = 0; jj < n; ++jj) {
+      const float pj = __shfl_sync(0xffffffffu, p, jj);
+      const bf16* vr = vb + (size_t)(j0 + jj) * D;
 #pragma unroll
-    for (int e = 0; e < 2; ++e) l[j][e] = col_sum(l[j][e]);
-  store(ok, false);
+      for (int e = 0; e < E; ++e) acc[e] = fmaf(pj, __bfloat162float(vr[lane + 32 * e]), acc[e]);
+    }
+  }
+  const float den = fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int e = 0; e < E; ++e) otc[(size_t)(lane + 32 * e) * T] = __float2bfloat16(acc[e] / den);
+  __syncwarp();
+}
+
+template <int D>
+struct JExtra {  // J's shared memory after the core's, from ONES
+  static constexpr uint32_t ONES = 0;                   // the row-sum product's ones
+  static constexpr uint32_t STAGE = hopper::ONES_BYTES;  // o^T staging, both warpgroups
+  static constexpr uint32_t SQ = STAGE + 2 * D * LDO * 2;  // a q row per consumer warp (rescue)
+  static constexpr uint32_t FLAGS = SQ + 8 * D * 4;
+  static constexpr uint32_t BYTES = FLAGS + 128 * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(hopper::FWD_THREADS, 1)
+flash_fwd_1pass_t_bf16(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, const bf16* __restrict__ q,
+                       const bf16* __restrict__ k, const bf16* __restrict__ v,
+                       const float* __restrict__ kmax2, bf16* __restrict__ ot, int T, int S) {
+  using L = hopper::FwdLayout<D>;
+  using X = JExtra<D>;
+  __shared__ hopper::FwdBars bars;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = hopper::align1024(smem);
+  unsigned char* gbase = smem + (base - smem_u32(smem));  // the same place, generic
+  const int bh = blockIdx.x, q0 = blockIdx.y * L::BQ;
+  const int n_tiles = (S + L::BN - 1) / L::BN;
+  const int wg = hopper::warpgroup_index();
+  if (threadIdx.x == 0) hopper::init_bars(bars);
+  __syncthreads();
+  if (wg == 2) {
+    if (threadIdx.x == hopper::PRODUCER_THREAD)
+      hopper::produce<D>(&tq, &tk, &tv, base, bars, q0, bh, n_tiles);
+    return;
+  }
+  const int c = wg, warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r_a = 16 * warp + g;  // this thread's rows in the warpgroup: r_a, r_a + 8
+  const int qw = q0 + 64 * c;     // the warpgroup's first query
+
+  // the bound of each row, |q_row| from device memory, a quarter row a lane
+  BoundSoftmax sm;
+  sm.S = S;
+  const float km = sqrtf(kmax2[bh]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = qw + r_a + 8 * h;
+    float qn = 0.f;
+    if (row < T) {
+      const uint4* qr = reinterpret_cast<const uint4*>(q + ((size_t)bh * T + row) * D + t * (D / 4));
+#pragma unroll
+      for (int c8 = 0; c8 < D / 32; ++c8) {
+        const uint4 u = qr[c8];
+        const bf16* x = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) qn = fmaf(__bfloat162float(x[i]), __bfloat162float(x[i]), qn);
+      }
+    }
+    sm.b[h] = fmaxf(sqrtf(quad_sum(qn)) * km, 1.f);
+  }
+
+  hopper::write_ones(gbase + L::BYTES + X::ONES);
+  hopper::bar_sync(1, 256);  // both consumers: the ones are in
+  float acc[D / 2];
+  hopper::consume<D>(base, bars, c, n_tiles, sm, acc, base + L::BYTES + X::ONES);
+
+  // o / l into the staging block (d rows x 64 queries), the rescue flags
+  bf16* so = reinterpret_cast<bf16*>(gbase + L::BYTES + X::STAGE) + c * D * LDO;
+  float* sq = reinterpret_cast<float*>(gbase + L::BYTES + X::SQ) + (4 * c + warp) * D;
+  int* flags = reinterpret_cast<int*>(gbase + L::BYTES + X::FLAGS) + 64 * c;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float l = quad_sum(sm.lsum[2 * h] + sm.lsum[2 * h + 1]);  // column 0 of P x ones
+    const float inv = 1.f / l;  // inf or nan on a row the rescue redoes
+    const int r = r_a + 8 * h;
+    if (t == 0) flags[r] = !(l > RESCUE_L) && qw + r < T;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      so[(8 * j + 2 * t) * LDO + r] = __float2bfloat16(acc[4 * j + 2 * h] * inv);
+      so[(8 * j + 2 * t + 1) * LDO + r] = __float2bfloat16(acc[4 * j + 2 * h + 1] * inv);
+    }
+  }
+  hopper::bar_sync(2 + c, 128);  // this warpgroup's staging is written
+  // o^T: warp w writes the d rows w, w + 4, ..., 64 queries each
+  bf16* otb = ot + (size_t)bh * D * T;
+  for (int d = warp; d < D; d += 4)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = lane + 32 * h;
+      if (qw + r < T && !flags[r]) otb[(size_t)d * T + qw + r] = so[d * LDO + r];
+    }
+  for (int r = warp; r < 64; r += 4)
+    if (flags[r])
+      rescue_row<D>(q + ((size_t)bh * T + qw + r) * D, k + (size_t)bh * S * D,
+                    v + (size_t)bh * S * D, otb + qw + r, S, T, sq);
 }
 
 // float32: one warp per query column, the keys 32 at a time (one per lane)
@@ -250,7 +258,7 @@ constexpr int F32_ROWS = 4;
 template <int D>
 __global__ void __launch_bounds__(F32_ROWS * 32)
 flash_fwd_1pass_t_f32(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ kmax,
+                      const float* __restrict__ v, const float* __restrict__ kmax2,
                       float* __restrict__ ot, int T, int S) {
   constexpr int E = D / 32;
   __shared__ float sq[F32_ROWS][D];
@@ -266,7 +274,7 @@ flash_fwd_1pass_t_f32(const float* __restrict__ q, const float* __restrict__ k,
   __syncwarp();
   const float* kb = k + (size_t)bh * S * D;
   const float* vb = v + (size_t)bh * S * D;
-  float b = fmaxf(sqrtf(warp_sum(qn)) * kmax[bh], 1.f);
+  float b = fmaxf(sqrtf(warp_sum(qn)) * sqrtf(kmax2[bh]), 1.f);
   float acc[E], l = 0.f;
   for (int attempt = 0; attempt < 2; ++attempt) {
     if (attempt == 1) {
@@ -306,30 +314,46 @@ flash_fwd_1pass_t_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, const void* kmax, void* ot, int BH,
-           int T, int S, int is_bf16, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* kmax2, void* ot, int BH, int T,
+           int S, int is_bf16, cudaStream_t st) {
+  if (T < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(kmax2, 0, sizeof(float) * BH, st);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 kn_grid(BH, (S + KN_ROWS - 1) / KN_ROWS);
+  if (is_bf16)
+    key_norm_max2<bf16><<<kn_grid, 256, 0, st>>>((const bf16*)k, (float*)kmax2, S, D);
+  else
+    key_norm_max2<float><<<kn_grid, 256, 0, st>>>((const float*)k, (float*)kmax2, S, D);
   if (is_bf16) {
-    using L = TTiles<D>;
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_1pass_t_bf16<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L::BYTES);
+    using L = hopper::FwdLayout<D>;
+    constexpr int SMEM = L::BYTES + JExtra<D>::BYTES + 1024;  // + the 1024-alignment slack
+    static const cudaError_t ready = cudaFuncSetAttribute(
+        flash_fwd_1pass_t_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (ready != cudaSuccess) return (int)ready;
+    CUtensorMap tq, tk, tv;
+    e = hopper::tensor_map_3d(&tq, q, D, T, BH, L::BQ);
+    if (e == cudaSuccess) e = hopper::tensor_map_3d(&tk, k, D, S, BH, L::BN);
+    if (e == cudaSuccess) e = hopper::tensor_map_3d(&tv, v, D, S, BH, L::BN);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid((T + L::BQ - 1) / L::BQ, BH);
-    flash_fwd_1pass_t_bf16<D><<<grid, L::THREADS, L::BYTES, st>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)kmax, (bf16*)ot, T, S);
+    dim3 grid(BH, (T + L::BQ - 1) / L::BQ);
+    flash_fwd_1pass_t_bf16<D><<<grid, hopper::FWD_THREADS, SMEM, st>>>(
+        tq, tk, tv, (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)kmax2,
+        (bf16*)ot, T, S);
   } else {
     dim3 grid((T + F32_ROWS - 1) / F32_ROWS, BH);
     flash_fwd_1pass_t_f32<D><<<grid, F32_ROWS * 32, 0, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const float*)kmax, (float*)ot, T, S);
+        (const float*)q, (const float*)k, (const float*)v, (const float*)kmax2, (float*)ot, T,
+        S);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q (BH, T, D) pre-scaled, k/v (BH, S, D), kmax (BH,) float32 = max_j |k_j|;
-// ot (BH, D, T) in q's type.  Returns the launch's cudaError_t.
-extern "C" int flash_fwd_1pass_t(const void* q, const void* k, const void* v, const void* kmax,
+// q (BH, T, D) pre-scaled, k/v (BH, S, D); kmax (BH,) float32 scratch, where
+// the call first writes max_j |k_j|^2 of each head; ot (BH, D, T) in q's type.
+// Returns the launches' cudaError_t.
+extern "C" int flash_fwd_1pass_t(const void* q, const void* k, const void* v, void* kmax,
                                  void* ot, int BH, int T, int S, int D, int is_bf16,
                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;

@@ -1,0 +1,281 @@
+// Hopper (sm_90a) primitives as inline PTX: wgmma, the shared-memory matrix
+// descriptor, mbarriers, TMA tensor loads and named barriers, plus the
+// host-side tensor maps.  The forward-attention core built on them
+// is fwd_core.cuh; kernels A (flash_fwd.cu) and J (flash_fwd_1pass_t.cu) run
+// on it.
+//
+// Operand layout.  Every bf16 tile lives in shared memory as TMA writes it
+// with CU_TENSOR_MAP_SWIZZLE_128B: a box is (rows x 64) elements, one
+// 128-byte line a row, and the 16-byte chunk c of row r sits at chunk
+// c ^ (r % 8).  A head dimension of 128 is two such boxes, one after the
+// other.  Boxes start on 1024-byte boundaries (8 lines, one swizzle atom),
+// because the swizzle is a function of the address bits.
+//   * K-major operand (q as A of S = q k^T, k as B): 8-row groups are 1024
+//     bytes apart (SBO = 1024), the leading offset is unused for swizzled
+//     K-major layouts; one k16 step is +32 bytes inside the 128-byte line,
+//     and the fifth k16 step starts the next box.
+//   * MN-major B (v as B of O += P v, N = the head dimension, contiguous):
+//     the k direction (keys) steps one 128-byte line a key, 8-key groups are
+//     1024 bytes apart (SBO = 1024), and the second 64-wide box of a D = 128
+//     tile is LBO bytes on (LBO = the box size); one k16 step is +16 lines.
+//
+// Where this goes wrong, silently or by hanging:
+//   * Advancing a K-major descriptor along K inside a swizzle atom is +32
+//     bytes of start address a k16 step (+2 in the descriptor's 16-byte
+//     units), never a whole line: the hardware applies the swizzle to the
+//     final address, so the base offset field stays 0 while every box starts
+//     1024-aligned.
+//   * For the MN-major V operand LBO and SBO swap roles against K-major: LBO
+//     is the stride between 64-element blocks of N (the second d-box), SBO
+//     the stride between 8-row groups of K.  Swapping them gives wrong
+//     values at D = 128 only.
+//   * wgmma reads its register operands and accumulators asynchronously.
+//     After registers were changed by ordinary instructions (kernel A's
+//     alpha rescale of O, the packing of P) a wgmma.fence must precede the
+//     next wgmma, or it may read the old values: the results are wrong with
+//     no error.  reg_fence() keeps the compiler from moving register
+//     accesses across the asynchronous window, and from reusing the
+//     registers of P while a product still reads them.
+//   * mbarrier phases alternate parity.  A consumer waits for parity
+//     (round & 1) of a full barrier; the producer waits for parity
+//     ((round & 1) ^ 1) of an empty barrier, which a fresh barrier passes at
+//     once.  One parity off on a ring that wraps hangs the kernel.
+//   * Shared memory that threads write (not TMA) is read by wgmma only
+//     after fence.proxy.async and a barrier; without the fence the product
+//     may see the old bytes.
+//   * ptxas keeps asynchronous wgmma in flight only when every fragment
+//     fits in registers; otherwise it serialises them (C7512 in the
+//     -Xptxas -v report) and the kernel runs, slowly.  Keep an eye on it.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+
+namespace llmseg {
+namespace hopper {
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+// 64-bit shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (all in 16-byte units), layout type 1
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr, uint32_t lbo_bytes,
+                                               uint32_t sbo_bytes) {
+  uint64_t d = (uint64_t)((saddr & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)1 << 62;
+  return d;
+}
+// K-major tile of 64-element lines (q, k)
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t saddr) { return desc_sw128(saddr, 16, 1024); }
+// MN-major B (v): next 64-wide block of N box_bytes on, 8-key groups 1024 apart
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t saddr, uint32_t box_bytes) {
+  return desc_sw128(saddr, box_bytes, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accesses to these registers across an
+// asynchronous wgmma window
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (64 x N, float32) = (scale_d ? d : 0) + A B, one k16 step, bf16 in.
+// Accumulator layout per warp w of the warpgroup, lane 4g + t: d[4j + 0..1]
+// = rows 16w + g, columns 8j + 2t + 0..1; d[4j + 2..3] = row 16w + g + 8:
+// mma.sync's C layout, repeated over N / 8 column chunks.
+// wgmma_ss: A and B from shared memory, both K-major.
+// wgmma_rs: A from registers (mma.sync's A fragment, rows 16w + g, g + 8),
+// B MN-major from shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db,
+                                         int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<8>(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                        uint32_t a3, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+// ---------------------------------------------------------------------------
+// mbarrier, TMA, named barriers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// spin until the phase of the given parity has completed; a wait that
+// never completes (a parity or byte-count fault) traps, so the launch fails
+// with an error instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done, tries = 0;
+  do {
+    if (++tries == (1u << 28)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 3-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on bar
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// orders this thread's ordinary shared-memory writes before later reads by
+// the async proxy (wgmma operands, TMA): needed before a wgmma reads shared
+// memory that threads wrote, after the writes and before the barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barriers 1..15 (0 is __syncthreads); n threads, a multiple of 32
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// this thread's warpgroup, as a value the compiler knows to be warp-uniform
+// (a broadcast from lane 0), so that the role branches stay uniform
+__device__ __forceinline__ int warpgroup_index() {
+  return __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+}
+
+// the first 1024-aligned shared address at or after p, as a shared address
+__device__ __forceinline__ uint32_t align1024(const void* p) {
+  return (smem_u32(p) + 1023u) & ~1023u;
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, found through the runtime, so that
+// nothing links -lcuda
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+// Tensor map of a contiguous bf16 (BH, L, D) array as the 3-D (D, L, BH),
+// boxes of (64, rows, 1) with 128-byte swizzle.  A box that runs past L is
+// zero-filled inside its own head: it never reads the next head's rows.
+inline cudaError_t tensor_map_3d(CUtensorMap* map, const void* ptr, int D, int L, int BH,
+                                 int rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                  box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace hopper
+}  // namespace llmseg

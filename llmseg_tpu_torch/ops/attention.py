@@ -211,12 +211,13 @@ def flash_fwd_1pass_t_plain(q, k, v, kmax):
 
 def flash_fwd_1pass_t(q, k, v) -> torch.Tensor:
     """Kernel J wrapper.  q (BH, T, D) pre-scaled; k, v (BH, S, D).  Returns
-    o^T (BH, D, T)."""
-    kmax = key_norm_max(k)
+    o^T (BH, D, T).  On the card the C call computes max_j |k_j| itself, by
+    one reduction kernel into ``kmax``, before kernel J."""
     if q.device.type == "cpu":
-        return flash_fwd_1pass_t_plain(q, k, v, kmax)
+        return flash_fwd_1pass_t_plain(q, k, v, key_norm_max(k))
     _check_cuda(q, k, v)
     BH, T, D = q.shape
+    kmax = torch.empty((BH,), dtype=torch.float32, device=q.device)
     ot = torch.empty((BH, D, T), dtype=q.dtype, device=q.device)
     FLASH_FWD_1PASS_T.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), kmax.data_ptr(),
                              ot.data_ptr(), BH, T, k.shape[1], D,

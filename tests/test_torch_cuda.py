@@ -32,6 +32,8 @@ def _card(monkeypatch):
 
 
 def _inputs(BH, T, S, D, dtype, seed=0, adversarial=False):
+    """adversarial: True (every row of kernels B and J is rescued) or
+    "mixed" (every third row is a small one that needs no rescue)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     kw = dict(device="cuda", dtype=torch.float32, generator=g)
     if adversarial:
@@ -40,6 +42,8 @@ def _inputs(BH, T, S, D, dtype, seed=0, adversarial=False):
         q[..., :D // 2] = torch.randn(BH, T, D // 2, **kw) * 30
         k[..., D // 2:] = torch.randn(BH, S, D // 2, **kw) * 30
         q[..., D // 2] = torch.randn(BH, T, **kw) * 0.3
+        if adversarial == "mixed":
+            q[:, ::3] = torch.randn(BH, len(range(0, T, 3)), D, **kw) * 0.01
     else:
         q, k = torch.randn(BH, T, D, **kw), torch.randn(BH, S, D, **kw)
     v = torch.randn(BH, S, D, **kw)
@@ -53,12 +57,21 @@ def _assert_close(got, ref, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("causal,T,S,D", [(True, 767, 767, 128), (False, 300, 200, 64),
-                                          (True, 130, 130, 64)])
-def test_kernel_a_matches_plain(dtype, causal, T, S, D):
-    q, k, v = _inputs(8, T, S, D, dtype)
+@pytest.mark.parametrize("causal,BH,T,S,D,bias", [
+    (True, 8, 767, 767, 128, "head"), (False, 8, 300, 200, 64, "head"),
+    (True, 8, 130, 130, 64, "head"),
+    # lengths off the 128-row tiles, one head, a broadcast bias, no bias
+    (False, 3, 65, 129, 64, "head"), (True, 2, 129, 65, 128, "broadcast"),
+    (True, 1, 1, 1, 128, None), (True, 1, 767, 767, 128, None),
+    (False, 4, 300, 200, 128, "broadcast"), (True, 8, 300, 300, 64, None)])
+def test_kernel_a_matches_plain(dtype, causal, BH, T, S, D, bias):
+    """Kernel A with its lse, a bias per head, one broadcast over the heads
+    (stride 0) or none."""
+    q, k, v = _inputs(BH, T, S, D, dtype)
     g = torch.Generator(device="cuda").manual_seed(2)
-    bias = torch.randn(8, T, S, device="cuda", generator=g) * A.LOG2E
+    if bias is not None:
+        bias = torch.randn(BH if bias == "head" else 1, T, S, device="cuda",
+                           generator=g) * A.LOG2E
     o, lse = A.flash_fwd(q, k, v, causal=causal, bias=bias, with_lse=True)
     ro, rl = A.flash_fwd_plain(q.float(), k.float(), v.float(), causal=causal, bias=bias,
                                with_lse=True)
@@ -252,13 +265,16 @@ def test_kernel_g_cache_follows_the_base_and_the_weights():
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("adversarial", [False, True])
-@pytest.mark.parametrize("T,S,D", [(4097, 4097, 64), (200, 300, 128), (130, 100, 64)])
-def test_kernel_j_matches_plain(dtype, adversarial, T, S, D):
-    """Kernel J (o^T, the rescue per column) against its plain version."""
-    q, k, v = _inputs(4, T, S, D, dtype, seed=6, adversarial=adversarial)
+@pytest.mark.parametrize("adversarial", [False, True, "mixed"])
+@pytest.mark.parametrize("BH,T,S,D", [(4, 4097, 4097, 64), (4, 200, 300, 128), (4, 130, 100, 64),
+                                      (1, 65, 129, 64), (3, 129, 65, 128), (1, 1, 1, 64)])
+def test_kernel_j_matches_plain(dtype, adversarial, BH, T, S, D):
+    """Kernel J (o^T, the rescue per column) against its plain version, at
+    lengths off its 128-row tiles too, with one head, and with rescued rows
+    beside rows that are not ("mixed")."""
+    q, k, v = _inputs(BH, T, S, D, dtype, seed=6, adversarial=adversarial)
     ot = A.flash_fwd_1pass_t(q, k, v)
-    assert ot.shape == (4, D, T)
+    assert ot.shape == (BH, D, T)
     ref = A.flash_fwd_1pass_t_plain(q.float(), k.float(), v.float(), A.key_norm_max(k))
     _assert_close(ot, ref, dtype)
 
