@@ -24,7 +24,10 @@ Phases, one JSON line each; any failure exits non-zero:
               one-pass forward) at DINOv2-L's shape with adversarial norms;
               A and J also at lengths off their 128-row tiles, with one head,
               A with a broadcast bias and with none, J with rescued rows
-              beside rows that are not;
+              beside rows that are not; C and D at lengths off their tiles
+              (1, 65, 129), S != T both ways, one head and D = 64 at the
+              training length, and run twice on the same inputs, equal to
+              the bit;
   3. modules  llmseg_tiny predict on the card against the same weights on
               the CPU;
      in_place llmseg_7b widths and sequence lengths at two blocks per
@@ -61,8 +64,9 @@ Phases, one JSON line each; any failure exits non-zero:
      bwd_device_time  device time (device_ms) of kernels C and D and
               of SDPA's backward at the training shape: SDPA's is C and
               D's library_ms, and C + D on the same clock stands beside it;
-     fwd_device_time  device time of kernels A and J and of SDPA's
-              forward at their main shapes (near 50 us the event clock of
+     fwd_device_time  device time of kernels A, B and J and of SDPA's
+              forward, and of E and F and of SDPA with their bias as a
+              mask, at their main shapes (near 50 us the event clock of
               the kernel phase also counts the wrappers' host time); both
               go into the kernels line as device_ms and library_device_ms,
               with J's exp2 bound (16 a clock an SM) as ex2_bound_ms;
@@ -109,7 +113,8 @@ F32_TOL = (1e-4, 0.0)
 # backward kernels C and D, normwise per output: max|err| <= tol * max|ref|.
 # p and ds are rounded to bf16 and summed over up to S (dq) or T (dk, dv)
 # terms, so the error of an entry scales with its whole row or column, not
-# with the entry: a pointwise atol + rtol*|ref| gate does not fit.
+# with the entry: a pointwise atol + rtol*|ref| gate does not fit.  (With
+# S = 1, where dq and dk vanish, see bwd_case.)
 BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 MODULE_LIMIT = 1e-4           # tiny predict, card vs CPU, float32
 GRAD_LIMIT = 1e-4             # grad_in_place, float32, per tensor vs max|ref|
@@ -313,33 +318,49 @@ def bwd_device_times(A, *, BH, T, S, D, causal, dtype, seed=0) -> dict:
     return out
 
 
-def fwd_device_times(A) -> dict:
-    """Device time (device_ms) of kernels A and J at their main shapes (J's
-    with its kmax reduction) and of SDPA's forward on the same inputs: near
-    50 us the event clock of kernel_case may also count the wrappers' host
-    time."""
+def fwd_device_times(A, R) -> dict:
+    """Device time (device_ms) of the forward kernels at their main shapes
+    and of one library call on the same inputs (library_device_ms): A, B and
+    J (J's with its kmax reduction, B's with its key_norm_max) against SDPA's
+    forward, E and F against SDPA with the rel-pos bias as a float attn_mask
+    (built outside the timing).  Near 50 us the event clock of kernel_case
+    and relpos_case may also count the wrappers' host time."""
     import torch
     import torch.nn.functional as F
     out = {}
     for name, (BH, T, D, causal) in (("flash_fwd", (128, 767, 128, True)),
+                                     ("flash_fwd_1pass", (64, 4097, 64, False)),
                                      ("flash_fwd_1pass_t", (64, 4097, 64, False))):
         q, k, v, _ = fwd_inputs(A, BH, T, T, D, torch.bfloat16)
-        run = ((lambda: A.flash_fwd(q, k, v, causal=True)) if causal
-               else (lambda: A.flash_fwd_1pass_t(q, k, v)))
+        run = {"flash_fwd": lambda: A.flash_fwd(q, k, v, causal=True),
+               "flash_fwd_1pass": lambda: A.flash_fwd_1pass(q, k, v),
+               "flash_fwd_1pass_t": lambda: A.flash_fwd_1pass_t(q, k, v)}[name]
         q4, k4, v4 = (x.unsqueeze(0) for x in (q, k, v))
         out[name] = {"device_ms": device_ms(run, 20),
                      "library_device_ms": device_ms(lambda: F.scaled_dot_product_attention(
                          q4, k4, v4, is_causal=causal, scale=1.0 / A.LOG2E), 20)}
+    for name, (BH, G, D) in (("relpos_fwd", (16, 64, 80)), ("relpos_window", (400, 14, 80))):
+        q, k, v, rh, rw = relpos_inputs(R, BH, G, D, torch.bfloat16, 0)
+        kern = R.relpos_fwd if name == "relpos_fwd" else R.relpos_window
+        key = torch.arange(G * G, device="cuda")
+        bias = ((rh.float()[:, :, key // G] + rw.float()[:, :, key % G]) / R.LOG2E).to(q.dtype)
+        q4, k4, v4, b4 = (x.unsqueeze(0) for x in (q, k, v, bias))
+        out[name] = {"device_ms": device_ms(lambda: kern(q, k, v, rh, rw), 20),
+                     "library_device_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                         q4, k4, v4, attn_mask=b4, scale=1.0 / R.LOG2E), 20)}
+        del bias, b4, q4, k4, v4
     return out
 
 
-def bwd_case(A, *, BH, T, S, D, causal, dtype, timed=False, seed=0):
+def bwd_case(A, *, BH, T, S, D, causal, dtype, timed=False, repeat=False, seed=0):
     """Kernels C and D against flash_bwd_plain (float32 math on the same
-    inputs; o and lse from kernel A).  With ``timed`` also each kernel's
-    time, the plain version's, and each kernel's bound: C does 3 products
-    and D 4, each 2*BH*D*pairs; C reads q, k, v, o, do and lse and writes
-    dq and the float32 delta, D reads q, k, v, do, lse and delta (not o)
-    and writes dk and dv."""
+    inputs; o and lse from kernel A).  With ``repeat`` a second run of both
+    on the same inputs must give dq, delta, dk and dv equal to the bit (no
+    atomics: each output row belongs to one CTA).  With ``timed`` also each
+    kernel's time, the plain version's, and each kernel's bound: C does 3
+    products and D 4, each 2*BH*D*pairs; C reads q, k, v, o, do and lse and
+    writes dq and the float32 delta, D reads q, k, v, do, lse and delta (not
+    o) and writes dk and dv."""
     import torch
     q, k, v, do = bwd_inputs(A, BH, T, S, D, dtype, seed)
     o, lse = A.flash_fwd(q, k, v, causal=causal, with_lse=True)
@@ -355,11 +376,25 @@ def bwd_case(A, *, BH, T, S, D, causal, dtype, timed=False, seed=0):
     err = {n: (got.float() - r).abs().max().item() for n, got, r in
            zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
     scale = {n: r.abs().max().item() for n, r in zip(("dq", "dk", "dv"), ref)}
+    if S == 1:
+        # one key a row: ds = p (dp - delta) is zero in exact arithmetic, so
+        # dq and dk are the rounding of that difference in either version;
+        # their scale is the size of the terms that cancel, max|do v^T|
+        # times max|k| (dq) or max|q| (dk)
+        dp = (do.float() * v.float()).sum(-1).abs().max().item()
+        scale["dq"] = dp * k.float().abs().max().item()
+        scale["dk"] = dp * q.float().abs().max().item()
     tol = BWD_TOL[name]
     rec = {"phase": "kernel", "kernel": "flash_bwd_dq+flash_bwd_dkv", "BH": BH, "T": T, "S": S,
            "D": D, "causal": causal, "dtype": name, "max_abs_err": err, "max_abs_ref": scale,
            "tol_vs_max_ref": tol}
     rec["ok"] = all(math.isfinite(err[n]) and err[n] <= tol * scale[n] for n in err)
+    if repeat:
+        dq2, delta2 = run_c()
+        dk2, dv2 = A.flash_bwd_dkv(q, k, v, do, lse, delta2, causal=causal)
+        rec["bitwise_repeat"] = all(torch.equal(a, b) for a, b in
+                                    zip((dq, delta, dk, dv), (dq2, delta2, dk2, dv2)))
+        rec["ok"] = rec["ok"] and rec["bitwise_repeat"]
     out = {}
     if timed:
         ms_c, ms_d = cuda_ms(run_c, 20), cuda_ms(run_d, 20)
@@ -1458,10 +1493,19 @@ def main() -> int:
     kernel_case(A, "flash_fwd_1pass", BH=2, T=200, S=300, D=64, dtype=f32,
                 adversarial=True)
     kernel_case(A, "flash_fwd_1pass", BH=2, T=200, S=300, D=64, dtype=f32)
-    main_cd = bwd_case(A, BH=32, T=767, S=767, D=128, causal=True, dtype=bf16, timed=True)
+    main_cd = bwd_case(A, BH=32, T=767, S=767, D=128, causal=True, dtype=bf16, timed=True,
+                       repeat=True)
     bwd_case(A, BH=8, T=300, S=200, D=64, causal=False, dtype=bf16)
     bwd_case(A, BH=4, T=300, S=300, D=128, causal=True, dtype=f32)
     bwd_case(A, BH=4, T=200, S=130, D=64, causal=False, dtype=f32)
+    # lengths off the 128-row blocks and 64-row tiles of C and D (1, 65,
+    # 129), S != T both ways, one head, D = 64 at the training length
+    for causal, bh, t, s, d in ((True, 2, 1, 1, 128), (False, 3, 65, 65, 64),
+                                (True, 2, 129, 129, 128), (False, 3, 65, 129, 64),
+                                (False, 2, 129, 65, 128), (True, 2, 65, 129, 128),
+                                (True, 3, 129, 65, 64), (True, 8, 767, 767, 64),
+                                (True, 1, 767, 767, 128)):
+        bwd_case(A, BH=bh, T=t, S=s, D=d, causal=causal, dtype=bf16, repeat=t == 767)
     timed.update({r["kernel"]: r for r in (main_a, main_b)})
     timed.update(main_cd)
     timed.update(sam_kernel_phase(C, R, TK))
@@ -1598,7 +1642,7 @@ def main() -> int:
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         timed[name]["library_ms"] = dev_cd["sdpa_backward"]
         timed[name]["device_ms"] = dev_cd[name]
-    dev_fwd = fwd_device_times(A)
+    dev_fwd = fwd_device_times(A, R)
     emit({"phase": "fwd_device_time", "clock": "device (events behind a spin kernel)", **dev_fwd})
     for name, r in dev_fwd.items():
         timed[name].update(r)

@@ -1,9 +1,10 @@
 // Shared pieces of the mma.sync attention kernels: B (flash_fwd_1pass.cu),
-// C (flash_bwd_dq.cu), D (flash_bwd_dkv.cu), E and F (relpos_*.cu) and the
-// GEMM of G, H and I (batched_gemm.cuh).  Kernels A (flash_fwd.cu) and J
-// (flash_fwd_1pass_t.cu) run their bf16 paths on hopper.cuh and
-// fwd_core.cuh instead (wgmma, TMA); they take only the reductions, the
-// bf16 packing and the float32 paths' helpers from here.
+// E and F (relpos_*.cu) and the GEMM of G, H and I (batched_gemm.cuh).
+// Kernels A (flash_fwd.cu) and J (flash_fwd_1pass_t.cu) run their bf16
+// paths on hopper.cuh and fwd_core.cuh instead (wgmma, TMA), and the
+// backward kernels C (flash_bwd_dq.cu) and D (flash_bwd_dkv.cu) on
+// hopper.cuh; they take only the reductions, the bf16 packing and the
+// float32 paths' helpers from here.
 //
 // Layout contract of both kernels: q (BH, T, D), k and v (BH, S, D), all
 // contiguous, q already multiplied by scale*log2(e) in its own dtype, so
@@ -144,38 +145,14 @@ __device__ __forceinline__ void qk_tile(float (&s)[BK / 8][4], const uint32_t (&
   }
 }
 
-// s (16 x N, C layout) = rows row0 .. row0+15 of sA x the first N rows of
-// sB, transposed: both operands row-major in shared memory (leading
-// dimension ld), the A fragments loaded per k-step instead of held.  The
-// backward kernels use it for q k^T, do v^T, k q^T and v do^T.
-template <int D, int N>
-__device__ __forceinline__ void ab_tile(float (&s)[N / 8][4], const bf16* sA, int row0,
-                                        const bf16* sB, int ld) {
-  const int lane = threadIdx.x & 31, r8 = lane & 7, mi = lane >> 3;
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, sA + (row0 + r8 + (mi & 1) * 8) * ld + kk * 16 + (mi >> 1) * 8);
-#pragma unroll
-    for (int np = 0; np < N / 16; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, sB + (np * 16 + r8 + (mi >> 1) * 8) * ld + kk * 16 + (mi & 1) * 8);
-      mma16816(s[2 * np], a, b[0], b[1]);
-      mma16816(s[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
 // o (16 x D, C layout, D/8 n-tiles) += p x v tile; p packed bf16 pairs,
-// pk[j][0] for row g and pk[j][1] for row g+8 of key n-tile j; N keys
-template <int D, int N = BK>
-__device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const uint32_t (&pk)[N / 8][2],
+// pk[j][0] for row g and pk[j][1] for row g+8 of key n-tile j; BK keys
+template <int D>
+__device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const uint32_t (&pk)[BK / 8][2],
                                         const bf16* sV, int ld) {
   const int lane = threadIdx.x & 31, r8 = lane & 7, mi = lane >> 3;
 #pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
+  for (int kk = 0; kk < BK / 16; ++kk) {
     const uint32_t a[4] = {pk[2 * kk][0], pk[2 * kk][1], pk[2 * kk + 1][0], pk[2 * kk + 1][1]};
 #pragma unroll
     for (int np = 0; np < D / 16; ++np) {

@@ -2,7 +2,8 @@
 // descriptor, mbarriers, TMA tensor loads and named barriers, plus the
 // host-side tensor maps.  The forward-attention core built on them
 // is fwd_core.cuh; kernels A (flash_fwd.cu) and J (flash_fwd_1pass_t.cu) run
-// on it.
+// on it.  The backward kernels C (flash_bwd_dq.cu) and D (flash_bwd_dkv.cu)
+// use them directly.
 //
 // Operand layout.  Every bf16 tile lives in shared memory as TMA writes it
 // with CU_TENSOR_MAP_SWIZZLE_128B: a box is (rows x 64) elements, one
@@ -46,6 +47,16 @@
 //   * ptxas keeps asynchronous wgmma in flight only when every fragment
 //     fits in registers; otherwise it serialises them (C7512 in the
 //     -Xptxas -v report) and the kernel runs, slowly.  Keep an eye on it.
+//     A CTA of more than 8 warps gets at most 168 registers a thread; one
+//     warpgroup and a producer warp (160 threads) get up to 255.  A
+//     producer warpgroup that hands its registers to two consumers
+//     (setmaxnreg 24 / 240) let ptxas use more than 168 in the consumers,
+//     yet kernel D still spilled there.
+//   * A wgmma group issued on only some paths through a loop (the next
+//     tile's products under an if) leaves ptxas unsure which group a wait
+//     retires: it injects waits (C7517) and serialises the products
+//     (C7518).  Issue every group unconditionally, and peel the last
+//     iteration instead.
 #pragma once
 
 #include <cuda.h>
@@ -99,6 +110,14 @@ __device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+// x, hidden from the compiler's hoisting of loop invariants: a descriptor
+// built from it is rebuilt where a loop uses it (two integer operations)
+// instead of held in two registers across the loop
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
 // d (64 x N, float32) = (scale_d ? d : 0) + A B, one k16 step, bf16 in.
 // Accumulator layout per warp w of the warpgroup, lane 4g + t: d[4j + 0..1]
 // = rows 16w + g, columns 8j + 2t + 0..1; d[4j + 2..3] = row 16w + g + 8:
@@ -120,6 +139,26 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint6
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

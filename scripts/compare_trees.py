@@ -1,19 +1,33 @@
-"""Times kernels A and J of the port and predict through J, for one checkout.
+"""Times kernels A, J, C and D of the port, predict through J and one LoRA
+train step, for one checkout.
 
 Run on a machine with one CUDA card, once per checkout, in turns, so that
 two trees compare within one call (parent, change, change, parent):
 
-    python3 scripts/compare_trees.py <checkout root> <label>
+    python3 scripts/compare_trees.py <checkout root> <label> [parts]
 
-It builds kernels A, B and J of that checkout, prints one JSON line: A at
-(128, 767, 767, 128) causal and J at (64, 4097, 4097, 64), bf16, on the
-event clock (ms a call, back to back), A's host time a call, and
-llmseg_7b predict (bf16, 4 images, text_len 512, LayerScale folded) with
-the non-causal forward on J: ms/step over 5 steps, and one step's device
-time under torch.profiler, in all and for J's kernels.  It imports only
-the checkout's ``llmseg_tpu_torch``."""
+``parts`` is a comma-separated subset of ``fwd,predict,bwd,train`` (all by
+default).  It builds the kernels of that checkout that the parts run and
+prints one JSON line:
+  fwd      A at (128, 767, 767, 128) causal and J at (64, 4097, 4097, 64),
+           bf16, on the event clock (ms a call, back to back), and A's host
+           time a call;
+  predict  llmseg_7b predict (bf16, 4 images, text_len 512, LayerScale
+           folded) with the non-causal forward on J: ms/step over 5 steps,
+           and one step's device time under torch.profiler, in all and for
+           J's kernels;
+  bwd      C and D at (32, 767, 767, 128) causal, bf16, on the event clock
+           and on the device clock (events around a burst of calls queued
+           behind a spin kernel, so that the host's gaps are not counted);
+  train    the LoRA train step at llmseg_7b (bf16, rank 8, 1 image, 1 row,
+           text_len 512, remat "dots", through the Trainer): ms/step over
+           3 steps, and one step's device time under torch.profiler, in all
+           and for C's and D's kernels (the profiler may drop kernels
+           launched through ctypes, so those two are lower bounds).
+It imports only the checkout's ``llmseg_tpu_torch``."""
 import json, math, os, sys, time
 root = os.path.abspath(sys.argv[1])
+parts = set((sys.argv[3] if len(sys.argv) > 3 else "fwd,predict,bwd,train").split(","))
 sys.path.insert(0, root)
 os.chdir(root)
 import torch
@@ -23,12 +37,33 @@ from llmseg_tpu_torch.data.synthetic import make_batch
 from llmseg_tpu_torch.models import llmseg
 from llmseg_tpu_torch.ops import attention as A, kernels
 
-kernels.build(["flash_fwd", "flash_fwd_1pass", "flash_fwd_1pass_t"], force=True)
+names = set()
+if parts & {"fwd", "predict"}:
+    names |= {"flash_fwd", "flash_fwd_1pass", "flash_fwd_1pass_t"}
+if parts & {"bwd", "train"}:
+    names |= {"flash_fwd", "flash_fwd_1pass", "flash_bwd_dq", "flash_bwd_dkv"}
+kernels.build(sorted(names), force=True)
 
 
 def ev_ms(fn, it):
     fn(); torch.cuda.synchronize()
     s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(it):
+        fn()
+    e.record(); torch.cuda.synchronize()
+    return s.elapsed_time(e) / it
+
+
+def dev_ms(fn, it):
+    """As chip_smoke.device_ms: the calls queued behind a spin kernel that
+    outlasts their host time, timed by events around them."""
+    fn(); torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(); torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * (2 * it * call_s + 0.005)))
     s.record()
     for _ in range(it):
         fn()
@@ -54,33 +89,88 @@ def inputs(BH, T, D):
     return q, k.contiguous(), v.contiguous()
 
 
-out = {"tree": sys.argv[2]}
-qa, ka, va = inputs(128, 767, 128)
-run_a = lambda: A.flash_fwd(qa, ka, va, causal=True)
-qj, kj, vj = inputs(64, 4097, 64)
-run_j = lambda: A.flash_fwd_1pass_t(qj, kj, vj)
-out["a_ms"], out["j_ms"] = ev_ms(run_a, 50), ev_ms(run_j, 20)
-out["a_host_us"] = host_us(run_a)
+def profiled(fn, families):
+    """Device ms of one call of fn under torch.profiler, in all and for the
+    kernels whose names contain each family's substrings."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    attr = ("self_device_time_total" if hasattr(ev[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    times = [(e.key, getattr(e, attr) / 1e3) for e in ev if getattr(e, attr) > 0]
+    out = {"device_ms": sum(t for _, t in times)}
+    for fam, subs in families.items():
+        out[fam] = sum(t for k, t in times if any(s in k for s in subs))
+    return out
 
-cfg = C.llmseg_7b()
-model = llmseg.fold_frozen_inplace(llmseg.init(cfg, seed=0, device="cuda", dtype=torch.bfloat16))
-batch = make_batch(cfg, num_images=4, rows_per_image=1, text_len=512, seed=0)
-A.ONEPASS_T = True
-llmseg.predict(model, batch)
-torch.cuda.synchronize()
-t0 = time.perf_counter()
-for _ in range(5):
-    llmseg.predict(model, batch)
-torch.cuda.synchronize()
-out["predict_onepass_t_ms"] = (time.perf_counter() - t0) * 1e3 / 5
-# the profiler last: it adds host cost to what follows
-with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+out = {"tree": sys.argv[2], "parts": sorted(parts)}
+if "fwd" in parts:
+    qa, ka, va = inputs(128, 767, 128)
+    run_a = lambda: A.flash_fwd(qa, ka, va, causal=True)
+    qj, kj, vj = inputs(64, 4097, 64)
+    run_j = lambda: A.flash_fwd_1pass_t(qj, kj, vj)
+    out["a_ms"], out["j_ms"] = ev_ms(run_a, 50), ev_ms(run_j, 20)
+    out["a_host_us"] = host_us(run_a)
+    del qa, ka, va, qj, kj, vj
+
+if "bwd" in parts:
+    q, k, v = inputs(32, 767, 128)
+    do = torch.randn(q.shape, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(1)).to(q.dtype)
+    o, lse = A.flash_fwd(q, k, v, causal=True, with_lse=True)
+    run_c = lambda: A.flash_bwd_dq(q, k, v, o, do, lse, causal=True)
+    _, delta = run_c()
+    run_d = lambda: A.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True)
+    out["c_ms"], out["d_ms"] = ev_ms(run_c, 50), ev_ms(run_d, 50)
+    out["c_device_ms"], out["d_device_ms"] = dev_ms(run_c, 20), dev_ms(run_d, 20)
+    del q, k, v, do, o, lse, delta
+
+if "predict" in parts:
+    cfg = C.llmseg_7b()
+    model = llmseg.fold_frozen_inplace(llmseg.init(cfg, seed=0, device="cuda",
+                                                   dtype=torch.bfloat16))
+    batch = make_batch(cfg, num_images=4, rows_per_image=1, text_len=512, seed=0)
+    A.ONEPASS_T = True
     llmseg.predict(model, batch)
     torch.cuda.synchronize()
-ev = prof.key_averages()
-attr = "self_device_time_total" if hasattr(ev[0], "self_device_time_total") else "self_cuda_time_total"
-times = [(e.key, getattr(e, attr) / 1e3) for e in ev if getattr(e, attr) > 0]
-out["predict_onepass_t_device_ms"] = sum(t for _, t in times)
-out["kernel_j_family_device_ms"] = sum(t for k, t in times
-                                       if "flash_fwd_1pass_t" in k or "key_norm_max" in k)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        llmseg.predict(model, batch)
+    torch.cuda.synchronize()
+    out["predict_onepass_t_ms"] = (time.perf_counter() - t0) * 1e3 / 5
+    A.ONEPASS_T = False
+
+if "train" in parts:
+    from llmseg_tpu_torch.train.trainer import Trainer
+    cfg = C.llmseg_7b()
+    exp = C.ExperimentConfig(model=cfg, train=C.TrainConfig(
+        warmup_steps=0, grad_accum_steps=1, lora=C.LoraConfig(rank=8),
+        log_dir=os.path.join(root, "chiprun_out", "compare_train_runs")))
+    trainer = Trainer(exp)
+    tbatch = make_batch(cfg, num_images=1, rows_per_image=1, text_len=512, seed=0)
+    for _ in range(2):
+        trainer.step(tbatch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        trainer.step(tbatch)
+    torch.cuda.synchronize()
+    out["train_step_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+
+# the profiler last: it adds host cost to what follows
+if "predict" in parts:
+    A.ONEPASS_T = True
+    prof = profiled(lambda: llmseg.predict(model, batch),
+                    {"kernel_j": ("flash_fwd_1pass_t", "key_norm_max")})
+    A.ONEPASS_T = False
+    out["predict_onepass_t_device_ms"] = prof["device_ms"]
+    out["kernel_j_family_device_ms"] = prof["kernel_j"]
+if "train" in parts:
+    prof = profiled(lambda: trainer.step(tbatch),
+                    {"kernel_c": ("flash_bwd_dq",), "kernel_d": ("flash_bwd_dkv",)})
+    out["train_step_device_ms"] = prof["device_ms"]
+    out["train_kernel_c_device_ms"] = prof["kernel_c"]
+    out["train_kernel_d_device_ms"] = prof["kernel_d"]
 print(json.dumps(out), flush=True)

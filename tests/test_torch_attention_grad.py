@@ -65,7 +65,11 @@ def _heads(x, L_pad):
 
 
 @pytest.mark.parametrize("causal,T,S,D", [(True, 256, 256, 64), (False, 200, 256, 32),
-                                          (False, 256, 200, 64)])
+                                          (False, 256, 200, 64),
+                                          # the edges of the card kernels' 64- and
+                                          # 128-row tiles
+                                          (False, 65, 129, 64), (False, 129, 65, 32),
+                                          (True, 200, 200, 128)])
 def test_flash_bwd_plain_matches_flash_bwd(causal, T, S, D):
     """flash_bwd_plain against the TPU backward kernels (_bwd_dq_kernel,
     _bwd_dkv_kernel via _flash_bwd) on the same pre-scaled q, o and lse.

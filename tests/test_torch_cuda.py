@@ -97,22 +97,56 @@ def _bwd_inputs(BH, T, S, D, dtype, causal, seed=3):
     return q, k, v, o, do, lse
 
 
+def _bwd_scales(q, k, v, do, ref):
+    """The scale of each of (dq, dk, dv) for the normwise gate: max|ref|.
+    With one key (S = 1) every row's softmax has a single entry, so ds =
+    p * (dp - delta) is zero in exact arithmetic and dq, dk are the rounding
+    of that difference in either version; they are held against the size of
+    the terms that cancel, max|do v^T| times max|k| (dq) or max|q| (dk)."""
+    scales = [r.abs().max().item() for r in ref]
+    if k.shape[1] == 1:
+        dp = (do.float() * v.float()).sum(-1).abs().max().item()
+        scales[0] = dp * k.float().abs().max().item()
+        scales[1] = dp * q.float().abs().max().item()
+    return scales
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("causal,T,S,D", [(True, 767, 767, 128), (False, 300, 200, 64),
-                                          (True, 130, 130, 64), (False, 100, 257, 128)])
-def test_kernels_c_d_match_plain(dtype, causal, T, S, D):
+@pytest.mark.parametrize("causal,BH,T,S,D", [
+    (True, 8, 767, 767, 128), (False, 8, 300, 200, 64), (True, 8, 130, 130, 64),
+    (False, 8, 100, 257, 128),
+    # lengths off C's 128-row blocks and D's 64-row tiles, S != T both ways,
+    # D = 64 at the training length, one head
+    (True, 8, 1, 1, 128), (False, 8, 1, 1, 64), (True, 8, 65, 65, 64), (False, 8, 65, 65, 128),
+    (True, 8, 129, 129, 128), (False, 8, 129, 129, 64), (False, 8, 65, 129, 64),
+    (False, 8, 129, 65, 128), (True, 8, 65, 129, 128), (True, 8, 129, 65, 64),
+    (True, 8, 767, 767, 64), (True, 1, 767, 767, 128)])
+def test_kernels_c_d_match_plain(dtype, causal, BH, T, S, D):
     """Kernels C and D against flash_bwd_plain in float32 on the same inputs.
     bf16 is held normwise, max|err| <= 2e-2 * max|ref| per output: p and ds
     are rounded to bf16 and summed over up to S (or T) terms, so the error
     of a small entry scales with the whole row, not with the entry."""
-    q, k, v, o, do, lse = _bwd_inputs(8, T, S, D, dtype, causal)
+    q, k, v, o, do, lse = _bwd_inputs(BH, T, S, D, dtype, causal)
     dq, delta = A.flash_bwd_dq(q, k, v, o, do, lse, causal=causal)
     dk, dv = A.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
     ref = A.flash_bwd_plain(*(x.float() for x in (q, k, v, o, do)), lse, causal=causal)
     torch.testing.assert_close(delta, A.bwd_delta(o, do), atol=1e-3, rtol=1e-4)
     rel = 2e-2 if dtype == torch.bfloat16 else 1e-4
-    for got, r in zip((dq, dk, dv), ref):
-        assert (got.float() - r).abs().max().item() <= rel * r.abs().max().item()
+    for got, r, scale in zip((dq, dk, dv), ref, _bwd_scales(q, k, v, do, ref)):
+        assert (got.float() - r).abs().max().item() <= rel * scale
+
+
+@pytest.mark.parametrize("causal,T,S,D", [(True, 767, 767, 128), (False, 129, 65, 64)])
+def test_kernels_c_d_are_deterministic(causal, T, S, D):
+    """Two runs of C and D on the same inputs give the same bits: every
+    output row belongs to one CTA, and nothing is summed by atomics."""
+    q, k, v, o, do, lse = _bwd_inputs(8, T, S, D, torch.bfloat16, causal)
+    runs = []
+    for _ in range(2):
+        dq, delta = A.flash_bwd_dq(q, k, v, o, do, lse, causal=causal)
+        runs.append((dq, delta) + A.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_grad_launches_c_and_d():
