@@ -27,7 +27,11 @@ Phases, one JSON line each; any failure exits non-zero:
               beside rows that are not; C and D at lengths off their tiles
               (1, 65, 129), S != T both ways, one head and D = 64 at the
               training length, and run twice on the same inputs, equal to
-              the bit;
+              the bit; B at lengths off its tiles, one head, D = 128 with
+              rescued rows beside rows that are not, and B against J on the
+              same inputs (o and o^T equal to the bit); F at one pair, at an
+              evaluate's 3,200 pairs, on zero-padded edge windows, at
+              G = 2 and 22, with bitwise repeats;
   3. modules  llmseg_tiny predict on the card against the same weights on
               the CPU;
      in_place llmseg_7b widths and sequence lengths at two blocks per
@@ -284,6 +288,25 @@ def kernel_case(A, name, *, BH, T, S, D, causal=None, dtype, adversarial=False,
     return rec
 
 
+def onepass_agree(A) -> None:
+    """Kernels B and J run one kernel body and differ in the epilogue only:
+    on the same inputs o and o^T must hold the same bits, and a second run
+    of B must repeat them (DINOv2's shape, and rescued rows beside rows
+    that are not, off the tiles)."""
+    import torch
+    rec = {"phase": "kernel", "kernel": "flash_fwd_1pass", "check": "B == J^T, B == B, bitwise"}
+    for name, (BH, T, S, D, adv) in (("dino", (64, 4097, 4097, 64, False)),
+                                     ("mixed", (3, 129, 65, 128, True))):
+        q, k, v, _ = fwd_inputs(A, BH, T, S, D, torch.bfloat16, adv, adv, seed=4)
+        o = A.flash_fwd_1pass(q, k, v)
+        rec[name] = (torch.equal(o, A.flash_fwd_1pass_t(q, k, v).transpose(1, 2))
+                     and torch.equal(o, A.flash_fwd_1pass(q, k, v)))
+    rec["ok"] = rec["dino"] and rec["mixed"]
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"kernels B and J disagree: {rec}")
+
+
 def bwd_inputs(A, BH, T, S, D, dtype, seed):
     """Seeded q (pre-scaled by scale*log2(e)), k, v and do for the backward."""
     import torch
@@ -321,7 +344,7 @@ def bwd_device_times(A, *, BH, T, S, D, causal, dtype, seed=0) -> dict:
 def fwd_device_times(A, R) -> dict:
     """Device time (device_ms) of the forward kernels at their main shapes
     and of one library call on the same inputs (library_device_ms): A, B and
-    J (J's with its kmax reduction, B's with its key_norm_max) against SDPA's
+    J (B's and J's with the kmax reduction of their C call) against SDPA's
     forward, E and F against SDPA with the rel-pos bias as a float attn_mask
     (built outside the timing).  Near 50 us the event clock of kernel_case
     and relpos_case may also count the wrappers' host time."""
@@ -746,13 +769,25 @@ SAM_DECODE_LIMIT = {"masks": 2e-4, "iou": 2e-5}
 AMG_IMAGES = ((1024, 768), (683, 1024), (1024, 1024))
 
 
-def relpos_inputs(R, BH, G, D, dtype, seed):
+def relpos_inputs(R, BH, G, D, dtype, seed, padded=False):
     """Seeded q (pre-scaled), k, v and random NONZERO rel-pos tables (the
-    model's own are zeros at init, so the main path never shows the bias)."""
+    model's own are zeros at init, so the main path never shows the bias).
+    With ``padded`` (G = 14): the windows that window_partition cuts from
+    a 64-wide token grid zero-padded to 70, BH // 25 grids of one head, the
+    tables from random rel-pos weights (relpos_tables): the edge windows'
+    zero tokens are real keys."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = dict(device="cuda", dtype=torch.float32, generator=g)
     T = G * G
+    if padded:
+        from llmseg_tpu_torch.models.sam.image_encoder import window_partition
+        q, k, v = (window_partition(torch.randn(BH // 25, 64, 64, D, **dev).to(dtype), G)[0]
+                   .reshape(BH, T, 1, D) for _ in range(3))
+        rel_h, rel_w = ((torch.randn(2 * G - 1, D, **dev) * 0.3).to(dtype) for _ in range(2))
+        rh, rw = R.relpos_tables(q, rel_h, rel_w, G)
+        q = q * torch.tensor(R.LOG2E / math.sqrt(D), dtype=dtype, device="cuda")
+        return tuple(x.reshape(BH, T, D).contiguous() for x in (q, k, v)) + (rh, rw)
     q = (torch.randn(BH, T, D, **dev).to(dtype)
          * torch.tensor(R.LOG2E / math.sqrt(D), dtype=dtype, device="cuda")).contiguous()
     k, v = (torch.randn(BH, T, D, **dev).to(dtype).contiguous() for _ in range(2))
@@ -760,16 +795,18 @@ def relpos_inputs(R, BH, G, D, dtype, seed):
     return q, k, v, rh, rw
 
 
-def relpos_case(R, name, *, BH, G, D, dtype, timed=False, seed=0):
+def relpos_case(R, name, *, BH, G, D, dtype, timed=False, seed=0, padded=False, repeat=False):
     """Kernel E (relpos_fwd) or F (relpos_window) against its plain version
-    (float32 math on the same inputs, BF16_TOL / F32_TOL).  With ``timed``
+    (float32 math on the same inputs, BF16_TOL / F32_TOL), on zero-padded
+    windows with ``padded`` (see relpos_inputs); with ``repeat`` a second run
+    must give the same bits.  With ``timed``
     also the kernel's, the plain version's and SDPA's times (SDPA with the
     bias materialised as a float attn_mask, built outside the timing) and
     the bound: 4*BH*T*T*D operations, q/k/v/o and rh/rw bytes."""
     import torch
     import torch.nn.functional as F
     T = G * G
-    q, k, v, rh, rw = relpos_inputs(R, BH, G, D, dtype, seed)
+    q, k, v, rh, rw = relpos_inputs(R, BH, G, D, dtype, seed, padded)
     kern, plain = ((R.relpos_fwd, R.relpos_fwd_plain) if name == "relpos_fwd"
                    else (R.relpos_window, R.relpos_window_plain))
     run = lambda: kern(q, k, v, rh, rw)
@@ -786,8 +823,11 @@ def relpos_case(R, name, *, BH, G, D, dtype, timed=False, seed=0):
         excess = max(excess, (diff - atol - rtol * ro.abs()).max().item())
     rec = {"phase": "kernel", "kernel": name, "BH": BH, "T": T, "G": G, "D": D,
            "dtype": str(dtype).split(".")[-1], "rel_pos": "random nonzero tables",
-           "max_abs_err": err, "atol": atol, "rtol": rtol}
+           "padded": padded, "max_abs_err": err, "atol": atol, "rtol": rtol}
     rec["ok"] = math.isfinite(err) and excess <= 0.0
+    if repeat:
+        rec["bitwise_repeat"] = torch.equal(o, run())
+        rec["ok"] = rec["ok"] and rec["bitwise_repeat"]
     if timed:
         rec["ms"] = cuda_ms(run, 20)
         rec["plain_ms"] = cuda_ms(lambda: plain(q, k, v, rh, rw), 3)
@@ -904,11 +944,18 @@ def sam_kernel_phase(C, R, TK) -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     main = {"relpos_fwd": relpos_case(R, "relpos_fwd", BH=16, G=64, D=80, dtype=bf16, timed=True),
             "relpos_window": relpos_case(R, "relpos_window", BH=400, G=14, D=80, dtype=bf16,
-                                         timed=True)}
+                                         timed=True, repeat=True)}
     relpos_case(R, "relpos_fwd", BH=4, G=32, D=80, dtype=f32)
     relpos_case(R, "relpos_fwd", BH=4, G=23, D=64, dtype=bf16)     # ragged last key tile
     relpos_case(R, "relpos_window", BH=16, G=14, D=80, dtype=f32)
     relpos_case(R, "relpos_window", BH=8, G=5, D=32, dtype=bf16)
+    # F: one pair, an evaluate's 3,200 pairs (8 images a launch), zero-padded
+    # edge windows, the general path at G = 2 and 22
+    relpos_case(R, "relpos_window", BH=1, G=14, D=80, dtype=bf16)
+    relpos_case(R, "relpos_window", BH=3200, G=14, D=80, dtype=bf16, repeat=True)
+    relpos_case(R, "relpos_window", BH=400, G=14, D=80, dtype=bf16, padded=True)
+    relpos_case(R, "relpos_window", BH=8, G=2, D=16, dtype=bf16)
+    relpos_case(R, "relpos_window", BH=16, G=22, D=64, dtype=bf16, repeat=True)
     main["factored_decode"] = g_case(C, TK, bf16, timed=True)
     g_case(C, TK, f32)
     return main
@@ -1493,6 +1540,15 @@ def main() -> int:
     kernel_case(A, "flash_fwd_1pass", BH=2, T=200, S=300, D=64, dtype=f32,
                 adversarial=True)
     kernel_case(A, "flash_fwd_1pass", BH=2, T=200, S=300, D=64, dtype=f32)
+    # B off its 128-row tiles (1, 65, 129), S != T both ways, one head, D =
+    # 128, rescued rows beside rows that are not; then B against J
+    kernel_case(A, "flash_fwd_1pass", BH=1, T=1, S=1, D=64, dtype=bf16)
+    kernel_case(A, "flash_fwd_1pass", BH=3, T=65, S=129, D=64, dtype=bf16)
+    kernel_case(A, "flash_fwd_1pass", BH=2, T=129, S=65, D=128, dtype=bf16)
+    kernel_case(A, "flash_fwd_1pass", BH=1, T=4097, S=4097, D=64, dtype=bf16)
+    kernel_case(A, "flash_fwd_1pass", BH=4, T=300, S=200, D=128, dtype=bf16,
+                adversarial=True, mixed=True)
+    onepass_agree(A)
     main_cd = bwd_case(A, BH=32, T=767, S=767, D=128, causal=True, dtype=bf16, timed=True,
                        repeat=True)
     bwd_case(A, BH=8, T=300, S=200, D=64, causal=False, dtype=bf16)

@@ -1,10 +1,11 @@
-// Shared pieces of the mma.sync attention kernels: B (flash_fwd_1pass.cu),
-// E and F (relpos_*.cu) and the GEMM of G, H and I (batched_gemm.cuh).
-// Kernels A (flash_fwd.cu) and J (flash_fwd_1pass_t.cu) run their bf16
+// Shared pieces of the mma.sync attention kernel E (relpos_fwd.cu) and the
+// GEMM of G, H and I (batched_gemm.cuh).  Kernels A, B and J
+// (flash_fwd.cu, flash_fwd_1pass.cu, flash_fwd_1pass_t.cu) run their bf16
 // paths on hopper.cuh and fwd_core.cuh instead (wgmma, TMA), and the
-// backward kernels C (flash_bwd_dq.cu) and D (flash_bwd_dkv.cu) on
-// hopper.cuh; they take only the reductions, the bf16 packing and the
-// float32 paths' helpers from here.
+// backward kernels C (flash_bwd_dq.cu), D (flash_bwd_dkv.cu) and the
+// windowed rel-pos kernel F (relpos_window.cu) on hopper.cuh; they take
+// only the reductions, the bf16 packing and the float32 paths' helpers
+// from here.
 //
 // Layout contract of both kernels: q (BH, T, D), k and v (BH, S, D), all
 // contiguous, q already multiplied by scale*log2(e) in its own dtype, so
@@ -102,15 +103,6 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  uint32_t u;
-  memcpy(&u, &h, sizeof(u));
-  return u;
-}
-
-// the same, adding the two rounded values to sum
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi, float& sum) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  sum += __low2float(h) + __high2float(h);
   uint32_t u;
   memcpy(&u, &h, sizeof(u));
   return u;

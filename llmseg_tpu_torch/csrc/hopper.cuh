@@ -1,9 +1,11 @@
 // Hopper (sm_90a) primitives as inline PTX: wgmma, the shared-memory matrix
 // descriptor, mbarriers, TMA tensor loads and named barriers, plus the
 // host-side tensor maps.  The forward-attention core built on them
-// is fwd_core.cuh; kernels A (flash_fwd.cu) and J (flash_fwd_1pass_t.cu) run
-// on it.  The backward kernels C (flash_bwd_dq.cu) and D (flash_bwd_dkv.cu)
-// use them directly.
+// is fwd_core.cuh; kernels A (flash_fwd.cu), B and J (flash_fwd_1pass.cu,
+// flash_fwd_1pass_t.cu, through onepass.cuh) run on it.  The backward
+// kernels C (flash_bwd_dq.cu) and D (flash_bwd_dkv.cu) and the windowed
+// rel-pos kernel F (relpos_window.cu, 32-byte swizzled boxes of 16 columns:
+// see desc_sw32) use them directly.
 //
 // Operand layout.  Every bf16 tile lives in shared memory as TMA writes it
 // with CU_TENSOR_MAP_SWIZZLE_128B: a box is (rows x 64) elements, one
@@ -86,6 +88,20 @@ __device__ __forceinline__ uint64_t desc_kmajor(uint32_t saddr) { return desc_sw
 // MN-major B (v): next 64-wide block of N box_bytes on, 8-key groups 1024 apart
 __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t saddr, uint32_t box_bytes) {
   return desc_sw128(saddr, box_bytes, 1024);
+}
+
+// The same with 32-byte swizzle (layout type 3), for boxes of 16 columns:
+// one 32-byte line a row, 8-row groups 256 bytes apart (SBO = 256).  A
+// K-major box is exactly one k16 step (q, k as A and B of S = q k^T); an
+// MN-major B (v) steps +512 bytes a k16 step (16 lines), and its next
+// 16-wide block of N is LBO = the box's bytes on.  Boxes start on
+// 256-byte boundaries (one swizzle atom).
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t saddr, uint32_t lbo_bytes) {
+  uint64_t d = (uint64_t)((saddr & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)(256 >> 4) << 32;
+  d |= (uint64_t)3 << 62;
+  return d;
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -195,6 +211,49 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], uint32_t a0, uint3
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_ss<8>(float (&d)[4], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], uint32_t a0, uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], uint32_t a0, uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40], uint32_t a0, uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
 // ---------------------------------------------------------------------------
 // mbarrier, TMA, named barriers
 // ---------------------------------------------------------------------------
@@ -240,6 +299,16 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// a contiguous block of bytes (a multiple of 16, both addresses 16-byte
+// aligned) into shared memory, counted in bytes on bar like a tensor load
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -300,18 +369,20 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // Tensor map of a contiguous bf16 (BH, L, D) array as the 3-D (D, L, BH),
-// boxes of (64, rows, 1) with 128-byte swizzle.  A box that runs past L is
-// zero-filled inside its own head: it never reads the next head's rows.
+// boxes of (64, rows, 1) with 128-byte swizzle, or with cols = 16 boxes of
+// (16, rows, 1) with 32-byte swizzle.  A box that runs past L is zero-filled
+// inside its own head: it never reads the next head's rows.
 inline cudaError_t tensor_map_3d(CUtensorMap* map, const void* ptr, int D, int L, int BH,
-                                 int rows) {
+                                 int rows, int cols = 64) {
   EncodeTiledFn fn = encode_tiled();
   if (!fn) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-                  box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  cols == 16 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

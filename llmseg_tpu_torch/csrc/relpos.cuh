@@ -1,5 +1,6 @@
 // Shared pieces of the rel-pos attention kernels E (relpos_fwd.cu) and F
-// (relpos_window.cu).
+// (relpos_window.cu): the layout contract and the float32 SIMT kernel of
+// both; the table staging and the bias of E's mma.sync tiles.
 //
 // Layout contract: q (BH, T, D) pre-scaled by scale*log2(e) in its own
 // dtype; k, v (BH, T, D); rh, rw (BH, T, G) in q's dtype, already scaled by

@@ -147,7 +147,9 @@ def flash_fwd(q, k, v, *, causal: bool, bias=None, with_lse=False
 
 
 def key_norm_max(k: torch.Tensor) -> torch.Tensor:
-    """(BH, S, D) -> (BH,) float32 max_j |k_j|, kernel B's per-head input."""
+    """(BH, S, D) -> (BH,) float32 max_j |k_j|, the per-head input of the
+    plain versions of kernels B and J (on the card each kernel's C call
+    computes it)."""
     return k.float().square().sum(-1).sqrt().amax(-1).contiguous()
 
 
@@ -171,12 +173,14 @@ def flash_fwd_1pass_plain(q, k, v, kmax):
 
 
 def flash_fwd_1pass(q, k, v) -> torch.Tensor:
-    """Kernel B wrapper.  q (BH, T, D) pre-scaled; k, v (BH, S, D)."""
-    kmax = key_norm_max(k)
+    """Kernel B wrapper.  q (BH, T, D) pre-scaled; k, v (BH, S, D).  On the
+    card the C call computes max_j |k_j| itself, by one reduction kernel
+    into ``kmax``, before kernel B, as kernel J's does."""
     if q.device.type == "cpu":
-        return flash_fwd_1pass_plain(q, k, v, kmax)
+        return flash_fwd_1pass_plain(q, k, v, key_norm_max(k))
     _check_cuda(q, k, v)
     BH, T, D = q.shape
+    kmax = torch.empty((BH,), dtype=torch.float32, device=q.device)
     o = torch.empty_like(q)
     FLASH_FWD_1PASS.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            kmax.data_ptr(), o.data_ptr(), BH, T, k.shape[1],

@@ -1,14 +1,14 @@
-"""Times kernels A, J, C and D of the port, predict through J and one LoRA
-train step, for one checkout.
+"""Times kernels A, B, J, C, D and F of the port, predict (through B, and
+through J), one LoRA train step and one AMG image, for one checkout.
 
 Run on a machine with one CUDA card, once per checkout, in turns, so that
 two trees compare within one call (parent, change, change, parent):
 
     python3 scripts/compare_trees.py <checkout root> <label> [parts]
 
-``parts`` is a comma-separated subset of ``fwd,predict,bwd,train`` (all by
-default).  It builds the kernels of that checkout that the parts run and
-prints one JSON line:
+``parts`` is a comma-separated subset of
+``fwd,predict,bwd,train,onepass,window`` (all by default).  It builds the
+kernels of that checkout that the parts run and prints one JSON line:
   fwd      A at (128, 767, 767, 128) causal and J at (64, 4097, 4097, 64),
            bf16, on the event clock (ms a call, back to back), and A's host
            time a call;
@@ -23,11 +23,23 @@ prints one JSON line:
            text_len 512, remat "dots", through the Trainer): ms/step over
            3 steps, and one step's device time under torch.profiler, in all
            and for C's and D's kernels (the profiler may drop kernels
-           launched through ctypes, so those two are lower bounds).
+           launched through ctypes, so those two are lower bounds);
+  onepass  B at (64, 4097, 4097, 64), bf16, on the device clock, its kmax
+           (max_j |k_j|) included wherever the checkout computes it; the
+           default llmseg_7b predict (the non-causal forward on B): ms/step
+           over 5 steps and one step's device time under torch.profiler, in
+           all and for B's kernels;
+  window   F at (400, 196, 196, 80) and (3200, 196, 196, 80) (an AMG image's
+           windowed layer, and an evaluate's, 8 images a launch), bf16,
+           random nonzero tables, on the device clock; one default AMG image
+           at sam_vit_h (bf16, seed 0, the third of chip_smoke's synthetic
+           images): ms over 3 images after 2 of warm-up, and one image's
+           device time under torch.profiler, in all and for F's kernels.
 It imports only the checkout's ``llmseg_tpu_torch``."""
 import json, math, os, sys, time
 root = os.path.abspath(sys.argv[1])
-parts = set((sys.argv[3] if len(sys.argv) > 3 else "fwd,predict,bwd,train").split(","))
+parts = set((sys.argv[3] if len(sys.argv) > 3
+              else "fwd,predict,bwd,train,onepass,window").split(","))
 sys.path.insert(0, root)
 os.chdir(root)
 import torch
@@ -42,6 +54,10 @@ if parts & {"fwd", "predict"}:
     names |= {"flash_fwd", "flash_fwd_1pass", "flash_fwd_1pass_t"}
 if parts & {"bwd", "train"}:
     names |= {"flash_fwd", "flash_fwd_1pass", "flash_bwd_dq", "flash_bwd_dkv"}
+if "onepass" in parts:
+    names |= {"flash_fwd", "flash_fwd_1pass"}
+if "window" in parts:
+    names |= {"relpos_fwd", "relpos_window", "factored_decode"}
 kernels.build(sorted(names), force=True)
 
 
@@ -127,11 +143,58 @@ if "bwd" in parts:
     out["c_device_ms"], out["d_device_ms"] = dev_ms(run_c, 20), dev_ms(run_d, 20)
     del q, k, v, do, o, lse, delta
 
-if "predict" in parts:
+if "onepass" in parts:
+    qb, kb, vb = inputs(64, 4097, 64)
+    out["b_device_ms"] = dev_ms(lambda: A.flash_fwd_1pass(qb, kb, vb), 20)
+    del qb, kb, vb
+
+if "window" in parts:
+    from llmseg_tpu_torch.ops import relpos_attention as R
+    for BH in (400, 3200):
+        g = torch.Generator(device="cuda").manual_seed(0)
+        kw = dict(device="cuda", dtype=torch.float32, generator=g)
+        qf, kf, vf = (torch.randn(BH, 196, 80, **kw).to(torch.bfloat16) for _ in range(3))
+        qf = (qf * torch.tensor(A.LOG2E / math.sqrt(80), dtype=torch.bfloat16,
+                                device="cuda")).contiguous()
+        rh, rw = ((torch.randn(BH, 196, 14, **kw) * A.LOG2E).to(torch.bfloat16).contiguous()
+                  for _ in range(2))
+        out[f"f{BH}_device_ms"] = dev_ms(lambda: R.relpos_window(qf, kf, vf, rh, rw), 20)
+    del qf, kf, vf, rh, rw
+    import numpy as np
+    from llmseg_tpu_torch.models.sam import amg as AMG, sam as SAM
+    scfg = C.sam_vit_h()
+    sam_model = SAM.init(scfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    gen = AMG.AutomaticMaskGenerator(sam_model, scfg)
+    rng = np.random.RandomState(11)
+    yy, xx = np.mgrid[0:1024, 0:1024]
+    img = np.zeros((1024, 1024, 3), np.float32)
+    for _ in range(6):
+        cy, cx, r = rng.rand() * 1024, rng.rand() * 1024, 60 + rng.rand() * 200
+        img += (((yy - cy) ** 2 + (xx - cx) ** 2) < r * r)[..., None] * rng.rand(3) * 120
+    img = np.clip(img + rng.rand(1024, 1024, 3) * 40, 0, 255).astype(np.uint8)
+    for _ in range(2):
+        gen.generate(img)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        gen.generate(img)
+    torch.cuda.synchronize()
+    out["amg_image_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+
+if parts & {"predict", "onepass"}:
     cfg = C.llmseg_7b()
     model = llmseg.fold_frozen_inplace(llmseg.init(cfg, seed=0, device="cuda",
                                                    dtype=torch.bfloat16))
     batch = make_batch(cfg, num_images=4, rows_per_image=1, text_len=512, seed=0)
+if "onepass" in parts:
+    llmseg.predict(model, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        llmseg.predict(model, batch)
+    torch.cuda.synchronize()
+    out["predict_ms"] = (time.perf_counter() - t0) * 1e3 / 5
+if "predict" in parts:
     A.ONEPASS_T = True
     llmseg.predict(model, batch)
     torch.cuda.synchronize()
@@ -160,6 +223,15 @@ if "train" in parts:
     out["train_step_ms"] = (time.perf_counter() - t0) * 1e3 / 3
 
 # the profiler last: it adds host cost to what follows
+if "onepass" in parts:
+    prof = profiled(lambda: llmseg.predict(model, batch),
+                    {"kernel_b": ("flash_fwd_1pass_bf16", "key_norm_max")})
+    out["predict_device_ms"] = prof["device_ms"]
+    out["kernel_b_family_device_ms"] = prof["kernel_b"]
+if "window" in parts:
+    prof = profiled(lambda: gen.generate(img), {"kernel_f": ("relpos_window",)})
+    out["amg_image_device_ms"] = prof["device_ms"]
+    out["kernel_f_family_device_ms"] = prof["kernel_f"]
 if "predict" in parts:
     A.ONEPASS_T = True
     prof = profiled(lambda: llmseg.predict(model, batch),

@@ -86,6 +86,31 @@ def test_kernel_b_plain_matches_fwd1_kernel():
     np.testing.assert_allclose(np.asarray(ref), got.numpy(), **TOL)
 
 
+@pytest.mark.parametrize("T,S", [(65, 129), (129, 65)])
+def test_kernel_b_plain_matches_fwd1_kernel_off_the_tiles(T, S):
+    """Kernel B's plain version against the interpret-mode ``_fwd1_kernel``
+    at lengths off the 128-row tiles, S != T both ways."""
+    q, k, v = _qkv(B=1, T=T, S=S, D=64, seed=10)
+    scale = np.float32(1.0 / np.sqrt(64) * JA.LOG2E)
+    qh, kh, vh = _heads(q) * scale, _heads(k), _heads(v)
+    Tp, Sp = -(-T // 128) * 128, -(-S // 128) * 128
+    ref = JA._flash_fwd_1pass(jnp.asarray(np.pad(qh, ((0, 0), (0, Tp - T), (0, 0)))),
+                              jnp.asarray(_heads(k, Sp)), jnp.asarray(_heads(v, Sp)),
+                              block_q=128, s_real=S)
+    got = TA.flash_fwd_1pass_plain(*_t(qh, kh, vh), TA.key_norm_max(torch.tensor(kh)))
+    np.testing.assert_allclose(np.asarray(ref)[:, :T], got.numpy(), **TOL)
+
+
+def test_kernel_b_wrapper_on_the_cpu_is_the_plain_path_with_key_norm_max():
+    """On the CPU kernel B's wrapper launches nothing and computes the plain
+    version with ``key_norm_max`` (on the card its C call computes it)."""
+    q, k, v = _t(*(_heads(x) for x in _qkv(B=1, T=65, S=129, D=64, seed=11)))
+    before = TA.FLASH_FWD_1PASS.launches
+    got = TA.flash_fwd_1pass(q, k, v)
+    assert TA.FLASH_FWD_1PASS.launches == before
+    assert torch.equal(got, TA.flash_fwd_1pass_plain(q, k, v, TA.key_norm_max(k)))
+
+
 def _adversarial(seed):
     """Near-orthogonal, large-norm q and k (tests/test_attention.py's
     construction): the Cauchy bound overshoots the row max and the

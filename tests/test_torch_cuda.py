@@ -80,13 +80,47 @@ def test_kernel_a_matches_plain(dtype, causal, BH, T, S, D, bias):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("adversarial", [False, True])
-@pytest.mark.parametrize("T,S,D", [(4097, 4097, 64), (200, 300, 128)])
-def test_kernel_b_matches_plain(dtype, adversarial, T, S, D):
-    q, k, v = _inputs(4, T, S, D, dtype, seed=1, adversarial=adversarial)
+@pytest.mark.parametrize("adversarial", [False, True, "mixed"])
+@pytest.mark.parametrize("BH,T,S,D", [(4, 4097, 4097, 64), (4, 200, 300, 128),
+                                      # lengths off the 128-row tiles, S != T both
+                                      # ways, one head
+                                      (1, 65, 129, 64), (3, 129, 65, 128), (1, 1, 1, 64),
+                                      (2, 129, 129, 128), (2, 65, 65, 64), (1, 4097, 4097, 64)])
+def test_kernel_b_matches_plain(dtype, adversarial, BH, T, S, D):
+    """Kernel B (the rescue per row) against its plain version, at lengths
+    off its 128-row tiles too, with one head, and with rescued rows beside
+    rows that are not ("mixed")."""
+    q, k, v = _inputs(BH, T, S, D, dtype, seed=1, adversarial=adversarial)
     o = A.flash_fwd_1pass(q, k, v)
     ro = A.flash_fwd_1pass_plain(q.float(), k.float(), v.float(), A.key_norm_max(k))
     _assert_close(o, ro, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("adversarial", [False, "mixed"])
+@pytest.mark.parametrize("BH,T,S,D", [(4, 4097, 4097, 64), (3, 129, 65, 128), (1, 65, 129, 64)])
+def test_kernels_b_and_j_agree_to_the_bit(dtype, adversarial, BH, T, S, D):
+    """B and J run one kernel body and differ in the epilogue only, so o
+    and o^T hold the same bits; a second run of B repeats them."""
+    q, k, v = _inputs(BH, T, S, D, dtype, seed=4, adversarial=adversarial)
+    o = A.flash_fwd_1pass(q, k, v)
+    assert torch.equal(o, A.flash_fwd_1pass_t(q, k, v).transpose(1, 2))
+    assert torch.equal(o, A.flash_fwd_1pass(q, k, v))
+
+
+def test_kernel_b_computes_its_key_norms_in_its_c_call(monkeypatch):
+    """On the card kernel B's wrapper never calls key_norm_max: the C call
+    reduces max|k|^2 itself."""
+    def refuse(k):
+        raise AssertionError("key_norm_max called on the CUDA path")
+
+    q, k, v = _inputs(2, 300, 200, 64, torch.bfloat16)
+    ref = A.flash_fwd_1pass_plain(q.float(), k.float(), v.float(), A.key_norm_max(k))
+    monkeypatch.setattr(A, "key_norm_max", refuse)
+    before = A.FLASH_FWD_1PASS.launches
+    o = A.flash_fwd_1pass(q, k, v)
+    assert A.FLASH_FWD_1PASS.launches == before + 1
+    _assert_close(o, ref, torch.bfloat16)
 
 
 def _bwd_inputs(BH, T, S, D, dtype, causal, seed=3):
@@ -205,11 +239,53 @@ def test_kernel_e_matches_plain(dtype, G, D):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("G,D", [(14, 80), (5, 32), (22, 64)])
-def test_kernel_f_matches_plain(dtype, G, D):
-    x = _relpos_inputs(16, G, D, dtype)
+@pytest.mark.parametrize("BH,G,D", [(16, 14, 80), (16, 5, 32), (16, 22, 64),
+                                    # one pair, an AMG layer's 400 pairs, an evaluate's
+                                    # 3,200 (the persistent CTAs walk many), G = 2
+                                    # and 16, D = 16, 64, 128 at G = 14
+                                    (1, 14, 80), (400, 14, 80), (3200, 14, 80), (8, 2, 16),
+                                    (8, 16, 128), (8, 14, 64), (8, 14, 128), (8, 14, 16)])
+def test_kernel_f_matches_plain(dtype, BH, G, D):
+    x = _relpos_inputs(BH, G, D, dtype)
     _assert_close(R.relpos_window(*x), R.relpos_window_plain(*(t.float() if i < 3 else t
                                                                for i, t in enumerate(x))), dtype)
+
+
+def _padded_windows(dtype, B=2, H=4, D=80, G=14, seed=7):
+    """SAM's windowed layer on a 64-wide token grid: q, k, v zero-padded to
+    70 x 70 and cut into 14 x 14 windows by window_partition, the tables from
+    random rel-pos weights (relpos_tables); kernel layout (B*25*H, 196, D)."""
+    from llmseg_tpu_torch.models.sam.image_encoder import window_partition
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    grid = [torch.randn(B, 64, 64, H * D, device="cuda", generator=g).to(dtype)
+            for _ in range(3)]
+    q, k, v = (window_partition(x, G)[0].reshape(-1, G * G, H, D) for x in grid)
+    rel_h, rel_w = ((torch.randn(2 * G - 1, D, device="cuda", generator=g) * 0.3).to(dtype)
+                    for _ in range(2))
+    rh, rw = R.relpos_tables(q, rel_h, rel_w, G)
+    qs = q * torch.tensor(A.LOG2E / math.sqrt(D), dtype=dtype, device="cuda")
+
+    def prep(x):
+        return x.permute(0, 2, 1, 3).reshape(-1, G * G, D).contiguous()
+
+    return prep(qs), prep(k), prep(v), rh, rw
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_f_on_zero_padded_windows(dtype):
+    """The windows at the grid's right and bottom edges hold zero tokens,
+    which are real keys (and queries) for kernel F as for the TPU kernel."""
+    x = _padded_windows(dtype)
+    assert bool((x[1].reshape(2, 25, 4, 14, 14, 80)[:, 24, :, 8:] == 0).all())
+    _assert_close(R.relpos_window(*x), R.relpos_window_plain(*(t.float() if i < 3 else t
+                                                               for i, t in enumerate(x))), dtype)
+
+
+@pytest.mark.parametrize("BH,G,D", [(400, 14, 80), (16, 22, 64)])
+def test_kernel_f_is_deterministic(BH, G, D):
+    """Two runs of F on the same inputs give the same bits."""
+    x = _relpos_inputs(BH, G, D, torch.bfloat16)
+    assert torch.equal(R.relpos_window(*x), R.relpos_window(*x))
 
 
 def test_relpos_dispatch_launches_f_then_e():

@@ -38,6 +38,27 @@ def test_relpos_flash_attention_matches_jax(G, H, D, block_q):
     np.testing.assert_allclose(np.asarray(ref), got.numpy(), **TOL)
 
 
+def test_kernel_f_plain_matches_window_kernel_on_padded_windows():
+    """Kernel F's plain path against the interpret-mode ``_window_kernel`` at
+    ViT-H's head width D = 80, on windows that ``window_partition`` cuts from
+    a 64-wide token grid: the last column's window holds 6 zero-padded
+    columns, the corner window 6 rows and 6 columns; in both the zero tokens
+    are real keys."""
+    from llmseg_tpu_torch.models.sam.image_encoder import window_partition
+    rng = np.random.RandomState(12)
+    G, H, D = 14, 2, 80
+    wins = [window_partition(torch.tensor(rng.randn(1, 64, 64, H * D).astype(np.float32)), G)[0]
+            for _ in range(3)]                                  # (25, 14, 14, H*D) each
+    q, k, v = (w[[4, 24]].reshape(2, G * G, H, D) for w in wins)
+    assert bool((q[0].reshape(G, G, H * D)[:, 8:] == 0).all())
+    assert bool((k[1].reshape(G, G, H * D)[8:] == 0).all())
+    rh, rw = ((0.1 * rng.randn(2 * G - 1, D)).astype(np.float32) for _ in range(2))
+    ref = jax_relpos(*(jnp.asarray(x.numpy()) for x in (q, k, v)), jnp.asarray(rh),
+                     jnp.asarray(rw), G)
+    got = R.relpos_flash_attention(q, k, v, torch.tensor(rh), torch.tensor(rw), G)
+    np.testing.assert_allclose(np.asarray(ref), got.numpy(), **TOL)
+
+
 def test_decomposed_bias_and_table_match_jax():
     G, H, D = 6, 2, 8
     q, _, _, rh, rw = _inputs(G, H, D, seed=3, B=2)
