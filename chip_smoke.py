@@ -528,8 +528,9 @@ def device_families(fn, out_name: str, decode_family: str = "kernel_g") -> dict:
     """One run of ``fn`` under torch.profiler: device time by kernel family,
     the wall time and the device's idle share; the table goes to
     OUT_DIR/<out_name>.  Kernels G, H and I share their GEMM
-    (``fd_gemm*``, csrc/batched_gemm.cuh): its time and H's and I's own
-    kernels (``tw_*``) count to ``decode_family``, the one the traced path
+    (``fd_gemm*``, csrc/batched_gemm.cuh): its time, G's own kernels
+    (``fd_*``, the fused ones of csrc/factored_fused.cuh included) and H's
+    and I's (``tw_*``) count to ``decode_family``, the one the traced path
     runs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -840,6 +841,7 @@ def relpos_case(R, name, *, BH, G, D, dtype, timed=False, seed=0, padded=False, 
         del bias, b4
         e = q.element_size()
         rec["bound_ms"], rec["bound_by"] = bound(e * BH * T * (4 * D + 2 * G), 4.0 * BH * T * T * D)
+        rec["ex2_bound_ms"] = ex2_bound_ms(BH * T * T)   # an exp2 a logit
     emit(rec)
     if not rec["ok"]:
         raise SystemExit(f"{name} disagrees with its plain version: {rec}")
@@ -862,14 +864,40 @@ def random_decoder(C, dtype, seed):
     return dec
 
 
-def g_case(C, TK, dtype, *, timed=False, seed=0):
+def g_breakdown(TK, plan, iters: int = 5) -> dict:
+    """Kernel G's recorded sequence on a replayed plan, one record at a time
+    on the device clock (device_ms), summed by the part of the decode that
+    g_program tagged it with (TK.REGIONS); beside it the whole sequence in
+    one call.  The gap between the two is what the single launches cost
+    beyond their kernels.  (Running single records again and again leaves
+    the buffers in no useful state; the next full run resets them.)"""
+    regions = plan.prog.regions
+    each = [device_ms(lambda i=i: TK.launch_records(plan.packed, i, i + 1), iters)
+            for i in range(len(regions))]
+    whole = device_ms(lambda: TK.launch_records(plan.packed), iters)
+    by = {r: sum(t for t, g in zip(each, regions) if g == r) for r in TK.REGIONS}
+    return {"clock": "device (events behind a spin kernel), one record at a time",
+            "records": len(each), "regions_ms": by,
+            "records_by_region": {r: regions.count(r) for r in TK.REGIONS},
+            "records_sum_ms": sum(each), "whole_ms": whole, "gap_ms": whole - sum(each),
+            "fused_ms": {f"{i}:{TK.OP_NAMES[rec[0]]}": t for i, (rec, t) in
+                         enumerate(zip(plan.prog.records, each)) if rec[0] in TK.FUSED_OUTPUTS},
+            "ops_by_region": {r: sorted({TK.OP_NAMES[rec[0]] for rec, g in
+                                         zip(plan.prog.records, regions) if g == r})
+                              for r in TK.REGIONS}}
+
+
+def g_case(C, TK, dtype, *, timed=False, seed=0, prompts=64, repeat=False):
     """Kernel G against factored_decode_plain at the full decoder widths: 64
-    prompts of 7 tokens, L = 64*64, C = 256; gated normwise at G_TOL, on a
+    prompts (or ``prompts``) of 7 tokens, L = 64*64, C = 256; gated normwise at G_TOL, on a
     chunk that records the launch sequence, on a second chunk that replays
     it (as every later chunk of an AMG image does), on a chunk of another
     base given the same cache (which must record anew), and uncached.  With
-    ``timed``: G's time (CUDA events) replaying its recorded sequence, as
-    AMG does for every chunk of an image, and with the recording (the
+    ``repeat``: a second replay of the same chunk must give the same bits.
+    With ``timed``: G's time (CUDA events) replaying its recorded sequence, as
+    AMG does for every chunk of an image, the same on the device clock
+    (device_ms) with its breakdown by part (g_breakdown), and with the
+    recording (the
     shared precomputes and the sequence built anew, as for an image's first
     chunk), the plain version's, the plain mask-decoder tail's on the same
     chunk (no single PyTorch call computes G, so library_ms is null), and
@@ -878,12 +906,13 @@ def g_case(C, TK, dtype, *, timed=False, seed=0):
     precomputes, weights and tokens read, mask columns and IoU written)."""
     import torch
     name = str(dtype).split(".")[-1]
+    P = prompts
     dec = random_decoder(C, dtype, seed)
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     base, base2 = ((torch.randn(1, 64, 64, 256, device="cuda", generator=g) * 0.5).to(dtype)
                    for _ in range(2))
     pe = (torch.randn(64, 64, 256, device="cuda", generator=g) * 0.5).to(dtype)
-    tokens, tokens2 = ((torch.randn(64, 7, 256, device="cuda", generator=g) * 0.5).to(dtype)
+    tokens, tokens2 = ((torch.randn(P, 7, 256, device="cuda", generator=g) * 0.5).to(dtype)
                        for _ in range(2))
     args = (dec.transformer, dec, base, pe, tokens, 8)
     args2 = (dec.transformer, dec, base, pe, tokens2, 8)
@@ -903,15 +932,29 @@ def g_case(C, TK, dtype, *, timed=False, seed=0):
                for j, k in enumerate(("masks", "iou"))}
         each = [[(x[j].float() - r[j].float()).abs().max().item() for j in range(2)]
                 for x, r in zip(got, ref)]
-        rec = {"phase": "kernel", "kernel": "factored_decode", "prompts": 64, "tokens": 7,
+        rec = {"phase": "kernel", "kernel": "factored_decode", "prompts": P, "tokens": 7,
                "L": 4096, "C": 256, "dtype": name, "checked": "recorded, replayed, another base on the same cache, fresh",
                "max_abs_err": err, "max_abs_err_each": each, "max_abs_ref": top,
                "tol_vs_max_ref": G_TOL[name]}
         rec["ok"] = all(math.isfinite(err[k]) and err[k] <= G_TOL[name] * top[k] for k in err)
+        if dtype == torch.bfloat16:   # each fused kernel against its record's emulation
+            fused = TK.fused_record_errors(TK.g_program(*args)[0])
+            rec["fused_records"] = {f"{r['record']}:{r['op']}": max(
+                e / max(m, 1e-30) for e, m in zip(r["max_abs_err"], r["max_abs_ref"]))
+                for r in fused}
+            rec["ok"] = rec["ok"] and len(fused) > 0 and all(
+                v <= G_TOL[name] for v in rec["fused_records"].values())
+        if repeat:   # the cache holds args3's base: two replays of that chunk
+            first = TK.factored_decode(*args3, cache=cache)
+            second = TK.factored_decode(*args3, cache=cache)
+            rec["bitwise_repeat"] = all(torch.equal(a, b) for a, b in zip(first, second))
+            rec["ok"] = rec["ok"] and rec["bitwise_repeat"]
         if timed:
             prog, _, _ = TK.g_program(*args)
             rec["launches_in_sequence"] = len(prog.records)
             rec["ms"] = cuda_ms(lambda: TK.factored_decode(*args, cache=cache), 5)
+            rec["device_ms"] = device_ms(lambda: TK.factored_decode(*args, cache=cache), 5)
+            rec["breakdown"] = g_breakdown(TK, cache["factored_decode"][2])
             rec["ms_with_recording"] = cuda_ms(run, 5)
             rec["plain_ms"] = cuda_ms(lambda: TK.factored_decode_plain(*args), 3)
             rec["plain_tail_ms"] = cuda_ms(lambda: dec.plain_tail(base, pe[None], tokens), 3)
@@ -947,6 +990,14 @@ def sam_kernel_phase(C, R, TK) -> dict:
                                          timed=True, repeat=True)}
     relpos_case(R, "relpos_fwd", BH=4, G=32, D=80, dtype=f32)
     relpos_case(R, "relpos_fwd", BH=4, G=23, D=64, dtype=bf16)     # ragged last key tile
+    # E: one head and 16, on the register-held rw path (G = 64) and the
+    # general one (23, 40: a ragged last key tile, query rows past T), bitwise
+    # repeats
+    for G in (64, 23, 40):
+        for D in (64, 80):
+            for BH in (1, 16):
+                relpos_case(R, "relpos_fwd", BH=BH, G=G, D=D, dtype=bf16, repeat=BH == 16,
+                            seed=G + D + BH)
     relpos_case(R, "relpos_window", BH=16, G=14, D=80, dtype=f32)
     relpos_case(R, "relpos_window", BH=8, G=5, D=32, dtype=bf16)
     # F: one pair, an evaluate's 3,200 pairs (8 images a launch), zero-padded
@@ -956,8 +1007,10 @@ def sam_kernel_phase(C, R, TK) -> dict:
     relpos_case(R, "relpos_window", BH=400, G=14, D=80, dtype=bf16, padded=True)
     relpos_case(R, "relpos_window", BH=8, G=2, D=16, dtype=bf16)
     relpos_case(R, "relpos_window", BH=16, G=22, D=64, dtype=bf16, repeat=True)
-    main["factored_decode"] = g_case(C, TK, bf16, timed=True)
+    main["factored_decode"] = g_case(C, TK, bf16, timed=True, repeat=True)
     g_case(C, TK, f32)
+    for P in (1, 3):   # one prompt a chunk, and an odd count
+        g_case(C, TK, bf16, prompts=P)
     return main
 
 

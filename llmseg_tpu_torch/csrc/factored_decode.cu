@@ -8,33 +8,40 @@
 // column layout, giving mask columns (P, L, 16*nt) and IoU (P, 1, nt).
 //
 // What bounds it on an H100: at sam_vit_h's decoder (64 prompts a chunk,
-// 7 tokens, L = 4096, C = 256) the work is about 2 GFLOP a prompt of
-// rank-width and shared-matrix products (norm4's sigma_bbar base^T and
-// gram A, the scores and attends against the shared G / PE matrices, the
-// upscale's A^T (B W1) and conv2), against some 34 MB of bf16 mask output:
-// operations.  A prompt's rank state A (up to 128 x 4096) does not fit a
-// block's shared memory, and one block per prompt would fill half the
+// 7 tokens, L = 4096, C = 256) the work is about 96 GFLOP of useful
+// products a chunk (norm4's sigma_bbar base^T and gram A, the scores and
+// attends against the shared G / PE matrices, the upscale's A^T (B W1) and
+// conv2; 0.097 ms at the tensor rate), against some 34 MB of bf16 mask
+// output: operations.  A prompt's rank state A (up to 128 x 4096) does not
+// fit a block's shared memory, and one block per prompt would fill half the
 // SMs, so the TPU kernel's one-program-per-prompt design does not carry
 // over.  Instead every step runs over all prompts of the chunk at once, as
-// a sequence of launches of the kernels below (a strided batched GEMM with
-// fused epilogues, softmaxes, LayerNorms, norm4's closed form and small
-// layout ops), with the scratch between steps allocated by the wrapper.
-// The host side receives the whole sequence (twoway_kernel.Program) in one
-// call and launches it on the caller's stream; the wrapper records the
-// sequence once per image and replays it for every chunk.  The GEMM reads
-// any strides; bf16 operands run on mma.sync m16n8k16 (64 x 64 tiles,
-// float32 accumulation) with 16-byte cp.async staging where the strides
-// allow it, float32 ones on a SIMT tile.  wgmma tiles, split-K for the
-// products over L, and fusing the steps so that the float32 scores and the
-// rank state are read fewer times, are the next steps.
+// a sequence of launches, with the scratch between steps allocated by the
+// wrapper.  The host side receives the whole sequence
+// (twoway_kernel.Program) in one call and launches it on the caller's
+// stream; the wrapper records the sequence once per image and replays it
+// for every chunk.
+//
+// Two routes, by dtype (g_program):
+//   * bf16: the four parts that sweep over L are fused kernels on wgmma and
+//     TMA (factored_fused.cuh: OP_T2I, OP_I2T, OP_NORM4_FUSED, OP_UPSCALE),
+//     which keep the float32 scores, norm4's products and the upscale's
+//     intermediates out of device memory; the token-side steps, on (P, 7,
+//     256) and the rank matrices, stay on the records below.
+//   * float32: every step on the records below: a strided batched GEMM with
+//     fused epilogues (batched_gemm.cuh, shared with kernels H and I: bf16
+//     operands on mma.sync 64 x 64 tiles, float32 ones on a SIMT tile),
+//     softmaxes, LayerNorms, norm4's closed form and small layout ops.
 #include "batched_gemm.cuh"
+#include "factored_fused.cuh"
 
 namespace {
 
 constexpr int N_INTS = 24, N_PTRS = 12, N_FLOATS = 4;
 enum Op {
   OP_GEMM, OP_ADD, OP_LAYERNORM, OP_SOFTMAX_ROWS, OP_SOFTMAX_COLS, OP_BD, OP_HEAD_EXTRACT,
-  OP_COLSCALE_ROUND, OP_CAST, OP_SETROWS, OP_BPREP, OP_NORM4, OP_HBD
+  OP_COLSCALE_ROUND, OP_CAST, OP_SETROWS, OP_BPREP, OP_NORM4, OP_HBD,
+  OP_T2I, OP_I2T, OP_NORM4_FUSED, OP_UPSCALE
 };
 
 // an OP_GEMM record -> GemmArgs (batched_gemm.cuh)
@@ -345,6 +352,14 @@ int run_op(int op, const long long* I, void* const* P, const float* Fv, cudaStre
       fd_hbd<<<blocks_for(I[0] * 16 * I[1] * I[2]), THREADS, 0, st>>>(
           P[0], P[1], I[0], (int)I[1], (int)I[2], (int)I[3]);
       return 0;
+    case OP_T2I:
+      return llmseg::fused::t2i_run(I, P, st);
+    case OP_I2T:
+      return llmseg::fused::i2t_run(I, P, st);
+    case OP_NORM4_FUSED:
+      return llmseg::fused::norm4_run(I, P, Fv, st);
+    case OP_UPSCALE:
+      return llmseg::fused::upscale_run(I, P, Fv, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -352,9 +367,12 @@ int run_op(int op, const long long* I, void* const* P, const float* Fv, cudaStre
 
 }  // namespace
 
+static int failed_record = -1;
+
 // Run n recorded operations in order on the caller's stream: ops (n),
 // ints (n, 24), ptrs (n, 12), floats (n, 4), as twoway_kernel.Program.pack
-// lays them out.  Returns the first launch error (cudaError_t), or 0.
+// lays them out.  Returns the first launch error (cudaError_t), or 0;
+// factored_decode_failed_record then gives that record's index.
 extern "C" int factored_decode(int n, const void* ops_, const void* ints_, const void* ptrs_,
                                const void* floats_, void* stream) {
   const int* ops = static_cast<const int*>(ops_);
@@ -366,10 +384,15 @@ extern "C" int factored_decode(int n, const void* ops_, const void* ints_, const
     int e = run_op(ops[i], ints + (size_t)i * N_INTS, ptrs + (size_t)i * N_PTRS,
                    floats + (size_t)i * N_FLOATS, st);
     if (e == 0) e = (int)cudaGetLastError();
-    if (e != 0) return e;
+    if (e != 0) {
+      failed_record = i;
+      return e;
+    }
   }
   return 0;
 }
+
+extern "C" int factored_decode_failed_record() { return failed_record; }
 
 extern "C" const char* factored_decode_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);

@@ -1,0 +1,1061 @@
+// Kernel G's fused kernels (bf16): the four parts of the factored decode
+// that sweep over the L image tokens, each one kernel (or two sweeps and a
+// combine) on hopper.cuh's wgmma, TMA and mbarriers.  factored_decode.cu
+// runs them as the record kinds OP_T2I, OP_I2T, OP_NORM4_FUSED and
+// OP_UPSCALE (twoway_kernel.Program.t2i, .i2t, .norm4_fused, .upscale),
+// which the bf16 route of g_program records in place of the unfused GEMMs,
+// softmaxes, LayerNorms and norm4 (the float32 route keeps those: no
+// float32 wgmma exists).  Nothing here touches batched_gemm.cuh, which
+// kernels H and I share.
+//
+// What they keep out of device memory: the float32 (P, 56, L) scores and
+// probabilities of every attention over L, norm4's float32 products X1 =
+// sig base^T and X2 = gram A, and the upscale's y1, z and z2.  Every tile
+// is 64 image tokens wide (FUSED_TILE in twoway_kernel.py), so L must be a
+// multiple of 64; the widths are SAM's decoder's, which every SAM config
+// shares (C = 256, 8 heads of 16 in the cross attentions, rank <= 128).
+//
+//   * fd_scores<STATS | ATTEND, R>: token-to-image attention.  Per prompt
+//     the scores s = rho (x) (qbd G^T) + qbw A + qbd PE^T + rsb of its M <=
+//     64 rows (one m64 tile) are made a 64-token tile at a time from the
+//     shared (L, 128) G and PE and the prompt's rank state A, in registers.
+//     Sweep 1 (STATS: two warpgroups taking turns over the tiles) keeps each
+//     row's running max and sum; sweep 2 (ATTEND) makes s again in both
+//     warpgroups, p = exp(s - max) / sum, and warpgroup 0 accumulates o +=
+//     round(p rho) Gv, warpgroup 1 pa += round(p) A^T and the row sums (both
+//     accumulators in one thread would exceed 168 registers).  L is split
+//     across CTAs (grid: splits x prompts, one wave of one CTA an SM); the
+//     splits' statistics are merged at the start of sweep 2 and their
+//     partial o, pa and sums are added by fd_t2i_combine, both in a fixed
+//     order (no atomics: a replay repeats to the bit).
+//   * fd_scores<COLSM, R>: image-to-token scores and the rank update: the
+//     same s, then a softmax over each head's token rows per column, made
+//     from the tile staged in shared memory and written as bf16 rows of A.
+//   * fd_norm4: norm4 with its two products, per (prompt, 64 columns): both
+//     products of all <= 128 rows (two warpgroups), their column sums
+//     against A (a reduce-scatter across the warp, then the warps in
+//     order), the closed form, and A's columns rewritten in place (each CTA
+//     reads and writes only its own columns).
+//   * fd_upscale: the upscale tail per (prompt, 64 rows of L), three
+//     warpgroups taking turns: y1 = A^T bw1 + Gc1 rho + b1, then for each of
+//     the four sub-pixel groups a LayerNorm, GELU, the 64 -> 128 product
+//     with w2 and GELU, and the product with the block-diagonal hbd: only
+//     the mask columns leave.  It is mostly elementwise work between short
+//     products (192 GELUs a row), so GELU takes the special function
+//     unit's tanh.
+// Each rounds where the unfused records round (Program.gemm's epilogue:
+// round, act, round).
+//
+// Operand layouts (hopper.cuh): bf16 tiles land by TMA in 64-column boxes
+// with 128-byte swizzle.  K-major operands step +32 bytes a k16 step; an
+// MN-major operand (A's rows as the K of qbw A and gram A, Gv and w2 as B,
+// A^T as the A of the upscale's first product) steps 16 lines (2,048
+// bytes) a k16 step, the next 64-wide block LBO bytes on.
+#pragma once
+
+#include <algorithm>
+
+#include "hopper.cuh"
+
+namespace llmseg {
+namespace fused {
+// internal linkage: the function-local statics below (a kernel's shared-memory
+// attribute, set once) stay this library's own when another build of the
+// same source is loaded beside it (scripts/kernel_variants.py)
+namespace {
+
+using namespace hopper;
+
+constexpr int TILE = 64;          // image tokens a tile
+constexpr int SLACK = 1024;       // the dynamic base's alignment to 1024 bytes
+constexpr float LOG2E_F = 1.4426950408889634f;
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[N / 2], uint32_t a0, uint32_t a1,
+                                           uint32_t a2, uint32_t a3, uint64_t db, int scale_d);
+// (wgmma_rs of hopper.cuh reads B MN-major; these read it K-major)
+template <>
+__device__ __forceinline__ void wgmma_rs_k<16>(float (&d)[8], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_k<64>(float (&d)[32], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_k<128>(float (&d)[64], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64) (+)= A B with A and B from shared memory; TA / TB: the
+// operand is MN-major (the M or N index contiguous) instead of K-major
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma64_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+__device__ __forceinline__ float rbf(float v) { return __bfloat162float(__float2bfloat16(v)); }
+// two values as stored in bf16, by one packed conversion
+__device__ __forceinline__ void rbf2(float& a, float& b) {
+  const float2 f = __bfloat1622float2(__floats2bfloat162_rn(a, b));
+  a = f.x;
+  b = f.y;
+}
+// tanh-GELU with the special function unit's tanh (relative error about
+// 2^-11, below the bf16 rounding that follows every use)
+__device__ __forceinline__ float gelu_t(float x) {
+  float t;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(0.7978845608028654f * (x + 0.044715f * x * x * x)));
+  return 0.5f * x * (1.f + t);
+}
+// the column of accumulator entry e in its 8-column chunk layout (hopper.cuh)
+__device__ __forceinline__ int acc_col(int e) { return 8 * (e >> 2) + 2 * (threadIdx.x & 3) + (e & 1); }
+// an entry (r, c) of a 64-column bf16 box of 128-byte lines as TMA swizzled it
+__device__ __forceinline__ uint32_t swz_off(int r, int c) {
+  return r * 128 + (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+// accumulator entries (2 rows x 8 N / 8 columns a thread) as mma.sync A
+// fragments: out[4kk..4kk+3] for the k16 step kk
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&out)[N / 4], const float (&v)[N / 2]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    out[2 * j] = pack_bf16(v[4 * j], v[4 * j + 1]);
+    out[2 * j + 1] = pack_bf16(v[4 * j + 2], v[4 * j + 3]);
+  }
+}
+
+// A tensor map of bf16 data: rank 2 or 3, dims innermost first, byte
+// strides of the outer dims, the box; 128-byte swizzle for 64-column boxes.
+// A box past a dim is zero-filled.
+inline cudaError_t tmap(CUtensorMap* m, const void* p, int rank, const uint64_t* dims,
+                        const uint64_t* strides, const uint32_t* box) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorInvalidValue;
+  const cuuint32_t estr[3] = {1, 1, 1};
+  CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p),
+                  (const cuuint64_t*)dims, (const cuuint64_t*)strides, (const cuuint32_t*)box,
+                  estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+// (Z, rows, cols) bf16 with row stride rs and z stride zs (elements), boxes of
+// (64, brows, 1); rows past `rows` and columns past `cols` read as zero
+inline cudaError_t tmap3(CUtensorMap* m, const void* p, uint64_t cols, uint64_t rows, uint64_t Z,
+                         uint64_t rs, uint64_t zs, uint32_t brows) {
+  const uint64_t dims[3] = {cols, rows, Z}, strides[2] = {rs * 2, zs * 2};
+  const uint32_t box[3] = {64, brows, 1};
+  return tmap(m, p, 3, dims, strides, box);
+}
+
+// The splits of L a prompt: one CTA an SM (each kernel's shared memory
+// holds one) in one wave over the prompts, at least one tile a split
+inline int splits(long long ntiles, long long Z) {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms < 1) sms = 132;
+  }
+  return (int)std::max<long long>(1, std::min<long long>(ntiles, sms / Z));
+}
+
+template <typename K>
+cudaError_t allow_smem(K kern, int smem) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// ---------------------------------------------------------------------------
+// fd_scores: the attentions over L (token-to-image: STATS then ATTEND;
+// image-to-token: COLSM)
+// ---------------------------------------------------------------------------
+
+enum { STATS, ATTEND, COLSM };
+
+struct ScoresArgs {
+  const float* rsb;   // (Z, M) or null
+  const float* rho;   // (Z, L) or null
+  int Z, M, L, ns, tps;
+  float *stats, *opart, *papart, *rspart;   // STATS / ATTEND scratch, 64 rows a slot
+  bf16* out;                                // COLSM: A's rows, z stride oz, row stride L
+  long long oz;
+  int nh, N;
+};
+
+// A CTA: two consumer warpgroups and a producer warp, over the 64-token
+// tiles of one split of a prompt's L; the M <= 64 rows of the prompt are one
+// m64 tile.  STATS and COLSM: the warpgroups take turns over the tiles
+// (STATS keeps a row statistic a warpgroup: two slots a split).  ATTEND:
+// both take every tile and make its scores, then warpgroup 0 accumulates
+// o and warpgroup 1 pa and the row sums, so that neither holds both
+// accumulators (168 registers a thread).  Shared memory from the
+// 1024-aligned base: qbd (two boxes of 64 columns x 64 rows), qbw (R / 64
+// boxes), the stages (a tile's G, PE, A (R rows x 64 tokens) and, for
+// ATTEND, Gv), then COLSM's float32 scores (64 x 65 a warpgroup).
+constexpr int SC_THREADS = 288;
+constexpr uint32_t SC_OFF_Q = 0, SC_OFF_QW = 16384, SC_OFF_ST = 32768;
+constexpr uint32_t ST_G = 0, ST_PE = 16384, ST_A = 32768, ST_GV = 49152;
+constexpr int SC_LDS = 65;
+template <int MODE>
+struct ScLayout {
+  static constexpr int STAGES = MODE == ATTEND ? 2 : 3;
+  static constexpr uint32_t STAGE = MODE == ATTEND ? 65536 : 49152;
+  static constexpr uint32_t OFF_S = SC_OFF_ST + STAGES * STAGE;
+  static constexpr int SMEM = OFF_S + (MODE == COLSM ? 2 * 64 * SC_LDS * 4 : 0) + SLACK;
+};
+
+struct ScBars {
+  uint64_t q, full[3], empty[3];
+};
+
+// s (this warpgroup's 64 x 64 scores of the tile in stage sb) = rho (x)
+// (qbd G^T) + qbw A + qbd PE^T + rsb; rr = rho of this thread's columns
+template <int R>
+__device__ __forceinline__ void tile_scores(float (&s)[32], float (&rr)[16], uint32_t qs,
+                                            uint32_t qws, uint32_t sb, const float* rho,
+                                            const float (&rsb)[2]) {
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {   // loaded first: the latency runs under the product
+    const float2 v = rho ? *reinterpret_cast<const float2*>(rho + 8 * j + 2 * t4) : make_float2(1.f, 1.f);
+    rr[2 * j] = v.x;
+    rr[2 * j + 1] = v.y;
+  }
+  reg_fence(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_ss<64>(s, desc_kmajor(qs + (kk >> 2) * 8192 + (kk & 3) * 32),
+                 desc_kmajor(sb + ST_G + (kk >> 2) * 8192 + (kk & 3) * 32), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(s);
+  if (rho) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] *= rr[2 * (e >> 2) + (e & 1)];
+  }
+  if constexpr (R > 0) {  // + qbw A + qbd PE^T on the tensor cores
+    reg_fence(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < R / 16; ++kk)
+      wgmma64_ss<0, 1>(s, desc_kmajor(qws + (kk >> 2) * 8192 + (kk & 3) * 32),
+                       desc_mnmajor(sb + ST_A + kk * 2048, 16384), 1);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_ss<64>(s, desc_kmajor(qs + (kk >> 2) * 8192 + (kk & 3) * 32),
+                   desc_kmajor(sb + ST_PE + (kk >> 2) * 8192 + (kk & 3) * 32), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] += rsb[(e >> 1) & 1];
+}
+
+// R: the rank rows of A (0: layer 0's form, no rank term and no PE)
+template <int MODE, int R>
+__global__ void __launch_bounds__(SC_THREADS, 1)
+fd_scores(const __grid_constant__ CUtensorMap tQ, const __grid_constant__ CUtensorMap tQW,
+          const __grid_constant__ CUtensorMap tG, const __grid_constant__ CUtensorMap tPE,
+          const __grid_constant__ CUtensorMap tA, const __grid_constant__ CUtensorMap tGv,
+          const ScoresArgs a) {
+  using LY = ScLayout<MODE>;
+  constexpr bool PE = R > 0;
+  constexpr int NS = LY::STAGES;
+  __shared__ ScBars bars;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = align1024(smem);
+  unsigned char* gbase = smem + (base - smem_u32(smem));
+  const int sp = blockIdx.x, z = blockIdx.y;
+  const int ntiles = a.L / TILE;
+  const int t0 = sp * a.tps, n = max(0, min(ntiles, t0 + a.tps) - t0);
+  if (threadIdx.x == 0) {
+    mbar_init(&bars.q, 1);
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(&bars.full[i], 1);
+      mbar_init(&bars.empty[i], MODE == ATTEND ? 8 : 4);  // the warps that read the tile
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // the producer: one thread issues every copy
+    if (threadIdx.x != 256) return;
+    mbar_expect_tx(&bars.q, 16384 + R * 128);
+    for (int b = 0; b < 2; ++b) tma_load_3d(base + SC_OFF_Q + b * 8192, &tQ, 64 * b, 0, z, &bars.q);
+    for (int b = 0; b < R / 64; ++b)
+      tma_load_3d(base + SC_OFF_QW + b * 8192, &tQW, 64 * b, 0, z, &bars.q);
+    for (int i = 0; i < n; ++i) {
+      const int st = i % NS, l0 = (t0 + i) * TILE;
+      const uint32_t sb = base + SC_OFF_ST + st * LY::STAGE;
+      mbar_wait(&bars.empty[st], ((i / NS) & 1) ^ 1);  // a fresh barrier passes
+      mbar_expect_tx(&bars.full[st], 16384 * (1 + PE + (MODE == ATTEND)) + R * 128);
+      for (int b = 0; b < 2; ++b) {
+        tma_load_3d(sb + ST_G + b * 8192, &tG, 64 * b, l0, 0, &bars.full[st]);
+        if (PE) tma_load_3d(sb + ST_PE + b * 8192, &tPE, 64 * b, l0, 0, &bars.full[st]);
+        if (MODE == ATTEND) tma_load_3d(sb + ST_GV + b * 8192, &tGv, 64 * b, l0, 0, &bars.full[st]);
+      }
+      if (R) tma_load_3d(sb + ST_A, &tA, l0, 0, z, &bars.full[st]);
+    }
+    return;
+  }
+
+  const int wg = warpgroup_index(), lane = threadIdx.x & 31, t4 = lane & 3;
+  const int r0 = 16 * ((threadIdx.x / 32) & 3) + (lane >> 2);  // this thread's rows r0, r0 + 8
+  float rsb[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    rsb[h] = a.rsb && r0 + 8 * h < a.M ? a.rsb[(size_t)z * a.M + r0 + 8 * h] : 0.f;
+  const float* rho = a.rho ? a.rho + (size_t)z * a.L : nullptr;
+  const uint32_t qs = base + SC_OFF_Q, qws = base + SC_OFF_QW;
+  float rr[16];
+
+  if constexpr (MODE == STATS) {
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // l: this lane's partial sums
+    mbar_wait(&bars.q, 0);
+    for (int i = wg; i < n; i += 2) {
+      const int st = i % NS;
+      mbar_wait(&bars.full[st], (i / NS) & 1);
+      float s[32];
+      tile_scores<R>(s, rr, qs, qws, base + SC_OFF_ST + st * LY::STAGE,
+                     rho ? rho + (t0 + i) * TILE : nullptr, rsb);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bars.empty[st]);
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int e = 0; e < 32; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float mn = fmaxf(m[h], quad_max(mx[h]));
+        float ps = 0.f;
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          if (((e >> 1) & 1) == h) ps += ex2((s[e] - mn) * LOG2E_F);
+        l[h] = l[h] * ex2((m[h] - mn) * LOG2E_F) + ps;
+        m[h] = mn;
+      }
+    }
+    const size_t slot = (((size_t)z * a.ns + sp) * 2 + wg) * 64;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float lt = quad_sum(l[h]);
+      if (t4 == 0) {
+        a.stats[(slot + r0 + 8 * h) * 2] = m[h];
+        a.stats[(slot + r0 + 8 * h) * 2 + 1] = lt;
+      }
+    }
+  } else if constexpr (MODE == COLSM) {
+    float* S = reinterpret_cast<float*>(gbase + LY::OFF_S) + wg * 64 * SC_LDS;
+    mbar_wait(&bars.q, 0);
+    for (int i = wg; i < n; i += 2) {
+      const int st = i % NS, l0 = (t0 + i) * TILE;
+      mbar_wait(&bars.full[st], (i / NS) & 1);
+      float s[32];
+      tile_scores<R>(s, rr, qs, qws, base + SC_OFF_ST + st * LY::STAGE,
+                     rho ? rho + l0 : nullptr, rsb);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bars.empty[st]);
+      // the tile through shared memory, a softmax over each head's rows
+#pragma unroll
+      for (int e = 0; e < 32; ++e) S[(r0 + 8 * ((e >> 1) & 1)) * SC_LDS + acc_col(e)] = s[e];
+      bar_sync(1 + wg, 128);
+      for (int task = threadIdx.x & 127; task < a.nh * TILE; task += 128) {
+        const int hh = task / TILE, c = task % TILE;
+        const float* col = S + hh * a.N * SC_LDS + c;
+        float mx = NEG_INF, sum = 0.f;
+        for (int t = 0; t < a.N; ++t) mx = fmaxf(mx, col[t * SC_LDS]);
+        for (int t = 0; t < a.N; ++t) sum += ex2((col[t * SC_LDS] - mx) * LOG2E_F);
+        const float inv = 1.f / sum;
+        bf16* orow = a.out + (size_t)z * a.oz + (size_t)hh * a.N * a.L + l0 + c;
+        for (int t = 0; t < a.N; ++t)
+          orow[(size_t)t * a.L] = __float2bfloat16(ex2((col[t * SC_LDS] - mx) * LOG2E_F) * inv);
+      }
+      bar_sync(1 + wg, 128);  // the tile's scores are read before the next overwrites them
+    }
+  } else {  // ATTEND
+    // the splits' statistics (two slots a split), merged in a fixed order
+    float m[2], li[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* st = a.stats + ((size_t)z * a.ns * 2 * 64 + r0 + 8 * h) * 2;
+      float mx = NEG_INF, sum = 0.f;
+      for (int q = 0; q < 2 * a.ns; ++q) mx = fmaxf(mx, st[q * 128]);
+      for (int q = 0; q < 2 * a.ns; ++q) sum += st[q * 128 + 1] * ex2((st[q * 128] - mx) * LOG2E_F);
+      m[h] = mx;
+      li[h] = sum > 0.f ? 1.f / sum : 0.f;
+    }
+    const size_t slot = ((size_t)z * a.ns + sp) * 64;
+    mbar_wait(&bars.q, 0);
+    if (wg == 0) {  // o += round(p rho) Gv
+      float o[64];
+      zero(o);
+      for (int i = 0; i < n; ++i) {
+        const int st = i % NS;
+        const uint32_t sb = base + SC_OFF_ST + st * LY::STAGE;
+        mbar_wait(&bars.full[st], (i / NS) & 1);
+        float s[32];
+        tile_scores<R>(s, rr, qs, qws, sb, rho ? rho + (t0 + i) * TILE : nullptr, rsb);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int h = (e >> 1) & 1;
+          s[e] = ex2((s[e] - m[h]) * LOG2E_F) * li[h] * rr[2 * (e >> 2) + (e & 1)];
+        }
+        uint32_t p[16];
+        pack_a<64>(p, s);
+        reg_fence(p);
+        reg_fence(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<128>(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                        desc_mnmajor(sb + ST_GV + kk * 2048, 8192), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(o);
+        reg_fence(p);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&bars.empty[st]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 8 * h;
+        if (row >= a.M) continue;
+        float* orow = a.opart + (slot + row) * 128;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<float2*>(orow + 8 * j + 2 * t4) = make_float2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
+      }
+    } else {  // pa += round(p) A^T, rs += p
+      float pa[R > 0 ? R / 2 : 1], rs[2] = {0.f, 0.f};
+      zero(pa);
+      for (int i = 0; i < n; ++i) {
+        const int st = i % NS;
+        const uint32_t sb = base + SC_OFF_ST + st * LY::STAGE;
+        mbar_wait(&bars.full[st], (i / NS) & 1);
+        float s[32];
+        tile_scores<R>(s, rr, qs, qws, sb, rho ? rho + (t0 + i) * TILE : nullptr, rsb);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int h = (e >> 1) & 1;
+          s[e] = ex2((s[e] - m[h]) * LOG2E_F) * li[h];
+          rs[h] += s[e];
+        }
+        if constexpr (R > 0) {
+          uint32_t p[16];
+          pack_a<64>(p, s);
+          reg_fence(p);
+          reg_fence(pa);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs_k<R>(pa, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                          desc_kmajor(sb + ST_A + kk * 32), 1);
+          wgmma_commit();
+          wgmma_wait<0>();
+          reg_fence(pa);
+          reg_fence(p);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&bars.empty[st]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 8 * h;
+        const float rt = quad_sum(rs[h]);
+        if (row >= a.M) continue;
+        if constexpr (R > 0) {
+          float* prow = a.papart + (slot + row) * R;
+#pragma unroll
+          for (int j = 0; j < R / 8; ++j)
+            *reinterpret_cast<float2*>(prow + 8 * j + 2 * t4) =
+                make_float2(pa[4 * j + 2 * h], pa[4 * j + 2 * h + 1]);
+        }
+        if (t4 == 0) a.rspart[slot + row] = rt;
+      }
+    }
+  }
+}
+
+// o = the splits' partial sums (Z, M, Ci) float32, pa (Z, M, R) rounded to
+// bf16, rs (Z, M); each a sum over the splits in order
+__global__ void fd_t2i_combine(const float* opart, const float* papart, const float* rspart,
+                               float* o, bf16* pa, float* rs, int Z, int M, int Ci, int R, int ns) {
+  const long long W = Ci + R + 1, n = (long long)Z * M * W;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int k = (int)(i % W), row = (int)((i / W) % M), z = (int)(i / W / M);
+    float sum = 0.f;
+    for (int s = 0; s < ns; ++s) {
+      const size_t r = ((size_t)z * ns + s) * 64 + row;
+      sum += k < Ci ? opart[r * Ci + k] : k < Ci + R ? papart[r * R + k - Ci] : rspart[r];
+    }
+    const size_t zr = (size_t)z * M + row;
+    if (k < Ci)
+      o[zr * Ci + k] = sum;
+    else if (k < Ci + R)
+      pa[zr * R + k - Ci] = __float2bfloat16(sum);
+    else if (rs)
+      rs[zr] = sum;
+  }
+}
+
+template <int MODE, int R>
+int scores_launch(const CUtensorMap (&maps)[6], const ScoresArgs& a, cudaStream_t st) {
+  constexpr int smem = ScLayout<MODE>::SMEM;
+  auto kern = fd_scores<MODE, R>;
+  static const cudaError_t attr = allow_smem(kern, smem);  // the same smem at every launch
+  if (attr != cudaSuccess) return (int)attr;
+  kern<<<dim3(a.ns, a.Z), SC_THREADS, smem, st>>>(maps[0], maps[1], maps[2], maps[3], maps[4],
+                                                  maps[5], a);
+  return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int scores_by_rank(int R, const CUtensorMap (&maps)[6], const ScoresArgs& a, cudaStream_t st) {
+  switch (R) {
+    case 0: return scores_launch<MODE, 0>(maps, a, st);
+    case 64: return scores_launch<MODE, 64>(maps, a, st);
+    case 128: return scores_launch<MODE, 128>(maps, a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The tensor maps of an attention over L: qbd (Z, M, Ci), qbw (Z, M, R),
+// G, PE, Gv (L, Ci), A's rows 0..R-1 (z stride zs); absent ones zeroed
+inline cudaError_t scores_maps(CUtensorMap (&maps)[6], const void* q, const void* qbw,
+                               const void* G, const void* PE, const void* A, const void* Gv,
+                               int Z, int M, int Ci, int L, int R, long long zs) {
+  memset(maps, 0, sizeof(maps));
+  cudaError_t e = tmap3(&maps[0], q, Ci, M, Z, Ci, (uint64_t)M * Ci, 64);
+  if (e == cudaSuccess && R) e = tmap3(&maps[1], qbw, R, M, Z, R, (uint64_t)M * R, 64);
+  if (e == cudaSuccess) e = tmap3(&maps[2], G, Ci, L, 1, Ci, (uint64_t)L * Ci, 64);
+  if (e == cudaSuccess && PE) e = tmap3(&maps[3], PE, Ci, L, 1, Ci, (uint64_t)L * Ci, 64);
+  if (e == cudaSuccess && R) e = tmap3(&maps[4], A, L, R, Z, L, zs, R);
+  if (e == cudaSuccess && Gv) e = tmap3(&maps[5], Gv, Ci, L, 1, Ci, (uint64_t)L * Ci, 64);
+  return e;
+}
+
+// SAM's decoder widths: Ci = 128 (8 heads of 16), M <= 64 rows a prompt,
+// L a multiple of 64, R in {0, 64, 128} with PE exactly when R > 0
+inline bool scores_shape_ok(long long Z, long long M, long long Ci, long long L, long long R,
+                            const void* PE) {
+  return Z >= 1 && Z <= 65535 && M >= 1 && M <= 64 && Ci == 128 && L >= TILE && L % TILE == 0 &&
+         (R == 0 || R == 64 || R == 128) && (R > 0) == (PE != nullptr);
+}
+
+// OP_T2I: ints Z, M, Ci, L, R, zs, ns and the scratch offsets (stats, o, pa,
+// rs); pointers qbd, G, PE, qbw, A, rsb, rho, Gv, o, pa, rs, scratch
+inline int t2i_run(const long long* I, void* const* P, cudaStream_t st) {
+  const long long Z = I[0], M = I[1], Ci = I[2], L = I[3], R = I[4], zs = I[5], ns = I[6];
+  if (!scores_shape_ok(Z, M, Ci, L, R, P[2]) || ns < 1 || ns > L / TILE) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[6];
+  cudaError_t e = scores_maps(maps, P[0], P[3], P[1], P[2], P[4], P[7], (int)Z, (int)M, (int)Ci,
+                              (int)L, (int)R, zs);
+  if (e != cudaSuccess) return (int)e;
+  float* scratch = static_cast<float*>(P[11]);
+  ScoresArgs a;
+  memset(&a, 0, sizeof(a));
+  a.rsb = static_cast<const float*>(P[5]);
+  a.rho = static_cast<const float*>(P[6]);
+  a.Z = (int)Z; a.M = (int)M; a.L = (int)L;
+  a.ns = std::min<int>((int)ns, splits(L / TILE, Z));   // the scratch holds ns splits
+  a.tps = (int)((L / TILE + a.ns - 1) / a.ns);
+  a.stats = scratch + I[7]; a.opart = scratch + I[8]; a.papart = scratch + I[9]; a.rspart = scratch + I[10];
+  int r = scores_by_rank<STATS>((int)R, maps, a, st);
+  if (r == 0) r = scores_by_rank<ATTEND>((int)R, maps, a, st);
+  if (r != 0) return r;
+  const long long n = Z * M * (Ci + R + 1);
+  fd_t2i_combine<<<(unsigned)std::min<long long>((n + 255) / 256, 4096), 256, 0, st>>>(
+      a.opart, a.papart, a.rspart, static_cast<float*>(P[8]), static_cast<bf16*>(P[9]),
+      static_cast<float*>(P[10]), (int)Z, (int)M, (int)Ci, (int)R, a.ns);
+  return (int)cudaGetLastError();
+}
+
+// OP_I2T: ints Z, M, Ci, L, R, zs, nh, oz; pointers kbd, G, PE, qbw, A, rsb,
+// rho, out (A's row R)
+inline int i2t_run(const long long* I, void* const* P, cudaStream_t st) {
+  const long long Z = I[0], M = I[1], Ci = I[2], L = I[3], R = I[4], zs = I[5], nh = I[6];
+  if (!scores_shape_ok(Z, M, Ci, L, R, P[2]) || nh < 1 || M % nh) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[6];
+  cudaError_t e = scores_maps(maps, P[0], P[3], P[1], P[2], P[4], nullptr, (int)Z, (int)M,
+                              (int)Ci, (int)L, (int)R, zs);
+  if (e != cudaSuccess) return (int)e;
+  ScoresArgs a;
+  memset(&a, 0, sizeof(a));
+  a.rsb = static_cast<const float*>(P[5]);
+  a.rho = static_cast<const float*>(P[6]);
+  a.Z = (int)Z; a.M = (int)M; a.L = (int)L;
+  const long long ntiles = L / TILE;
+  a.ns = splits(ntiles, Z);
+  a.tps = (int)((ntiles + a.ns - 1) / a.ns);
+  a.out = static_cast<bf16*>(P[7]);
+  a.oz = I[7]; a.nh = (int)nh; a.N = (int)(M / nh);
+  return scores_by_rank<COLSM>((int)R, maps, a, st);
+}
+
+// ---------------------------------------------------------------------------
+// fd_norm4: norm4 with X1 = sig base^T and X2 = gram A fused in
+// ---------------------------------------------------------------------------
+
+// A CTA: two consumer warpgroups (rows 0..63 and 64..127 of the <= 128 rank
+// rows) and a producer warp, over the 64-column tiles of one split of a
+// prompt's columns.  Shared memory: sig (4 boxes of 64 of C = 256 columns x
+// 128 rows), gram (2 boxes, its columns past R zero), two stages of a
+// tile's base rows (4 boxes x 64 rows) and A columns (128 rows x 64), then
+// the column sums of the eight warps and the rounded inverse deviations.
+constexpr int N4_THREADS = 288;
+constexpr uint32_t N4_OFF_SIG = 0, N4_OFF_GRAM = 65536, N4_OFF_ST = 98304, N4_STAGE = 49152;
+constexpr uint32_t N4_A = 32768;  // A's tile in a stage
+constexpr uint32_t N4_OFF_RED = N4_OFF_ST + 2 * N4_STAGE, N4_OFF_INV = N4_OFF_RED + 8 * 3 * 64 * 4;
+constexpr int N4_SMEM = N4_OFF_INV + 64 * 4 + SLACK;
+
+struct N4Args {
+  const float *bmean, *m, *q;
+  float* rho;
+  bf16* A;
+  long long zs;
+  int Z, R, L, C, ns, tps;
+  float eps;
+};
+
+// one step of a warp's reduce-scatter: of its 2 CNT values a lane keeps the
+// upper or lower half, by the lane bit MASK, summed with its partner's
+template <int CNT, int MASK>
+__device__ __forceinline__ void reduce_half(float* v, int lane) {
+  const bool up = lane & MASK;
+#pragma unroll
+  for (int q = 0; q < CNT; ++q) {
+    const float send = up ? v[q] : v[q + CNT], keep = up ? v[q + CNT] : v[q];
+    v[q] = keep + __shfl_xor_sync(0xffffffffu, send, MASK);
+  }
+}
+
+__global__ void __launch_bounds__(N4_THREADS, 1)
+fd_norm4(const __grid_constant__ CUtensorMap tSig, const __grid_constant__ CUtensorMap tGram,
+         const __grid_constant__ CUtensorMap tBase, const __grid_constant__ CUtensorMap tA,
+         const N4Args a) {
+  __shared__ ScBars bars;   // q: sig and gram
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = align1024(smem);
+  unsigned char* gbase = smem + (base - smem_u32(smem));
+  const int sp = blockIdx.x, z = blockIdx.y;
+  const int ntiles = a.L / TILE;
+  const int t0 = sp * a.tps, n = max(0, min(ntiles, t0 + a.tps) - t0);
+  if (threadIdx.x == 0) {
+    mbar_init(&bars.q, 1);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&bars.full[i], 1);
+      mbar_init(&bars.empty[i], 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x >= 256) {
+    if (threadIdx.x != 256) return;
+    mbar_expect_tx(&bars.q, 65536 + 32768);
+    for (int b = 0; b < 4; ++b) tma_load_3d(base + N4_OFF_SIG + b * 16384, &tSig, 64 * b, 0, z, &bars.q);
+    for (int b = 0; b < 2; ++b) tma_load_3d(base + N4_OFF_GRAM + b * 16384, &tGram, 64 * b, 0, z, &bars.q);
+    for (int i = 0; i < n; ++i) {
+      const int st = i & 1, l0 = (t0 + i) * TILE;
+      const uint32_t sb = base + N4_OFF_ST + st * N4_STAGE;
+      mbar_wait(&bars.empty[st], ((i >> 1) & 1) ^ 1);
+      mbar_expect_tx(&bars.full[st], N4_STAGE);
+      for (int b = 0; b < 4; ++b) tma_load_3d(sb + b * 8192, &tBase, 64 * b, l0, 0, &bars.full[st]);
+      tma_load_3d(sb + N4_A, &tA, l0, 0, z, &bars.full[st]);
+    }
+    return;
+  }
+
+  const int wg = warpgroup_index(), w8 = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int ra = 64 * wg + 16 * (w8 & 3) + g;  // this thread's rank rows ra, ra + 8
+  const float bm[2] = {ra < a.R ? a.bmean[(size_t)z * a.R + ra] : 0.f,
+                       ra + 8 < a.R ? a.bmean[(size_t)z * a.R + ra + 8] : 0.f};
+  float* red = reinterpret_cast<float*>(gbase + N4_OFF_RED);
+  float* inv_s = reinterpret_cast<float*>(gbase + N4_OFF_INV);
+  mbar_wait(&bars.q, 0);
+
+  for (int i = 0; i < n; ++i) {
+    const int st = i & 1, l0 = (t0 + i) * TILE;
+    const uint32_t sb = base + N4_OFF_ST + st * N4_STAGE;
+    const unsigned char* at = gbase + N4_OFF_ST + st * N4_STAGE + N4_A;
+    mbar_wait(&bars.full[st], (i >> 1) & 1);
+    float crho = 0.f, cm = 0.f, cq = 0.f;   // the column's, for the threads that finish it
+    if (threadIdx.x < TILE) {
+      crho = a.rho[(size_t)z * a.L + l0 + threadIdx.x];
+      cm = a.m[l0 + threadIdx.x];
+      cq = a.q[l0 + threadIdx.x];
+    }
+    float x1[32], x2[32];
+    reg_fence(x1);
+    reg_fence(x2);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk)
+      wgmma_ss<64>(x1, desc_kmajor(base + N4_OFF_SIG + (kk >> 2) * 16384 + wg * 8192 + (kk & 3) * 32),
+                   desc_kmajor(sb + (kk >> 2) * 8192 + (kk & 3) * 32), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma64_ss<0, 1>(x2, desc_kmajor(base + N4_OFF_GRAM + (kk >> 2) * 16384 + wg * 8192 + (kk & 3) * 32),
+                       desc_mnmajor(sb + N4_A + kk * 2048, 16384), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(x1);
+    reg_fence(x2);
+
+    // this thread's two rows' terms of its 16 columns, summed over the
+    // warp's 16 rows, then over the eight warps in order
+    float part[3][16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 a0 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(at + swz_off(ra, 8 * j + 2 * t4)));
+      const float2 a1 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(at + swz_off(ra + 8, 8 * j + 2 * t4)));
+      const float av[2][2] = {{a0.x, a0.y}, {a1.x, a1.y}};
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        part[0][2 * j + c] = x1[4 * j + c] * av[0][c] + x1[4 * j + 2 + c] * av[1][c];
+        part[1][2 * j + c] = x2[4 * j + c] * av[0][c] + x2[4 * j + 2 + c] * av[1][c];
+        part[2][2 * j + c] = bm[0] * av[0][c] + bm[1] * av[1][c];
+      }
+    }
+    // summed over the warp's eight row groups (lanes 4, 8, 16 apart) by a
+    // reduce-scatter: each step halves what a lane holds, and a lane ends
+    // with six of the 48 sums (start .. start + 5 of part's flat index)
+    float* v = &part[0][0];
+    reduce_half<24, 16>(v, lane);
+    reduce_half<12, 8>(v, lane);
+    reduce_half<6, 4>(v, lane);
+    const int start = 24 * ((lane >> 4) & 1) + 12 * ((lane >> 3) & 1) + 6 * ((lane >> 2) & 1);
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+      const int x = start + q, k = x >> 4, c = x & 15;
+      red[(w8 * 3 + k) * 64 + 8 * (c >> 1) + 2 * t4 + (c & 1)] = v[q];
+    }
+    bar_sync(1, 256);
+    if (threadIdx.x < TILE) {
+      const int col = threadIdx.x;
+      float cr = 0.f, qd = 0.f, mp = 0.f;
+      for (int w = 0; w < 8; ++w) {
+        cr += red[(w * 3) * 64 + col];
+        qd += red[(w * 3 + 1) * 64 + col];
+        mp += red[(w * 3 + 2) * 64 + col];
+      }
+      const int l = l0 + col;
+      const float rh = crho;
+      const float mu = rh * cm + mp;
+      const float e2 = rh * rh * cq + (2.f * (rh * cr) + qd) / a.C;
+      const float inv = rsqrtf(e2 - mu * mu + a.eps);
+      inv_s[col] = rbf(inv);
+      bf16* acol = a.A + (size_t)z * a.zs + l;
+      acol[(size_t)a.R * a.L] = __float2bfloat16(-inv * mu);
+      acol[(size_t)(a.R + 1) * a.L] = __float2bfloat16(1.f);
+      a.rho[(size_t)z * a.L + l] = rh * inv;
+    }
+    bar_sync(1, 256);
+    // the tile's columns of A rewritten, 16 bytes a thread
+    for (int task = threadIdx.x; task < a.R * 8; task += 256) {
+      const int r = task >> 3, cc = task & 7;
+      uint4 u = *reinterpret_cast<const uint4*>(at + r * 128 + ((cc ^ (r & 7)) << 4));
+      bf16* h = reinterpret_cast<bf16*>(&u);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) h[k] = __float2bfloat16(__bfloat162float(h[k]) * inv_s[8 * cc + k]);
+      *reinterpret_cast<uint4*>(a.A + (size_t)z * a.zs + (size_t)r * a.L + l0 + 8 * cc) = u;
+    }
+    fence_proxy_async();  // this warp's reads of the stage before the next TMA writes
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&bars.empty[st]);
+  }
+}
+
+// OP_NORM4_FUSED: ints Z, zs, R, L, C, gs (gram's row stride); pointers sig,
+// base, gram, A, bmean, rho, m, q; floats eps
+inline int norm4_run(const long long* I, void* const* P, const float* Fv, cudaStream_t st) {
+  const long long Z = I[0], zs = I[1], R = I[2], L = I[3], C = I[4], gs = I[5];
+  if (Z < 1 || Z > 65535 || R < 1 || R > 126 || C != 256 || L < TILE || L % TILE || gs % 8 ||
+      zs < (R + 2) * L)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tSig, tGram, tBase, tA;
+  cudaError_t e = tmap3(&tSig, P[0], C, R, Z, C, R * C, 128);
+  if (e == cudaSuccess) e = tmap3(&tGram, P[2], R, R, Z, gs, R * gs, 128);
+  if (e == cudaSuccess) e = tmap3(&tBase, P[1], C, L, 1, C, L * C, 64);
+  if (e == cudaSuccess) e = tmap3(&tA, P[3], L, R, Z, L, zs, 128);
+  if (e != cudaSuccess) return (int)e;
+  N4Args a;
+  a.bmean = static_cast<const float*>(P[4]);
+  a.rho = static_cast<float*>(P[5]);
+  a.m = static_cast<const float*>(P[6]);
+  a.q = static_cast<const float*>(P[7]);
+  a.A = static_cast<bf16*>(P[3]);
+  a.zs = zs; a.Z = (int)Z; a.R = (int)R; a.L = (int)L; a.C = (int)C; a.eps = Fv[0];
+  const long long ntiles = L / TILE;
+  a.ns = splits(ntiles, Z);
+  a.tps = (int)((ntiles + a.ns - 1) / a.ns);
+  static const cudaError_t attr = allow_smem(fd_norm4, N4_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  fd_norm4<<<dim3(a.ns, a.Z), N4_THREADS, N4_SMEM, st>>>(tSig, tGram, tBase, tA, a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// fd_upscale: the upscale tail, 64 rows of L at a time
+// ---------------------------------------------------------------------------
+
+// A CTA: three consumer warpgroups taking turns over the 64-row tiles of
+// one split of a prompt's L, and a producer warp.  The tail is mostly
+// elementwise work (the epilogues, LayerNorm and two GELUs of 192 values a
+// row) between short products, so a consumer keeps few registers (z2 in two
+// halves of 64 columns, each multiplied into the mask columns at once) and
+// three warpgroups hide each other's latency.  Shared memory: bw1 (4 boxes
+// of 64 of its 256 columns x 128 rank rows), w2 (2 boxes of 64 columns x 64
+// rows), hbd (2 boxes of 64 columns x 16 rows), four stages of A's columns
+// (128 rows x 64), then b1, the LayerNorm's weight and bias, and b2.
+constexpr int UP_WGS = 3, UP_THREADS = 128 * UP_WGS + 32, UP_STAGES = 4;
+constexpr uint32_t UP_OFF_BW1 = 0, UP_OFF_W2 = 65536, UP_OFF_HBD = 81920, UP_OFF_ST = 86016;
+constexpr uint32_t UP_OFF_VEC = UP_OFF_ST + UP_STAGES * 16384;  // 256 + 64 + 64 + 128 floats
+constexpr int UP_SMEM = UP_OFF_VEC + 512 * 4 + SLACK;
+
+struct UpArgs {
+  const float *rho, *b1, *lnw, *lnb, *b2;
+  const bf16* Gc1;
+  bf16* cols;
+  int Z, L, ns, tps;
+  float eps;
+};
+
+struct UpBars {
+  uint64_t q, full[UP_STAGES], empty[UP_STAGES];
+};
+
+__global__ void __launch_bounds__(UP_THREADS, 1)
+fd_upscale(const __grid_constant__ CUtensorMap tA, const __grid_constant__ CUtensorMap tBw1,
+           const __grid_constant__ CUtensorMap tW2, const __grid_constant__ CUtensorMap tHbd,
+           const UpArgs a) {
+  __shared__ UpBars bars;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = align1024(smem);
+  float* vec = reinterpret_cast<float*>(smem + (base - smem_u32(smem)) + UP_OFF_VEC);
+  const float *b1 = vec, *lnw = vec + 256, *lnb = vec + 320, *b2 = vec + 384;
+  const int sp = blockIdx.x, z = blockIdx.y;
+  const int ntiles = a.L / TILE;
+  const int t0 = sp * a.tps, n = max(0, min(ntiles, t0 + a.tps) - t0);
+  if (threadIdx.x == 0) {
+    mbar_init(&bars.q, 1);
+    for (int i = 0; i < UP_STAGES; ++i) {
+      mbar_init(&bars.full[i], 1);
+      mbar_init(&bars.empty[i], 4);  // the four warps of the warpgroup that takes the tile
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x >= 128 * UP_WGS) {
+    if (threadIdx.x != 128 * UP_WGS) return;
+    mbar_expect_tx(&bars.q, 65536 + 16384 + 4096);
+    for (int b = 0; b < 4; ++b) tma_load_3d(base + UP_OFF_BW1 + b * 16384, &tBw1, 64 * b, 0, z, &bars.q);
+    for (int b = 0; b < 2; ++b) {
+      tma_load_3d(base + UP_OFF_W2 + b * 8192, &tW2, 64 * b, 0, 0, &bars.q);
+      tma_load_3d(base + UP_OFF_HBD + b * 2048, &tHbd, 64 * b, 0, z, &bars.q);
+    }
+    for (int i = 0; i < n; ++i) {
+      const int st = i % UP_STAGES;
+      mbar_wait(&bars.empty[st], ((i / UP_STAGES) & 1) ^ 1);
+      mbar_expect_tx(&bars.full[st], 16384);
+      tma_load_3d(base + UP_OFF_ST + st * 16384, &tA, (t0 + i) * TILE, 0, z, &bars.full[st]);
+    }
+    return;
+  }
+
+  for (int i = threadIdx.x; i < 512; i += 128 * UP_WGS)
+    vec[i] = i < 256 ? a.b1[i] : i < 320 ? a.lnw[i - 256] : i < 384 ? a.lnb[i - 320] : a.b2[i - 384];
+  bar_sync(1, 128 * UP_WGS);
+  const int wg = warpgroup_index(), lane = threadIdx.x & 31, t4 = lane & 3;
+  const int lr = 16 * ((threadIdx.x / 32) & 3) + (lane >> 2);  // rows lr, lr + 8 of a tile
+  mbar_wait(&bars.q, 0);
+  for (int i = wg; i < n; i += UP_WGS) {
+    const int st = i % UP_STAGES, l0 = (t0 + i) * TILE;
+    const uint32_t sa = base + UP_OFF_ST + st * 16384;
+    mbar_wait(&bars.full[st], (i / UP_STAGES) & 1);
+    float rho[2];
+    const int row[2] = {l0 + lr, l0 + lr + 8};  // of L
+#pragma unroll
+    for (int h = 0; h < 2; ++h) rho[h] = a.rho[(size_t)z * a.L + row[h]];
+#pragma unroll 1
+    for (int g1 = 0; g1 < 4; ++g1) {
+      // y1's 64 columns of this group: A^T bw1 + Gc1 rho + b1, rounded;
+      // Gc1's entries are loaded before the product, so that their latency
+      // runs under it
+      __nv_bfloat162 gcv[16];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          gcv[2 * j + h] = *reinterpret_cast<const __nv_bfloat162*>(
+              a.Gc1 + (size_t)row[h] * 256 + 64 * g1 + 8 * j + 2 * t4);
+      float y[32];
+      reg_fence(y);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma64_ss<1, 1>(y, desc_mnmajor(sa + kk * 2048, 16384),
+                         desc_mnmajor(base + UP_OFF_BW1 + g1 * 16384 + kk * 2048, 16384), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(y);
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n0 = 64 * g1 + 8 * j + 2 * t4;
+          const float2 gc = __bfloat1622float2(gcv[2 * j + h]);
+          float v0 = (gc.x * rho[h] + y[4 * j + 2 * h]) + b1[n0];
+          float v1 = (gc.y * rho[h] + y[4 * j + 2 * h + 1]) + b1[n0 + 1];
+          rbf2(v0, v1);
+          y[4 * j + 2 * h] = v0;
+          y[4 * j + 2 * h + 1] = v1;
+          sum[h] += v0 + v1;
+        }
+      // LayerNorm over the row's 64 columns (four lanes), GELU, rounded
+      float mu[2], inv[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mu[h] = quad_sum(sum[h]) / 64.f;
+        float qv = 0.f;
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          if (((e >> 1) & 1) == h) qv += (y[e] - mu[h]) * (y[e] - mu[h]);
+        inv[h] = rsqrtf(quad_sum(qv) / 64.f + a.eps);
+      }
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int h = (e >> 1) & 1, c = acc_col(e);
+        float u0 = (y[e] - mu[h]) * inv[h] * lnw[c] + lnb[c];
+        float u1 = (y[e + 1] - mu[h]) * inv[h] * lnw[c + 1] + lnb[c + 1];
+        rbf2(u0, u1);
+        y[e] = gelu_t(u0);
+        y[e + 1] = gelu_t(u1);
+        rbf2(y[e], y[e + 1]);
+      }
+      uint32_t zr[16];
+      pack_a<64>(zr, y);
+      // z2 = gelu(z w2 + b2), rounded, in two halves of 64 columns, each
+      // multiplied at once into the group's 16 mask columns (z2 hbd^T)
+      float c8[8];
+#pragma unroll 1
+      for (int hf = 0; hf < 2; ++hf) {
+        float z2[32];
+        reg_fence(z2);
+        reg_fence(zr);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<64>(z2, zr[4 * kk], zr[4 * kk + 1], zr[4 * kk + 2], zr[4 * kk + 3],
+                       desc_mnmajor(base + UP_OFF_W2 + hf * 8192 + kk * 2048, 8192), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(z2);
+        reg_fence(zr);
+#pragma unroll
+        for (int e = 0; e < 32; e += 2) {
+          const int c = 64 * hf + acc_col(e);
+          float u0 = z2[e] + b2[c], u1 = z2[e + 1] + b2[c + 1];
+          rbf2(u0, u1);
+          z2[e] = gelu_t(u0);
+          z2[e + 1] = gelu_t(u1);
+          rbf2(z2[e], z2[e + 1]);
+        }
+        uint32_t z2r[16];
+        pack_a<64>(z2r, z2);
+        reg_fence(c8);
+        reg_fence(z2r);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_k<16>(c8, z2r[4 * kk], z2r[4 * kk + 1], z2r[4 * kk + 2], z2r[4 * kk + 3],
+                         desc_kmajor(base + UP_OFF_HBD + hf * 2048 + kk * 32), hf > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(c8);
+        reg_fence(z2r);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<__nv_bfloat162*>(a.cols + ((size_t)z * a.L + row[h]) * 64 + 16 * g1 +
+                                             8 * j + 2 * t4) =
+              __floats2bfloat162_rn(c8[4 * j + 2 * h], c8[4 * j + 2 * h + 1]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&bars.empty[st]);
+  }
+}
+
+// OP_UPSCALE: ints Z, zs, R, L, c4, w4, 4 nt; pointers A, bw1, rho, Gc1, b1,
+// LN weight, LN bias, w2, b2, hbd, cols; floats eps
+inline int upscale_run(const long long* I, void* const* P, const float* Fv, cudaStream_t st) {
+  const long long Z = I[0], zs = I[1], R = I[2], L = I[3];
+  if (Z < 1 || Z > 65535 || R < 1 || R > 128 || L < TILE || L % TILE || I[4] != 256 ||
+      I[5] != 128 || I[6] != 16)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tA, tBw1, tW2, tHbd;
+  cudaError_t e = tmap3(&tA, P[0], L, R, Z, L, zs, 128);
+  if (e == cudaSuccess) e = tmap3(&tBw1, P[1], 256, R, Z, 256, R * 256, 128);
+  if (e == cudaSuccess) e = tmap3(&tW2, P[7], 128, 64, 1, 128, 64 * 128, 64);
+  if (e == cudaSuccess) e = tmap3(&tHbd, P[9], 128, 16, Z, 128, 16 * 128, 16);
+  if (e != cudaSuccess) return (int)e;
+  UpArgs a;
+  a.rho = static_cast<const float*>(P[2]);
+  a.Gc1 = static_cast<const bf16*>(P[3]);
+  a.b1 = static_cast<const float*>(P[4]);
+  a.lnw = static_cast<const float*>(P[5]);
+  a.lnb = static_cast<const float*>(P[6]);
+  a.b2 = static_cast<const float*>(P[8]);
+  a.cols = static_cast<bf16*>(P[10]);
+  a.Z = (int)Z; a.L = (int)L; a.eps = Fv[0];
+  const long long ntiles = L / TILE;
+  a.ns = splits(ntiles, Z);
+  a.tps = (int)((ntiles + a.ns - 1) / a.ns);
+  static const cudaError_t attr = allow_smem(fd_upscale, UP_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  fd_upscale<<<dim3(a.ns, a.Z), UP_THREADS, UP_SMEM, st>>>(tA, tBw1, tW2, tHbd, a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace fused
+}  // namespace llmseg

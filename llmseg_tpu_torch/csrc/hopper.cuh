@@ -3,9 +3,10 @@
 // host-side tensor maps.  The forward-attention core built on them
 // is fwd_core.cuh; kernels A (flash_fwd.cu), B and J (flash_fwd_1pass.cu,
 // flash_fwd_1pass_t.cu, through onepass.cuh) run on it.  The backward
-// kernels C (flash_bwd_dq.cu) and D (flash_bwd_dkv.cu) and the windowed
-// rel-pos kernel F (relpos_window.cu, 32-byte swizzled boxes of 16 columns:
-// see desc_sw32) use them directly.
+// kernels C (flash_bwd_dq.cu) and D (flash_bwd_dkv.cu), the rel-pos
+// kernels E (relpos_fwd.cu) and F (relpos_window.cu, both on 32-byte
+// swizzled boxes of 16 columns: see desc_sw32) and kernel G's fused
+// kernels (factored_fused.cuh) use them directly.
 //
 // Operand layout.  Every bf16 tile lives in shared memory as TMA writes it
 // with CU_TENSOR_MAP_SWIZZLE_128B: a box is (rows x 64) elements, one

@@ -1,6 +1,6 @@
 // Shared pieces of the rel-pos attention kernels E (relpos_fwd.cu) and F
 // (relpos_window.cu): the layout contract and the float32 SIMT kernel of
-// both; the table staging and the bias of E's mma.sync tiles.
+// both.
 //
 // Layout contract: q (BH, T, D) pre-scaled by scale*log2(e) in its own
 // dtype; k, v (BH, T, D); rh, rw (BH, T, G) in q's dtype, already scaled by
@@ -15,47 +15,6 @@
 namespace llmseg {
 
 constexpr int MAX_G = 64;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
-// rows [r0, r0 + n) of a (T, G) table into shared memory as float32, with
-// a row stride of G + 1 (rows fall in different banks), zero past T
-template <typename TT>
-__device__ __forceinline__ void load_table(float* dst, const TT* __restrict__ src, int r0, int n,
-                                           int T, int G) {
-  for (int i = threadIdx.x; i < n * G; i += blockDim.x) {
-    const int r = i / G;
-    dst[r * (G + 1) + i - r * G] = r0 + r < T ? to_f32(src[(size_t)r0 * G + i]) : 0.f;
-  }
-}
-
-// s (16 rows x BK keys, C layout) += bias, keys past T masked; rows are
-// local to the tables (rl0 for c0/c1, rl0 + 8 for c2/c3).  GT is the grid
-// side when it is known at compile time (0: the runtime G); at GT == BK a
-// key tile is one grid row, so h' is the tile's index.
-template <int GT>
-__device__ __forceinline__ void add_bias(float (&s)[BK / 8][4], const float* sRh,
-                                         const float* sRw, int rl0, int k0, int T, int G_rt) {
-  const int G = GT ? GT : G_rt, LDT = G + 1;
-  const int t = threadIdx.x & 3;
-  const float* rh0 = sRh + rl0 * LDT;
-  const float* rw0 = sRw + rl0 * LDT;
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int key = k0 + 8 * j + 2 * t + c;
-      if (key < T) {
-        const int kh = GT == BK ? k0 / BK : key / G;
-        const int kw = GT == BK ? 8 * j + 2 * t + c : key - kh * G;
-        s[j][c] = s[j][c] + rh0[kh] + rw0[kw];
-        s[j][2 + c] = s[j][2 + c] + rh0[8 * LDT + kh] + rw0[8 * LDT + kw];
-      } else {
-        s[j][c] = s[j][2 + c] = NEG_INF;
-      }
-    }
-}
 
 // float32: one warp per query row, keys 32 at a time (one per lane), online
 // softmax; exists for exact comparisons, not for speed.  D <= 128.

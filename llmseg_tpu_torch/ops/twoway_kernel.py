@@ -35,9 +35,15 @@ sigma.  Every keys-side projection becomes rho (x) G + A^T (B W) + PE + b
 with G = (base sigma) W and PE = pe W computed once per chunk
 (:func:`factored_shared`), and norm4 becomes closed-form row statistics.
 G (``csrc/factored_decode.cu``) is a sequence of launches of a few
-hand-written kernels (a strided batched GEMM with fused epilogues, row and
-column softmaxes, LayerNorms, norm4's closed form and small layout ops),
-all 64 prompts of a chunk per launch.  :class:`Program` records that
+hand-written kernels, all 64 prompts of a chunk per launch.  In bf16 the
+four parts that sweep over the L image tokens are fused kernels on wgmma
+and TMA (``csrc/factored_fused.cuh``: token-to-image attention in two
+sweeps, image-to-token scores with their column softmax, norm4 with its
+two products, the upscale tail), which keep the float32 scores and the
+other intermediates over L out of device memory; the token-side steps
+(and, in float32, every step) run on a strided batched GEMM with fused
+epilogues, row and column softmaxes, LayerNorms, norm4's closed form and
+small layout ops.  :class:`Program` records that
 sequence with its operands; the C side runs the whole sequence from one
 call, which counts as one launch of G.  ``Program.run_torch`` interprets
 the same records with torch (the test of the sequence on the CPU).
@@ -57,7 +63,7 @@ import torch
 from torch import nn
 
 from llmseg_tpu_torch.models.layers import gelu_tanh
-from llmseg_tpu_torch.ops.kernels import Kernel
+from llmseg_tpu_torch.ops.kernels import Kernel, library
 
 FACTORED_DECODE = Kernel("factored_decode")   # kernel G, csrc/factored_decode.cu
 TWOWAY_DECODE = Kernel("twoway_decode", source="twoway_fused")            # kernel H
@@ -482,8 +488,18 @@ def factored_decode_plain(twt, decoder, image_embedding, image_pe, tokens, num_h
 
 # operation codes of csrc/factored_decode.cu, and the fixed record layout
 OP_GEMM, OP_ADD, OP_LAYERNORM, OP_SOFTMAX_ROWS, OP_SOFTMAX_COLS, OP_BD, OP_HEAD_EXTRACT, \
-    OP_COLSCALE_ROUND, OP_CAST, OP_SETROWS, OP_BPREP, OP_NORM4, OP_HBD = range(13)
+    OP_COLSCALE_ROUND, OP_CAST, OP_SETROWS, OP_BPREP, OP_NORM4, OP_HBD, \
+    OP_T2I, OP_I2T, OP_NORM4_FUSED, OP_UPSCALE = range(17)
+OP_NAMES = ("gemm", "add", "layernorm", "softmax_rows", "softmax_cols", "bd", "head_extract",
+            "colscale_round", "cast", "setrows", "bprep", "norm4", "hbd",
+            "t2i", "i2t", "norm4_fused", "upscale")
+FUSED_TILE = 64        # the L columns of a fused kernel's tile (csrc/factored_fused.cuh)
+FUSED_PARTS = ("t2i", "i2t", "norm4", "upscale")   # the parts with a fused record
 N_INTS, N_PTRS, N_FLOATS = 24, 12, 4
+# the parts of the decode that g_program tags its records with: token-to-image
+# attention, image-to-token scores and the rank update, norm4 with its two
+# products, the upscale tail, and the token-side rest
+REGIONS = ("t2i", "i2t", "norm4", "upscale", "token")
 ACT_NONE, ACT_RELU, ACT_GELU = 0, 1, 2
 GEMM_BETA, GEMM_ROWADD, GEMM_BIAS, GEMM_OUTER, GEMM_COLSCALE, GEMM_ROWMAT = 1, 2, 4, 8, 16, 32
 
@@ -503,6 +519,40 @@ def _act(x: torch.Tensor, act: int, dtype) -> torch.Tensor:
     return torch.relu(x) if act == ACT_RELU else gelu_tanh(x)
 
 
+def _norm4_apply(x1v, x2v, abuf, bmean, rho, m, q, Z, zs, R, L, C) -> None:
+    """norm4's closed form from X1, X2 (Z, R, L float32), in place on abuf
+    and rho (see :meth:`Program.norm4`)."""
+    av = _view(*abuf, (Z, R + 2, L), (zs, L, 1))
+    af = av[:, :R].float()
+    rv = _view(*rho, (Z, 1, L), (L, L, 1))
+    bm = _view(*bmean, (Z, R, 1), (R, 1, 0))
+    mu = rv * m + (bm * af).sum(1, keepdim=True)
+    cross = rv * (x1v * af).sum(1, keepdim=True)
+    quad = (x2v * af).sum(1, keepdim=True)
+    e2 = rv.square() * q + (2.0 * cross + quad) / C
+    inv = torch.rsqrt(e2 - mu.square() + LN_EPS)
+    dt = av.dtype
+    av[:, :R].copy_(av[:, :R] * inv.to(dt))
+    av[:, R:R + 1].copy_(-inv * mu)
+    av[:, R + 1].fill_(1.0)
+    rv.copy_(rv * inv)
+
+
+def _fact_scores(q, G, PE, qbw, av, rsb, rv, Z, M, R):
+    """The fused records' scores (Z, M, L) float32, the terms in the order
+    of the unfused records: rho (x) (q G^T), + qbw A, + q PE^T + rsb."""
+    s = torch.matmul(q, G.float().t())
+    if rv is not None:
+        s = s * rv
+    if R:
+        s = _view(*qbw, (Z, M, R), (M * R, R, 1)).float() @ av + s
+    if PE is not None:
+        s = s + torch.matmul(q, PE.float().t())
+    if rsb is not None:
+        s = s + _view(*rsb, (Z, M, 1), (M, 1, 0))
+    return s
+
+
 class Program:
     """A recorded sequence of kernel G's operations.  Each record keeps its
     operands (tensor, element offset), its integer and float arguments, and
@@ -510,12 +560,15 @@ class Program:
 
     def __init__(self):
         self.records: List[tuple] = []
+        self.regions: List[str] = []   # each record's part of the decode (REGIONS)
+        self.region = "token"
         self.flops = 0.0   # the GEMMs' useful operations (block-diagonal zeros excluded)
 
     def _add(self, op, ints, ptrs, floats, emu):
         if len(ints) > N_INTS or len(ptrs) > N_PTRS or len(floats) > N_FLOATS:
             raise ValueError("record too long")
         self.records.append((op, ints, ptrs, floats, emu))
+        self.regions.append(self.region)
 
     # -- operations ----------------------------------------------------------
 
@@ -668,24 +721,120 @@ class Program:
         mu, E[x^2], inv = rsqrt(var + eps); then in place abuf <- [round(Abar
         * round(inv)); round(-inv * mu); 1] and rho <- rho * inv."""
         def emu():
-            av = _view(*abuf, (Z, R + 2, L), (zs, L, 1))
-            af = av[:, :R].float()
-            rv = _view(*rho, (Z, 1, L), (L, L, 1))
-            x1v = _view(*x1, (Z, R, L), (R * L, L, 1))
-            x2v = _view(*x2, (Z, R, L), (R * L, L, 1))
-            bm = _view(*bmean, (Z, R, 1), (R, 1, 0))
-            mu = rv * m + (bm * af).sum(1, keepdim=True)
-            cross = rv * (x1v * af).sum(1, keepdim=True)
-            quad = (x2v * af).sum(1, keepdim=True)
-            e2 = rv.square() * q + (2.0 * cross + quad) / C
-            inv = torch.rsqrt(e2 - mu.square() + LN_EPS)
-            dt = av.dtype
-            av[:, :R].copy_(av[:, :R] * inv.to(dt))
-            av[:, R:R + 1].copy_(-inv * mu)
-            av[:, R + 1].fill_(1.0)
-            rv.copy_(rv * inv)
+            _norm4_apply(_view(*x1, (Z, R, L), (R * L, L, 1)), _view(*x2, (Z, R, L), (R * L, L, 1)),
+                         abuf, bmean, rho, m, q, Z, zs, R, L, C)
         self._add(OP_NORM4, [Z, zs, R, L, C, _isbf(abuf)],
                   [x1, x2, abuf, bmean, rho, (m, 0), (q, 0)], [LN_EPS], emu)
+
+    # -- the fused records of the bf16 route (csrc/factored_fused.cuh) --------
+
+    def t2i(self, qbd, G, Gv, o, Z, M, Ci, L, nh, *, PE=None, qbw=None, abuf=None, zs=0, R=0,
+            rsb=None, rho=None, pa=None, rs=None):
+        """Token-to-image attention over L, fused: per prompt z the scores
+        s = rho (x) (qbd G^T) + qbw A + qbd PE^T + rsb (M x L, float32; each
+        term only where given, A = rows 0..R-1 of abuf with z stride zs), p =
+        softmax(s) over L, then o = round(p * rho) Gv (float32), pa =
+        round(round(p) A^T) (M x R, bf16) and rs = rowsum(p).  qbd (Z, M,
+        Ci), G, PE, Gv (L, Ci) shared by every z.  The kernel keeps s and p
+        out of device memory: two sweeps over L (the row statistics, then p
+        and the products), L split across CTAs, the partials combined in a
+        fixed order in float32 scratch of its own."""
+        dev = qbd[0].device
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count \
+            if dev.type == "cuda" else 132
+        # room for up to two waves of CTAs' splits of L; the kernel takes one
+        ns = max(1, min(L // FUSED_TILE, 2 * sms // Z))
+        # scratch: the row statistics (two slots a split), partial o, pa, rs
+        sizes = [Z * ns * 2 * 64 * 2, Z * ns * 64 * Ci, Z * ns * 64 * R, Z * ns * 64]
+        scratch = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+        offs = [sum(sizes[:i]) for i in range(4)]
+        # the useful operations of the unfused records (qbd holds Ci / nh
+        # nonzeros a row): the scores against G (and PE, and A), p Gv, p A^T
+        self.flops += 2.0 * Z * M * L * (Ci / nh * (2 if PE is None else 3) + 2 * R)
+
+        def emu():
+            q = _view(*qbd, (Z, M, Ci), (M * Ci, Ci, 1)).float()
+            av = _view(*abuf, (Z, R, L), (zs, L, 1)).float() if R else None
+            rv = _view(*rho, (Z, 1, L), (L, L, 1)) if rho is not None else None
+            s = _fact_scores(q, G, PE, qbw, av, rsb, rv, Z, M, R)
+            p = _softmax(s)
+            dt = qbd[0].dtype
+            pr = (p * rv if rv is not None else p).to(dt).float()
+            _view(*o, (Z, M, Ci), (M * Ci, Ci, 1)).copy_(torch.matmul(pr, Gv.float()))
+            if R:
+                _view(*pa, (Z, M, R), (M * R, R, 1)).copy_(
+                    torch.matmul(p.to(dt).float(), av.transpose(1, 2)))
+            if rs is not None:
+                _view(*rs, (Z, M), (M, 1)).copy_(p.sum(-1))
+
+        self._add(OP_T2I, [Z, M, Ci, L, R, zs, ns, *offs],
+                  [qbd, (G, 0), (PE, 0), qbw, abuf, rsb, rho, (Gv, 0), o, pa, rs, (scratch, 0)],
+                  [], emu)
+
+    def i2t(self, kbd, G, out, Z, M, Ci, L, nh, oz, *, PE=None, qbw=None, abuf=None, zs=0,
+            R=0, rsb=None, rho=None):
+        """Image-to-token scores and the rank update, fused: s as
+        :meth:`t2i`'s, then a softmax over each head's M / nh token rows per
+        column l, written as rows of out (z stride oz, row stride L) in its
+        dtype; s never reaches device memory."""
+        N = M // nh
+        self.flops += 2.0 * Z * M * L * (Ci / nh * (1 if PE is None else 2) + R)
+
+        def emu():
+            q = _view(*kbd, (Z, M, Ci), (M * Ci, Ci, 1)).float()
+            av = _view(*abuf, (Z, R, L), (zs, L, 1)).float() if R else None
+            rv = _view(*rho, (Z, 1, L), (L, L, 1)) if rho is not None else None
+            s = _fact_scores(q, G, PE, qbw, av, rsb, rv, Z, M, R)
+            p = _softmax(s.reshape(Z, nh, N, L), 2)
+            _view(*out, (Z, nh, N, L), (oz, N * L, L, 1)).copy_(p)
+
+        self._add(OP_I2T, [Z, M, Ci, L, R, zs, nh, oz],
+                  [kbd, (G, 0), (PE, 0), qbw, abuf, rsb, rho, out], [], emu)
+
+    def norm4_fused(self, sig, base, gram, abuf, bmean, rho, m, q, Z, zs, R, L, C, gs):
+        """:meth:`norm4` with its two products fused in: X1 = sig (Z, R, C)
+        @ base (L, C)^T and X2 = gram (Z, R, gs: R columns used) @ Abar are
+        computed a tile of columns at a time and never reach device memory."""
+        self.flops += 2.0 * Z * R * L * (C + R)
+
+        def emu():
+            x1 = torch.matmul(_view(*sig, (Z, R, C), (R * C, C, 1)).float(), base.float().t())
+            gv = _view(*gram, (Z, R, R), (R * gs, gs, 1)).float()
+            x2 = torch.matmul(gv, _view(*abuf, (Z, R, L), (zs, L, 1)).float())
+            _norm4_apply(x1, x2, abuf, bmean, rho, m, q, Z, zs, R, L, C)
+
+        self._add(OP_NORM4_FUSED, [Z, zs, R, L, C, gs],
+                  [sig, (base, 0), gram, abuf, bmean, rho, (m, 0), (q, 0)], [LN_EPS], emu)
+
+    def upscale(self, abuf, bw1, rho, Gc1, b1, ln, w2, b2, hbd, cols, Z, zs, R, L, nt):
+        """The upscale tail, fused, per 64 rows of L: y1 = round(A^T bw1 +
+        Gc1 * rho + b1) (L x 4 co1), then for each sub-pixel group g: z =
+        round(gelu(round(LN(y1[:, g co1 ..])))), z2 = round(gelu(round(z w2
+        + b2))), cols[:, 4 nt g ..] = round(z2 hbd^T).  bw1 (Z, R, 4 co1),
+        Gc1 (L, 4 co1), w2 (co1, 4 co2), hbd (Z, 4 nt, 4 co2); only the
+        mask columns (Z, L, 16 nt) reach device memory."""
+        c4 = bw1[0].shape[-1]
+        co1, w4 = c4 // 4, w2.shape[1]
+        self.flops += 2.0 * Z * L * (R * c4 + 4 * co1 * w4 + 4 * w4 * 4 * nt / 4)
+
+        def emu():
+            dt = cols[0].dtype
+            av = _view(*abuf, (Z, R, L), (zs, L, 1)).float()
+            y = torch.matmul(av.transpose(1, 2), _view(*bw1, (Z, R, c4), (R * c4, c4, 1)).float())
+            y = Gc1.float()[None] * _view(*rho, (Z, L, 1), (L, 1, 0)) + y
+            y1 = (y + b1).to(dt).float()
+            hb = _view(*hbd, (Z, 4 * nt, w4), (4 * nt * w4, w4, 1)).float()
+            cv = _view(*cols, (Z, L, 16 * nt), (L * 16 * nt, 16 * nt, 1))
+            for g1 in range(4):
+                z = torch.nn.functional.layer_norm(y1[..., g1 * co1:(g1 + 1) * co1], (co1,),
+                                                   ln.weight.float(), ln.bias.float(), LN_EPS)
+                z = _act(z, ACT_GELU, dt).to(dt).float()
+                z2 = _act(torch.matmul(z, w2.float()) + b2, ACT_GELU, dt).to(dt).float()
+                cv[..., g1 * 4 * nt:(g1 + 1) * 4 * nt].copy_(torch.matmul(z2, hb.transpose(1, 2)))
+
+        self._add(OP_UPSCALE, [Z, zs, R, L, c4, w4, 4 * nt],
+                  [abuf, bw1, rho, (Gc1, 0), (b1, 0), (ln.weight.float(), 0), (ln.bias.float(), 0),
+                   (w2, 0), (b2, 0), hbd, cols], [LN_EPS], emu)
 
     def hbd(self, hyper, out, Z, nt, co2):
         def emu():
@@ -730,10 +879,21 @@ def _scale_in(dt, hd: int) -> float:
     return float(torch.tensor(1.0 / math.sqrt(hd), dtype=dt))
 
 
-def g_program(twt, decoder, image_embedding, image_pe, tokens, num_heads: int):
+def g_program(twt, decoder, image_embedding, image_pe, tokens, num_heads: int,
+              fused=None):
     """Kernel G's launch sequence for one chunk of prompts sharing one base.
     Returns (program, mask columns (P, L, 16*nt), iou (P, 1, nt)); the two
-    outputs are filled when the program runs."""
+    outputs are filled when the program runs.
+
+    Routes by dtype (``fused`` None): bf16 records the four parts that sweep
+    over L (FUSED_PARTS) as fused records (:meth:`Program.t2i`,
+    :meth:`Program.i2t`, :meth:`Program.norm4_fused`,
+    :meth:`Program.upscale`), which keep the float32 scores, norm4's
+    products and the upscale's intermediates out of device memory; float32
+    records the unfused sequence of GEMMs, softmaxes, LayerNorms and norm4
+    (the fused kernels are bf16 only).  The token-side records are the same
+    on both routes.  ``fused``, a collection of parts (or True / False for
+    all / none), overrides the route, for the CPU tests."""
     _, Hs, Ws, C = image_embedding.shape
     L = Hs * Ws
     dt, dev = image_embedding.dtype, image_embedding.device
@@ -747,6 +907,9 @@ def g_program(twt, decoder, image_embedding, image_pe, tokens, num_heads: int):
     nh = num_heads
     M = nh * N
     f32 = torch.float32
+    if fused is None:
+        fused = dt == torch.bfloat16
+    fused = set(FUSED_PARTS) if fused is True else set(fused or ())
     prog = Program()
 
     def new(*shape, dtype=dt):
@@ -813,9 +976,9 @@ def g_program(twt, decoder, image_embedding, image_pe, tokens, num_heads: int):
     prog.setrows((rho, 0), P, L, L, 0, 1, value=1.0)   # norm4 scales rho in place
     Ci = twt.layers[0].cross_attn_t2i.q.out_features
 
-    def proj_scores(qbd, G, PE, lin, s, R):
-        prog.gemm((qbd, 0), (G, 0), (s, 0), P, M, L, Ci, (M * Ci, Ci, 1), (0, 1, Ci),
-                  (M * L, L, 1), colscale=(rho, L), useful=1 / nh)
+    def score_terms(qbd, lin, R):
+        """qbw = qbd (B W)^T (P, M, R) and rsb = qbd b (P, M), the small
+        products of the scores' rank and bias terms."""
         bw = new(P, R, Ci)
         prog.gemm((Bm, 0), (lin.weight, 0), (bw, 0), P, R, Ci, C, (Rmax * C, C, 1),
                   (0, 1, C), (R * Ci, Ci, 1))
@@ -825,10 +988,28 @@ def g_program(twt, decoder, image_embedding, image_pe, tokens, num_heads: int):
         rsb = new(P, M, dtype=f32)
         prog.gemm((qbd, 0), (lin.bias.float(), 0), (rsb, 0), P, M, 1, Ci, (M * Ci, Ci, 1),
                   (0, 1, 0), (M, 1, 1), useful=1 / nh)
+        return qbw, rsb
+
+    def rank_terms(qbd, lin, R):   # the fused records' keyword arguments
+        qbw, rsb = score_terms(qbd, lin, R)
+        return dict(qbw=(qbw, 0), abuf=(A, 0), zs=Rmax * L, R=R, rsb=(rsb, 0), rho=(rho, 0))
+
+    def proj_scores(qbd, G, PE, lin, s, R):
+        prog.gemm((qbd, 0), (G, 0), (s, 0), P, M, L, Ci, (M * Ci, Ci, 1), (0, 1, Ci),
+                  (M * L, L, 1), colscale=(rho, L), useful=1 / nh)
+        qbw, rsb = score_terms(qbd, lin, R)
         prog.gemm((qbw, 0), (A, 0), (s, 0), P, M, L, R, (M * R, R, 1), (Rmax * L, L, 1),
                   (M * L, L, 1), beta=(s, 0))
         prog.gemm((qbd, 0), (PE, 0), (s, 0), P, M, L, Ci, (M * Ci, Ci, 1), (0, 1, Ci),
                   (M * L, L, 1), beta=(s, 0), rowadd=(rsb, M), useful=1 / nh)
+
+    def value_terms(o, pa, rs, lin, R):   # o += pa (B Wv) + rs (x) bv
+        bw = new(P, R, Ci)
+        prog.gemm((Bm, 0), (lin.weight, 0), (bw, 0), P, R, Ci, C, (Rmax * C, C, 1),
+                  (0, 1, C), (R * Ci, Ci, 1))
+        prog.gemm((pa, 0), (bw, 0), (o, 0), P, M, Ci, R, (M * R, R, 1), (R * Ci, Ci, 1),
+                  (M * Ci, Ci, 1), beta=(o, 0), rowadd=(rs, M), bias=lin.bias.float(),
+                  outer=True, useful=1 / nh)
 
     def attend_v(probs, rs, Gv, lin, R):
         pr = new(P, M, L)
@@ -836,17 +1017,12 @@ def g_program(twt, decoder, image_embedding, image_pe, tokens, num_heads: int):
         o = new(P, M, Ci, dtype=f32)
         prog.gemm((pr, 0), (Gv, 0), (o, 0), P, M, Ci, L, (M * L, L, 1), (0, Ci, 1),
                   (M * Ci, Ci, 1), useful=1 / nh)
-        bw = new(P, R, Ci)
-        prog.gemm((Bm, 0), (lin.weight, 0), (bw, 0), P, R, Ci, C, (Rmax * C, C, 1),
-                  (0, 1, C), (R * Ci, Ci, 1))
         pdt = new(P, M, L)
         prog.cast((probs, 0), (pdt, 0), P * M * L)
         pa = new(P, M, R)
         prog.gemm((pdt, 0), (A, 0), (pa, 0), P, M, R, L, (M * L, L, 1), (Rmax * L, 1, L),
                   (M * R, R, 1))
-        prog.gemm((pa, 0), (bw, 0), (o, 0), P, M, Ci, R, (M * R, R, 1), (R * Ci, Ci, 1),
-                  (M * Ci, Ci, 1), beta=(o, 0), rowadd=(rs, M), bias=lin.bias.float(),
-                  outer=True, useful=1 / nh)
+        value_terms(o, pa, rs, lin, R)
         return o
 
     def scores_softmax(qbd, G, PE, lin, R):
@@ -855,6 +1031,18 @@ def g_program(twt, decoder, image_embedding, image_pe, tokens, num_heads: int):
         probs, rs = new(P, M, L, dtype=f32), new(P, M, dtype=f32)
         prog.softmax_rows((s, 0), (probs, 0), P * M, L, rowsum=(rs, 0))
         return probs, rs
+
+    def attention(qbd, G, PE, lin_k, Gv, lin_v, R):
+        """Token-to-image attention against the factored keys state: (P, M,
+        Ci) float32 before the head extraction."""
+        if "t2i" not in fused:
+            probs, rs = scores_softmax(qbd, G, PE, lin_k, R)
+            return attend_v(probs, rs, Gv, lin_v, R)
+        o, pa, rs = new(P, M, Ci, dtype=f32), new(P, M, R), new(P, M, dtype=f32)
+        prog.t2i((qbd, 0), G, Gv, (o, 0), P, M, Ci, L, nh, PE=PE, pa=(pa, 0), rs=(rs, 0),
+                 **rank_terms(qbd, lin_k, R))
+        value_terms(o, pa, rs, lin_v, R)
+        return o
 
     qpe = queries = tokens
     sigma = torch.ones(C, device=dev)
@@ -868,7 +1056,11 @@ def g_program(twt, decoder, image_embedding, image_pe, tokens, num_heads: int):
 
         ca = p.cross_attn_t2i
         qbd = bd(tok_dense(ca.q, add(queries, qpe)), True)
-        if i == 0:
+        prog.region = "t2i"
+        if i == 0 and "t2i" in fused:
+            o = new(P, M, Ci, dtype=f32)
+            prog.t2i((qbd, 0), sh["kh1"], sh["vh1"], (o, 0), P, M, Ci, L, nh)
+        elif i == 0:
             s = new(P, M, L, dtype=f32)
             prog.gemm((qbd, 0), (sh["kh1"], 0), (s, 0), P, M, L, Ci, (M * Ci, Ci, 1),
                       (0, 1, Ci), (M * L, L, 1), useful=1 / nh)
@@ -879,8 +1071,8 @@ def g_program(twt, decoder, image_embedding, image_pe, tokens, num_heads: int):
                       (0, Ci, 1), (M * Ci, Ci, 1), useful=1 / nh)
         else:
             blk = sh["blocks"][i - 1]
-            probs, rs = scores_softmax(qbd, blk["Gk"], blk["PEk"], ca.k, R)
-            o = attend_v(probs, rs, blk["Gv"], ca.v, R)
+            o = attention(qbd, blk["Gk"], blk["PEk"], ca.k, blk["Gv"], ca.v, R)
+        prog.region = "token"
         queries = norm(p.norm2, queries, head_out(ca.out, o))
         h = new(P, N, p.mlp.fc1.out_features)
         dense(p.mlp.fc1, (queries, 0), N, (h, 0), xz=N * C, xm=C, oz=h[0].numel(),
@@ -890,14 +1082,23 @@ def g_program(twt, decoder, image_embedding, image_pe, tokens, num_heads: int):
         ia = p.cross_attn_i2t
         kbd = bd(tok_dense(ia.k, add(queries, qpe)), True)
         vbd = bd(tok_dense(ia.v, queries), False)
-        s = new(P, M, L, dtype=f32)
-        if i == 0:
-            prog.gemm((kbd, 0), (sh["qi1"], 0), (s, 0), P, M, L, Ci, (M * Ci, Ci, 1),
-                      (0, 1, Ci), (M * L, L, 1), useful=1 / nh)
+        prog.region = "i2t"
+        if "i2t" in fused:   # the scores and their column softmax straight into A's rows
+            if i == 0:
+                prog.i2t((kbd, 0), sh["qi1"], (A, R * L), P, M, Ci, L, nh, Rmax * L)
+            else:
+                blk = sh["blocks"][i - 1]
+                prog.i2t((kbd, 0), blk["Gq"], (A, R * L), P, M, Ci, L, nh, Rmax * L,
+                         PE=blk["PEq"], **rank_terms(kbd, ia.q, R))
         else:
-            blk = sh["blocks"][i - 1]
-            proj_scores(kbd, blk["Gq"], blk["PEq"], ia.q, s, R)
-        prog.softmax_cols((s, 0), (A, R * L), P, nh, N, L, Rmax * L)
+            s = new(P, M, L, dtype=f32)
+            if i == 0:
+                prog.gemm((kbd, 0), (sh["qi1"], 0), (s, 0), P, M, L, Ci, (M * Ci, Ci, 1),
+                          (0, 1, Ci), (M * L, L, 1), useful=1 / nh)
+            else:
+                blk = sh["blocks"][i - 1]
+                proj_scores(kbd, blk["Gq"], blk["PEq"], ia.q, s, R)
+            prog.softmax_cols((s, 0), (A, R * L), P, nh, N, L, Rmax * L)
         prog.gemm((vbd, 0), (ia.out.weight, 0), (Bm, R * C), P, M, C, Ci, (M * Ci, Ci, 1),
                   (0, 1, Ci), (Rmax * C, C, 1), useful=1 / nh)
         rab = sizes[i]
@@ -906,6 +1107,7 @@ def g_program(twt, decoder, image_embedding, image_pe, tokens, num_heads: int):
         if rab > R + M + 1:
             prog.setrows((A, 0), P, Rmax * L, L, R + M + 1, rab - R - M - 1)
             prog.setrows((Bm, 0), P, Rmax * C, C, R + M + 1, rab - R - M - 1)
+        prog.region = "norm4"
         rs8 = -(-rab // 8) * 8   # gram's row stride: a multiple of 8, for 16-byte copies
         gram = new(P, rab, rs8)
         prog.gemm((Bm, 0), (Bm, 0), (gram, 0), P, rab, rab, C, (Rmax * C, C, 1),
@@ -913,20 +1115,26 @@ def g_program(twt, decoder, image_embedding, image_pe, tokens, num_heads: int):
         sig, bmean = new(P, rab, C), new(P, rab, dtype=f32)
         prog.bprep((Bm, 0), (sig, 0), (bmean, 0), P, Rmax * C, rab, C, sigma,
                    p.norm4.weight.float(), p.norm4.bias.float())
-        x1, x2 = new(P, rab, L, dtype=f32), new(P, rab, L, dtype=f32)
-        prog.gemm((sig, 0), (base, 0), (x1, 0), P, rab, L, C, (rab * C, C, 1), (0, 1, C),
-                  (rab * L, L, 1))
-        prog.gemm((gram, 0), (A, 0), (x2, 0), P, rab, L, rab, (rab * rs8, rs8, 1),
-                  (Rmax * L, L, 1), (rab * L, L, 1))
-        prog.norm4((x1, 0), (x2, 0), (A, 0), (bmean, 0), (rho, 0), sh["stats_m"][i],
-                   sh["stats_q"][i], P, Rmax * L, rab, L, C)
+        if "norm4" in fused:
+            prog.norm4_fused((sig, 0), base, (gram, 0), (A, 0), (bmean, 0), (rho, 0),
+                             sh["stats_m"][i], sh["stats_q"][i], P, Rmax * L, rab, L, C, rs8)
+        else:
+            x1, x2 = new(P, rab, L, dtype=f32), new(P, rab, L, dtype=f32)
+            prog.gemm((sig, 0), (base, 0), (x1, 0), P, rab, L, C, (rab * C, C, 1), (0, 1, C),
+                      (rab * L, L, 1))
+            prog.gemm((gram, 0), (A, 0), (x2, 0), P, rab, L, rab, (rab * rs8, rs8, 1),
+                      (Rmax * L, L, 1), (rab * L, L, 1))
+            prog.norm4((x1, 0), (x2, 0), (A, 0), (bmean, 0), (rho, 0), sh["stats_m"][i],
+                       sh["stats_q"][i], P, Rmax * L, rab, L, C)
         sigma = sigma * p.norm4.weight.float()
         R = rab + 2
+        prog.region = "token"
 
     fa = twt.final_attn
     qbd = bd(tok_dense(fa.q, add(queries, qpe)), True)
-    probs, rs = scores_softmax(qbd, sh["Gkf"], sh["PEkf"], fa.k, R)
-    o = attend_v(probs, rs, sh["Gvf"], fa.v, R)
+    prog.region = "t2i"
+    o = attention(qbd, sh["Gkf"], sh["PEkf"], fa.k, sh["Gvf"], fa.v, R)
+    prog.region = "token"
     queries = norm(twt.norm_final, queries, head_out(fa.out, o))
 
     # the tail: IoU head, hypernetwork MLPs, upscale in the permuted layout
@@ -952,14 +1160,19 @@ def g_program(twt, decoder, image_embedding, image_pe, tokens, num_heads: int):
     prog.hbd((hyper, 0), (hbd, 0), P, nt, co2)
     c4 = w1.shape[1]
     co1 = c4 // 4
+    prog.region = "upscale"
     bw1 = new(P, R, c4)
     prog.gemm((Bm, 0), (w1.to(dt), 0), (bw1, 0), P, R, c4, C, (Rmax * C, C, 1), (0, c4, 1),
               (R * c4, c4, 1))
+    cols = new(P, L, 16 * nt)
+    ln = head["ln"]
+    if "upscale" in fused:
+        prog.upscale((A, 0), (bw1, 0), (rho, 0), sh["Gc1"], b1.float(), ln, w2.to(dt),
+                     b2.float(), (hbd, 0), (cols, 0), P, Rmax * L, R, L, nt)
+        return prog, cols, iou
     y1 = new(P, L, c4)
     prog.gemm((A, 0), (bw1, 0), (y1, 0), P, L, c4, R, (Rmax * L, 1, L), (R * c4, c4, 1),
               (L * c4, c4, 1), rowadd=(rho, L), rowmat=(sh["Gc1"], c4), bias=b1.float())
-    cols = new(P, L, 16 * nt)
-    ln = head["ln"]
     for g1 in range(4):
         z = new(P, L, co1)
         prog.layernorm((y1, g1 * co1), (z, 0), P * L, co1, c4, co1, ln.weight.float(),
@@ -971,6 +1184,59 @@ def g_program(twt, decoder, image_embedding, image_pe, tokens, num_heads: int):
                   (L * 4 * co2, 4 * co2, 1), (16 * nt * co2, 1, 4 * co2), (L * 16 * nt, 16 * nt, 1),
                   useful=1 / 4)
     return prog, cols, iou
+
+
+def launch_records(packed, first: int = 0, stop: Optional[int] = None) -> None:
+    """Kernel G on records first .. stop - 1 (all by default) of a packed
+    sequence (:meth:`Program.pack`), in one C call."""
+    n, ops, ints, ptrs, floats = packed
+    stop = n if stop is None else stop
+    try:
+        FACTORED_DECODE.launch(stop - first, ctypes.addressof(ops) + 4 * first,
+                               ctypes.addressof(ints) + 8 * N_INTS * first,
+                               ctypes.addressof(ptrs) + 8 * N_PTRS * first,
+                               ctypes.addressof(floats) + 4 * N_FLOATS * first)
+    except RuntimeError as e:   # name the record that failed
+        i = first + library(FACTORED_DECODE.source).factored_decode_failed_record()
+        raise RuntimeError(f"{e} at record {i} ({OP_NAMES[ops[i]]})") from e
+
+
+# the operands that each fused record writes (indices into its pointers)
+FUSED_OUTPUTS = {OP_T2I: (8, 9, 10), OP_I2T: (7,), OP_NORM4_FUSED: (3, 5), OP_UPSCALE: (10,)}
+
+
+def fused_record_errors(prog: Program) -> List[dict]:
+    """Each fused record of a recorded sequence on the card against its
+    torch interpretation: the sequence runs on the card up to the record,
+    the record runs on the card and then, from the same operands, its emu;
+    per record and written operand the largest difference and the largest
+    magnitude of the emu's result."""
+    packed = prog.pack()
+    out, done = [], 0
+    for i, rec in enumerate(prog.records):
+        if rec[0] not in FUSED_OUTPUTS:
+            continue
+        launch_records(packed, done, i)
+        written = [rec[2][j][0] for j in FUSED_OUTPUTS[rec[0]] if rec[2][j] is not None]
+        before = [t.clone() for t in written]
+        launch_records(packed, i, i + 1)
+        got = [t.clone() for t in written]
+        for t, b in zip(written, before):
+            t.copy_(b)
+        rec[4]()
+        errs, refs = [], []
+        for g, t, b in zip(got, written, before):
+            # the elements either run wrote (the rest of a buffer may hold
+            # anything, NaN included)
+            bits = {2: torch.int16, 4: torch.int32}[t.element_size()]
+            w = (g.view(bits) != b.view(bits)) | (t.view(bits) != b.view(bits))
+            errs.append((g.float() - t.float())[w].abs().max().item() if w.any() else 0.0)
+            refs.append(t.float()[w].abs().max().item() if w.any() else 0.0)
+        out.append({"record": i, "op": OP_NAMES[rec[0]], "max_abs_err": errs,
+                    "max_abs_ref": refs})
+        done = i + 1
+    launch_records(packed, done)
+    return out
 
 
 class _Plan:
@@ -989,9 +1255,7 @@ class _Plan:
 
     def run(self, tokens: torch.Tensor):
         self.tokens.copy_(tokens)
-        n, ops, ints, ptrs, floats = self.packed
-        FACTORED_DECODE.launch(n, ctypes.addressof(ops), ctypes.addressof(ints),
-                               ctypes.addressof(ptrs), ctypes.addressof(floats))
+        launch_records(self.packed)
         P, nt = tokens.shape[0], self.iou.shape[-1]
         # both copies leave the buffers free for the next chunk (same stream)
         return unpermute_masks(self.cols, P, *self.hw, nt), self.iou[:, 0].clone()

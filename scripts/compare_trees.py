@@ -7,7 +7,7 @@ two trees compare within one call (parent, change, change, parent):
     python3 scripts/compare_trees.py <checkout root> <label> [parts]
 
 ``parts`` is a comma-separated subset of
-``fwd,predict,bwd,train,onepass,window`` (all by default).  It builds the
+``fwd,predict,bwd,train,onepass,window,amg_kernels`` (all by default).  It builds the
 kernels of that checkout that the parts run and prints one JSON line:
   fwd      A at (128, 767, 767, 128) causal and J at (64, 4097, 4097, 64),
            bf16, on the event clock (ms a call, back to back), and A's host
@@ -34,12 +34,18 @@ kernels of that checkout that the parts run and prints one JSON line:
            random nonzero tables, on the device clock; one default AMG image
            at sam_vit_h (bf16, seed 0, the third of chip_smoke's synthetic
            images): ms over 3 images after 2 of warm-up, and one image's
-           device time under torch.profiler, in all and for F's kernels.
+           device time under torch.profiler, in all and for F's kernels;
+  amg_kernels  E at (16, 4096, 4096, 80) (an AMG image's global layer), bf16,
+           random nonzero tables, and G on a replayed chunk (sam_vit_h's
+           decoder, random weights, 64 prompts of 7 tokens, L = 4096, bf16),
+           both on the device clock; one default AMG image as in window: ms
+           over 3 images after 2 of warm-up, and one image's device time
+           under torch.profiler, in all and for E's and G's kernels.
 It imports only the checkout's ``llmseg_tpu_torch``."""
 import json, math, os, sys, time
 root = os.path.abspath(sys.argv[1])
 parts = set((sys.argv[3] if len(sys.argv) > 3
-              else "fwd,predict,bwd,train,onepass,window").split(","))
+              else "fwd,predict,bwd,train,onepass,window,amg_kernels").split(","))
 sys.path.insert(0, root)
 os.chdir(root)
 import torch
@@ -56,7 +62,7 @@ if parts & {"bwd", "train"}:
     names |= {"flash_fwd", "flash_fwd_1pass", "flash_bwd_dq", "flash_bwd_dkv"}
 if "onepass" in parts:
     names |= {"flash_fwd", "flash_fwd_1pass"}
-if "window" in parts:
+if parts & {"window", "amg_kernels"}:
     names |= {"relpos_fwd", "relpos_window", "factored_decode"}
 kernels.build(sorted(names), force=True)
 
@@ -148,9 +154,37 @@ if "onepass" in parts:
     out["b_device_ms"] = dev_ms(lambda: A.flash_fwd_1pass(qb, kb, vb), 20)
     del qb, kb, vb
 
-if "window" in parts:
+if "amg_kernels" in parts:
     from llmseg_tpu_torch.ops import relpos_attention as R
-    for BH in (400, 3200):
+    from llmseg_tpu_torch.ops import twoway_kernel as TK
+    from llmseg_tpu_torch.models.sam import sam as SAM_
+    from llmseg_tpu_torch.models.sam.mask_decoder import MaskDecoder
+    g = torch.Generator(device="cuda").manual_seed(0)
+    kw = dict(device="cuda", dtype=torch.float32, generator=g)
+    qe, ke, ve = (torch.randn(16, 4096, 80, **kw).to(torch.bfloat16) for _ in range(3))
+    qe = (qe * torch.tensor(A.LOG2E / math.sqrt(80), dtype=torch.bfloat16,
+                            device="cuda")).contiguous()
+    rhe, rwe = ((torch.randn(16, 4096, 64, **kw) * A.LOG2E).to(torch.bfloat16).contiguous()
+                for _ in range(2))
+    out["e_device_ms"] = dev_ms(lambda: R.relpos_fwd(qe, ke, ve, rhe, rwe), 20)
+    del qe, ke, ve, rhe, rwe
+    dec = MaskDecoder(C.sam_vit_h().decoder, device="cuda", dtype=torch.bfloat16)
+    SAM_.random_init_(dec, g)
+    base, pe = ((torch.randn(*sh, **kw) * 0.5).to(torch.bfloat16)
+                for sh in ((1, 64, 64, 256), (64, 64, 256)))
+    tok = (torch.randn(64, 7, 256, **kw) * 0.5).to(torch.bfloat16)
+    gcache = {}
+    with torch.inference_mode():
+        out["g_device_ms"] = dev_ms(lambda: TK.factored_decode(dec.transformer, dec, base, pe,
+                                                               tok, 8, cache=gcache), 10)
+        out["g_ms"] = ev_ms(lambda: TK.factored_decode(dec.transformer, dec, base, pe, tok, 8,
+                                                       cache=gcache), 10)
+    del dec, gcache, base, pe, tok
+    torch.cuda.empty_cache()
+
+if parts & {"window", "amg_kernels"}:
+    from llmseg_tpu_torch.ops import relpos_attention as R
+    for BH in ((400, 3200) if "window" in parts else ()):
         g = torch.Generator(device="cuda").manual_seed(0)
         kw = dict(device="cuda", dtype=torch.float32, generator=g)
         qf, kf, vf = (torch.randn(BH, 196, 80, **kw).to(torch.bfloat16) for _ in range(3))
@@ -159,7 +193,7 @@ if "window" in parts:
         rh, rw = ((torch.randn(BH, 196, 14, **kw) * A.LOG2E).to(torch.bfloat16).contiguous()
                   for _ in range(2))
         out[f"f{BH}_device_ms"] = dev_ms(lambda: R.relpos_window(qf, kf, vf, rh, rw), 20)
-    del qf, kf, vf, rh, rw
+        del qf, kf, vf, rh, rw
     import numpy as np
     from llmseg_tpu_torch.models.sam import amg as AMG, sam as SAM
     scfg = C.sam_vit_h()
@@ -228,10 +262,13 @@ if "onepass" in parts:
                     {"kernel_b": ("flash_fwd_1pass_bf16", "key_norm_max")})
     out["predict_device_ms"] = prof["device_ms"]
     out["kernel_b_family_device_ms"] = prof["kernel_b"]
-if "window" in parts:
-    prof = profiled(lambda: gen.generate(img), {"kernel_f": ("relpos_window",)})
+if parts & {"window", "amg_kernels"}:
+    prof = profiled(lambda: gen.generate(img), {"kernel_e": ("relpos_fwd",),
+                                                "kernel_f": ("relpos_window",),
+                                                "kernel_g": ("fd_",)})
     out["amg_image_device_ms"] = prof["device_ms"]
-    out["kernel_f_family_device_ms"] = prof["kernel_f"]
+    for k in ("kernel_e", "kernel_f", "kernel_g"):
+        out[f"{k}_family_device_ms"] = prof[k]
 if "predict" in parts:
     A.ONEPASS_T = True
     prof = profiled(lambda: llmseg.predict(model, batch),

@@ -1,5 +1,5 @@
-"""Times design choices of kernels C, D and F against the ones the port
-keeps.
+"""Times design choices of kernels C, D, E, F and G against the ones the
+port keeps.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -16,13 +16,29 @@ replacing text in them (a variant's constants, or the edits of a
                            instead of from shared memory in float32
                            (scripts/relpos_window_bias_mma.edits);
   relpos_window_one_stage  kernel F with one stage instead of two, so that
-                           no item's loads overlap another's compute.
-Each variant is held against its plain version at its main shape (C and D:
+                           no item's loads overlap another's compute;
+  relpos_fwd_grid          kernel E with one CTA a work item (a plain grid
+                           of 512 CTAs at ViT-H) instead of a persistent CTA
+                           an SM walking them;
+  relpos_fwd_3wg           kernel E with three consumer warpgroups (192
+                           query rows a work item) instead of two;
+  factored_decode_two_waves, factored_decode_half_wave
+                           kernel G's fused kernels with L split across twice
+                           (half) as many CTAs a prompt as one wave of one
+                           CTA an SM needs (csrc/factored_fused.cuh splits);
+  factored_decode_upscale_4wg
+                           kernel G's upscale with four consumer warpgroups
+                           instead of three.
+An edit names a header as ``(header, text, replacement)``.  Each variant is
+held against its plain version at its main shape (C and D:
 B*H = 32, T = S = 767, D = 128, causal, bf16, chip_smoke.bwd_case's gate;
 F: 400 and 3,200 pairs of 14 x 14 windows, D = 80, bf16,
-chip_smoke.relpos_case's gate and a bitwise repeat) and timed on the device
-clock (chip_smoke.device_ms), in turns with the kept kernel (kept, variant,
-variant, kept).  One JSON line a variant, with the spill and wgmma lines of
+chip_smoke.relpos_case's gate and a bitwise repeat; E: (16, 4096, 4096, 80)
+and G = 40, the same gate; G: 64 prompts at L = 4096, chip_smoke.g_case's
+gates, which hold each fused kernel against its record's emulation, and a
+bitwise repeat) and timed on the device clock (chip_smoke.device_ms; G
+replayed, with its fused records one at a time), in turns with the kept
+kernel (kept, variant, variant, kept).  One JSON line a variant, with the spill and wgmma lines of
 its ``-Xptxas -v`` report.  ``names``: a comma-separated subset (all by
 default)."""
 import ctypes
@@ -39,7 +55,9 @@ import torch  # noqa: E402
 
 import chip_smoke as CS  # noqa: E402
 from llmseg_tpu_torch.ops import attention as A, kernels  # noqa: E402
+from llmseg_tpu_torch import config as C  # noqa: E402
 from llmseg_tpu_torch.ops import relpos_attention as R  # noqa: E402
+from llmseg_tpu_torch.ops import twoway_kernel as TK  # noqa: E402
 
 def read_edits(name):
     """The (text, replacement) pairs of scripts/<name>.edits: each text
@@ -63,22 +81,41 @@ VARIANTS = [
     ("relpos_window_bias_mma", "relpos_window", read_edits("relpos_window_bias_mma")),
     ("relpos_window_one_stage", "relpos_window", [
         ("p.stages = 2 * p.stage + SLACK <= (uint32_t)SMEM_LIMIT ? 2 : 1;", "p.stages = 1;")]),
+    ("relpos_fwd_grid", "relpos_fwd", [
+        ("constexpr bool PERSISTENT = true;", "constexpr bool PERSISTENT = false;")]),
+    ("relpos_fwd_3wg", "relpos_fwd", [
+        ("constexpr int CWG = 2;", "constexpr int CWG = 3;")]),
+    ("factored_decode_two_waves", "factored_decode", [
+        ("factored_fused.cuh", "std::min<long long>(ntiles, sms / Z)",
+         "std::min<long long>(ntiles, 2 * sms / Z)")]),
+    ("factored_decode_half_wave", "factored_decode", [
+        ("factored_fused.cuh", "std::min<long long>(ntiles, sms / Z)",
+         "std::min<long long>(ntiles, sms / (2 * Z))")]),
+    ("factored_decode_upscale_4wg", "factored_decode", [
+        ("factored_fused.cuh", "constexpr int UP_WGS = 3,", "constexpr int UP_WGS = 4,")]),
 ]
 
 
 def build_variant(name, source, edits):
-    src = (kernels.CSRC / f"{source}.cu").read_text()
-    for old, new in edits:
-        if old not in src:
-            raise SystemExit(f"{name}: {old!r} is not in csrc/{source}.cu")
-        src = src.replace(old, new)
-    out = kernels.BUILD_DIR / "variants"
+    files = {}
+    for edit in edits:
+        fname, old, new = edit if len(edit) == 3 else (f"{source}.cu",) + tuple(edit)
+        text = files.get(fname) or (kernels.CSRC / fname).read_text()
+        if old not in text:
+            raise SystemExit(f"{name}: {old!r} is not in csrc/{fname}")
+        files[fname] = text.replace(old, new)
+    # the variant's sources in a directory of their own, before csrc/ on the
+    # include path: an edited header is found there first
+    out = kernels.BUILD_DIR / "variants" / name
     out.mkdir(parents=True, exist_ok=True)
-    (out / f"{name}.cu").write_text(src)
+    files.setdefault(f"{source}.cu", (kernels.CSRC / f"{source}.cu").read_text())
+    for fname, text in files.items():
+        (out / fname).write_text(text)
+    src = f"{source}.cu"
     so = out / f"lib{name}.so"
     cmd = [kernels._nvcc(), "-gencode", kernels.ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(kernels.CSRC), "-o", str(so),
-           str(out / f"{name}.cu")]
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(out), "-I", str(kernels.CSRC),
+           "-o", str(so), str(out / src)]
     rep = subprocess.run(cmd, capture_output=True, text=True)
     if rep.returncode:
         raise SystemExit(rep.stdout + rep.stderr)
@@ -114,6 +151,33 @@ def window_turn(source, check):
     return out
 
 
+def relpos_fwd_turn(source, check):
+    if check:   # raises if the variant is off
+        CS.relpos_case(R, source, BH=16, G=64, D=80, dtype=torch.bfloat16, repeat=True)
+        CS.relpos_case(R, source, BH=16, G=40, D=80, dtype=torch.bfloat16, repeat=True)
+    x = CS.relpos_inputs(R, 16, 64, 80, torch.bfloat16, 0)
+    return CS.device_ms(lambda: R.relpos_fwd(*x), 20)
+
+
+def g_turn(source, check):
+    if check:   # raises if the variant is off
+        CS.g_case(C, TK, torch.bfloat16, repeat=True)
+    dec = CS.random_decoder(C, torch.bfloat16, 0)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    base, pe = ((torch.randn(*sh, device="cuda", generator=g) * 0.5).bfloat16()
+                for sh in ((1, 64, 64, 256), (64, 64, 256)))
+    tok = (torch.randn(64, 7, 256, device="cuda", generator=g) * 0.5).bfloat16()
+    cache = {}
+    with torch.inference_mode():
+        run = lambda: TK.factored_decode(dec.transformer, dec, base, pe, tok, 8, cache=cache)
+        whole = CS.device_ms(run, 10)
+        fused = CS.g_breakdown(TK, cache["factored_decode"][2])["fused_ms"]
+    return {"device_ms": whole, "fused_ms": fused}
+
+
+TURNS = {"relpos_window": window_turn, "relpos_fwd": relpos_fwd_turn, "factored_decode": g_turn}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: CUDA is not available", file=sys.stderr)
@@ -128,7 +192,7 @@ def main() -> int:
         kept = kernels.library(source)
         lib, notes = build_variant(name, source, edits)
         rec = {"variant": name, "replaces": source, "ptxas": notes}
-        turn_fn = window_turn if source == "relpos_window" else bwd_turn
+        turn_fn = TURNS.get(source, bwd_turn)
         for turn, which in enumerate(("kept", "variant", "variant", "kept")):
             kernels._LIBS[source] = kept if which == "kept" else lib
             rec.setdefault(f"{which}_device_ms", []).append(turn_fn(source, turn == 1))

@@ -230,12 +230,29 @@ def _relpos_inputs(BH, G, D, dtype, seed=5):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("G,D", [(64, 80), (32, 80), (23, 64)])
-def test_kernel_e_matches_plain(dtype, G, D):
+@pytest.mark.parametrize("BH,G,D", [(4, 64, 80), (4, 32, 80), (4, 23, 64),
+                                    # one head and an AMG layer's 16 (the persistent
+                                    # CTAs walk several items), G = 64 on the
+                                    # register-held rw path, 23 and 40 (ragged last
+                                    # key tile, query rows past T) on the general one
+                                    (1, 64, 80), (16, 64, 80), (1, 64, 64), (16, 64, 64),
+                                    (1, 23, 80), (16, 23, 80), (16, 23, 64),
+                                    (1, 40, 64), (16, 40, 64), (1, 40, 80), (16, 40, 80)])
+def test_kernel_e_matches_plain(dtype, BH, G, D):
     """Kernel E with random nonzero rel-pos tables (SAM's are zero at init)."""
-    x = _relpos_inputs(4, G, D, dtype)
-    _assert_close(R.relpos_fwd(*x), R.relpos_fwd_plain(*(t.float() if i < 3 else t
-                                                           for i, t in enumerate(x))), dtype)
+    x = _relpos_inputs(BH, G, D, dtype)
+    got = R.relpos_fwd(*x)
+    for i in range(0, BH, 4):   # the float32 reference of 4 heads at a time
+        xi = [t[i:i + 4] for t in x]
+        _assert_close(got[i:i + 4], R.relpos_fwd_plain(*(t.float() if j < 3 else t
+                                                         for j, t in enumerate(xi))), dtype)
+
+
+@pytest.mark.parametrize("BH,G,D", [(16, 64, 80), (16, 40, 64), (3, 23, 80)])
+def test_kernel_e_is_deterministic(BH, G, D):
+    """Two runs of E on the same inputs give the same bits."""
+    x = _relpos_inputs(BH, G, D, torch.bfloat16)
+    assert torch.equal(R.relpos_fwd(*x), R.relpos_fwd(*x))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -347,6 +364,29 @@ def test_kernel_g_replays_its_sequence_for_each_chunk():
         assert cache["factored_decode"][-1] is plan
     for (m, i), (rm, ri) in zip(cached, fresh):
         assert torch.equal(m, rm) and torch.equal(i, ri)
+
+
+@pytest.mark.parametrize("P", [1, 3, 64])
+def test_kernel_g_fused_records_match_their_emulation(P):
+    """Each fused kernel of G's bf16 route (token-to-image attention,
+    image-to-token scores, norm4, the upscale) at sam_vit_h's decoder widths
+    and L = 64*64 against its record's torch interpretation on the same
+    operands, normwise per written operand: max|err| <= 5e-2 max|ref|."""
+    from llmseg_tpu_torch.models.sam import sam as S_
+    from llmseg_tpu_torch.models.sam.mask_decoder import MaskDecoder
+    dec = MaskDecoder(C.sam_vit_h().decoder, device="cuda", dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    S_.random_init_(dec, g)
+    base = (torch.randn(1, 64, 64, 256, device="cuda", generator=g) * 0.5).bfloat16()
+    pe = (torch.randn(64, 64, 256, device="cuda", generator=g) * 0.5).bfloat16()
+    tok = (torch.randn(P, 7, 256, device="cuda", generator=g) * 0.5).bfloat16()
+    with torch.inference_mode():
+        prog, _, _ = TK.g_program(dec.transformer, dec, base, pe, tok, 8)
+        res = TK.fused_record_errors(prog)
+    assert sorted({r["op"] for r in res}) == ["i2t", "norm4_fused", "t2i", "upscale"]
+    for r in res:
+        for err, ref in zip(r["max_abs_err"], r["max_abs_ref"]):
+            assert err <= 5e-2 * ref, r
 
 
 def test_kernel_g_cache_follows_the_base_and_the_weights():

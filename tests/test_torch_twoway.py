@@ -149,6 +149,64 @@ def test_kernel_g_sequence_replays_on_new_tokens(decoders):
     torch.testing.assert_close(iou[:, 0], it, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("part", tk.FUSED_PARTS)
+def test_fused_record_matches_the_records_it_replaces(decoders, part):
+    """Each fused record's torch interpretation (the bf16 route's records:
+    token-to-image attention, image-to-token scores, norm4 with its
+    products, the upscale tail) against the unfused records it replaces,
+    float32: the sequence with that part fused against the one without."""
+    p, m = decoders
+    emb, pe, sparse, dense = _chunk(B=3, seed=6)
+    args = (m.transformer, m, torch.tensor(emb + dense), torch.tensor(pe),
+            torch.tensor(_tokens(p, sparse)), NH)
+    out = {}
+    with torch.no_grad():
+        for fused in ((), (part,)):
+            prog, cols, iou = tk.g_program(*args, fused=fused)
+            prog.run_torch()
+            out[fused] = (cols, iou, {tk.OP_NAMES[r[0]] for r in prog.records})
+    assert {"t2i": "t2i", "i2t": "i2t", "norm4": "norm4_fused", "upscale": "upscale"}[part] \
+        in out[(part,)][2] - out[()][2]
+    torch.testing.assert_close(out[(part,)][0], out[()][0], atol=1e-5, rtol=0)
+    torch.testing.assert_close(out[(part,)][1], out[()][1], atol=1e-5, rtol=0)
+
+
+def _tiny_bf16_decoder(seed):
+    from llmseg_tpu_torch.config import sam_tiny
+    from llmseg_tpu_torch.models.sam import sam as S_
+    dec = MaskDecoder(sam_tiny().decoder).to(torch.bfloat16)
+    S_.random_init_(dec, torch.Generator().manual_seed(seed))
+    return dec
+
+
+@pytest.mark.parametrize("replay", [False, True])
+def test_kernel_g_bf16_sequence_with_fused_records_matches_plain(replay):
+    """The bf16 route of kernel G's sequence (the fused records) at
+    sam_tiny's decoder widths, interpreted with torch, against
+    factored_decode_plain in bf16, on a fresh recording and on a replay with
+    new tokens; held normwise as the card holds kernel G: max|err| <= 5e-2
+    max|ref|."""
+    dec = _tiny_bf16_decoder(3)
+    rng = np.random.RandomState(8)
+    S, d = 8, dec.cfg.transformer_dim
+    base, pe = (torch.tensor(rng.randn(*sh) * 0.5, dtype=torch.bfloat16)
+                for sh in ((1, S, S, d), (S, S, d)))
+    toks = [torch.tensor(rng.randn(5, 7, d) * 0.5, dtype=torch.bfloat16) for _ in range(2)]
+    tokens = toks[0].clone()
+    args = (dec.transformer, dec, base, pe)
+    with torch.no_grad():
+        prog, cols, iou = tk.g_program(*args, tokens, 2)
+        prog.run_torch()
+        if replay:
+            tokens.copy_(toks[1])
+            prog.run_torch()
+        mt, it = tk.factored_decode_plain(*args, toks[int(replay)], 2)
+    assert {"t2i", "i2t", "norm4_fused", "upscale"} <= {tk.OP_NAMES[r[0]] for r in prog.records}
+    for got, ref in ((tk.unpermute_masks(cols, 5, S, S, 4), mt), (iou[:, 0], it)):
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 5e-2 * ref.float().abs().max().item()
+
+
 def test_convt_as_matmul_matches_conv_transpose(decoders):
     """The bridge's upscale weights applied as JAX applies them (spatially
     flipped conv_transpose)."""
