@@ -20,7 +20,12 @@ Phases, one JSON line each; any failure exits non-zero:
               chunk that replays its recorded launch sequence; kernel H at
               the pixel decoder's shape (8 prompts of 6 tokens), at 64
               prompts of 7 with a base per prompt and with a shared base
-              (not factored), kernel I at 64 x 7, kernel J (the transposed
+              (not factored), kernel I at 64 x 7, each recording its plan
+              and replaying it on a new base and new tokens, repeated to
+              the bit, with each fused kernel against its record's
+              emulation, its device clock and its breakdown by part
+              (tw_breakdown), and H and I at 1, 9 prompts and 1, 16
+              tokens; kernel J (the transposed
               one-pass forward) at DINOv2-L's shape with adversarial norms;
               A and J also at lengths off their 128-row tiles, with one head,
               A with a broadcast bias and with none, J with rescued rows
@@ -864,27 +869,36 @@ def random_decoder(C, dtype, seed):
     return dec
 
 
-def g_breakdown(TK, plan, iters: int = 5) -> dict:
-    """Kernel G's recorded sequence on a replayed plan, one record at a time
-    on the device clock (device_ms), summed by the part of the decode that
-    g_program tagged it with (TK.REGIONS); beside it the whole sequence in
-    one call.  The gap between the two is what the single launches cost
-    beyond their kernels.  (Running single records again and again leaves
-    the buffers in no useful state; the next full run resets them.)"""
-    regions = plan.prog.regions
-    each = [device_ms(lambda i=i: TK.launch_records(plan.packed, i, i + 1), iters)
-            for i in range(len(regions))]
-    whole = device_ms(lambda: TK.launch_records(plan.packed), iters)
-    by = {r: sum(t for t, g in zip(each, regions) if g == r) for r in TK.REGIONS}
+def record_breakdown(TK, prog, packed, kernel, regions, iters: int = 5) -> dict:
+    """A recorded sequence (kernel G's, H's or I's) on a replayed plan, one
+    record at a time on the device clock (device_ms), summed by the part of
+    the decode that its program tagged it with (``regions``); beside it the
+    whole sequence in one call.  The gap between the two is what the single
+    launches cost beyond their kernels.  (Running single records again and
+    again leaves the buffers in no useful state; the next full run resets
+    them.)"""
+    tags = prog.regions
+    each = [device_ms(lambda i=i: TK.launch_records(packed, i, i + 1, kernel), iters)
+            for i in range(len(tags))]
+    whole = device_ms(lambda: TK.launch_records(packed, kernel=kernel), iters)
+    by = {r: sum(t for t, g in zip(each, tags) if g == r) for r in regions}
     return {"clock": "device (events behind a spin kernel), one record at a time",
             "records": len(each), "regions_ms": by,
-            "records_by_region": {r: regions.count(r) for r in TK.REGIONS},
+            "records_by_region": {r: tags.count(r) for r in regions},
             "records_sum_ms": sum(each), "whole_ms": whole, "gap_ms": whole - sum(each),
             "fused_ms": {f"{i}:{TK.OP_NAMES[rec[0]]}": t for i, (rec, t) in
-                         enumerate(zip(plan.prog.records, each)) if rec[0] in TK.FUSED_OUTPUTS},
+                         enumerate(zip(prog.records, each)) if rec[0] in TK.FUSED_OUTPUTS},
+            "ms_by_op": {op: sum(t for rec, t in zip(prog.records, each)
+                                 if TK.OP_NAMES[rec[0]] == op)
+                         for op in sorted({TK.OP_NAMES[rec[0]] for rec in prog.records})},
             "ops_by_region": {r: sorted({TK.OP_NAMES[rec[0]] for rec, g in
-                                         zip(plan.prog.records, regions) if g == r})
-                              for r in TK.REGIONS}}
+                                         zip(prog.records, tags) if g == r})
+                              for r in regions}}
+
+
+def g_breakdown(TK, plan, iters: int = 5) -> dict:
+    """Kernel G's breakdown by part (record_breakdown, TK.REGIONS)."""
+    return record_breakdown(TK, plan.prog, plan.packed, TK.FACTORED_DECODE, TK.REGIONS, iters)
 
 
 def g_case(C, TK, dtype, *, timed=False, seed=0, prompts=64, repeat=False):
@@ -1241,50 +1255,87 @@ def twoway_flops(dec, P: int, N: int, L: int, shared: bool, head: bool) -> float
     return f
 
 
-def twoway_case(C, TK, name, dtype, *, P, N, shared=False, timed=False, seed=0):
+def tw_breakdown(TK, plan, iters: int = 5) -> dict:
+    """Kernel H's or I's breakdown by part (record_breakdown, TK.TW_REGIONS)
+    on a replayed plan."""
+    return record_breakdown(TK, plan.prog, plan.packed, plan.kernel, TK.TW_REGIONS, iters)
+
+
+def twoway_case(C, TK, name, dtype, *, P, N, shared=False, timed=False, seed=0, check=False):
     """Kernel H (``twoway_decode``, through fused_decode_apply with
     factored=False) or I (``twoway_transformer``) against its plain version
     at sam_vit_h's decoder widths, L = 64*64, gated normwise at TWOWAY_TOL:
-    max|err| <= tol * max|ref| per output.  With ``timed``: the kernel's,
-    the plain version's and the plain route's times (the mask decoder's
-    plain tail for H, the transformer's plain route for I; no single
-    PyTorch call computes either, so library_ms is null), and the bound
-    from twoway_flops and the bytes read (base, pe, tokens, weights) and
-    written (masks and IoU, or queries and keys)."""
+    max|err| <= tol * max|ref| per output, on a call that records the plan
+    and on a second call that replays it on a new base and new tokens.  With
+    ``check``: a third call on the second's inputs equal to the bit, and in
+    bf16 each fused kernel against its record's emulation on the same
+    operands (normwise at TWOWAY_TOL).  With ``timed``: the kernel's time
+    replaying its plan (event and device clocks) and with the plan recorded
+    anew, its breakdown by part (tw_breakdown), the plain version's and the
+    plain route's times (the mask decoder's plain tail for H, the
+    transformer's plain route for I; no single PyTorch call computes either,
+    so library_ms is null), and the bound from the operations of the
+    recorded sequence (the projections folded into the token side in bf16)
+    and the bytes read (base, pe, tokens, weights) and written (masks and
+    IoU, or queries and keys); beside it the bound of the unfolded
+    operations (twoway_flops, the TPU kernel's form)."""
     import torch
     dt = str(dtype).split(".")[-1]
     dec = random_decoder(C, dtype, seed)
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
-    base = (torch.randn(1 if shared else P, 64, 64, 256, device="cuda", generator=g) * 0.5
-            ).to(dtype)
+
+    def draw():
+        return ((torch.randn(1 if shared else P, 64, 64, 256, device="cuda", generator=g) * 0.5
+                 ).to(dtype), (torch.randn(P, N, 256, device="cuda", generator=g) * 0.5).to(dtype))
+
     pe = (torch.randn(64, 64, 256, device="cuda", generator=g) * 0.5).to(dtype)
-    tok = (torch.randn(P, N, 256, device="cuda", generator=g) * 0.5).to(dtype)
-    args = (dec.transformer, base, pe, tok, 8)
+    (base, tok), (base2, tok2) = draw(), draw()
     if name == "twoway_decode":
-        kern, outs = TK.TWOWAY_DECODE, ("masks", "iou")
-        run = lambda: TK.fused_decode_apply(dec.transformer, dec, base, pe, tok, 8, factored=False)
-        plain = lambda: TK.fused_decode_plain(dec.transformer, dec, base, pe, tok, 8)
+        kern, outs, decoder = TK.TWOWAY_DECODE, ("masks", "iou"), dec
+        call = lambda b, t: TK.fused_decode_apply(dec.transformer, dec, b, pe, t, 8, factored=False)
+        plain_of = lambda b, t: TK.fused_decode_plain(dec.transformer, dec, b, pe, t, 8)
         plain_route = lambda: dec.plain_tail(base, pe, tok)
     else:
-        kern, outs = TK.TWOWAY_TRANSFORMER, ("queries", "keys")
-        run = lambda: TK.fused_twoway_apply(*args)
-        plain = lambda: TK.fused_twoway_plain(*args)
+        kern, outs, decoder = TK.TWOWAY_TRANSFORMER, ("queries", "keys"), None
+        call = lambda b, t: TK.fused_twoway_apply(dec.transformer, b, pe, t, 8)
+        plain_of = lambda b, t: TK.fused_twoway_plain(dec.transformer, b, pe, t, 8)
         plain_route = lambda: dec.transformer(base, pe, tok, impl="xla")
+    run, plain = (lambda: call(base, tok)), (lambda: plain_of(base, tok))
     with torch.inference_mode():
         before = kern.launches
-        got = run()
+        got = [call(base, tok), call(base2, tok2)]   # recorded, then replayed
         torch.cuda.synchronize()
         launched = kern.launches - before
-        ref = plain()
-        err = {k: (x.float() - r.float()).abs().max().item() for k, x, r in zip(outs, got, ref)}
-        top = {k: r.float().abs().max().item() for k, r in zip(outs, ref)}
+        ref = [plain(), plain_of(base2, tok2)]
+        err = {k: max((x[j].float() - r[j].float()).abs().max().item() for x, r in zip(got, ref))
+               for j, k in enumerate(outs)}
+        top = {k: min(r[j].float().abs().max().item() for r in ref) for j, k in enumerate(outs)}
         rec = {"phase": "kernel", "kernel": name, "prompts": P, "tokens": N, "L": 4096,
-               "C": 256, "shared_base": shared, "dtype": dt, "max_abs_err": err,
-               "max_abs_ref": top, "tol_vs_max_ref": TWOWAY_TOL[dt], "launches": launched}
-        rec["ok"] = launched == 1 and all(math.isfinite(err[k]) and err[k] <= TWOWAY_TOL[dt] * top[k]
+               "C": 256, "shared_base": shared, "dtype": dt, "checked": "recorded, replayed on "
+               "a new base and tokens", "max_abs_err": err, "max_abs_ref": top,
+               "tol_vs_max_ref": TWOWAY_TOL[dt], "launches": launched}
+        rec["ok"] = launched == 2 and all(math.isfinite(err[k]) and err[k] <= TWOWAY_TOL[dt] * top[k]
                                           for k in err)
+        plan = TK._plan(kern, dec.transformer, decoder, base, tok, 8)
+        rec["records"] = len(plan.prog.records)
+        if check:
+            again = call(base2, tok2)
+            rec["bitwise_repeat"] = all(torch.equal(a, b) for a, b in zip(again, got[1]))
+            rec["ok"] = rec["ok"] and rec["bitwise_repeat"]
+            if dtype == torch.bfloat16:   # each fused kernel against its record's emulation
+                fused = TK.fused_record_errors(plan.prog, kern)
+                rec["fused_records"] = {f"{r['record']}:{r['op']}": max(
+                    e / max(m, 1e-30) for e, m in zip(r["max_abs_err"], r["max_abs_ref"]))
+                    for r in fused}
+                rec["ok"] = rec["ok"] and len(fused) > 0 and all(
+                    v <= TWOWAY_TOL[dt] for v in rec["fused_records"].values())
         if timed:
             rec["ms"] = cuda_ms(run, 10)
+            rec["device_ms"] = device_ms(run, 10)
+            rec["ms_with_recording"] = cuda_ms(lambda: (TK._PLANS.pop(dec.transformer, None),
+                                                        run()), 3)
+            rec["breakdown"] = tw_breakdown(TK, TK._plan(kern, dec.transformer, decoder, base,
+                                                         tok, 8))
             rec["plain_ms"] = cuda_ms(plain, 3)
             rec["plain_route_ms"] = cuda_ms(plain_route, 3)
             rec["library_ms"] = None
@@ -1292,13 +1343,15 @@ def twoway_case(C, TK, name, dtype, *, P, N, shared=False, timed=False, seed=0):
             nbytes = (e * (base.numel() + pe.numel() + tok.numel())
                       + sum(p.numel() * p.element_size() for p in
                             (dec if name == "twoway_decode" else dec.transformer).parameters())
-                      + sum(x.numel() * x.element_size() for x in got))
-            rec["flops"] = twoway_flops(dec, P, N, 4096, shared, name == "twoway_decode")
+                      + sum(x.numel() * x.element_size() for x in got[0]))
+            rec["flops"] = plan.prog.flops
             rec["bound_ms"], rec["bound_by"] = bound(nbytes, rec["flops"])
+            rec["flops_unfolded"] = twoway_flops(dec, P, N, 4096, shared, name == "twoway_decode")
+            rec["bound_ms_unfolded"] = bound(nbytes, rec["flops_unfolded"])[0]
     emit(rec)
     if not rec["ok"]:
         raise SystemExit(f"{name} disagrees with its plain version: {rec}")
-    del dec
+    del dec, plan
     torch.cuda.empty_cache()
     return rec
 
@@ -1311,15 +1364,25 @@ def pixel_kernel_phase(C, A, TK) -> dict:
     rescued rows beside rows that are not."""
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
-    main = {"twoway_decode": twoway_case(C, TK, "twoway_decode", bf16, P=8, N=6, timed=True)}
+    main = {"twoway_decode": twoway_case(C, TK, "twoway_decode", bf16, P=8, N=6, timed=True,
+                                         check=True)}
     twoway_case(C, TK, "twoway_decode", f32, P=8, N=6)
-    main["twoway_decode_64"] = twoway_case(C, TK, "twoway_decode", bf16, P=64, N=7, timed=True)
+    main["twoway_decode_64"] = twoway_case(C, TK, "twoway_decode", bf16, P=64, N=7, timed=True,
+                                           check=True)
     twoway_case(C, TK, "twoway_decode", f32, P=64, N=7)
-    twoway_case(C, TK, "twoway_decode", bf16, P=64, N=7, shared=True, timed=True)
+    twoway_case(C, TK, "twoway_decode", bf16, P=64, N=7, shared=True, timed=True, check=True)
     twoway_case(C, TK, "twoway_decode", f32, P=8, N=6, shared=True)
     main["twoway_transformer"] = twoway_case(C, TK, "twoway_transformer", bf16, P=64, N=7,
-                                             timed=True)
+                                             timed=True, check=True)
     twoway_case(C, TK, "twoway_transformer", f32, P=64, N=7)
+    # one prompt, 9 (a split of L that leaves CTAs of one tile less), 16
+    # tokens (two 64-row blocks of token-to-image rows, 16 token columns a
+    # head), one token (I), a shared base under 9 prompts
+    for nm, P, N, sh in (("twoway_decode", 1, 6, False), ("twoway_decode", 9, 16, False),
+                         ("twoway_decode", 9, 7, True), ("twoway_transformer", 1, 1, False),
+                         ("twoway_transformer", 9, 16, False)):
+        twoway_case(C, TK, nm, bf16, P=P, N=N, shared=sh, check=True, seed=P + N)
+    twoway_case(C, TK, "twoway_transformer", f32, P=9, N=16, seed=2)
     main["flash_fwd_1pass_t"] = kernel_case(A, "flash_fwd_1pass_t", BH=4 * 16, T=4097, S=4097,
                                             D=64, dtype=bf16, timed=True)
     main["flash_fwd_1pass_t"]["ex2_bound_ms"] = ex2_bound_ms(4 * 16 * 4097 * 4097)

@@ -135,7 +135,10 @@ __global__ void __launch_bounds__(THREADS) fd_gemm(GemmArgs g) {
 }
 
 // bf16 operands: a 64 x 64 tile on mma.sync m16n8k16 (common.cuh), 8 warps
-// of 16 rows x 32 columns, k-tiles of 32 double-buffered in shared memory.
+// of 16 rows x 32 columns, k-tiles of 32 in a ring of GSTAGES in shared
+// memory (the small products of the decodes' token sides are a few CTAs
+// each, whose k loops wait on their loads: the ring keeps GSTAGES - 1 tiles
+// of loads in flight).
 // How an operand is staged depends on its strides (STAGE_*): with the k
 // index contiguous it is copied by 16-byte cp.async into [row][k] rows,
 // read by ldmatrix as the attention kernels read q and k; with the row
@@ -144,7 +147,7 @@ __global__ void __launch_bounds__(THREADS) fd_gemm(GemmArgs g) {
 // misaligned base) take element-wise loads into [row][k].  The vector
 // copies zero-fill a chunk past the edge of the matrix, so neither M, N nor
 // K need be a multiple of 8.
-constexpr int MK = 32, MLD = MK + 8, TLD = GM + 8;
+constexpr int MK = 32, MLD = MK + 8, TLD = GM + 8, GSTAGES = 4;
 constexpr int STAGE_ELEMS = GM * MLD;  // >= MK * TLD
 enum { STAGE_SCALAR, STAGE_KFAST, STAGE_ROWFAST };
 
@@ -188,8 +191,8 @@ __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, long long
 
 template <int AMODE, int BMODE>
 __global__ void __launch_bounds__(THREADS) fd_gemm_mma(GemmArgs g) {
-  __shared__ __align__(16) bf16 sA[2][STAGE_ELEMS];
-  __shared__ __align__(16) bf16 sB[2][STAGE_ELEMS];
+  __shared__ __align__(16) bf16 sA[GSTAGES][STAGE_ELEMS];
+  __shared__ __align__(16) bf16 sB[GSTAGES][STAGE_ELEMS];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
   const int wm = warp % 4, wn = warp / 4, r8 = lane & 7, mi = lane >> 3;
   const long long z = blockIdx.z, m0 = (long long)blockIdx.y * GM, n0 = (long long)blockIdx.x * GN;
@@ -201,16 +204,21 @@ __global__ void __launch_bounds__(THREADS) fd_gemm_mma(GemmArgs g) {
     stage_tile<BMODE>(sB[buf], B, n0, g.N, k0, g.K, g.sBn, g.sBk);
     cp_async_commit();
   };
-  stage(0, 0);
+  for (int s = 0; s < GSTAGES - 1; ++s) {
+    if (s * MK < g.K)
+      stage(s, s * MK);
+    else
+      cp_async_commit();
+  }
   for (long long k0 = 0, it = 0; k0 < g.K; k0 += MK, ++it) {
-    const int buf = (int)(it & 1);
-    if (k0 + MK < g.K) {
-      stage(buf ^ 1, k0 + MK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+    const int buf = (int)(it % GSTAGES);
+    cp_async_wait<GSTAGES - 2>();
+    __syncthreads();   // tile it landed; tile it - 1's slot is free
+    const long long kn = k0 + (GSTAGES - 1) * MK;
+    if (kn < g.K)
+      stage((int)((it + GSTAGES - 1) % GSTAGES), kn);
+    else
+      cp_async_commit();
     const bf16 *a_s = sA[buf], *b_s = sB[buf];
 #pragma unroll
     for (int kk = 0; kk < MK / 16; ++kk) {
@@ -232,7 +240,6 @@ __global__ void __launch_bounds__(THREADS) fd_gemm_mma(GemmArgs g) {
         mma16816(acc[2 * np + 1], a, b[2], b[3]);
       }
     }
-    __syncthreads();
   }
   const int gr = lane >> 2, t = lane & 3;
 #pragma unroll

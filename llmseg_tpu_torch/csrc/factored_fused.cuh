@@ -230,14 +230,16 @@ constexpr uint32_t ST_G = 0, ST_PE = 16384, ST_A = 32768, ST_GV = 49152;
 constexpr int SC_LDS = 65;
 template <int MODE>
 struct ScLayout {
-  static constexpr int STAGES = MODE == ATTEND ? 2 : 3;
+  // STATS and COLSM: the warpgroups take turns, so a stage is always one
+  // warpgroup's (hopper.cuh)
+  static constexpr int STAGES = MODE == STATS ? 4 : 2;
   static constexpr uint32_t STAGE = MODE == ATTEND ? 65536 : 49152;
   static constexpr uint32_t OFF_S = SC_OFF_ST + STAGES * STAGE;
   static constexpr int SMEM = OFF_S + (MODE == COLSM ? 2 * 64 * SC_LDS * 4 : 0) + SLACK;
 };
 
 struct ScBars {
-  uint64_t q, full[3], empty[3];
+  uint64_t q, full[4], empty[4];
 };
 
 // s (this warpgroup's 64 x 64 scores of the tile in stage sb) = rho (x)
@@ -842,9 +844,10 @@ inline int norm4_run(const long long* I, void* const* P, const float* Fv, cudaSt
 // halves of 64 columns, each multiplied into the mask columns at once) and
 // three warpgroups hide each other's latency.  Shared memory: bw1 (4 boxes
 // of 64 of its 256 columns x 128 rank rows), w2 (2 boxes of 64 columns x 64
-// rows), hbd (2 boxes of 64 columns x 16 rows), four stages of A's columns
-// (128 rows x 64), then b1, the LayerNorm's weight and bias, and b2.
-constexpr int UP_WGS = 3, UP_THREADS = 128 * UP_WGS + 32, UP_STAGES = 4;
+// rows), hbd (2 boxes of 64 columns x 16 rows), six stages of A's columns
+// (128 rows x 64; two a warpgroup), then b1, the LayerNorm's weight and
+// bias, and b2.
+constexpr int UP_WGS = 3, UP_THREADS = 128 * UP_WGS + 32, UP_STAGES = 6;   // 2 a warpgroup
 constexpr uint32_t UP_OFF_BW1 = 0, UP_OFF_W2 = 65536, UP_OFF_HBD = 81920, UP_OFF_ST = 86016;
 constexpr uint32_t UP_OFF_VEC = UP_OFF_ST + UP_STAGES * 16384;  // 256 + 64 + 64 + 128 floats
 constexpr int UP_SMEM = UP_OFF_VEC + 512 * 4 + SLACK;
@@ -860,6 +863,82 @@ struct UpArgs {
 struct UpBars {
   uint64_t q, full[UP_STAGES], empty[UP_STAGES];
 };
+
+// The upscale tail of one sub-pixel group, shared by fd_upscale (kernel G)
+// and tw_upscale (kernel H, twoway_sweeps.cuh): from the group's 64 columns
+// of y1 (y, rounded, in a 64-row accumulator tile) and this thread's two
+// rows' sums of them, a LayerNorm over the 64 columns (four lanes a row),
+// GELU, z2 = gelu(z w2 + b2), and the product with the block-diagonal hbd
+// into the group's 16 mask columns (c8).  w2_s: w2 in shared memory (two
+// boxes of 64 columns x 64 rows), hbd_s: hbd (two boxes of 64 columns x 16
+// rows); lnw, lnb: 64 floats, b2: 128.
+__device__ __forceinline__ void upscale_group(float (&y)[32], const float (&sum)[2],
+                                              const float* lnw, const float* lnb,
+                                              const float* b2, uint32_t w2_s, uint32_t hbd_s,
+                                              float eps, float (&c8)[8]) {
+  // LayerNorm over the row's 64 columns (four lanes), GELU, rounded
+  float mu[2], inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mu[h] = quad_sum(sum[h]) / 64.f;
+    float qv = 0.f;
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      if (((e >> 1) & 1) == h) qv += (y[e] - mu[h]) * (y[e] - mu[h]);
+    inv[h] = rsqrtf(quad_sum(qv) / 64.f + eps);
+  }
+#pragma unroll
+  for (int e = 0; e < 32; e += 2) {
+    const int h = (e >> 1) & 1, c = acc_col(e);
+    float u0 = (y[e] - mu[h]) * inv[h] * lnw[c] + lnb[c];
+    float u1 = (y[e + 1] - mu[h]) * inv[h] * lnw[c + 1] + lnb[c + 1];
+    rbf2(u0, u1);
+    y[e] = gelu_t(u0);
+    y[e + 1] = gelu_t(u1);
+    rbf2(y[e], y[e + 1]);
+  }
+  uint32_t zr[16];
+  pack_a<64>(zr, y);
+  // z2 = gelu(z w2 + b2), rounded, in two halves of 64 columns, each
+  // multiplied at once into the group's 16 mask columns (z2 hbd^T)
+#pragma unroll 1
+  for (int hf = 0; hf < 2; ++hf) {
+    float z2[32];
+    reg_fence(z2);
+    reg_fence(zr);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<64>(z2, zr[4 * kk], zr[4 * kk + 1], zr[4 * kk + 2], zr[4 * kk + 3],
+                   desc_mnmajor(w2_s + hf * 8192 + kk * 2048, 8192), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(z2);
+    reg_fence(zr);
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      const int c = 64 * hf + acc_col(e);
+      float u0 = z2[e] + b2[c], u1 = z2[e + 1] + b2[c + 1];
+      rbf2(u0, u1);
+      z2[e] = gelu_t(u0);
+      z2[e + 1] = gelu_t(u1);
+      rbf2(z2[e], z2[e + 1]);
+    }
+    uint32_t z2r[16];
+    pack_a<64>(z2r, z2);
+    reg_fence(c8);
+    reg_fence(z2r);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_k<16>(c8, z2r[4 * kk], z2r[4 * kk + 1], z2r[4 * kk + 2], z2r[4 * kk + 3],
+                     desc_kmajor(hbd_s + hf * 2048 + kk * 32), hf > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(c8);
+    reg_fence(z2r);
+  }
+}
 
 __global__ void __launch_bounds__(UP_THREADS, 1)
 fd_upscale(const __grid_constant__ CUtensorMap tA, const __grid_constant__ CUtensorMap tBw1,
@@ -949,69 +1028,8 @@ fd_upscale(const __grid_constant__ CUtensorMap tA, const __grid_constant__ CUten
           y[4 * j + 2 * h + 1] = v1;
           sum[h] += v0 + v1;
         }
-      // LayerNorm over the row's 64 columns (four lanes), GELU, rounded
-      float mu[2], inv[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mu[h] = quad_sum(sum[h]) / 64.f;
-        float qv = 0.f;
-#pragma unroll
-        for (int e = 0; e < 32; ++e)
-          if (((e >> 1) & 1) == h) qv += (y[e] - mu[h]) * (y[e] - mu[h]);
-        inv[h] = rsqrtf(quad_sum(qv) / 64.f + a.eps);
-      }
-#pragma unroll
-      for (int e = 0; e < 32; e += 2) {
-        const int h = (e >> 1) & 1, c = acc_col(e);
-        float u0 = (y[e] - mu[h]) * inv[h] * lnw[c] + lnb[c];
-        float u1 = (y[e + 1] - mu[h]) * inv[h] * lnw[c + 1] + lnb[c + 1];
-        rbf2(u0, u1);
-        y[e] = gelu_t(u0);
-        y[e + 1] = gelu_t(u1);
-        rbf2(y[e], y[e + 1]);
-      }
-      uint32_t zr[16];
-      pack_a<64>(zr, y);
-      // z2 = gelu(z w2 + b2), rounded, in two halves of 64 columns, each
-      // multiplied at once into the group's 16 mask columns (z2 hbd^T)
       float c8[8];
-#pragma unroll 1
-      for (int hf = 0; hf < 2; ++hf) {
-        float z2[32];
-        reg_fence(z2);
-        reg_fence(zr);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs<64>(z2, zr[4 * kk], zr[4 * kk + 1], zr[4 * kk + 2], zr[4 * kk + 3],
-                       desc_mnmajor(base + UP_OFF_W2 + hf * 8192 + kk * 2048, 8192), kk > 0);
-        wgmma_commit();
-        wgmma_wait<0>();
-        reg_fence(z2);
-        reg_fence(zr);
-#pragma unroll
-        for (int e = 0; e < 32; e += 2) {
-          const int c = 64 * hf + acc_col(e);
-          float u0 = z2[e] + b2[c], u1 = z2[e + 1] + b2[c + 1];
-          rbf2(u0, u1);
-          z2[e] = gelu_t(u0);
-          z2[e + 1] = gelu_t(u1);
-          rbf2(z2[e], z2[e + 1]);
-        }
-        uint32_t z2r[16];
-        pack_a<64>(z2r, z2);
-        reg_fence(c8);
-        reg_fence(z2r);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_k<16>(c8, z2r[4 * kk], z2r[4 * kk + 1], z2r[4 * kk + 2], z2r[4 * kk + 3],
-                         desc_kmajor(base + UP_OFF_HBD + hf * 2048 + kk * 32), hf > 0 || kk > 0);
-        wgmma_commit();
-        wgmma_wait<0>();
-        reg_fence(c8);
-        reg_fence(z2r);
-      }
+      upscale_group(y, sum, lnw, lnb, b2, base + UP_OFF_W2, base + UP_OFF_HBD, a.eps, c8);
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll

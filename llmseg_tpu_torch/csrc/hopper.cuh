@@ -55,6 +55,14 @@
 //     producer warpgroup that hands its registers to two consumers
 //     (setmaxnreg 24 / 240) let ptxas use more than 168 in the consumers,
 //     yet kernel D still spilled there.
+//   * A ring whose stages several consumer warpgroups take in turns (tile
+//     i to warpgroup i % W) needs a number of stages that is a multiple of
+//     W, so that each stage is always the same warpgroup's.  Otherwise a
+//     warpgroup that has run ahead waits on a full barrier whose previous
+//     phase, another warpgroup's, has not completed yet: the parity it
+//     waits for is that of the phase before, the wait passes at once, and
+//     the tile is read before it lands.  TMA completions are not in order,
+//     so this shows only now and then, as a trap in mbar_wait later.
 //   * A wgmma group issued on only some paths through a loop (the next
 //     tile's products under an if) leaves ptxas unsure which group a wait
 //     retires: it injects waits (C7517) and serialises the products

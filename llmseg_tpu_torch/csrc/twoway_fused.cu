@@ -9,46 +9,53 @@
 // LayerNorm over each 64-wide group, tanh-GELU, conv-transpose 2, tanh-GELU,
 // the product with the hypernetwork outputs), giving low-res mask logits
 // (P, nt, 4S, 4S) and IoU (P, nt).  Shared mode (one base (1, S, S, C) for
-// P > 1 prompts): layer 0's keys-side projections are computed once, from
-// the base, and read by every prompt; the base is never broadcast.
+// P > 1 prompts): layer 0 reads the base for every prompt; it is never
+// broadcast.
 //
 // What bounds it on an H100: at sam_vit_h's decoder (L = 4096 image tokens,
-// C = 256, cross-attention width 128, 8 heads, MLP 2048) a prompt costs
-// about 3.5 GFLOP of keys-side products (the k/v/q projections of three
-// cross attentions, the out projections, conv1 and conv2) against about
-// 2.6 MB of bf16 keys and masks: operations.  The TPU kernel keeps one
-// prompt's keys state (2 MB) and the weights in VMEM; a Hopper block has
-// 227 KB of shared memory, so here the keys state lives in device memory
-// and each step runs over all prompts of the call: a fixed host-side
-// sequence (run below, one C call, one launch of H or I) of the strided
-// GEMM of batched_gemm.cuh (mma.sync bf16 tiles, float32 accumulation,
-// bias / ReLU / GELU epilogues, rounding where the TPU kernel rounds), its
-// rounded add (keys + pe, queries + pe) and residual LayerNorm (a shared
-// base read by row modulo L, not broadcast), and four kernels of this
-// file, each computing per head what the TPU kernel computes with
-// block-diagonal tricks:
-//   tw_attn_tokens the token self attention (8 heads of 32);
-//   tw_attn_image  tokens attending to the L image keys, one block per
-//                  (prompt, head): a sweep for the softmax maxima and sums,
-//                  a second for the probabilities (rounded to the input
-//                  type, as the TPU kernel casts them) times v;
-//   tw_attn_rows   image rows attending to the N tokens, one thread per
-//                  (prompt, row, head);
-//   tw_masks       the hypernetwork product, written straight into the
-//                  unpermuted (P, nt, 4S, 4S) layout.
-// wgmma tiles, fusing the projections into the attention sweeps and the
-// out projection with norm4 are the next steps.
-#include "batched_gemm.cuh"
-
-#include <vector>
+// C = 256, cross-attention width 128, 8 heads, MLP 2048) a prompt's keys
+// state is 2 MB of bf16 and the TPU kernel keeps it and the weights in
+// VMEM; a Hopper block has 227 KB of shared memory, so here the keys state
+// lives in device memory and each step runs over all prompts of the call.
+// The TPU kernel projects the keys to k, v and q over every image token
+// (about 3.5 GFLOP a prompt); folded into the token side (below) the sweeps
+// over L cost about 2 x 256 x 8 N operations a token and attention, so
+// what bounds a call is the passes over the keys state (134 MB at 64
+// prompts: 0.04 ms a pass) and, at few prompts, where the state sits in L2,
+// the launches and the token side.
+//
+// One C call (twoway_fused below, one launch of H or I) runs a recorded
+// sequence (twoway_kernel.tw_program, replayed from a plan cached for the
+// weights and shapes) through the record interpreter of records.cuh, which
+// kernel G shares.  Two routes, by dtype:
+//   * bf16: the three parts that sweep over L are fused kernels on wgmma and
+//     TMA (twoway_sweeps.cuh): token-to-image attention with the k and v
+//     projections folded into the token side (OP_TW_T2I), image-to-token
+//     attention with the q and out projections folded in and norm4, row
+//     local (OP_TW_I2T_NORM4), and the upscale from the keys (OP_TW_UPSCALE);
+//     the token side, (P, N <= 16, 256), runs on the shared records.
+//   * float32: the projections over P L rows on the strided GEMM of
+//     batched_gemm.cuh (its SIMT tile: no float32 wgmma exists), and the
+//     scalar kernels below, each computing per head what the TPU kernel
+//     computes with block-diagonal tricks:
+//       tw_attn_tokens the token self attention (8 heads of 32; the bf16
+//                      route runs it too);
+//       tw_attn_image  tokens attending to the L image keys, one block per
+//                      (prompt, head): a sweep for the softmax maxima and
+//                      sums, a second for the probabilities (rounded to the
+//                      input type, as the TPU kernel casts them) times v;
+//       tw_attn_rows   image rows attending to the N tokens, one thread per
+//                      (prompt, row, head);
+//       tw_masks       the hypernetwork product, written straight into the
+//                      unpermuted (P, nt, 4S, 4S) layout.
+#include "records.cuh"
+#include "twoway_sweeps.cuh"
 
 namespace {
 
 constexpr int HD = 16;        // head dim of the cross attentions
 constexpr int QROWS = 8;      // prompt tokens per block of tw_attn_image
 constexpr int NMAX = 16;      // most prompt tokens a call takes
-constexpr int MAX_STACK = 8;  // most layers of an IoU / hypernetwork MLP
-constexpr int MAX_NT = 8;     // most mask tokens
 constexpr int MAX_CO2 = 32;   // widest hypernetwork output
 constexpr float NEG = -3.0e38f;
 
@@ -308,298 +315,58 @@ __global__ void tw_masks(const void* z2, const void* hyper, void* masks, long lo
   }
 }
 
-// ---------------------------------------------------------------------------
-// The host-side sequence
-// ---------------------------------------------------------------------------
-
-struct Lin {  // y = x w^T + b: w (out, in) in the input type, b float32
-  const void* w;
-  const float* b;
-  int in, out;
-};
-struct Norm {
-  const float *w, *b;
-};
-struct AttnW {
-  Lin q, k, v, out;
-};
-struct LayerW {
-  AttnW sa;
-  Norm n1;
-  AttnW t2i;
-  Norm n2;
-  Lin fc1, fc2;
-  Norm n3;
-  AttnW i2t;
-  Norm n4;
-};
-struct Stack {
-  int n;
-  Lin l[MAX_STACK];
-};
-
-// reads the dims and pointers in the order twoway_kernel._TwOperands
-// appends them
-struct Reader {
-  const long long* d;
-  void* const* p;
-  int nd, np, id = 0, ip = 0;
-  bool bad = false;
-  long long dim() {
-    if (id >= nd) return bad = true, 0;
-    return d[id++];
-  }
-  void* ptr() {
-    if (ip >= np) return bad = true, nullptr;
-    return p[ip++];
-  }
-  Lin lin() {
-    Lin l;
-    l.w = ptr();
-    l.b = static_cast<const float*>(ptr());
-    l.in = (int)dim();
-    l.out = (int)dim();
-    return l;
-  }
-  Norm norm() {
-    Norm n;
-    n.w = static_cast<const float*>(ptr());
-    n.b = static_cast<const float*>(ptr());
-    return n;
-  }
-  AttnW attn() {
-    AttnW a;
-    a.q = lin();
-    a.k = lin();
-    a.v = lin();
-    a.out = lin();
-    return a;
-  }
-  Stack stack() {
-    Stack s;
-    s.n = (int)dim();
-    if (s.n < 1 || s.n > MAX_STACK) return bad = true, s;
-    for (int i = 0; i < s.n; ++i) s.l[i] = lin();
-    return s;
-  }
-};
-
-struct Seq {
-  cudaStream_t st;
-  int bf, err = 0;
-  float eps;
-
-  char* at(const void* p, long long elems) const {
-    return (char*)p + elems * (bf ? 2 : 4);
-  }
-  void done() {
-    if (!err) err = (int)cudaGetLastError();
-  }
-  // c (M rows, row stride cs) = act(round(x (M rows, row stride xs) w^T + b))
-  void dense(const Lin& l, const void* x, long long M, long long xs, void* c, long long cs,
-             int act = ACT_NONE) {
-    if (err) return;
-    GemmArgs g{};
-    g.a = x; g.b = l.w; g.c = c; g.bias = l.b;
-    g.Z = 1; g.M = M; g.N = l.out; g.K = l.in;
-    g.sAm = xs; g.sAk = 1;
-    g.sBk = 1; g.sBn = l.in;
-    g.sCm = cs; g.sCn = 1;
-    g.abf = g.bbf = g.cbf = bf;
-    g.flags = F_BIAS;
-    g.act = act;
-    g.alpha = 1.f;
-    err = gemm_launch(g, st);
-    done();
-  }
-  void dense(const Lin& l, const void* x, long long M, void* c, int act = ACT_NONE) {
-    dense(l, x, M, l.in, c, l.out, act);
-  }
-  void add(const void* x, long long nx, const void* y, long long ny, void* out, long long n) {
-    if (err) return;
-    fd_add<<<blocks_for(n), THREADS, 0, st>>>(x, nx, y, ny, out, n, bf);
-    done();
-  }
-  void layernorm(const Norm& w, const void* x, long long xrows, const void* res, void* out,
-                 long long rows, int C, int gelu = 0) {
-    if (err) return;
-    fd_layernorm<<<(unsigned)((rows + THREADS / 32 - 1) / (THREADS / 32)), THREADS, 0, st>>>(
-        x, res, out, w.w, w.b, rows, C, C, C, bf, gelu, eps, xrows);
-    done();
-  }
-  float scale(int hd) const {  // 1/sqrt(hd) in the input type, as q is scaled in it
-    const float s = 1.f / sqrtf((float)hd);
-    return bf ? __bfloat162float(__float2bfloat16(s)) : s;
-  }
-};
-
-enum { MODE_TRANSFORMER = 0, MODE_DECODE = 1 };
-
-int run(int mode, Reader& r, cudaStream_t stream) {
-  const long long P = r.dim(), N = r.dim(), Hs = r.dim(), Ws = r.dim(), C = r.dim(),
-                  nh = r.dim(), depth = r.dim(), Bi = r.dim(), bf = r.dim(), nt = r.dim();
-  const void* keys_in = r.ptr();
-  const void* pe = r.ptr();
-  const void* tokens = r.ptr();
-  void* out_a = r.ptr();  // queries (P, N, C) | masks (P, nt, 4Hs, 4Ws)
-  void* out_b = r.ptr();  // keys (P, L, C)    | iou (P, nt)
-  void* ws_keys = r.ptr();
-  void* kpe = r.ptr();
-  void* kh = r.ptr();
-  void* vh = r.ptr();
-  void* qi = r.ptr();
-  void* oimg = r.ptr();
-  void* tmp = r.ptr();
-  void* Q = r.ptr();
-  void* qin = r.ptr();
-  void* tq = r.ptr();
-  void* tk = r.ptr();
-  void* tv = r.ptr();
-  void* to = r.ptr();
-  void* tatt = r.ptr();
-  void* th = r.ptr();
-  void *y1 = nullptr, *z = nullptr, *z2 = nullptr, *hyper = nullptr, *m0 = nullptr, *m1 = nullptr;
-  if (mode == MODE_DECODE) {
-    y1 = r.ptr(); z = r.ptr(); z2 = r.ptr(); hyper = r.ptr(); m0 = r.ptr(); m1 = r.ptr();
-  }
-  if (r.bad || depth < 1 || depth > 8 || N < 1 || N > NMAX || (Bi != 1 && Bi != P))
-    return (int)cudaErrorInvalidValue;
-  std::vector<LayerW> layers((size_t)depth);
-  for (auto& w : layers) {
-    w.sa = r.attn(); w.n1 = r.norm(); w.t2i = r.attn(); w.n2 = r.norm();
-    w.fc1 = r.lin(); w.fc2 = r.lin(); w.n3 = r.norm(); w.i2t = r.attn(); w.n4 = r.norm();
-  }
-  const AttnW fa = r.attn();
-  const Norm nf = r.norm();
-  Lin conv1{}, conv2{};
-  Norm ln{};
-  Stack iou{};
-  std::vector<Stack> hyp;
-  if (mode == MODE_DECODE) {
-    conv1 = r.lin(); ln = r.norm(); conv2 = r.lin(); iou = r.stack();
-    if (nt < 1 || nt > MAX_NT) return (int)cudaErrorInvalidValue;
-    for (int t = 0; t < nt; ++t) hyp.push_back(r.stack());
-  }
-  if (r.bad || r.id != r.nd || r.ip != r.np) return (int)cudaErrorInvalidValue;
-  const int Ci = layers[0].t2i.q.out, Csa = layers[0].sa.q.out;
-  if (Ci != HD * nh || fa.q.out != Ci || Csa % nh || C > 1024 || C % 8) return (int)cudaErrorInvalidValue;
-
-  Seq s{stream, (int)bf, 0, 1e-6f};
-  const long long L = Hs * Ws, PN = P * N;
-  void* K = mode == MODE_TRANSFORMER ? out_b : ws_keys;
-  void* q_final = mode == MODE_TRANSFORMER ? out_a : Q;
-  const void* Kcur = keys_in;
-  long long krows = Bi * L;  // rows of Kcur: L while a shared base is read
-  const void* Qcur = tokens;
-  const float sc = s.scale(HD), ssa = s.scale(Csa / (int)nh);
-  const dim3 img_grid((unsigned)nh, (unsigned)P, (unsigned)((N + QROWS - 1) / QROWS));
-
-  // tokens attending to image keys kh / vh (krows rows; a z stride of 0 when shared)
-  auto attend_image = [&](const AttnW& a, long long rows) {
-    s.dense(a.q, qin, PN, tq);
-    if (s.err) return;
-    tw_attn_image<<<img_grid, THREADS, 0, s.st>>>(tq, kh, vh, to, (int)N, L, Ci,
-                                                  rows == L ? 0 : L * Ci, sc, s.bf);
-    s.done();
-    s.dense(a.out, to, PN, tatt);
-  };
-
-  for (long long i = 0; i < depth; ++i) {
-    const LayerW& w = layers[(size_t)i];
-    // token self attention; layer 0 without the positional add and residual
-    const void* qsrc = Qcur;
-    if (i > 0) {
-      s.add(Qcur, PN * C, tokens, PN * C, qin, PN * C);
-      qsrc = qin;
+// a record of kernel H or I: its own kinds, or a shared one
+int run_op(int op, const long long* I, void* const* P, const float* Fv, cudaStream_t st) {
+  switch (op) {
+    case OP_TW_ATTN_TOKENS:   // ints P, Tq, Tk, I, nh, bf; pointers q, k, v, out; floats scale
+      if (I[2] > NMAX) return (int)cudaErrorInvalidValue;
+      tw_attn_tokens<<<blocks_for(I[0] * I[1] * I[3]), THREADS, 0, st>>>(
+          P[0], P[1], P[2], P[3], I[0], (int)I[1], (int)I[2], (int)I[3], (int)I[4], Fv[0],
+          (int)I[5]);
+      return 0;
+    case OP_TW_ATTN_IMAGE: {  // ints P, Tq, Tk, I, nh, kz, bf; pointers q, k, v, out; floats scale
+      if (I[3] != HD * I[4] || I[1] > NMAX) return (int)cudaErrorInvalidValue;
+      const dim3 grid((unsigned)I[4], (unsigned)I[0], (unsigned)((I[1] + QROWS - 1) / QROWS));
+      tw_attn_image<<<grid, THREADS, 0, st>>>(P[0], P[1], P[2], P[3], (int)I[1], I[2], (int)I[3],
+                                              I[5], Fv[0], (int)I[6]);
+      return 0;
     }
-    s.dense(w.sa.q, qsrc, PN, tq);
-    s.dense(w.sa.k, qsrc, PN, tk);
-    s.dense(w.sa.v, Qcur, PN, tv);
-    if (s.err) return s.err;
-    tw_attn_tokens<<<blocks_for(PN * Csa), THREADS, 0, s.st>>>(tq, tk, tv, to, P, (int)N, (int)N,
-                                                              Csa, (int)nh, ssa, s.bf);
-    s.done();
-    s.dense(w.sa.out, to, PN, tatt);
-    s.layernorm(w.n1, i == 0 ? tatt : Qcur, PN, i == 0 ? nullptr : tatt, Q, PN, (int)C);
-    Qcur = Q;
-
-    // token-to-image
-    s.add(Qcur, PN * C, tokens, PN * C, qin, PN * C);
-    s.add(Kcur, krows * C, pe, L * C, kpe, krows * C);
-    s.dense(w.t2i.k, kpe, krows, kh);
-    s.dense(w.t2i.v, Kcur, krows, vh);
-    attend_image(w.t2i, krows);
-    s.layernorm(w.n2, Qcur, PN, tatt, Q, PN, (int)C);
-
-    // MLP
-    s.dense(w.fc1, Qcur, PN, th, ACT_RELU);
-    s.dense(w.fc2, th, PN, tatt);
-    s.layernorm(w.n3, Qcur, PN, tatt, Q, PN, (int)C);
-
-    // image-to-token, then norm4 on the keys
-    s.add(Qcur, PN * C, tokens, PN * C, qin, PN * C);
-    s.dense(w.i2t.k, qin, PN, tk);
-    s.dense(w.i2t.v, Qcur, PN, tv);
-    s.dense(w.i2t.q, kpe, krows, qi);
-    if (s.err) return s.err;
-    tw_attn_rows<<<blocks_for(P * L * nh), THREADS, 0, s.st>>>(
-        qi, krows == L ? 0 : L * Ci, tk, tv, oimg, P, L, (int)N, Ci, (int)nh, sc, s.bf);
-    s.done();
-    s.dense(w.i2t.out, oimg, P * L, tmp);
-    s.layernorm(w.n4, Kcur, krows, tmp, K, P * L, (int)C);
-    Kcur = K;
-    krows = P * L;
+    case OP_TW_ATTN_ROWS:     // ints P, L, Tk, I, nh, qz, bf; pointers q, k, v, out; floats scale
+      if (I[3] != HD * I[4] || I[2] > NMAX) return (int)cudaErrorInvalidValue;
+      tw_attn_rows<<<blocks_for(I[0] * I[1] * I[4]), THREADS, 0, st>>>(
+          P[0], I[5], P[1], P[2], P[3], I[0], I[1], (int)I[2], (int)I[3], (int)I[4], Fv[0],
+          (int)I[6]);
+      return 0;
+    case OP_TW_MASKS:         // ints P, Hs, Ws, nt, co2, bf; pointers z2, hyper, masks
+      if (I[4] > MAX_CO2) return (int)cudaErrorInvalidValue;
+      tw_masks<<<blocks_for(I[0] * I[1] * I[2] * 4), THREADS, 0, st>>>(
+          P[0], P[1], P[2], I[0], (int)I[1], (int)I[2], (int)I[3], (int)I[4], (int)I[5]);
+      return 0;
+    case OP_TW_T2I:
+      return llmseg::fused::tw_t2i_run(I, P, st);
+    case OP_TW_I2T_NORM4:
+      return llmseg::fused::tw_i2t_norm4_run(I, P, Fv, st);
+    case OP_TW_UPSCALE:
+      return llmseg::fused::tw_upscale_run(I, P, Fv, st);
+    default:
+      return run_common_op(op, I, P, Fv, st);
   }
-
-  // the final token-to-image attention
-  s.add(Qcur, PN * C, tokens, PN * C, qin, PN * C);
-  s.add(Kcur, P * L * C, pe, L * C, kpe, P * L * C);
-  s.dense(fa.k, kpe, P * L, kh);
-  s.dense(fa.v, Kcur, P * L, vh);
-  attend_image(fa, P * L);
-  s.layernorm(nf, Qcur, PN, tatt, q_final, PN, (int)C);
-  if (mode == MODE_TRANSFORMER || s.err) return s.err;
-
-  // IoU head and hypernetwork MLPs, on rows 0 and 1 + t of every prompt's queries
-  auto mlp_row = [&](const Stack& sk, long long row, void* out, long long os) {
-    const void* x = s.at(Q, row * C);
-    long long xs = N * C;
-    for (int j = 0; j < sk.n; ++j) {
-      const bool last = j == sk.n - 1;
-      void* y = last ? out : (j & 1 ? m1 : m0);
-      s.dense(sk.l[j], x, P, xs, y, last ? os : sk.l[j].out, last ? ACT_NONE : ACT_RELU);
-      x = y;
-      xs = sk.l[j].out;
-    }
-  };
-  mlp_row(iou, 0, out_b, nt);
-  const int co2 = hyp[0].l[hyp[0].n - 1].out;
-  if (co2 > MAX_CO2 || conv2.out != 4 * co2 || conv1.out != 4 * conv2.in) return (int)cudaErrorInvalidValue;
-  for (int t = 0; t < nt; ++t) mlp_row(hyp[(size_t)t], 1 + t, s.at(hyper, t * co2), nt * co2);
-
-  // the upscale in the permuted layout, then the masks
-  s.dense(conv1, Kcur, P * L, y1);
-  s.layernorm(ln, y1, P * L * 4, nullptr, z, P * L * 4, conv2.in, 1);
-  s.dense(conv2, z, P * L * 4, z2, ACT_GELU);
-  if (s.err) return s.err;
-  tw_masks<<<blocks_for(P * L * 4), THREADS, 0, s.st>>>(z2, hyper, out_a, P, (int)Hs, (int)Ws,
-                                                        (int)nt, co2, s.bf);
-  s.done();
-  return s.err;
 }
 
 }  // namespace
 
-// mode 0: kernel I (the transformer), mode 1: kernel H (the decode).  dims
-// (n_dims int64) and ptrs (n_ptrs pointers) as twoway_kernel._TwOperands
-// lays them out; every launch goes to the caller's stream.  Returns the
-// first error (cudaError_t), or 0.
-extern "C" int twoway_fused(int mode, int n_dims, const void* dims, int n_ptrs, const void* ptrs,
-                            void* stream) {
-  if (mode != MODE_TRANSFORMER && mode != MODE_DECODE) return (int)cudaErrorInvalidValue;
-  Reader r{static_cast<const long long*>(dims), static_cast<void* const*>(ptrs), n_dims, n_ptrs};
-  return run(mode, r, (cudaStream_t)stream);
+static int failed_record = -1;
+
+// Kernel H or I (one source, two counters): n records in order on the
+// caller's stream, laid out as twoway_kernel.Program.pack lays them out.
+// Returns the first launch error (cudaError_t), or 0;
+// twoway_fused_failed_record then gives that record's index.
+extern "C" int twoway_fused(int n, const void* ops, const void* ints, const void* ptrs,
+                            const void* floats, void* stream) {
+  return run_records(n, ops, ints, ptrs, floats, (cudaStream_t)stream, run_op, &failed_record);
 }
+
+extern "C" int twoway_fused_failed_record() { return failed_record; }
 
 extern "C" const char* twoway_fused_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);

@@ -32,7 +32,7 @@ SIGNATURES = {
     "relpos_fwd": [_P] * 6 + [_I] * 5 + [_P],
     "relpos_window": [_P] * 6 + [_I] * 5 + [_P],
     "factored_decode": [_I] + [_P] * 5,
-    "twoway_fused": [_I, _I, _P, _I, _P, _P],
+    "twoway_fused": [_I] + [_P] * 5,
     "flash_fwd_1pass_t": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 

@@ -49,14 +49,22 @@ call, which counts as one launch of G.  ``Program.run_torch`` interprets
 the same records with torch (the test of the sequence on the CPU).
 
 Kernels H and I keep the keys state materialised, (P, L, C) in device
-memory, and run a fixed sequence of launches written in C++, one C call a
-launch; :class:`_TwOperands` hands it the weights and buffers.
+memory.  Their sequence (:func:`tw_program`) is recorded on the same
+:class:`Program` and run by the same record interpreter
+(``csrc/records.cuh``) from one C call of ``csrc/twoway_fused.cu``; a
+plan (:class:`_TwPlan`) records it once for a set of weights and shapes,
+with input buffers of its own, and replays it on every call.  In bf16 the
+three parts that sweep over L are fused kernels on wgmma and TMA
+(``csrc/twoway_sweeps.cuh``) with every keys-side projection folded into
+the token side; in float32 the sequence is the strided GEMM and the scalar
+attention kernels of ``twoway_fused.cu``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import weakref
 from typing import Dict, List, Optional
 
 import torch
@@ -486,13 +494,17 @@ def factored_decode_plain(twt, decoder, image_embedding, image_pe, tokens, num_h
 # Kernel G: the launch sequence
 # ---------------------------------------------------------------------------
 
-# operation codes of csrc/factored_decode.cu, and the fixed record layout
+# operation codes of csrc/records.cuh, and the fixed record layout
 OP_GEMM, OP_ADD, OP_LAYERNORM, OP_SOFTMAX_ROWS, OP_SOFTMAX_COLS, OP_BD, OP_HEAD_EXTRACT, \
     OP_COLSCALE_ROUND, OP_CAST, OP_SETROWS, OP_BPREP, OP_NORM4, OP_HBD, \
-    OP_T2I, OP_I2T, OP_NORM4_FUSED, OP_UPSCALE = range(17)
+    OP_T2I, OP_I2T, OP_NORM4_FUSED, OP_UPSCALE, \
+    OP_TW_ATTN_TOKENS, OP_TW_ATTN_IMAGE, OP_TW_ATTN_ROWS, OP_TW_MASKS, \
+    OP_TW_T2I, OP_TW_I2T_NORM4, OP_TW_UPSCALE = range(24)
 OP_NAMES = ("gemm", "add", "layernorm", "softmax_rows", "softmax_cols", "bd", "head_extract",
             "colscale_round", "cast", "setrows", "bprep", "norm4", "hbd",
-            "t2i", "i2t", "norm4_fused", "upscale")
+            "t2i", "i2t", "norm4_fused", "upscale",
+            "tw_attn_tokens", "tw_attn_image", "tw_attn_rows", "tw_masks",
+            "tw_t2i", "tw_i2t_norm4", "tw_upscale")
 FUSED_TILE = 64        # the L columns of a fused kernel's tile (csrc/factored_fused.cuh)
 FUSED_PARTS = ("t2i", "i2t", "norm4", "upscale")   # the parts with a fused record
 N_INTS, N_PTRS, N_FLOATS = 24, 12, 4
@@ -500,6 +512,11 @@ N_INTS, N_PTRS, N_FLOATS = 24, 12, 4
 # attention, image-to-token scores and the rank update, norm4 with its two
 # products, the upscale tail, and the token-side rest
 REGIONS = ("t2i", "i2t", "norm4", "upscale", "token")
+# tw_program's: the token side, the token-to-image attentions of the layers,
+# image-to-token attention with norm4, the final attention, the IoU and
+# hypernetwork MLPs, the upscale and the masks
+TW_REGIONS = ("token", "t2i", "i2t_norm4", "final", "head", "upscale", "masks")
+TW_PARTS = ("t2i", "i2t", "upscale")   # the parts with a fused record (bf16)
 ACT_NONE, ACT_RELU, ACT_GELU = 0, 1, 2
 GEMM_BETA, GEMM_ROWADD, GEMM_BIAS, GEMM_OUTER, GEMM_COLSCALE, GEMM_ROWMAT = 1, 2, 4, 8, 16, 32
 
@@ -553,10 +570,52 @@ def _fact_scores(q, G, PE, qbw, av, rsb, rv, Z, M, R):
     return s
 
 
+def _upscale_tail(y, ln, w2, b2, hbd, cols, Z, L, nt) -> None:
+    """The upscale tail of :meth:`Program.upscale` and :meth:`Program.tw_upscale`
+    from y1 before its rounding (Z, L, 4 co1, float32): per sub-pixel group
+    a LayerNorm, GELU, the product with w2 and GELU, then the product with
+    the block-diagonal hbd into the mask columns."""
+    dt = cols[0].dtype
+    co1, w4 = w2.shape
+    y1 = y.to(dt).float()
+    hb = _view(*hbd, (Z, 4 * nt, w4), (4 * nt * w4, w4, 1)).float()
+    cv = _view(*cols, (Z, L, 16 * nt), (L * 16 * nt, 16 * nt, 1))
+    for g1 in range(4):
+        z = torch.nn.functional.layer_norm(y1[..., g1 * co1:(g1 + 1) * co1], (co1,),
+                                           ln.weight.float(), ln.bias.float(), LN_EPS)
+        z = _act(z, ACT_GELU, dt).to(dt).float()
+        z2 = _act(torch.matmul(z, w2.float()) + b2, ACT_GELU, dt).to(dt).float()
+        cv[..., g1 * 4 * nt:(g1 + 1) * 4 * nt].copy_(torch.matmul(z2, hb.transpose(1, 2)))
+
+
+def _heads_attend(q, k, v, nh: int, scale: float, q_side: bool) -> torch.Tensor:
+    """softmax(q k^T) v per head (nh heads of I / nh columns) in float32,
+    with q (q_side) or k multiplied by scale and rounded to its dtype first
+    and the probabilities rounded to v's: (P, Tq, I) from q (P, Tq, I), k
+    and v (P, Tk, I)."""
+    dt = q.dtype
+    sc = torch.tensor(scale, dtype=torch.float32)
+    if q_side:
+        q = (q.float() * sc).to(dt)
+    else:
+        k = (k.float() * sc).to(dt)
+    qh, kh, vh = (t.float().unflatten(-1, (nh, -1)).transpose(1, 2) for t in (q, k, v))
+    p = _softmax(torch.matmul(qh, kh.transpose(-1, -2))).to(dt).float()
+    return torch.matmul(p, vh).transpose(1, 2).flatten(-2)
+
+
+def _max_splits(L: int, Z: int, dev) -> int:
+    """Room for the splits of L of a fused sweep over it: up to two waves
+    of CTAs (the kernel takes one, csrc/factored_fused.cuh ``splits``)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count \
+        if dev.type == "cuda" else 132
+    return max(1, min(L // FUSED_TILE, 2 * sms // Z))
+
+
 class Program:
-    """A recorded sequence of kernel G's operations.  Each record keeps its
-    operands (tensor, element offset), its integer and float arguments, and
-    a torch interpretation of the same operation."""
+    """A recorded sequence of kernel G's, H's or I's operations.  Each
+    record keeps its operands (tensor, element offset), its integer and
+    float arguments, and a torch interpretation of the same operation."""
 
     def __init__(self):
         self.records: List[tuple] = []
@@ -625,25 +684,30 @@ class Program:
                             int(rm[0] is not None and rm[0].dtype == torch.bfloat16)],
                   [a, b, c, beta, (cs[0], 0), (ra[0], 0), (bias, 0), (rm[0], 0)], [alpha], emu)
 
-    def add(self, x, y, out, n):
-        """out = round(x + y), n contiguous elements of one dtype."""
+    def add(self, x, y, out, n, ny=None):
+        """out = round(x + y), n contiguous elements of one dtype; y has ny
+        (n by default) and repeats (a positional encoding added to every
+        prompt's keys)."""
         def emu():
-            _view(*out, (n,), (1,)).copy_(_view(*x, (n,), (1,)) + _view(*y, (n,), (1,)))
-        self._add(OP_ADD, [n, _isbf(out)], [x, y, out], [], emu)
+            yv = _view(*y, (ny or n,), (1,)).repeat(n // (ny or n))
+            _view(*out, (n,), (1,)).copy_(_view(*x, (n,), (1,)) + yv)
+        self._add(OP_ADD, [n, _isbf(out)] + ([ny] if ny else []), [x, y, out], [], emu)
 
-    def layernorm(self, x, out, rows, C, xs, os_, w, b, *, res=None, gelu=False):
+    def layernorm(self, x, out, rows, C, xs, os_, w, b, *, res=None, gelu=False, xrows=None):
         """out[r] = LN(round(x[r] + res[r])) (eps 1e-6, float32 statistics),
         rounded, then tanh-GELU and rounded again with ``gelu``.  Rows of C
-        elements with row strides xs (x and res) and os_ (out); C <= 1024."""
+        elements with row strides xs (x and res) and os_ (out); C <= 1024.
+        ``xrows``: x has that many rows, read modulo xrows (a shared base
+        under every prompt's residual)."""
         def emu():
-            xv = _view(*x, (rows, C), (xs, 1))
+            xv = _view(*x, (xrows or rows, C), (xs, 1)).repeat(rows // (xrows or rows), 1)
             if res is not None:
                 xv = xv + _view(*res, (rows, C), (xs, 1))
             y = torch.nn.functional.layer_norm(xv.float(), (C,), w, b, LN_EPS)
             ov = _view(*out, (rows, C), (os_, 1))
             ov.copy_(_act(y, ACT_GELU, ov.dtype) if gelu else y)
-        self._add(OP_LAYERNORM, [rows, C, xs, os_, _isbf(out), int(gelu)],
-                  [x, out, (w, 0), (b, 0), res], [LN_EPS], emu)
+        self._add(OP_LAYERNORM, [rows, C, xs, os_, _isbf(out), int(gelu)]
+                  + ([xrows] if xrows else []), [x, out, (w, 0), (b, 0), res], [LN_EPS], emu)
 
     def softmax_rows(self, x, out, rows, n, rowsum=None):
         """out[r] = softmax(x[r]) over n contiguous float32 entries, written
@@ -740,10 +804,7 @@ class Program:
         and the products), L split across CTAs, the partials combined in a
         fixed order in float32 scratch of its own."""
         dev = qbd[0].device
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count \
-            if dev.type == "cuda" else 132
-        # room for up to two waves of CTAs' splits of L; the kernel takes one
-        ns = max(1, min(L // FUSED_TILE, 2 * sms // Z))
+        ns = _max_splits(L, Z, dev)
         # scratch: the row statistics (two slots a split), partial o, pa, rs
         sizes = [Z * ns * 2 * 64 * 2, Z * ns * 64 * Ci, Z * ns * 64 * R, Z * ns * 64]
         scratch = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
@@ -818,22 +879,161 @@ class Program:
         self.flops += 2.0 * Z * L * (R * c4 + 4 * co1 * w4 + 4 * w4 * 4 * nt / 4)
 
         def emu():
-            dt = cols[0].dtype
             av = _view(*abuf, (Z, R, L), (zs, L, 1)).float()
             y = torch.matmul(av.transpose(1, 2), _view(*bw1, (Z, R, c4), (R * c4, c4, 1)).float())
             y = Gc1.float()[None] * _view(*rho, (Z, L, 1), (L, 1, 0)) + y
-            y1 = (y + b1).to(dt).float()
-            hb = _view(*hbd, (Z, 4 * nt, w4), (4 * nt * w4, w4, 1)).float()
-            cv = _view(*cols, (Z, L, 16 * nt), (L * 16 * nt, 16 * nt, 1))
-            for g1 in range(4):
-                z = torch.nn.functional.layer_norm(y1[..., g1 * co1:(g1 + 1) * co1], (co1,),
-                                                   ln.weight.float(), ln.bias.float(), LN_EPS)
-                z = _act(z, ACT_GELU, dt).to(dt).float()
-                z2 = _act(torch.matmul(z, w2.float()) + b2, ACT_GELU, dt).to(dt).float()
-                cv[..., g1 * 4 * nt:(g1 + 1) * 4 * nt].copy_(torch.matmul(z2, hb.transpose(1, 2)))
+            _upscale_tail(y + b1, ln, w2, b2, hbd, cols, Z, L, nt)
 
         self._add(OP_UPSCALE, [Z, zs, R, L, c4, w4, 4 * nt],
                   [abuf, bw1, rho, (Gc1, 0), (b1, 0), (ln.weight.float(), 0), (ln.bias.float(), 0),
+                   (w2, 0), (b2, 0), hbd, cols], [LN_EPS], emu)
+
+    # -- kernels H and I: their scalar kernels (csrc/twoway_fused.cu; the
+    # token self attention on both routes, the rest on the float32 one) ------
+
+    def tw_attn_tokens(self, q, k, v, out, P, Tq, Tk, I, nh, scale):
+        """Attention of Tq rows to Tk keys (Tk <= 16), per prompt and head
+        (nh heads of I / nh): s = round(q * scale) k^T in float32, p =
+        round(softmax(s)), out = round(p v).  q, out (P, Tq, I); k, v (P,
+        Tk, I), all contiguous."""
+        def emu():
+            qv = _view(*q, (P, Tq, I), (Tq * I, I, 1))
+            kv, vv = (_view(*t, (P, Tk, I), (Tk * I, I, 1)) for t in (k, v))
+            _view(*out, (P, Tq, I), (Tq * I, I, 1)).copy_(
+                _heads_attend(qv, kv, vv, nh, scale, q_side=True))
+        self._add(OP_TW_ATTN_TOKENS, [P, Tq, Tk, I, nh, _isbf(out)], [q, k, v, out], [scale],
+                  emu)
+
+    def tw_attn_image(self, q, k, v, out, P, Tq, Tk, I, nh, kz, scale):
+        """Tq <= 16 prompt rows attending to Tk image keys, nh heads (of 16 on
+        the card): as :meth:`tw_attn_tokens`, with k and v (P, Tk, I) of z
+        stride kz (0: one set of keys read by every prompt)."""
+        self.flops += 4.0 * P * Tq * Tk * I
+
+        def emu():
+            qv = _view(*q, (P, Tq, I), (Tq * I, I, 1))
+            kv, vv = (_view(*t, (P, Tk, I), (kz, I, 1)) for t in (k, v))
+            _view(*out, (P, Tq, I), (Tq * I, I, 1)).copy_(
+                _heads_attend(qv, kv, vv, nh, scale, q_side=True))
+        self._add(OP_TW_ATTN_IMAGE, [P, Tq, Tk, I, nh, kz, _isbf(out)], [q, k, v, out],
+                  [scale], emu)
+
+    def tw_attn_rows(self, q, qz, k, v, out, P, L, Tk, I, nh, scale):
+        """L image rows attending to Tk <= 16 prompt tokens, nh heads (of 16
+        on the card): s = q round(k * scale)^T in float32, p =
+        round(softmax(s)) over the tokens, out = round(p v).  q (P, L, I) of
+        z stride qz (0: shared); k, v (P, Tk, I); out (P, L, I) contiguous."""
+        self.flops += 4.0 * P * L * Tk * I
+
+        def emu():
+            qv = _view(*q, (P, L, I), (qz, I, 1))
+            kv, vv = (_view(*t, (P, Tk, I), (Tk * I, I, 1)) for t in (k, v))
+            _view(*out, (P, L, I), (L * I, I, 1)).copy_(
+                _heads_attend(qv, kv, vv, nh, scale, q_side=False))
+        self._add(OP_TW_ATTN_ROWS, [P, L, Tk, I, nh, qz, _isbf(out)], [q, k, v, out], [scale],
+                  emu)
+
+    def tw_masks(self, z2, hyper, masks, P, Hs, Ws, nt, co2):
+        """The hypernetwork product in the final mask layout: z2 (P, L, 4,
+        4 co2) after conv2, columns (g2, c) per group g1 of conv1; hyper (P,
+        nt, co2); masks (P, nt, 4 Hs, 4 Ws) = round(z2 hyper^T), pixel (4i +
+        2 di1 + di2, 4j + 2 dj1 + dj2) for g = (di, dj)."""
+        L = Hs * Ws
+        self.flops += 2.0 * P * L * 16 * nt * co2
+
+        def emu():
+            zv = _view(*z2, (P, Hs, Ws, 2, 2, 2, 2, co2),
+                       (L * 16 * co2, Ws * 16 * co2, 16 * co2, 8 * co2, 4 * co2, 2 * co2, co2, 1))
+            hv = _view(*hyper, (P, nt, co2), (nt * co2, co2, 1)).float()
+            m = torch.einsum("pijabcdk,ptk->ptiacjbd", zv.float(), hv)
+            _view(*masks, (P, nt, 4 * Hs, 4 * Ws),
+                  (16 * L * nt, 16 * L, 4 * Ws, 1)).copy_(m.reshape(P, nt, 4 * Hs, 4 * Ws))
+        self._add(OP_TW_MASKS, [P, Hs, Ws, nt, co2, _isbf(masks)], [z2, hyper, masks], [], emu)
+
+    # -- kernels H and I: the fused sweeps over L of the bf16 route
+    # (csrc/twoway_sweeps.cuh) ------------------------------------------------
+
+    def tw_t2i(self, qk, rsb, keys, kz, pe, pk, rs, Z, M, L, C):
+        """Token-to-image attention with the keys-side projections folded
+        into the token side: per prompt z, with kpe = round(K[z] + pe), s =
+        qk kpe^T + rsb (M x L, float32), p = softmax(s) over L, pk =
+        round(round(p) K[z]) (M x C) and rs = rowsum(p).  qk (Z, M, C) =
+        round(qbd W_k) and rsb (Z, M) = qbd b_k; K (L, C) rows of z stride kz
+        (0: one base under every prompt); pe (L, C).  The value projection,
+        pk W_v^T + rs (x) b_v, follows on the token side.  The kernel keeps s
+        and p out of device memory: two sweeps over L (the row statistics,
+        then p and its products), L split across CTAs, the partials combined
+        in a fixed order in float32 scratch of its own."""
+        dev = qk[0].device
+        nmb = -(-M // FUSED_TILE)
+        ns = _max_splits(L, Z * nmb, dev)
+        # scratch: the row statistics (two slots a split), partial pk, rs
+        sizes = [Z * nmb * ns * 2 * 64 * 2, Z * nmb * ns * 64 * C, Z * nmb * ns * 64]
+        scratch = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+        offs = [sum(sizes[:i]) for i in range(3)]
+        self.flops += 4.0 * Z * M * L * C
+
+        def emu():
+            dt = qk[0].dtype
+            kv = _view(*keys, (Z, L, C), (kz, C, 1))
+            kpe = (kv + pe).float()
+            s = torch.matmul(_view(*qk, (Z, M, C), (M * C, C, 1)).float(), kpe.transpose(1, 2))
+            p = _softmax(s + _view(*rsb, (Z, M, 1), (M, 1, 0)))
+            _view(*pk, (Z, M, C), (M * C, C, 1)).copy_(torch.matmul(p.to(dt).float(), kv.float()))
+            _view(*rs, (Z, M), (M, 1)).copy_(p.sum(-1))
+
+        self._add(OP_TW_T2I, [Z, M, L, C, kz, ns, *offs],
+                  [qk, rsb, keys, (pe, 0), pk, rs, (scratch, 0)], [], emu)
+
+    def tw_i2t_norm4(self, keys, kz, pe, kq, kbq, vw, bout, norm, out, Z, Mp, L, C, nh, N):
+        """Image-to-token attention and norm4, fused, row-local: per prompt
+        z and image row l, with kpe = round(K[z] + pe), s = kpe kq^T + kbq
+        (Mp columns, float32), p = round(softmax(s)) over each head's N
+        token columns, x = round(K[z] + round(p vw + bout)) and out[z] =
+        round(LN(x)) (norm4's weight and bias).  kq (Z, Mp, C) =
+        round(kbd W_q), kbq (Z, Mp) = kbd b_q, vw (Z, Mp, C) = round(vbd
+        W_out^T), each with the rows of head h at h Np .. h Np + N - 1 (Np =
+        Mp / nh; rows t >= N are padding); K as :meth:`tw_t2i`'s; out (Z, L,
+        C) contiguous, which may be K itself.  Nothing over L but the new
+        keys reaches device memory."""
+        Np = Mp // nh
+        self.flops += 4.0 * Z * L * nh * N * C   # the padding rows excluded
+
+        def emu():
+            dt = out[0].dtype
+            kv = _view(*keys, (Z, L, C), (kz, C, 1))
+            kpe = (kv + pe).float()
+            s = torch.matmul(kpe, _view(*kq, (Z, Mp, C), (Mp * C, C, 1)).float().transpose(1, 2))
+            s = (s + _view(*kbq, (Z, 1, Mp), (Mp, 0, 1))).unflatten(-1, (nh, Np))[..., :N]
+            p = torch.zeros(Z, L, nh, Np, device=s.device)
+            p[..., :N] = _softmax(s)
+            vwv = _view(*vw, (Z, Mp, C), (Mp * C, C, 1)).float()
+            o = torch.matmul(p.flatten(-2).to(dt).float(), vwv)
+            x = kv + (o + bout).to(dt)
+            y = torch.nn.functional.layer_norm(x.float(), (C,), norm.weight.float(),
+                                               norm.bias.float(), LN_EPS)
+            _view(*out, (Z, L, C), (L * C, C, 1)).copy_(y)
+
+        self._add(OP_TW_I2T_NORM4, [Z, Mp, L, C, kz, nh, N],
+                  [keys, (pe, 0), kq, kbq, vw, (bout, 0), (norm.weight.float(), 0),
+                   (norm.bias.float(), 0), out], [LN_EPS], emu)
+
+    def tw_upscale(self, keys, w1, b1, ln, w2, b2, hbd, cols, Z, L, nt):
+        """The upscale from the keys state, per 64 rows of L: y1 = round(K
+        w1 + b1) (L x 4 co1), then the tail of :meth:`upscale` (whose code
+        the kernel shares): only the mask columns (Z, L, 16 nt) reach
+        device memory.  K (Z, L, C), w1 (C, 4 co1), w2 (co1, 4 co2), hbd (Z,
+        4 nt, 4 co2)."""
+        C, c4 = w1.shape
+        co1, w4 = c4 // 4, w2.shape[1]
+        self.flops += 2.0 * Z * L * (C * c4 + 4 * co1 * w4 + w4 * 4 * nt)
+
+        def emu():
+            y = torch.matmul(_view(*keys, (Z, L, C), (L * C, C, 1)).float(), w1.float())
+            _upscale_tail(y + b1, ln, w2, b2, hbd, cols, Z, L, nt)
+
+        self._add(OP_TW_UPSCALE, [Z, L, C, c4, w4, 4 * nt],
+                  [keys, (w1, 0), (b1, 0), (ln.weight.float(), 0), (ln.bias.float(), 0),
                    (w2, 0), (b2, 0), hbd, cols], [LN_EPS], emu)
 
     def hbd(self, hyper, out, Z, nt, co2):
@@ -1186,26 +1386,29 @@ def g_program(twt, decoder, image_embedding, image_pe, tokens, num_heads: int,
     return prog, cols, iou
 
 
-def launch_records(packed, first: int = 0, stop: Optional[int] = None) -> None:
-    """Kernel G on records first .. stop - 1 (all by default) of a packed
-    sequence (:meth:`Program.pack`), in one C call."""
+def launch_records(packed, first: int = 0, stop: Optional[int] = None,
+                   kernel: Kernel = FACTORED_DECODE) -> None:
+    """Records first .. stop - 1 (all by default) of a packed sequence
+    (:meth:`Program.pack`) in one C call of ``kernel`` (G's, or H's or I's
+    source), counted as one launch of it."""
     n, ops, ints, ptrs, floats = packed
     stop = n if stop is None else stop
     try:
-        FACTORED_DECODE.launch(stop - first, ctypes.addressof(ops) + 4 * first,
-                               ctypes.addressof(ints) + 8 * N_INTS * first,
-                               ctypes.addressof(ptrs) + 8 * N_PTRS * first,
-                               ctypes.addressof(floats) + 4 * N_FLOATS * first)
+        kernel.launch(stop - first, ctypes.addressof(ops) + 4 * first,
+                      ctypes.addressof(ints) + 8 * N_INTS * first,
+                      ctypes.addressof(ptrs) + 8 * N_PTRS * first,
+                      ctypes.addressof(floats) + 4 * N_FLOATS * first)
     except RuntimeError as e:   # name the record that failed
-        i = first + library(FACTORED_DECODE.source).factored_decode_failed_record()
+        i = first + getattr(library(kernel.source), f"{kernel.source}_failed_record")()
         raise RuntimeError(f"{e} at record {i} ({OP_NAMES[ops[i]]})") from e
 
 
 # the operands that each fused record writes (indices into its pointers)
-FUSED_OUTPUTS = {OP_T2I: (8, 9, 10), OP_I2T: (7,), OP_NORM4_FUSED: (3, 5), OP_UPSCALE: (10,)}
+FUSED_OUTPUTS = {OP_T2I: (8, 9, 10), OP_I2T: (7,), OP_NORM4_FUSED: (3, 5), OP_UPSCALE: (10,),
+                 OP_TW_T2I: (4, 5), OP_TW_I2T_NORM4: (8,), OP_TW_UPSCALE: (8,)}
 
 
-def fused_record_errors(prog: Program) -> List[dict]:
+def fused_record_errors(prog: Program, kernel: Kernel = FACTORED_DECODE) -> List[dict]:
     """Each fused record of a recorded sequence on the card against its
     torch interpretation: the sequence runs on the card up to the record,
     the record runs on the card and then, from the same operands, its emu;
@@ -1216,10 +1419,10 @@ def fused_record_errors(prog: Program) -> List[dict]:
     for i, rec in enumerate(prog.records):
         if rec[0] not in FUSED_OUTPUTS:
             continue
-        launch_records(packed, done, i)
+        launch_records(packed, done, i, kernel)
         written = [rec[2][j][0] for j in FUSED_OUTPUTS[rec[0]] if rec[2][j] is not None]
         before = [t.clone() for t in written]
-        launch_records(packed, i, i + 1)
+        launch_records(packed, i, i + 1, kernel)
         got = [t.clone() for t in written]
         for t, b in zip(written, before):
             t.copy_(b)
@@ -1235,7 +1438,7 @@ def fused_record_errors(prog: Program) -> List[dict]:
         out.append({"record": i, "op": OP_NAMES[rec[0]], "max_abs_err": errs,
                     "max_abs_ref": refs})
         done = i + 1
-    launch_records(packed, done)
+    launch_records(packed, done, None, kernel)
     return out
 
 
@@ -1310,51 +1513,299 @@ def factored_decode(twt, decoder, image_embedding, image_pe, tokens, num_heads: 
 # Kernels H and I: the materialised decode and transformer
 # ---------------------------------------------------------------------------
 
-_MODE_TRANSFORMER, _MODE_DECODE = 0, 1   # csrc/twoway_fused.cu
 _CROSS_HEAD_DIM, _MAX_TOKENS, _MAX_DEPTH, _MAX_STACK, _MAX_NT, _MAX_CO2 = 16, 16, 8, 8, 8, 32
 
 
-class _TwOperands:
-    """The int64 dims and the pointers of one call of csrc/twoway_fused.cu,
-    appended in the order its ``Reader`` reads them.  Float32 copies of the
-    biases and norm weights are made here; every tensor is kept until the
-    call has been enqueued (later allocations on the stream follow it)."""
+def tw_program(twt, decoder, image_embedding, image_pe, tokens, num_heads: int, fused=None):
+    """Kernel H's (``decoder`` given) or I's (``decoder`` None) launch
+    sequence, reading image_embedding (Bi, S, S, C), image_pe (L, C) and
+    tokens (P, N, C) (contiguous, one dtype) where they lie.  Returns
+    (program, outputs), filled when the program runs: H's (masks (P, nt,
+    4S, 4S), or mask columns (P, L, 16 nt) in the permuted layout with the
+    fused upscale, and iou (P, nt)), I's (queries (P, N, C), keys (P, L, C)).
+    The keys state stays materialised, (P, L, C); with a shared base (Bi =
+    1) layer 0 reads it for every prompt.
 
-    def __init__(self, dtype):
-        self.dtype, self.dims, self.ptrs, self.keep = dtype, [], [], []
+    Routes by dtype (``fused`` None): bf16 records the three parts that
+    sweep over L (TW_PARTS) as fused records (:meth:`Program.tw_t2i` for
+    every token-to-image attention, :meth:`Program.tw_i2t_norm4`,
+    :meth:`Program.tw_upscale`) with every keys-side projection folded into
+    the token side; float32 records the unfused sequence: the projections
+    over P L rows on the strided GEMM, the scalar attention and mask
+    kernels.  Both routes run the token side, (P N, C), on the same
+    records.  ``fused``, a collection of parts (or True / False for all /
+    none), overrides the route, for the CPU tests and the breakdown."""
+    Bi, Hs, Ws, C = image_embedding.shape
+    L = Hs * Ws
+    P, N, _ = tokens.shape
+    dt, dev = image_embedding.dtype, image_embedding.device
+    nh = num_heads
+    if fused is None:
+        fused = dt == torch.bfloat16
+    fused = set(TW_PARTS) if fused is True else set(fused or ())
+    f32 = torch.float32
+    prog = Program()
+    l0 = twt.layers[0]
+    Ci, Csa = l0.cross_attn_t2i.q.out_features, l0.self_attn.q.out_features
+    PN, M = P * N, nh * N
+    Np = 8 if N <= 8 else 16       # i2t's token columns a head, padded (fused route)
+    base, pe = image_embedding, image_pe
+    sc, ssa = _scale_in(dt, Ci // nh), _scale_in(dt, Csa // nh)
 
-    def ptr(self, t: Optional[torch.Tensor]) -> None:
-        self.keep.append(t)
-        self.ptrs.append(None if t is None else t.data_ptr())
+    def new(*shape, dtype=dt):
+        return torch.empty(shape, dtype=dtype, device=dev)
 
-    def lin(self, w: torch.Tensor, b: torch.Tensor) -> None:
-        """y = x w^T + b, w (out, in)."""
-        w = w.detach().to(self.dtype).contiguous()
-        self.ptr(w)
-        self.ptr(b.detach().float().contiguous())
-        self.dims += [w.shape[1], w.shape[0]]
+    pool = {}
 
-    def linear(self, lin: nn.Linear) -> None:
-        self.lin(lin.weight, lin.bias)
+    def scratch(slot, *shape):
+        """A buffer of the unfused sweeps over L, made once a slot and size
+        and shared by every layer: a slot holds one layer's intermediate at
+        a time (the records run in order)."""
+        key = (slot, math.prod(shape))
+        if key not in pool:
+            pool[key] = new(key[1])
+        return pool[key].view(shape)
 
-    def norm(self, ln) -> None:
-        self.ptr(ln.weight.detach().float().contiguous())
-        self.ptr(ln.bias.detach().float().contiguous())
+    def dense(lin, x, rows, out, *, act=ACT_NONE):
+        """rows of out = act(round(x w^T + b)), w = lin's (out, in)."""
+        K, Nn = lin.in_features, lin.out_features
+        prog.gemm((x, 0), (lin.weight, 0), (out, 0), 1, rows, Nn, K, (0, K, 1), (0, 1, K),
+                  (0, Nn, 1), bias=lin.bias.float(), act=act)
+        return out
 
-    def attn(self, a) -> None:
-        for lin in (a.q, a.k, a.v, a.out):
-            self.linear(lin)
+    def tok(lin, x, act=ACT_NONE):   # (P N, in) -> (P N, out)
+        return dense(lin, x, PN, new(PN, lin.out_features), act=act)
 
-    def stack(self, st) -> None:
-        self.dims.append(len(st.layers))
-        for lin in st.layers:
-            self.linear(lin)
+    def norm(ln, x, res, out, rows=PN, xrows=None):
+        prog.layernorm((x, 0), (out, 0), rows, C, C, C, ln.weight.float(), ln.bias.float(),
+                       res=None if res is None else (res, 0), xrows=xrows)
+        return out
 
-    def launch(self, kernel: Kernel, mode: int) -> None:
-        dims = (ctypes.c_longlong * len(self.dims))(*self.dims)
-        ptrs = (ctypes.c_void_p * len(self.ptrs))(*self.ptrs)
-        kernel.launch(mode, len(self.dims), ctypes.addressof(dims), len(self.ptrs),
-                      ctypes.addressof(ptrs))
+    def add_pe(x, out, n):
+        prog.add((x, 0), (pe, 0), (out, 0), n, ny=L * C)
+        return out
+
+    def qpe(Q):
+        out = new(PN, C)
+        prog.add((Q, 0), (tokens, 0), (out, 0), PN * C)
+        return out
+
+    def bd(x, T, scaled):   # (P, T, I) -> (P, nh T, I)
+        I = x.shape[-1]
+        out = new(P, nh * T, I)
+        prog.bd((x, 0), (out, 0), P, T, I, nh, _scale_in(dt, I // nh) if scaled else 0.0)
+        return out
+
+    def fold(x, T, lin, *, transposed=False, bias=True):
+        """x (P, T, Ci) @ lin's weight (Ci, C) (or its transpose) -> (P, T,
+        C) rounded, and x . lin's bias (P, T) float32."""
+        out = new(P, T, C)
+        prog.gemm((x, 0), (lin.weight, 0), (out, 0), P, T, C, Ci, (T * Ci, Ci, 1),
+                  (0, 1, Ci) if transposed else (0, C, 1), (T * C, C, 1), useful=1 / nh)
+        if not bias:
+            return out
+        xb = new(P, T, dtype=f32)
+        prog.gemm((x, 0), (lin.bias.float(), 0), (xb, 0), P, T, 1, Ci, (T * Ci, Ci, 1),
+                  (0, 1, 0), (T, 1, 1), useful=1 / nh)
+        return out, xb
+
+    def image_attention(a, Q, keys, kz, region):
+        """Tokens attending to the L image keys (kz: their z stride) through
+        a's projections: the pre-LN residual term (P N, C)."""
+        tq = tok(a.q, qpe(Q))
+        if "t2i" in fused:
+            qk, rsb = fold(bd(tq.view(P, N, Ci), N, True), M, a.k)
+            pk, rs = new(P, M, C), new(P, M, dtype=f32)
+            prog.region = region
+            prog.tw_t2i((qk, 0), (rsb, 0), (keys, 0), kz, pe, (pk, 0), (rs, 0), P, M, L, C)
+            prog.region = "token"
+            o = new(P, M, Ci, dtype=f32)   # pk W_v^T + rs (x) b_v
+            prog.gemm((pk, 0), (a.v.weight, 0), (o, 0), P, M, Ci, C, (M * C, C, 1), (0, 1, C),
+                      (M * Ci, Ci, 1), rowadd=(rs, M), bias=a.v.bias.float(), outer=True)
+            ext = new(PN, Ci)
+            prog.head_extract((o, 0), (ext, 0), P, N, Ci, nh)
+            return tok(a.out, ext)
+        prog.region = region
+        rows = L if kz == 0 else P * L
+        kpe = add_pe(keys, scratch("a", rows, C), rows * C)
+        kh = dense(a.k, kpe, rows, scratch("b", rows, Ci))
+        vh = dense(a.v, keys, rows, scratch("c", rows, Ci))
+        to = new(PN, Ci)
+        prog.tw_attn_image((tq, 0), (kh, 0), (vh, 0), (to, 0), P, N, L, Ci, nh,
+                           0 if kz == 0 else L * Ci, sc)
+        prog.region = "token"
+        return tok(a.out, to)
+
+    K = new(P, L, C)         # the keys state (I's output)
+    keys, kz = base, 0 if Bi == 1 else L * C
+    Q = new(PN, C)           # the queries state
+    for i, p in enumerate(twt.layers):
+        prog.region = "token"
+        sa = p.self_attn
+        src = tokens if i == 0 else qpe(Q)
+        x = tokens if i == 0 else Q
+        # q and k (and v in layer 0, where its input is theirs) as one product
+        qkv = new(3 if i == 0 else 2, PN, Csa)
+        _stacked_dense(prog, [sa.q, sa.k, sa.v][:qkv.shape[0]], (src, 0), qkv, PN, xz=0, xs=C,
+                       oz=PN * Csa, os_=Csa)
+        tq, tk, tv = qkv[0], qkv[1], qkv[2] if i == 0 else tok(sa.v, x)
+        to = new(PN, Csa)
+        prog.tw_attn_tokens((tq, 0), (tk, 0), (tv, 0), (to, 0), P, N, N, Csa, nh, ssa)
+        att = tok(sa.out, to)
+        if i == 0:
+            norm(p.norm1, att, None, Q)
+        else:
+            norm(p.norm1, Q, att, Q)
+        norm(p.norm2, Q, image_attention(p.cross_attn_t2i, Q, keys, kz, "t2i"), Q)
+        norm(p.norm3, Q, tok(p.mlp.fc2, tok(p.mlp.fc1, Q, ACT_RELU)), Q)
+
+        ia = p.cross_attn_i2t
+        if "i2t" in fused:
+            # the token columns padded to Np a head: the rows past N stay zero
+            tk, tv = (torch.zeros(P, Np, Ci, dtype=dt, device=dev) for _ in range(2))
+            for lin, x, out in ((ia.k, qpe(Q), tk), (ia.v, Q, tv)):
+                prog.gemm((x, 0), (lin.weight, 0), (out, 0), P, N, Ci, C, (N * C, C, 1),
+                          (0, 1, C), (Np * Ci, Ci, 1), bias=lin.bias.float())
+            kq, kbq = fold(bd(tk, Np, True), nh * Np, ia.q)
+            vw = fold(bd(tv, Np, False), nh * Np, ia.out, transposed=True, bias=False)
+            prog.region = "i2t_norm4"
+            prog.tw_i2t_norm4((keys, 0), kz, pe, (kq, 0), (kbq, 0), (vw, 0), ia.out.bias.float(),
+                              p.norm4, (K, 0), P, nh * Np, L, C, nh, N)
+        else:
+            tk, tv = tok(ia.k, qpe(Q)), tok(ia.v, Q)
+            prog.region = "i2t_norm4"
+            rows = L if kz == 0 else P * L
+            kpe = add_pe(keys, scratch("a", rows, C), rows * C)
+            qi = dense(ia.q, kpe, rows, scratch("b", rows, Ci))
+            oimg = scratch("c", P * L, Ci)
+            prog.tw_attn_rows((qi, 0), 0 if kz == 0 else L * Ci, (tk, 0), (tv, 0), (oimg, 0), P,
+                              L, N, Ci, nh, sc)
+            tmp = dense(ia.out, oimg, P * L, scratch("a", P * L, C))   # kpe is read
+            norm(p.norm4, keys, tmp, K, rows=P * L, xrows=rows)
+        keys, kz = K, L * C
+        prog.region = "token"
+
+    queries = Q if decoder is not None else new(P, N, C)
+    norm(twt.norm_final, Q, image_attention(twt.final_attn, Q, K, L * C, "final"), queries)
+    if decoder is None:
+        return prog, (queries, K)
+    return prog, _tw_head(prog, decoder, fused, Q, K, P, N, Hs, Ws, scratch)
+
+
+def _stacked_dense(prog, lins, x, out, M: int, *, xz, xs, oz, os_, act=ACT_NONE) -> None:
+    """out[z] (M rows) = act(round(x[z] w_z^T + b_z)), z over ``lins``, as
+    one product: their weights stacked and their biases the product's
+    float32 addend (copies made when recorded).  x = (tensor, offset) with
+    z and row strides xz, xs; out's z and row strides oz, os_."""
+    Z, K, Nn = len(lins), lins[0].in_features, lins[0].out_features
+    w = torch.stack([lin.weight for lin in lins])
+    b = torch.empty(out.shape, dtype=torch.float32, device=out.device)
+    _view(b, 0, (Z, M, Nn), (oz, os_, 1)).copy_(
+        torch.stack([lin.bias.float() for lin in lins])[:, None])
+    prog.gemm(x, (w, 0), (out, 0), Z, M, Nn, K, (xz, xs, 1), (Nn * K, 1, K), (oz, os_, 1),
+              beta=(b, 0), act=act)
+
+
+def _tw_head(prog, decoder, fused, Q, K, P: int, N: int, Hs: int, Ws: int, scratch):
+    """Kernel H's tail on the recorded sequence of :func:`tw_program`: the
+    IoU head and the hypernetwork MLPs on rows 0 and 1 + t of every
+    prompt's queries Q (P N, C), then the upscale of the keys K (P, L, C)
+    and the masks (the unfused upscale's intermediates in tw_program's
+    ``scratch`` slots).  Returns (masks, or the mask columns of the fused
+    upscale, and iou)."""
+    dt, dev = Q.dtype, Q.device
+    L, C = Hs * Ws, Q.shape[-1]
+
+    def new(*shape):
+        return torch.empty(shape, dtype=dt, device=dev)
+
+    prog.region = "head"
+    head = decode_head_params(decoder)
+    nt = len(head["hyper"])
+
+    def mlps(stacks, row, out, oz, os_):
+        """MLPs of one shape, stack s on row ``row`` + s of every prompt's
+        queries: each layer one product batched over the stacks (weights
+        stacked once), the last into out (z and row strides oz, os_)."""
+        x, xz, xs = (Q, row * C), C, N * C
+        n = len(stacks[0].layers)
+        for j in range(n):
+            last = j == n - 1
+            lins = [st.layers[j] for st in stacks]
+            y = out if last else new(len(stacks), P, lins[0].out_features)
+            yz, ys = (oz, os_) if last else (P * y.shape[-1], y.shape[-1])
+            _stacked_dense(prog, lins, x, y, P, xz=xz, xs=xs, oz=yz, os_=ys,
+                           act=ACT_NONE if last else ACT_RELU)
+            x, xz, xs = (y, 0), yz, ys
+
+    iou = new(P, nt)
+    w1, b1 = (t.contiguous() for t in head["conv1"])
+    w2, b2 = (t.contiguous() for t in head["conv2"])
+    co1, co2 = w2.shape[0], w2.shape[1] // 4
+    hyper = new(P, nt, co2)
+    mlps([head["iou"]], 0, iou, 0, nt)
+    mlps(head["hyper"], 1, hyper, co2, nt * co2)
+    ln = head["ln"]
+    if "upscale" in fused:
+        hbd = new(P, 4 * nt, 4 * co2)
+        prog.hbd((hyper, 0), (hbd, 0), P, nt, co2)
+        prog.region = "upscale"
+        cols = new(P, L, 16 * nt)
+        prog.tw_upscale((K, 0), w1, b1.float(), ln, w2, b2.float(), (hbd, 0), (cols, 0), P, L, nt)
+        return cols, iou
+    prog.region = "upscale"
+    y1 = scratch("a", P * L * 4, co1)
+    prog.gemm((K, 0), (w1, 0), (y1, 0), 1, P * L, 4 * co1, C, (0, C, 1), (0, 4 * co1, 1),
+              (0, 4 * co1, 1), bias=b1.float())
+    z = scratch("b", P * L * 4, co1)
+    prog.layernorm((y1, 0), (z, 0), P * L * 4, co1, co1, co1, ln.weight.float(),
+                   ln.bias.float(), gelu=True)
+    z2 = scratch("c", P * L * 4, 4 * co2)
+    prog.gemm((z, 0), (w2, 0), (z2, 0), 1, P * L * 4, 4 * co2, co1, (0, co1, 1),
+              (0, 4 * co2, 1), (0, 4 * co2, 1), bias=b2.float(), act=ACT_GELU)
+    prog.region = "masks"
+    masks = new(P, nt, 4 * Hs, 4 * Ws)
+    prog.tw_masks((z2, 0), (hyper, 0), (masks, 0), P, Hs, Ws, nt, co2)
+    return masks, iou
+
+
+class _TwPlan:
+    """Kernel H's or I's launch sequence for one set of weights and shapes,
+    recorded once with input buffers of its own and replayed on every call:
+    the float32 copies of the biases and norm weights, the upscale's matmul
+    weights, the scratch and the packed records are made once.  A call
+    copies its base, positional encoding and tokens in, runs the records
+    in one C call and copies the outputs out (the buffers are the next
+    call's).  Besides its inputs, a plan holds the keys state (P, L, C),
+    the outputs and the token side's small buffers; the float32 route also
+    holds one layer's intermediates over L (``tw_program``'s scratch slots,
+    shared by the layers and the upscale: 1.3 GB at 64 prompts of
+    sam_vit_h's decoder).  Plans live while their transformer module does
+    (``_PLANS``)."""
+
+    def __init__(self, kernel, twt, decoder, image_embedding, tokens, num_heads):
+        Bi, Hs, Ws, C = image_embedding.shape
+        dt, dev = image_embedding.dtype, image_embedding.device
+        self.kernel, self.hw = kernel, (Hs, Ws)
+        self.base = torch.empty(image_embedding.shape, dtype=dt, device=dev)
+        self.pe = torch.empty(Hs * Ws, C, dtype=dt, device=dev)
+        self.tokens = torch.empty(tokens.shape, dtype=dt, device=dev)
+        self.prog, self.outs = tw_program(twt, decoder, self.base, self.pe, self.tokens,
+                                          num_heads)
+        self.packed = self.prog.pack()
+
+    def launch(self) -> None:
+        launch_records(self.packed, kernel=self.kernel)
+
+    def run(self, image_embedding, image_pe, tokens):
+        self.base.copy_(image_embedding)
+        self.pe.copy_(image_pe.reshape(-1, *self.pe.shape)[0])
+        self.tokens.copy_(tokens)
+        self.launch()
+        a, b = self.outs
+        if self.kernel is TWOWAY_DECODE and a.dim() == 3:   # mask columns
+            return unpermute_masks(a, a.shape[0], *self.hw, b.shape[-1]), b.clone()
+        return a.clone(), b.clone()
 
 
 def _check_fused(twt, decoder, image_embedding, image_pe, tokens, num_heads: int) -> None:
@@ -1366,8 +1817,8 @@ def _check_fused(twt, decoder, image_embedding, image_pe, tokens, num_heads: int
         raise ValueError("expected CUDA tensors")
     if image_pe.dim() == 4 and image_pe.shape[0] > 1:
         raise ValueError("a per-batch positional encoding is not supported")
-    Bi, P, N = image_embedding.shape[0], tokens.shape[0], tokens.shape[1]
-    C = image_embedding.shape[-1]
+    Bi, Hs, Ws, C = image_embedding.shape
+    P, N = tokens.shape[0], tokens.shape[1]
     if Bi not in (1, P):
         raise ValueError(f"image embeddings {Bi} for {P} prompts")
     mods = [twt] if decoder is None else [decoder]
@@ -1387,71 +1838,35 @@ def _check_fused(twt, decoder, image_embedding, image_pe, tokens, num_heads: int
                 or any(len(st.layers) > _MAX_STACK for st in stacks)):
             raise ValueError("unsupported decoder head: at most 8 mask tokens, "
                              "hypernetwork outputs up to 32, MLPs of up to 8 layers")
+    if dt == torch.bfloat16 and (C != 256 or num_heads != 8 or (Hs * Ws) % FUSED_TILE or (
+            decoder is not None and (len(decoder.hyper_mlps) != 4 or co2 != 32
+                                     or decoder.upscale_conv2.weight.shape[1] != 64))):
+        raise ValueError("the bf16 route takes SAM's decoder widths (C 256, 8 heads, 4 mask "
+                         "tokens, upscale 256 -> 64 -> 32) and L a multiple of 64")
 
 
-def _twoway_fused(mode: int, twt, decoder, image_embedding, image_pe, tokens,
+# a plan a module of weights, kept while the module lives
+_PLANS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _plan(kernel: Kernel, twt, decoder, image_embedding, tokens, num_heads: int) -> _TwPlan:
+    """The plan kept for kernel H or I (``kernel``) with these weights and
+    shapes (:func:`cached`): recorded anew when a weight changed, or P, N,
+    the base's batch, the dtype or the kernel did."""
+    weights = list(twt.parameters()) + ([] if decoder is None else list(decoder.parameters()))
+    return cached(_PLANS.setdefault(twt, {}), kernel.name, weights,
+                  lambda *_: _TwPlan(kernel, twt, decoder, image_embedding, tokens, num_heads),
+                  extra=(id(decoder), tuple(image_embedding.shape), tuple(tokens.shape),
+                         image_embedding.dtype, num_heads))
+
+
+def _twoway_fused(kernel: Kernel, twt, decoder, image_embedding, image_pe, tokens,
                   num_heads: int):
-    """One launch of kernel I (mode 0) or H (mode 1) on CUDA tensors."""
+    """Kernel I (``decoder`` None) or H on CUDA tensors: one launch of its
+    plan (:func:`_plan`)."""
     _check_fused(twt, decoder, image_embedding, image_pe, tokens, num_heads)
-    Bi, Hs, Ws, C = image_embedding.shape
-    P, N, _ = tokens.shape
-    L = Hs * Ws
-    dt, dev = image_embedding.dtype, image_embedding.device
-    l0 = twt.layers[0]
-    Ci, mlp = l0.cross_attn_t2i.q.out_features, l0.mlp.fc1.out_features
-    wide = max(C, Ci, l0.self_attn.q.out_features)
-
-    def new(*shape):
-        return torch.empty(shape, dtype=dt, device=dev)
-
-    ops = _TwOperands(dt)
-    nt = len(decoder.hyper_mlps) if mode == _MODE_DECODE else 0
-    ops.dims += [P, N, Hs, Ws, C, num_heads, len(twt.layers), Bi,
-                 int(dt == torch.bfloat16), nt]
-    if mode == _MODE_DECODE:
-        outs = (new(P, nt, 4 * Hs, 4 * Ws), new(P, nt))
-    else:
-        outs = (new(P, N, C), new(P, L, C))
-    for t in (image_embedding.reshape(Bi, L, C).contiguous(),
-              image_pe.reshape(-1, L, C)[0].to(dt).contiguous(), tokens.to(dt).contiguous(),
-              *outs):
-        ops.ptr(t)
-    # the keys state (kernel I keeps it in its output), then the scratch
-    ops.ptr(new(P, L, C) if mode == _MODE_DECODE else None)
-    for shape in ((P, L, C), (P, L, Ci), (P, L, Ci), (P, L, Ci), (P, L, Ci), (P, L, C),
-                  (P, N, C), (P, N, C), (P, N, wide), (P, N, wide), (P, N, wide),
-                  (P, N, wide), (P, N, C), (P, N, mlp)):
-        ops.ptr(new(*shape))
-    if mode == _MODE_DECODE:
-        w1, b1 = convt_as_matmul(decoder.upscale_conv1)
-        w2, b2 = convt_as_matmul(decoder.upscale_conv2)
-        co1, co2 = w2.shape[0], w2.shape[1] // 4
-        hidden = max(lin.out_features for st in (decoder.iou_head, *decoder.hyper_mlps)
-                     for lin in st.layers)
-        for shape in ((P, L, w1.shape[1]), (P, L, 4, co1), (P, L, 4, 4 * co2), (P, nt, co2),
-                      (P, hidden), (P, hidden)):
-            ops.ptr(new(*shape))
-    for p in twt.layers:
-        ops.attn(p.self_attn)
-        ops.norm(p.norm1)
-        ops.attn(p.cross_attn_t2i)
-        ops.norm(p.norm2)
-        ops.linear(p.mlp.fc1)
-        ops.linear(p.mlp.fc2)
-        ops.norm(p.norm3)
-        ops.attn(p.cross_attn_i2t)
-        ops.norm(p.norm4)
-    ops.attn(twt.final_attn)
-    ops.norm(twt.norm_final)
-    if mode == _MODE_DECODE:
-        ops.lin(w1.t(), b1)
-        ops.norm(decoder.upscale_ln)
-        ops.lin(w2.t(), b2)
-        ops.stack(decoder.iou_head)
-        for st in decoder.hyper_mlps:
-            ops.stack(st)
-    ops.launch(TWOWAY_DECODE if mode == _MODE_DECODE else TWOWAY_TRANSFORMER, mode)
-    return outs
+    return _plan(kernel, twt, decoder, image_embedding, tokens, num_heads).run(
+        image_embedding, image_pe, tokens)
 
 
 def fused_twoway_apply(twt, image_embedding, image_pe, point_embedding, num_heads: int):
@@ -1462,7 +1877,7 @@ def fused_twoway_apply(twt, image_embedding, image_pe, point_embedding, num_head
         return fused_twoway_plain(twt, image_embedding, image_pe, point_embedding, num_heads)
     if image_embedding.shape[0] != point_embedding.shape[0]:
         raise ValueError("the transformer needs an image embedding per prompt")
-    return _twoway_fused(_MODE_TRANSFORMER, twt, None, image_embedding, image_pe,
+    return _twoway_fused(TWOWAY_TRANSFORMER, twt, None, image_embedding, image_pe,
                          point_embedding, num_heads)
 
 
@@ -1472,7 +1887,7 @@ def twoway_decode(twt, decoder, image_embedding, image_pe, tokens, num_heads: in
     launches the kernel or raises."""
     if image_embedding.device.type == "cpu":
         return fused_decode_plain(twt, decoder, image_embedding, image_pe, tokens, num_heads)
-    return _twoway_fused(_MODE_DECODE, twt, decoder, image_embedding, image_pe, tokens,
+    return _twoway_fused(TWOWAY_DECODE, twt, decoder, image_embedding, image_pe, tokens,
                          num_heads)
 
 

@@ -1,5 +1,6 @@
-"""Times kernels A, B, J, C, D and F of the port, predict (through B, and
-through J), one LoRA train step and one AMG image, for one checkout.
+"""Times kernels A, B, J, C, D, E, F, G, H and I of the port, predict
+(through B, and through J), one LoRA train step, one AMG image and one
+pixel-decoder evaluate, for one checkout.
 
 Run on a machine with one CUDA card, once per checkout, in turns, so that
 two trees compare within one call (parent, change, change, parent):
@@ -7,7 +8,7 @@ two trees compare within one call (parent, change, change, parent):
     python3 scripts/compare_trees.py <checkout root> <label> [parts]
 
 ``parts`` is a comma-separated subset of
-``fwd,predict,bwd,train,onepass,window,amg_kernels`` (all by default).  It builds the
+``fwd,predict,bwd,train,onepass,window,amg_kernels,twoway`` (all by default).  It builds the
 kernels of that checkout that the parts run and prints one JSON line:
   fwd      A at (128, 767, 767, 128) causal and J at (64, 4097, 4097, 64),
            bf16, on the event clock (ms a call, back to back), and A's host
@@ -40,12 +41,22 @@ kernels of that checkout that the parts run and prints one JSON line:
            decoder, random weights, 64 prompts of 7 tokens, L = 4096, bf16),
            both on the device clock; one default AMG image as in window: ms
            over 3 images after 2 of warm-up, and one image's device time
-           under torch.profiler, in all and for E's and G's kernels.
+           under torch.profiler, in all and for E's and G's kernels;
+  twoway   H (sam_vit_h's decoder, random weights, bf16, L = 4096) at 8
+           prompts of 6 tokens with a base each (the pixel evaluate's
+           decode), at 64 x 7 with a base each and with one shared base
+           (factored=False), and I at 64 x 7, each on the device clock and
+           on the event clock (the wrapper's host time included); one
+           pixel-decoder evaluate (llmseg_7b + sam_vit_h, bf16, 8 images,
+           text_len 512, 32 new tokens, as chip_smoke's pixel phase): ms
+           over 3 after 1 of warm-up, and one evaluate's device time under
+           torch.profiler, in all and for H's kernels (the decode's
+           ``tw_`` and ``fd_`` kernels: no other decoder runs there).
 It imports only the checkout's ``llmseg_tpu_torch``."""
 import json, math, os, sys, time
 root = os.path.abspath(sys.argv[1])
 parts = set((sys.argv[3] if len(sys.argv) > 3
-              else "fwd,predict,bwd,train,onepass,window,amg_kernels").split(","))
+              else "fwd,predict,bwd,train,onepass,window,amg_kernels,twoway").split(","))
 sys.path.insert(0, root)
 os.chdir(root)
 import torch
@@ -64,6 +75,8 @@ if "onepass" in parts:
     names |= {"flash_fwd", "flash_fwd_1pass"}
 if parts & {"window", "amg_kernels"}:
     names |= {"relpos_fwd", "relpos_window", "factored_decode"}
+if "twoway" in parts:
+    names |= {"flash_fwd", "relpos_fwd", "relpos_window", "twoway_fused"}
 kernels.build(sorted(names), force=True)
 
 
@@ -182,6 +195,56 @@ if "amg_kernels" in parts:
     del dec, gcache, base, pe, tok
     torch.cuda.empty_cache()
 
+if "twoway" in parts:
+    from llmseg_tpu_torch.ops import twoway_kernel as TK
+    from llmseg_tpu_torch.models.sam import sam as SAM_
+    from llmseg_tpu_torch.models.sam.mask_decoder import MaskDecoder
+    g = torch.Generator(device="cuda").manual_seed(0)
+    kw = dict(device="cuda", dtype=torch.float32, generator=g)
+    dec = MaskDecoder(C.sam_vit_h().decoder, device="cuda", dtype=torch.bfloat16)
+    SAM_.random_init_(dec, g)
+    with torch.no_grad():
+        for prm in dec.parameters():
+            if prm.ndim == 1:
+                prm.add_(0.1 * torch.randn(prm.shape, **kw).to(torch.bfloat16))
+    pe = (torch.randn(64, 64, 256, **kw) * 0.5).to(torch.bfloat16)
+    with torch.inference_mode():
+        for label, P, N, Bi, head in (("h8x6", 8, 6, 8, True), ("h64x7", 64, 7, 64, True),
+                                      ("h64x7_shared", 64, 7, 1, True),
+                                      ("i64x7", 64, 7, 64, False)):
+            base = (torch.randn(Bi, 64, 64, 256, **kw) * 0.5).to(torch.bfloat16)
+            tok = (torch.randn(P, N, 256, **kw) * 0.5).to(torch.bfloat16)
+            if head:
+                run = lambda: TK.fused_decode_apply(dec.transformer, dec, base, pe, tok, 8,
+                                                    factored=False)
+            else:
+                run = lambda: TK.fused_twoway_apply(dec.transformer, base, pe, tok, 8)
+            out[f"{label}_device_ms"] = dev_ms(run, 10)
+            out[f"{label}_ms"] = ev_ms(run, 10)
+            del base, tok
+    del dec, pe
+    torch.cuda.empty_cache()
+    from llmseg_tpu_torch.models import pixel_decoder as PD
+    from llmseg_tpu_torch.models.sam import sam as SAM
+    pcfg, scfg = C.llmseg_7b(), C.sam_vit_h()
+    pmodel = llmseg.init(pcfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    sam_model = SAM.init(scfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    pbatch = make_batch(pcfg, num_images=8, rows_per_image=1, text_len=512, seed=8)
+    gi = torch.Generator(device="cuda").manual_seed(9)
+    images_sam = SAM.preprocess(torch.randint(0, 256, (8, 768, 1024, 3), device="cuda",
+                                              generator=gi), scfg)
+    evaluate = lambda: PD.evaluate(pmodel, sam_model, images_sam=images_sam, max_new_tokens=32,
+                                   images_clip=pbatch["images_clip"],
+                                   input_ids=pbatch["input_ids"], image_pos=pbatch["image_pos"],
+                                   input_hw=(768, 1024), original_hw=(480, 640))
+    evaluate()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        evaluate()
+    torch.cuda.synchronize()
+    out["evaluate_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+
 if parts & {"window", "amg_kernels"}:
     from llmseg_tpu_torch.ops import relpos_attention as R
     for BH in ((400, 3200) if "window" in parts else ()):
@@ -269,6 +332,10 @@ if parts & {"window", "amg_kernels"}:
     out["amg_image_device_ms"] = prof["device_ms"]
     for k in ("kernel_e", "kernel_f", "kernel_g"):
         out[f"{k}_family_device_ms"] = prof[k]
+if "twoway" in parts:
+    prof = profiled(evaluate, {"kernel_h": ("tw_", "fd_")})
+    out["evaluate_device_ms"] = prof["device_ms"]
+    out["kernel_h_family_device_ms"] = prof["kernel_h"]
 if "predict" in parts:
     A.ONEPASS_T = True
     prof = profiled(lambda: llmseg.predict(model, batch),

@@ -1,5 +1,5 @@
-"""Times design choices of kernels C, D, E, F and G against the ones the
-port keeps.
+"""Times design choices of kernels C, D, E, F, G, H and I against the ones
+the port keeps.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -28,7 +28,13 @@ replacing text in them (a variant's constants, or the edits of a
                            CTA an SM needs (csrc/factored_fused.cuh splits);
   factored_decode_upscale_4wg
                            kernel G's upscale with four consumer warpgroups
-                           instead of three.
+                           instead of three;
+  twoway_fused_online      kernels H's and I's token-to-image attention in
+                           one online sweep over L (a running maximum and
+                           sum, p rounded before its normalisation) instead
+                           of two (the row statistics, then p normalised
+                           before it is rounded, where the TPU kernel
+                           rounds it) (scripts/twoway_fused_online.edits).
 An edit names a header as ``(header, text, replacement)``.  Each variant is
 held against its plain version at its main shape (C and D:
 B*H = 32, T = S = 767, D = 128, causal, bf16, chip_smoke.bwd_case's gate;
@@ -36,9 +42,11 @@ F: 400 and 3,200 pairs of 14 x 14 windows, D = 80, bf16,
 chip_smoke.relpos_case's gate and a bitwise repeat; E: (16, 4096, 4096, 80)
 and G = 40, the same gate; G: 64 prompts at L = 4096, chip_smoke.g_case's
 gates, which hold each fused kernel against its record's emulation, and a
-bitwise repeat) and timed on the device clock (chip_smoke.device_ms; G
-replayed, with its fused records one at a time), in turns with the kept
-kernel (kept, variant, variant, kept).  One JSON line a variant, with the spill and wgmma lines of
+bitwise repeat; H: 8 prompts of 6 and 64 of 7 at L = 4096,
+chip_smoke.twoway_case's gates, which hold each fused kernel against its
+record's emulation, and a bitwise repeat) and timed on the device clock
+(chip_smoke.device_ms; G and H replayed, with their fused records one at a
+time), in turns with the kept kernel (kept, variant, variant, kept).  One JSON line a variant, with the spill and wgmma lines of
 its ``-Xptxas -v`` report.  ``names``: a comma-separated subset (all by
 default)."""
 import ctypes
@@ -91,8 +99,11 @@ VARIANTS = [
     ("factored_decode_half_wave", "factored_decode", [
         ("factored_fused.cuh", "std::min<long long>(ntiles, sms / Z)",
          "std::min<long long>(ntiles, sms / (2 * Z))")]),
+    ("twoway_fused_online", "twoway_fused",
+     [("twoway_sweeps.cuh",) + e for e in read_edits("twoway_fused_online")]),
     ("factored_decode_upscale_4wg", "factored_decode", [
-        ("factored_fused.cuh", "constexpr int UP_WGS = 3,", "constexpr int UP_WGS = 4,")]),
+        ("factored_fused.cuh", "UP_WGS = 3, UP_THREADS = 128 * UP_WGS + 32, UP_STAGES = 6;",
+         "UP_WGS = 4, UP_THREADS = 128 * UP_WGS + 32, UP_STAGES = 4;")]),
 ]
 
 
@@ -175,7 +186,28 @@ def g_turn(source, check):
     return {"device_ms": whole, "fused_ms": fused}
 
 
-TURNS = {"relpos_window": window_turn, "relpos_fwd": relpos_fwd_turn, "factored_decode": g_turn}
+def tw_turn(source, check):
+    """Kernel H replayed at the pixel decoder's shape and at 64 prompts."""
+    out = {}
+    for label, P, N in (("8x6", 8, 6), ("64x7", 64, 7)):
+        if check:   # raises if the variant is off
+            CS.twoway_case(C, TK, "twoway_decode", torch.bfloat16, P=P, N=N, check=True)
+        dec = CS.random_decoder(C, torch.bfloat16, 0)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        base = (torch.randn(P, 64, 64, 256, device="cuda", generator=g) * 0.5).bfloat16()
+        pe = (torch.randn(64, 64, 256, device="cuda", generator=g) * 0.5).bfloat16()
+        tok = (torch.randn(P, N, 256, device="cuda", generator=g) * 0.5).bfloat16()
+        with torch.inference_mode():
+            out[label] = CS.device_ms(lambda: TK.twoway_decode(dec.transformer, dec, base, pe,
+                                                               tok, 8), 10)
+            plan = TK._plan(TK.TWOWAY_DECODE, dec.transformer, dec, base, tok, 8)
+            out[label + "_fused_ms"] = CS.tw_breakdown(TK, plan)["fused_ms"]
+        del dec, plan
+    return out
+
+
+TURNS = {"relpos_window": window_turn, "relpos_fwd": relpos_fwd_turn, "factored_decode": g_turn,
+         "twoway_fused": tw_turn}
 
 
 def main() -> int:

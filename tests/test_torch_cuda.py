@@ -468,7 +468,8 @@ def _normwise(got, ref, tol):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 5e-2), (torch.float32, 1e-4)])
 @pytest.mark.parametrize("P,N,shared", [(8, 6, False), (9, 7, False), (64, 7, False),
-                                        (8, 6, True), (64, 7, True)])
+                                        (8, 6, True), (64, 7, True), (1, 6, False),
+                                        (9, 16, False), (64, 16, True), (9, 7, True)])
 def test_kernel_h_matches_plain(dtype, tol, P, N, shared):
     """Kernel H against fused_decode_plain at sam_vit_h's decoder widths,
     a base per prompt or one shared (``factored=False``), held normwise:
@@ -490,20 +491,88 @@ def test_kernel_h_matches_plain(dtype, tol, P, N, shared):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 5e-2), (torch.float32, 1e-4)])
-@pytest.mark.parametrize("P,N", [(64, 7), (8, 6)])
+@pytest.mark.parametrize("P,N", [(64, 7), (8, 6), (1, 1), (9, 16), (64, 16), (9, 6)])
 def test_kernel_i_matches_plain(dtype, tol, P, N):
     """Kernel I against fused_twoway_plain, normwise as kernel H; the
-    transformer's routing on the card reaches it once."""
+    transformer's routing on the card reaches it once (from 8 prompts on;
+    fewer are called directly)."""
     dec, g = _decoder(dtype, 3)
     emb = (torch.randn(P, 64, 64, 256, device="cuda", generator=g) * 0.5).to(dtype)
     pe = (torch.randn(1, 64, 64, 256, device="cuda", generator=g) * 0.5).to(dtype)
     tok = (torch.randn(P, N, 256, device="cuda", generator=g) * 0.5).to(dtype)
     with torch.inference_mode():
         before = TK.TWOWAY_TRANSFORMER.launches
-        got = dec.transformer(emb, pe, tok)
+        got = (dec.transformer(emb, pe, tok) if P >= 8
+               else TK.fused_twoway_apply(dec.transformer, emb, pe, tok, 8))
         assert TK.TWOWAY_TRANSFORMER.launches == before + 1
         ref = TK.fused_twoway_plain(dec.transformer, emb, pe, tok, 8)
     _normwise(got, ref, tol)
+
+
+@pytest.mark.parametrize("kind,P,N,shared", [("h", 1, 6, False), ("h", 9, 16, False),
+                                             ("h", 64, 7, True), ("i", 9, 7, False),
+                                             ("i", 64, 16, False)])
+def test_kernels_h_i_fused_records_match_their_emulation(kind, P, N, shared):
+    """Each fused kernel of H's and I's bf16 route (token-to-image
+    attention, image-to-token attention with norm4, the upscale) at
+    sam_vit_h's decoder widths and L = 64*64 against its record's torch
+    interpretation on the same operands, normwise per written operand:
+    max|err| <= 5e-2 max|ref|."""
+    dec, g = _decoder(torch.bfloat16, P + N)
+    base = (torch.randn(1 if shared else P, 64, 64, 256, device="cuda", generator=g) * 0.5
+            ).bfloat16()
+    pe = (torch.randn(4096, 256, device="cuda", generator=g) * 0.5).bfloat16()
+    tok = (torch.randn(P, N, 256, device="cuda", generator=g) * 0.5).bfloat16()
+    kern = TK.TWOWAY_DECODE if kind == "h" else TK.TWOWAY_TRANSFORMER
+    with torch.inference_mode():
+        prog, _ = TK.tw_program(dec.transformer, dec if kind == "h" else None, base, pe, tok, 8)
+        res = TK.fused_record_errors(prog, kern)
+    want = ["tw_i2t_norm4", "tw_t2i"] + (["tw_upscale"] if kind == "h" else [])
+    assert sorted({r["op"] for r in res}) == want
+    for r in res:
+        for err, ref in zip(r["max_abs_err"], r["max_abs_ref"]):
+            assert err <= 5e-2 * ref, r
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["h", "i"])
+def test_kernels_h_i_replay_their_plan(dtype, kind):
+    """H and I keep one plan for a set of weights and shapes and replay it,
+    one launch a call: a call on a new base and new tokens equals a fresh
+    plan's result, a repeat of it equals it to the bit, and the earlier
+    result is left as it was; an in-place weight change records anew."""
+    dec, g = _decoder(dtype, 11)
+    P, N = 9, 7
+    pe = (torch.randn(64, 64, 256, device="cuda", generator=g) * 0.5).to(dtype)
+    ins = [((torch.randn(P, 64, 64, 256, device="cuda", generator=g) * 0.5).to(dtype),
+            (torch.randn(P, N, 256, device="cuda", generator=g) * 0.5).to(dtype))
+           for _ in range(2)]
+    kern = TK.TWOWAY_DECODE if kind == "h" else TK.TWOWAY_TRANSFORMER
+    if kind == "h":
+        call = lambda b, t: TK.twoway_decode(dec.transformer, dec, b, pe, t, 8)
+    else:
+        call = lambda b, t: TK.fused_twoway_apply(dec.transformer, b, pe, t, 8)
+    with torch.inference_mode():
+        before = kern.launches
+        first = call(*ins[0])
+        kept = [t.clone() for t in first]
+        plan = TK._plan(kern, dec.transformer, dec if kind == "h" else None, *ins[0], 8)
+        second, repeat = call(*ins[1]), call(*ins[1])
+        assert kern.launches == before + 3
+        assert TK._plan(kern, dec.transformer, dec if kind == "h" else None, *ins[0], 8) is plan
+        TK._PLANS.pop(dec.transformer)
+        fresh = call(*ins[1])
+        assert all(torch.equal(a, b) for a, b in zip(second, fresh))
+        assert all(torch.equal(a, b) for a, b in zip(second, repeat))
+        assert all(torch.equal(a, b) for a, b in zip(first, kept))
+    with torch.no_grad():
+        dec.transformer.layers[1].norm4.weight.add_(0.25)
+        changed = call(*ins[1])
+        assert TK._plan(kern, dec.transformer, dec if kind == "h" else None, *ins[0], 8) \
+            is not plan
+    ref = (TK.fused_decode_plain(dec.transformer, dec, ins[1][0], pe, ins[1][1], 8) if kind == "h"
+           else TK.fused_twoway_plain(dec.transformer, ins[1][0], pe, ins[1][1], 8))
+    _normwise(changed, ref, 5e-2 if dtype == torch.bfloat16 else 1e-4)
 
 
 def test_pixel_shaped_decode_routes_to_h():
@@ -540,3 +609,5 @@ def test_kernels_h_i_reject_unsupported_inputs():
         TK.fused_twoway_apply(dec.transformer, emb, pe, tok.repeat(1, 3, 1), 8)
     with pytest.raises(ValueError):     # 3 image embeddings for 8 prompts
         TK.twoway_decode(dec.transformer, dec, emb[:3], pe, tok, 8)
+    with pytest.raises(ValueError):     # bf16 takes L a multiple of 64 (the fused tiles)
+        TK.twoway_decode(dec.transformer, dec, emb[:, :60, :60], pe[:60, :60], tok, 8)
