@@ -36,7 +36,12 @@ Phases, one JSON line each; any failure exits non-zero:
               rescued rows beside rows that are not, and B against J on the
               same inputs (o and o^T equal to the bit); F at one pair, at an
               evaluate's 3,200 pairs, on zero-padded edge windows, at
-              G = 2 and 22, with bitwise repeats;
+              G = 2 and 22, with bitwise repeats; the quant kernels Q1
+              and Q2 (csrc/quant.cu) at llmseg_7b's W8A8 shapes (3068 and
+              6136 rows, widths 4096 and 11008), at 1, 17 and 129 rows, in
+              float32, with a bias or a side term, on their scalar paths,
+              their time a step beside their bound, and the int8 product
+              (row padding, its time beside bf16's);
   3. modules  llmseg_tiny predict on the card against the same weights on
               the CPU;
      in_place llmseg_7b widths and sequence lengths at two blocks per
@@ -54,6 +59,11 @@ Phases, one JSON line each; any failure exits non-zero:
               float32: generation (prefill through A), the SAM encoder (E,
               F) and the decode (H) against the plain paths, with the
               smallest top-1 / top-2 logit gap of the generated steps;
+     w8a8_in_place  the cut llmseg_7b in float32 with its LLaMA calibrated
+              and quantized W8A8: predict through Q1 and Q2, each call
+              against its plain version on the same tensors, then against
+              predict on the plain versions (within half the quantization
+              error: codes flip in cascade from an ulp of the scale);
   4. main     llmseg_7b in bf16 (random weights from a seed, LayerScale
               folded), make_batch(4 images, text_len 512) and predict: launch
               counts of every kernel in that run, finite (4, 50) outputs,
@@ -61,6 +71,12 @@ Phases, one JSON line each; any failure exits non-zero:
      onepass_t  the same predict with the non-causal forward switched to
               kernel J (LLMSEG_ATTN_ONEPASS_T's flag): J 24 launches, B 0,
               outputs within the bf16 gate of the default run, ms/step;
+     w8a8     the headline lane on the same model: bf16 at batch 8, one
+              step each with the LLaMA weight-only int8 and int4, then
+              SmoothQuant calibration on a one-image probe, the model
+              quantized W8A8 in place, top-1 agreement and max|dsim| on the
+              probe against bf16, launches of A, B, Q1 and Q2 a step, and
+              ms/step, img/s and peak memory at batch 4 and 8;
   5. train    the LoRA train step at llmseg_7b in bf16 through the Trainer
               (1 image, 1 row, text_len 512, remat "dots"): launch counts per
               step, finite losses, frozen weights bit-identical and trainable
@@ -91,6 +107,7 @@ Phases, one JSON line each; any failure exits non-zero:
               the filters opened, then with NMS off too; launch counts per
               image (E 4, F 28, G 16), annotation schema, ms/image, peak
               memory and one image in parts;
+     w8a8_breakdown  the same for a W8A8 step;
      amg_breakdown, pixel_breakdown  one image's (one evaluate's)
               device time by kernel family and the idle share;
   7. kernels  one line with every kernel's numbers, then the card's name and
@@ -548,7 +565,8 @@ def device_families(fn, out_name: str, decode_family: str = "kernel_g") -> dict:
     events, attr, kernels = kernel_times(prof)   # operators' time is their kernels'
     families = {"kernel_a": 0.0, "kernel_b": 0.0, "kernel_c": 0.0, "kernel_d": 0.0,
                 "kernel_e": 0.0, "kernel_f": 0.0, decode_family: 0.0, "kernel_j": 0.0,
-                "matmul": 0.0, "other": 0.0}
+                "kernel_q1": 0.0, "kernel_q2": 0.0, "matmul_int8": 0.0, "matmul": 0.0,
+                "other": 0.0}
     for key, ms in kernels:
         name = key.lower()
         if "relpos_fwd" in name:
@@ -567,8 +585,13 @@ def device_families(fn, out_name: str, decode_family: str = "kernel_g") -> dict:
             fam = "kernel_b"
         elif "flash_fwd" in name:
             fam = "kernel_a"
-        elif any(s in name for s in ("gemm", "nvjet", "cutlass", "xmma", "sm90")):
-            fam = "matmul"
+        elif "quantize_rows" in name:
+            fam = "kernel_q1"
+        elif "w8a8_epilogue" in name:
+            fam = "kernel_q2"
+        elif any(s in name for s in ("gemm", "nvjet", "cutlass", "xmma", "sm90", "imma")):
+            fam = ("matmul_int8" if any(t in name for t in ("s8", "i8", "int8", "imma"))
+                   else "matmul")
         else:
             fam = "other"
         families[fam] += ms
@@ -1593,6 +1616,316 @@ def pixel_phase(C, llmseg, S, PD, GEN, make_batch, kernels_all) -> dict:
     return {"run": run, "launches": launches, "keep": (model, sam_model)}
 
 
+# ---------------------------------------------------------------------------
+# W8A8: kernels Q1 and Q2 (csrc/quant.cu) around LLaMA's int8 products
+# ---------------------------------------------------------------------------
+
+Q_SC_RTOL = 2e-6              # Q1's RMS-form scale vs its plain version (the mean of x^2
+                              # summed in another order; torch.rsqrt vs 1 / sqrt)
+Q2_ULPS = 1                   # Q2 vs its plain version, in units of the output's last place
+QUANT_CASCADE = 0.5           # w8a8_in_place: the kernels' predict vs the plain quant path's,
+                              # as a share of the quantization error (see w8a8_in_place)
+SEQ_7B = 512 + 256 - 1        # llmseg_7b's rows per image at text_len 512
+
+
+def ulps(got, ref):
+    """|got - ref| in units in the last place of their type (the bit
+    patterns of two finite values of one sign)."""
+    import torch
+    view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    return (got.view(view).long() - ref.view(view).long()).abs()
+
+
+def q1_case(Q, *, R, C, dtype, rms, timed=False, seed=0) -> dict:
+    """Kernel Q1 against its plain version: int8 values equal; the scale
+    equal (plain form) or within Q_SC_RTOL (RMS form)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed + R + C)
+    x = torch.randn(R, C, device="cuda", generator=g) * 3
+    x[0, :4] = torch.tensor([127.0, 2.5, -3.5, 0.5])    # exact ties in the plain form
+    x = x.to(dtype)
+    gamma = (1 + 0.3 * torch.randn(C, device="cuda", generator=g)).to(dtype) if rms else None
+    xq, sc = Q.quantize_rows(x, gamma, 1e-6)
+    rq, rsc = Q.quantize_rows_plain(x, gamma, 1e-6)
+    torch.cuda.synchronize()
+    rec = {"kernel": "quantize_rows", "R": R, "C": C, "dtype": str(dtype).split(".")[-1],
+           "form": "rms" if rms else "plain",
+           "max_abs_err": (xq.int() - rq.int()).abs().max().item(),
+           "sc_max_rel_err": ((sc - rsc).abs() / rsc.abs()).max().item()}
+    rec["ok"] = rec["max_abs_err"] == 0 and (rec["sc_max_rel_err"] <= Q_SC_RTOL if rms
+                                             else bool(torch.equal(sc, rsc)))
+    if timed:
+        run = lambda: Q.quantize_rows(x, gamma, 1e-6)            # noqa: E731
+        nbytes = R * C * (x.element_size() + 1) + R * 4 + (C * gamma.element_size() if rms else 0)
+        rec.update(ms=cuda_ms(run, 20), device_ms=device_ms(run, 20),
+                   plain_ms=cuda_ms(lambda: Q.quantize_rows_plain(x, gamma, 1e-6), 5),
+                   library_ms=None)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 0)
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"kernel Q1 disagrees with its plain version: {rec}")
+    return rec
+
+
+def q2_case(Q, *, R, N, out_dtype, extra=None, timed=False, seed=0) -> dict:
+    """Kernel Q2 against its plain version: within Q2_ULPS of the output
+    type."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed + R + N)
+    acc = torch.randint(-2 ** 24, 2 ** 24, (R, N), device="cuda", generator=g, dtype=torch.int32)
+    sc = torch.rand(R, 1, device="cuda", generator=g) * 1e-3
+    ws = torch.rand(N, device="cuda", generator=g) * 1e-2
+    bias = torch.randn(N, device="cuda", generator=g).to(out_dtype) if extra == "bias" else None
+    side = torch.randn(R, N, device="cuda", generator=g) if extra == "side" else None
+    got = Q.w8a8_epilogue(acc, sc, ws, bias, out_dtype, side)
+    ref = Q.w8a8_epilogue_plain(acc, sc, ws, bias, out_dtype, side)
+    torch.cuda.synchronize()
+    d = ulps(got, ref)
+    rec = {"kernel": "w8a8_epilogue", "R": R, "N": N, "out_dtype": str(out_dtype).split(".")[-1],
+           "extra": extra, "max_abs_err": (got.float() - ref.float()).abs().max().item(),
+           "max_ulps": d.max().item(), "values_off_by_one_ulp": int((d == 1).sum().item())}
+    rec["ok"] = rec["max_ulps"] <= Q2_ULPS
+    if timed:
+        run = lambda: Q.w8a8_epilogue(acc, sc, ws, bias, out_dtype, side)   # noqa: E731
+        nbytes = R * N * (4 + got.element_size()) + R * 4 + N * 4
+        rec.update(ms=cuda_ms(run, 20), device_ms=device_ms(run, 20),
+                   plain_ms=cuda_ms(lambda: Q.w8a8_epilogue_plain(acc, sc, ws, bias, out_dtype,
+                                                                 side), 5),
+                   library_ms=None)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 0)
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"kernel Q2 disagrees with its plain version: {rec}")
+    return rec
+
+
+def quant_kernel_phase(Q) -> dict:
+    """Q1 and Q2 at llmseg_7b's W8A8 shapes (3068 rows at batch 4, 6136 at
+    8; widths 4096 and 11008), at row counts off any tile (1, 17, 129), in
+    float32, with a bias and a side term, and on the scalar paths (a width
+    that is not a whole number of 16-byte vectors); the int8 product's row
+    padding; each kernel's time a step (32 layers: Q1 at two RMS sites and
+    two plain ones, Q2 after five 4096-wide and two 11008-wide products)
+    beside its bound, and the int8 product beside the bf16 one."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    r4, r8 = 4 * SEQ_7B, 8 * SEQ_7B
+    q1 = {(c, rms): q1_case(Q, R=r4, C=c, dtype=bf16, rms=rms, timed=True)
+          for c, rms in ((4096, True), (4096, False), (11008, False))}
+    q2 = {n: q2_case(Q, R=r4, N=n, out_dtype=bf16, timed=True) for n in (4096, 11008)}
+    for c, rms in ((4096, True), (4096, False), (11008, False)):
+        q1_case(Q, R=r8, C=c, dtype=bf16, rms=rms)
+    for n in (4096, 11008):
+        q2_case(Q, R=r8, N=n, out_dtype=bf16)
+    for r in (1, 17, 129):
+        for c in (4096, 11008):
+            for rms in (False, True):
+                q1_case(Q, R=r, C=c, dtype=bf16, rms=rms)
+            q2_case(Q, R=r, N=c, out_dtype=bf16)
+    q1_case(Q, R=129, C=4096, dtype=f32, rms=True)
+    q1_case(Q, R=17, C=11008, dtype=f32, rms=False)
+    q1_case(Q, R=5, C=100, dtype=bf16, rms=True)
+    q2_case(Q, R=129, N=4096, out_dtype=f32)
+    q2_case(Q, R=17, N=4096, out_dtype=bf16, extra="bias")
+    q2_case(Q, R=129, N=11008, out_dtype=bf16, extra="side")
+    q2_case(Q, R=7, N=100, out_dtype=bf16)
+
+    # the int8 product: exact at 1, 16 and 17 rows (padded below 17), and
+    # its time beside a bf16 product of the same shape
+    g = torch.Generator(device="cuda").manual_seed(9)
+    pad_exact = True
+    for r in (1, 16, 17):
+        xq = torch.randint(-127, 128, (r, 4096), device="cuda", generator=g, dtype=torch.int8)
+        w = torch.randint(-127, 128, (1024, 4096), device="cuda", generator=g, dtype=torch.int8)
+        pad_exact &= bool(torch.equal(Q._int_mm(xq, w).double(), xq.double() @ w.double().t()))
+    try:
+        torch._int_mm(xq[:16], w.t())
+        raw_16_raises = False
+    except RuntimeError:
+        raw_16_raises = True
+    xq = torch.randint(-127, 128, (r4, 4096), device="cuda", generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (11008, 4096), device="cuda", generator=g, dtype=torch.int8)
+    xb, wb = xq.to(bf16), w.to(bf16)
+    flops = 2 * r4 * 4096 * 11008
+    rec = {"phase": "quant_kernels", "clock": "device (events behind a spin kernel)",
+           "int_mm_pads_exact": pad_exact, "raw_int_mm_16_rows_raises": raw_16_raises,
+           "int8_mm_ms_3068x4096x11008": device_ms(lambda: Q._int_mm(xq, w), 20),
+           "bf16_mm_ms_3068x4096x11008": device_ms(lambda: xb @ wb.t(), 20),
+           "int8_mm_bound_ms": 1e3 * flops / 1979e12, "bf16_mm_bound_ms": 1e3 * flops / BF16_FLOP_PER_S,
+           "q1_step_device_ms": 32 * (2 * q1[(4096, True)]["device_ms"]
+                                      + q1[(4096, False)]["device_ms"]
+                                      + q1[(11008, False)]["device_ms"]),
+           "q1_step_bound_ms": 32 * (2 * q1[(4096, True)]["bound_ms"] + q1[(4096, False)]["bound_ms"]
+                                     + q1[(11008, False)]["bound_ms"]),
+           "q2_step_device_ms": 32 * (5 * q2[4096]["device_ms"] + 2 * q2[11008]["device_ms"]),
+           "q2_step_bound_ms": 32 * (5 * q2[4096]["bound_ms"] + 2 * q2[11008]["bound_ms"])}
+    rec["ok"] = pad_exact
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit("the padded int8 product is not exact")
+    return {"quantize_rows": q1[(4096, True)], "w8a8_epilogue": q2[11008]}
+
+
+def w8a8_in_place(C, llmseg, make_batch, Q) -> dict:
+    """``llmseg_7b`` cut to two blocks per tower and two LLaMA layers, float32,
+    LLaMA calibrated and quantized W8A8: predict through Q1 and Q2, each
+    call held against its plain version on the same in-model tensors (int8
+    values equal, the scale within Q_SC_RTOL, Q2 within Q2_ULPS); then
+    predict with both swapped for their plain versions.  The two predicts
+    are not equal: the RMS form's scale differs by an ulp, a rounding tie
+    falls the other way, and the next layer quantizes inputs that differ by
+    that code, so codes flip in cascade; their difference is held within
+    QUANT_CASCADE of the quantization error against the float32 model
+    (a layout or scale fault gives a difference of the order of the
+    outputs)."""
+    import torch
+    cfg = cut_config(C)
+    batch = make_batch(cfg, num_images=4, rows_per_image=1, text_len=512, seed=3)
+    model = llmseg.init(cfg, seed=1, device="cuda", dtype=torch.float32)
+    ref = llmseg.predict(model, batch)
+    Q.quantize_llama_inplace(model.llava.llm, bits=8, w8a8=True,
+                             smooth_stats=llmseg.calibrate_quant_stats(model, batch),
+                             head_dim=cfg.llava.llm.head_dim)
+    kept = Q.quantize_rows, Q.w8a8_epilogue
+    worst = {"q1_max_abs_err": 0, "q1_sc_max_rel_err": 0.0, "q2_max_ulps": 0}
+
+    def rows(x, gamma=None, eps=1e-6):
+        xq, sc = kept[0](x, gamma, eps)
+        rq, rsc = Q.quantize_rows_plain(x, gamma, eps)
+        worst["q1_max_abs_err"] = max(worst["q1_max_abs_err"],
+                                      (xq.int() - rq.int()).abs().max().item())
+        worst["q1_sc_max_rel_err"] = max(worst["q1_sc_max_rel_err"],
+                                         ((sc - rsc).abs() / rsc.abs()).max().item())
+        return xq, sc
+
+    def epilogue(acc, sc, w_scale, bias, out_dtype, side=None):
+        y = kept[1](acc, sc, w_scale, bias, out_dtype, side)
+        ref_y = Q.w8a8_epilogue_plain(acc, sc, w_scale, bias, out_dtype, side)
+        worst["q2_max_ulps"] = max(worst["q2_max_ulps"], ulps(y, ref_y).max().item())
+        return y
+
+    for kern in Q.KERNELS:
+        kern.launches = 0
+    Q.quantize_rows, Q.w8a8_epilogue = rows, epilogue
+    try:
+        got = llmseg.predict(model, batch)
+        launches = {kern.name: kern.launches for kern in Q.KERNELS}
+        Q.quantize_rows, Q.w8a8_epilogue = Q.quantize_rows_plain, Q.w8a8_epilogue_plain
+        plain = llmseg.predict(model, batch)
+    finally:
+        Q.quantize_rows, Q.w8a8_epilogue = kept
+    keys = ("pred_similarity", "pred_iou")
+    rec = {"phase": "w8a8_in_place", "config": "llmseg_7b, towers 2 blocks, LLaMA 2 layers",
+           "dtype": "float32", "launches": launches, **worst,
+           "max_abs_diff_vs_plain": max((got[k] - plain[k]).abs().max().item() for k in keys),
+           "quant_error_vs_float32": max((plain[k] - ref[k]).abs().max().item() for k in keys),
+           "limit_share_of_quant_error": QUANT_CASCADE}
+    rec["ok"] = (launches == {"quantize_rows": 8, "w8a8_epilogue": 14}
+                 and worst["q1_max_abs_err"] == 0 and worst["q1_sc_max_rel_err"] <= Q_SC_RTOL
+                 and worst["q2_max_ulps"] <= Q2_ULPS
+                 and rec["quant_error_vs_float32"] > 0
+                 and rec["max_abs_diff_vs_plain"]
+                 <= QUANT_CASCADE * rec["quant_error_vs_float32"])
+    if not rec["ok"]:
+        raise SystemExit(f"W8A8 through Q1 and Q2 disagrees with the plain quant path: {rec}")
+    return rec
+
+
+def timed_predict(llmseg, model, batch, steps: int = 5) -> dict:
+    """ms/step, img/s and peak memory of ``steps`` predict calls after one
+    untimed call."""
+    import torch
+    llmseg.predict(model, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        out = llmseg.predict(model, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    n = batch["images_dino"].shape[0]
+    return {"ms_per_step": ms, "img_per_s": n * 1e3 / ms,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "finite": bool(torch.isfinite(out["pred_similarity"]).all()
+                           and torch.isfinite(out["pred_iou"]).all())}
+
+
+def probe_agreement(sim, sim_bf16) -> dict:
+    """bench.py's probe numbers (top-1 agreement, max|dsim|) and the rank,
+    in the quantized similarities, of the bf16 top-1 proposal of each row
+    (0: the same top-1)."""
+    top = sim_bf16.argmax(-1, keepdim=True)
+    return {"top1_agreement": (sim.argmax(-1) == top[:, 0]).float().mean().item(),
+            "max_abs_dsim": (sim - sim_bf16).abs().max().item(),
+            "rank_of_bf16_top1": (sim > sim.gather(-1, top)).sum(-1).tolist()}
+
+
+def w8a8_phase(C, llmseg, make_batch, Q, A, model, batch, bf16_batch4: dict) -> dict:
+    """The W8A8 headline lane (bench.py's run(quant_bits=8, w8a8=True)) on
+    the main phase's bf16 llmseg_7b, quantized in place: bf16 at batch 8;
+    one step each with the LLaMA weight-only int8 and int4 (quantized
+    copies beside the bf16 one); the bf16 similarities on a one-image probe
+    (text_len 512); SmoothQuant calibration on the probe; the in-place W8A8
+    quantization; the probe again (top-1 agreement, max|dsim|); the launches
+    of one step at batch 4; ms/step, img/s and peak memory at batch 4 and 8."""
+    import torch
+    cfg = model.cfg
+    L = cfg.llava.llm.num_layers
+    probe = make_batch(cfg, num_images=1, rows_per_image=1, text_len=512, seed=5)
+    batch8 = make_batch(cfg, num_images=8, rows_per_image=1, text_len=512, seed=1)
+    rec = {"phase": "w8a8", "config": "llmseg_7b", "dtype": "bfloat16", "text_len": 512,
+           "seq_len": SEQ_7B, "bf16": {"batch4": bf16_batch4,
+                                       "batch8": timed_predict(llmseg, model, batch8)}}
+    sim_bf16 = llmseg.predict(model, probe)["pred_similarity"].float()
+    top2 = sim_bf16.topk(2, -1).values
+    rec["bf16_probe_top2_gap"] = (top2[:, 0] - top2[:, 1]).tolist()
+    llm = model.llava.llm
+    for bits in (8, 4):
+        t0 = time.time()
+        model.llava.llm = Q.quantize_llama(llm, bits=bits)
+        torch.cuda.synchronize()
+        quant_s = time.time() - t0
+        sim = llmseg.predict(model, probe)["pred_similarity"].float()
+        rec[f"int{bits}"] = {"quantize_s": quant_s, **probe_agreement(sim, sim_bf16),
+                             **timed_predict(llmseg, model, batch, steps=1)}
+        model.llava.llm = llm
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    stats = llmseg.calibrate_quant_stats(model, probe)
+    torch.cuda.synchronize()
+    rec["calibrate_s"] = time.time() - t0
+    t0 = time.time()
+    Q.quantize_llama_inplace(model.llava.llm, bits=8, w8a8=True, smooth_stats=stats,
+                             head_dim=cfg.llava.llm.head_dim)
+    torch.cuda.synchronize()
+    rec["quantize_s"] = time.time() - t0
+    del stats, llm
+    torch.cuda.empty_cache()
+    rec.update(probe_agreement(llmseg.predict(model, probe)["pred_similarity"].float(),
+                               sim_bf16))
+    kernels = A.KERNELS + Q.KERNELS
+    for kern in kernels:
+        kern.launches = 0
+    out = llmseg.predict(model, batch)
+    torch.cuda.synchronize()
+    rec["launches"] = {kern.name: kern.launches for kern in kernels}
+    rec["expected_launches"] = {"flash_fwd": L, "flash_fwd_1pass": cfg.dino.depth,
+                                "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_fwd_1pass_t": 0,
+                                "quantize_rows": 4 * L, "w8a8_epilogue": 7 * L}
+    sim4 = out["pred_similarity"]
+    rec["shape"] = list(sim4.shape)
+    rec["w8a8"] = {"batch4": timed_predict(llmseg, model, batch),
+                   "batch8": timed_predict(llmseg, model, batch8)}
+    rec["ok"] = (rec["launches"] == rec["expected_launches"]
+                 and rec["shape"] == [4, cfg.max_proposals]
+                 and all(r["finite"] for r in (rec["w8a8"]["batch4"], rec["w8a8"]["batch8"],
+                                               rec["int8"], rec["int4"])))
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit("the W8A8 lane failed")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1609,10 +1942,11 @@ def main() -> int:
     from llmseg_tpu_torch.models.sam import sam as S
     from llmseg_tpu_torch.ops import attention as A
     from llmseg_tpu_torch.ops import kernels
+    from llmseg_tpu_torch.ops import quant as Q
     from llmseg_tpu_torch.ops import relpos_attention as R
     from llmseg_tpu_torch.ops import twoway_kernel as TK
 
-    all_kernels = A.KERNELS + R.KERNELS + TK.KERNELS
+    all_kernels = A.KERNELS + R.KERNELS + TK.KERNELS + Q.KERNELS
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 references stay float32
     torch.backends.cudnn.allow_tf32 = False
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1682,6 +2016,7 @@ def main() -> int:
     timed.update(main_cd)
     timed.update(sam_kernel_phase(C, R, TK))
     timed.update(pixel_kernel_phase(C, A, TK))
+    timed.update(quant_kernel_phase(Q))
 
     # 3. the port's modules on the card against the CPU, tiny config
     tiny = C.llmseg_tiny()
@@ -1705,6 +2040,7 @@ def main() -> int:
     emit(kernels_in_place(C, llmseg, make_batch, A))
     emit(grads_in_place(C, llmseg, make_batch, A))
     emit(sam_in_place(C, S, R, TK, IE))
+    emit(w8a8_in_place(C, llmseg, make_batch, Q))
     pixel_in_place(C, S, R, TK, IE, PD, GEN, make_batch, A)
 
     # 4. the main path: llmseg_7b, bf16, batch 4
@@ -1776,7 +2112,14 @@ def main() -> int:
     if not rec_t["ok"]:
         raise SystemExit("predict through kernel J disagrees with the default run")
     launches["flash_fwd_1pass_t"] = launches_t["flash_fwd_1pass_t"]
-    del model, out, out_t
+    del out, out_t
+    torch.cuda.empty_cache()
+
+    # the W8A8 headline lane on the same model, quantized in place
+    w8a8 = w8a8_phase(C, llmseg, make_batch, Q, A, model, batch,
+                      {k: rec[k] for k in ("ms_per_step", "img_per_s", "peak_mem_gb")})
+    launches.update({k.name: w8a8["launches"][k.name] for k in Q.KERNELS})
+    del model
     torch.cuda.empty_cache()
 
     # 5. the train step, timed, then profiled
@@ -1802,6 +2145,13 @@ def main() -> int:
     model = llmseg.fold_frozen_inplace(llmseg.init(cfg, seed=0, device="cuda", dtype=bf16))
     emit({"phase": "breakdown", "stage_ms": stage_ms,
           **device_families(lambda: llmseg.predict(model, batch), "chip_smoke_profile.txt")})
+    probe = make_batch(cfg, num_images=1, rows_per_image=1, text_len=512, seed=5)
+    Q.quantize_llama_inplace(model.llava.llm, bits=8, w8a8=True,
+                             smooth_stats=llmseg.calibrate_quant_stats(model, probe),
+                             head_dim=cfg.llava.llm.head_dim)
+    torch.cuda.empty_cache()
+    emit({"phase": "w8a8_breakdown",
+          **device_families(lambda: llmseg.predict(model, batch), "chip_smoke_w8a8_profile.txt")})
     del model
     emit({"phase": "pixel_breakdown", "config": "llmseg_7b + sam_vit_h",
           **device_families(pixel["run"], "chip_smoke_pixel_profile.txt",
@@ -1840,7 +2190,13 @@ def main() -> int:
                "twoway_transformer": ("llmseg_tpu_torch/csrc/twoway_fused.cu",
                                       "llmseg_tpu/ops/twoway_kernel.py:192"),
                "flash_fwd_1pass_t": ("llmseg_tpu_torch/csrc/flash_fwd_1pass_t.cu",
-                                     "llmseg_tpu/ops/attention.py:374")}
+                                     "llmseg_tpu/ops/attention.py:374"),
+               "quantize_rows": ("llmseg_tpu_torch/csrc/quant.cu",
+                                 "llmseg_tpu/ops/quant.py:138 quantize_activation (k = 0), "
+                                 ":168 rms_quantize_activation (XLA code)"),
+               "w8a8_epilogue": ("llmseg_tpu_torch/csrc/quant.cu",
+                                 "llmseg_tpu/ops/quant.py:194 qdense_act, its rescale "
+                                 "(XLA code)")}
     rows = []
     for name, (src, rep) in sources.items():
         r = timed[name]

@@ -232,8 +232,9 @@ class TrainConfig:
     def __post_init__(self):
         if self.quantize_frozen:
             raise NotImplementedError(
-                "quantize_frozen (the int8/int4 frozen base) needs ops/quant.py, "
-                "which is not ported yet (ROADMAP queue 1 item 8)")
+                "quantize_frozen (QLoRA: the int8/int4 frozen base under autograd) "
+                "is not ported; ops/quant.py quantizes for inference only "
+                "(ROADMAP queue 1 item 10)")
         m = self.mesh
         if m.data not in (-1, 1) or m.fsdp != 1 or m.tensor != 1:
             raise NotImplementedError(

@@ -16,6 +16,13 @@ module names mirror the tree's keys, so each leaf maps by its path:
     ``rel_pos_h/w``, ``iou_token``, ``mask_tokens``, ``point_embeddings``,
     ``not_a_point_embed``, ``no_mask_embed``, ``gaussian`` -> same name
   * LoRA ``a`` (in, r), ``b`` (r, out) -> ``<path>.a.weight``, ``<path>.b.weight``
+  * a quantized dense leaf (``ops.quant``): ``w_q`` / ``w_q8a`` (in, out)
+    int8, ``w_q4`` (padded_in / 2, out) packed nibbles and ``w_scale4``
+    (n_groups, out) -> the same names transposed to (out, ...), ``w_scale``
+    as it is; the ``nn.Linear`` at that path becomes the matching
+    quantized module (``layers.Int8Linear``, ``W8A8Linear``,
+    ``Int4Linear``).  Both packings pair inputs 2i (low nibble) and 2i + 1,
+    so the transposed bytes unpack to the same values.
 
 LayerScale leaves missing from the tree (a folded DINOv2) are removed from
 the module too.  The load is strict: every parameter of the module must come
@@ -25,11 +32,17 @@ gradient tree flattens the same way as a parameter tree.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
 from torch import nn
+
+from llmseg_tpu_torch.models import layers as L
+
+# a quantized leaf's weight name -> (its module, its scale's name)
+_QUANT_LEAVES = {"w_q": (L.Int8Linear, "w_scale"), "w_q8a": (L.W8A8Linear, "w_scale"),
+                 "w_q4": (L.Int4Linear, "w_scale4")}
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -50,6 +63,8 @@ def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
             name, arr = f"{path}.weight", arr.T
         elif key == "a":                         # LoRA A
             name, arr = f"{path}.weight", arr.T
+        elif key in ("w_q", "w_q8a", "w_q4", "w_scale4"):
+            name, arr = path, arr.T
         elif key in ("b", "bias"):
             name = f"{prefix}bias"
         elif key == "scale":
@@ -76,10 +91,36 @@ def flatten_paths(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return flatten(tree)
 
 
+def _place_quantized(module: nn.Module, flat: Dict[str, np.ndarray]) -> None:
+    """Swap in a quantized module for each quantized leaf of the tree,
+    taking its arrays out of ``flat``; the bias is cast to the replaced
+    ``nn.Linear``'s dtype, everything goes to its device."""
+    for name in [n for n in flat if n.rpartition(".")[2] in _QUANT_LEAVES]:
+        prefix, _, leaf = name.rpartition(".")
+        lin = module.get_submodule(prefix)
+        if not isinstance(lin, nn.Linear):
+            raise KeyError(f"{name}: the module at {prefix!r} is not an nn.Linear")
+        cls, scale = _QUANT_LEAVES[leaf]
+        bias = flat.pop(f"{prefix}.bias", None)
+        q = cls(torch.tensor(flat.pop(name)), torch.tensor(flat.pop(f"{prefix}.{scale}")),
+                None if bias is None else torch.tensor(bias).to(lin.weight.dtype))
+        parent, _, attr = prefix.rpartition(".")
+        setattr(module.get_submodule(parent), attr, q.to(lin.weight.device))
+
+
+def quant_stats(stats, device="cpu") -> List[Dict[str, torch.Tensor]]:
+    """``llmseg.calibrate_quant_stats``'s per-layer column maxima (dicts of
+    arrays) as float32 tensors on ``device``."""
+    return [{k: torch.tensor(np.asarray(v), dtype=torch.float32, device=device)
+             for k, v in st.items()} for st in stats]
+
+
 @torch.no_grad()
 def load_(module: nn.Module, tree) -> nn.Module:
-    """Copy the JAX tree into ``module`` (cast to its dtype and device)."""
+    """Copy the JAX tree into ``module`` (cast to its dtype and device).  A
+    quantized leaf replaces the ``nn.Linear`` at its path."""
     flat = flatten(tree)
+    _place_quantized(module, flat)
     for name, _ in list(module.named_parameters()):
         owner_name, _, leaf = name.rpartition(".")
         if leaf in ("ls1", "ls2") and name not in flat:

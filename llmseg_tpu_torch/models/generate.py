@@ -49,7 +49,7 @@ def prefill_cache(llm: Llama, inputs_embeds: torch.Tensor, total_len: int, *,
         cache.append((ck, cv))
         o = attention(q, *layer.repeat_kv(k, v), causal=True)
         x = x + layer.attn.o(o.reshape(B, T, -1))
-        x = x + layer.mlp(layer.post_norm(x))
+        x = x + layer.mlp_block(x)
     return llm.norm(x), cache
 
 
@@ -64,7 +64,7 @@ def _layer_cached(layer, lora, x, ck, cv, pos: int, cos, sin, scaling: float):
     bias = torch.where(torch.arange(S, device=x.device) <= pos, 0.0, NEG_INF)
     o = attention_plain(q, *layer.repeat_kv(ck, cv), bias=bias[None, None, None, :])
     x = x + layer.attn.o(o.reshape(B, 1, -1))
-    return x + layer.mlp(layer.post_norm(x))
+    return x + layer.mlp_block(x)
 
 
 @torch.inference_mode()

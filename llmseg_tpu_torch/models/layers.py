@@ -48,6 +48,48 @@ class RMSNorm(nn.Module):
         return (y * self.weight.float()).to(x.dtype)
 
 
+class _QuantLinear(nn.Module):
+    """A quantized ``nn.Linear`` (``layers.dense``'s quantized branch): the
+    weight in (out, in) as ``nn.Linear`` keeps it, its scales and the
+    optional bias held as buffers, since a quantized base is frozen.  The
+    forward is ``ops.quant.qdense``."""
+
+    def __init__(self, names, weight: torch.Tensor, scale: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.register_buffer(names[0], weight)
+        self.register_buffer(names[1], scale)
+        self.register_buffer("bias", bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from llmseg_tpu_torch.ops import quant
+        return quant.qdense(self, x)
+
+
+class Int8Linear(_QuantLinear):
+    """Weight-only int8: ``w_q`` (out, in) int8, ``w_scale`` (out,) float32."""
+
+    def __init__(self, w_q, w_scale, bias=None):
+        super().__init__(("w_q", "w_scale"), w_q, w_scale, bias)
+
+
+class W8A8Linear(_QuantLinear):
+    """W8A8: ``w_q8a`` (out, in) int8, ``w_scale`` (out,) float32; the
+    activations are quantized per row at apply time."""
+
+    def __init__(self, w_q8a, w_scale, bias=None):
+        super().__init__(("w_q8a", "w_scale"), w_q8a, w_scale, bias)
+
+
+class Int4Linear(_QuantLinear):
+    """int4: ``w_q4`` (out, padded_in / 2) int8, two nibbles a byte along
+    ``in`` (the low one first), ``w_scale4`` (out, n_groups) float32, one
+    scale per group of 128 inputs."""
+
+    def __init__(self, w_q4, w_scale4, bias=None):
+        super().__init__(("w_q4", "w_scale4"), w_q4, w_scale4, bias)
+
+
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 

@@ -5,8 +5,13 @@ hidden states; :func:`logits` maps them to float32 logits.  Causal attention
 goes through ``ops.attention.attention``, which sends the 767-token
 ReasonSeg sequences to kernel A on the card (and, under autograd, kernels C
 and D backward).  Layers may be checkpointed (``remat``).  LoRA on q/v is an
-optional overlay module (:class:`LlamaLora`); the quantized branches of the
-JAX package are not part of the port yet.
+optional overlay module (:class:`LlamaLora`).  A model quantized by
+``ops.quant`` has quantized modules in place of its projections; where all
+of a site's projections are W8A8, the RMSNorm before q/k/v and gate/up is
+folded into the activation quantization (:func:`_rms_qdense`, kernel Q1 on
+the card), and the products of one input share one quantization
+(:func:`_shared_qdense`).  ``quant_stats`` collects SmoothQuant's
+calibration statistics.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from llmseg_tpu_torch.config import LlamaConfig, LoraConfig
 from llmseg_tpu_torch.models import layers as L
+from llmseg_tpu_torch.ops import quant
 from llmseg_tpu_torch.ops.attention import attention
 
 
@@ -43,9 +49,6 @@ class LlamaMLP(nn.Module):
         self.gate = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
         self.up = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
         self.down = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(F.silu(self.gate(x)) * self.up(x))
 
 
 class LoraPair(nn.Module):
@@ -78,11 +81,33 @@ class LlamaLora(nn.Module):
             for _ in range(cfg.num_layers))
 
 
-def _dense_lora(lin: nn.Linear, pair: Optional[LoraPair], x, scaling: float):
-    y = lin(x)
-    if pair is not None:
-        y = y + pair(x) * scaling
-    return y
+def _shared_qdense(mods, x):
+    """One activation quantization shared by the W8A8 products of one input
+    (the same as quantizing for each: it depends on x alone).  None unless
+    every module is W8A8."""
+    if not all(isinstance(m, L.W8A8Linear) for m in mods):
+        return None
+    qa = quant.quantize_activation(x)
+    return [quant.qdense_act(m, qa, x.dtype) for m in mods]
+
+
+def _rms_qdense(mods, x_raw, norm: L.RMSNorm, lora, stats):
+    """RMSNorm folded into the shared quantization of the W8A8 products
+    (``quant.rms_quantize_activation``): the normed tensor is never formed.
+    None when a module is not W8A8, a LoRA overlay needs the normed tensor,
+    calibration wants its statistics, or the outlier decomposition is on;
+    the caller then takes RMSNorm and the unfused path."""
+    if (lora is not None or stats is not None or quant.W8A8_OUTLIER_K > 0
+            or not all(isinstance(m, L.W8A8Linear) for m in mods)):
+        return None
+    qa = quant.rms_quantize_activation(x_raw, norm.weight, norm.eps)
+    return [quant.qdense_act(m, qa, x_raw.dtype) for m in mods]
+
+
+def _colmax(x: torch.Tensor) -> torch.Tensor:
+    """max |x| per input channel over every token: SmoothQuant's
+    calibration statistic."""
+    return x.float().abs().amax(dim=tuple(range(x.dim() - 1)))
 
 
 class LlamaLayer(nn.Module):
@@ -96,18 +121,25 @@ class LlamaLayer(nn.Module):
         self.mlp = LlamaMLP(cfg, **kw)
 
     def qkv(self, x_raw, cos, sin, lora: Optional[nn.ModuleDict], scaling: float,
-            positions: Optional[torch.Tensor] = None):
+            positions: Optional[torch.Tensor] = None, stats: Optional[dict] = None):
         """RMSNorm, the q/k/v projections (LoRA on q/v) and RoPE at
         ``positions`` (B, T) (0..T-1 when None): q (B, T, H, Dh), k and v
-        (B, T, H_kv, Dh)."""
-        cfg = self.cfg
+        (B, T, H_kv, Dh).  ``stats`` receives 'attn_in'."""
+        cfg, a = self.cfg, self.attn
         B, T, _ = x_raw.shape
-        x = self.input_norm(x_raw)
-        lq = lora["q"] if lora is not None and "q" in lora else None
-        lv = lora["v"] if lora is not None and "v" in lora else None
-        q = _dense_lora(self.attn.q, lq, x, scaling)
-        k = self.attn.k(x)
-        v = _dense_lora(self.attn.v, lv, x, scaling)
+        fused = _rms_qdense((a.q, a.k, a.v), x_raw, self.input_norm, lora, stats)
+        if fused is not None:
+            q, k, v = fused
+        else:
+            x = self.input_norm(x_raw)
+            if stats is not None:
+                stats["attn_in"] = _colmax(x)
+            shared = _shared_qdense((a.q, a.k, a.v), x)
+            q, k, v = shared if shared is not None else (a.q(x), a.k(x), a.v(x))
+            if lora is not None and "q" in lora:
+                q = q + lora["q"](x) * scaling
+            if lora is not None and "v" in lora:
+                v = v + lora["v"](x) * scaling
         q = L.apply_rope(q.reshape(B, T, cfg.num_heads, cfg.head_dim), cos, sin, positions)
         k = L.apply_rope(k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim), cos, sin, positions)
         return q, k, v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
@@ -120,16 +152,38 @@ class LlamaLayer(nn.Module):
         return k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
 
     def attn_block(self, x_raw, cos, sin, lora: Optional[nn.ModuleDict],
-                   scaling: float):
+                   scaling: float, stats: Optional[dict] = None):
         B, T, _ = x_raw.shape
-        q, k, v = self.qkv(x_raw, cos, sin, lora, scaling)
+        q, k, v = self.qkv(x_raw, cos, sin, lora, scaling, stats=stats)
         k, v = self.repeat_kv(k, v)
         o = attention(q, k, v, causal=True).reshape(B, T, -1)
+        if stats is not None:
+            stats["o_in"] = _colmax(o)
         return self.attn.o(o)
 
-    def forward(self, x, cos, sin, lora=None, scaling: float = 1.0):
-        x = x + self.attn_block(x, cos, sin, lora, scaling)
-        return x + self.mlp(self.post_norm(x))
+    def mlp_block(self, x_raw, stats: Optional[dict] = None):
+        """RMSNorm and the MLP, ``_mlp_block``: the fused W8A8 route for
+        gate/up where it applies.  ``stats`` receives 'mlp_in' and
+        'down_in'."""
+        m = self.mlp
+        fused = _rms_qdense((m.gate, m.up), x_raw, self.post_norm, None, stats)
+        if fused is not None:
+            gate, up = fused
+        else:
+            x = self.post_norm(x_raw)
+            if stats is not None:
+                stats["mlp_in"] = _colmax(x)
+            shared = _shared_qdense((m.gate, m.up), x)
+            gate, up = shared if shared is not None else (m.gate(x), m.up(x))
+        h = F.silu(gate) * up
+        if stats is not None:
+            stats["down_in"] = _colmax(h)
+        return m.down(h)
+
+    def forward(self, x, cos, sin, lora=None, scaling: float = 1.0,
+                stats: Optional[dict] = None):
+        x = x + self.attn_block(x, cos, sin, lora, scaling, stats)
+        return x + self.mlp_block(x, stats)
 
 
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -171,13 +225,20 @@ class Llama(nn.Module):
     def forward(self, *, input_ids: Optional[torch.Tensor] = None,
                 inputs_embeds: Optional[torch.Tensor] = None,
                 lora: Optional[LlamaLora] = None,
-                lora_cfg: Optional[LoraConfig] = None, remat=False) -> torch.Tensor:
+                lora_cfg: Optional[LoraConfig] = None, remat=False,
+                quant_stats: Optional[list] = None) -> torch.Tensor:
         """Final-norm hidden states (B, T, C).  ``remat`` checkpoints each
         layer: False/"none" keeps every activation, True/"full" recomputes
         the whole layer in the backward, "dots" keeps the projection
-        products and recomputes the rest (``llama.apply``'s policies)."""
+        products and recomputes the rest (``llama.apply``'s policies).
+        ``quant_stats``: an empty list to collect, per layer, the column
+        max |input| of each quantized product's site (SmoothQuant's
+        calibration: 'attn_in', 'o_in', 'mlp_in', 'down_in'); it excludes
+        remat."""
         cfg = self.cfg
         policy = remat_policy(remat)
+        if quant_stats is not None and policy != "none":
+            raise ValueError("quant_stats collection is incompatible with remat")
         x = self.embed_tokens(input_ids) if inputs_embeds is None else inputs_embeds
         T = x.shape[1]
         if T > cfg.max_seq_len:
@@ -187,7 +248,10 @@ class Llama(nn.Module):
         scaling = 1.0 if lora_cfg is None else lora_cfg.alpha / lora_cfg.rank
         for i, layer in enumerate(self.layers):
             args = (x, cos[:T], sin[:T], None if lora is None else lora.layers[i], scaling)
-            if policy == "none" or not torch.is_grad_enabled():
+            if quant_stats is not None:
+                quant_stats.append({})
+                x = layer(*args, stats=quant_stats[-1])
+            elif policy == "none" or not torch.is_grad_enabled():
                 x = layer(*args)
             elif policy == "full":
                 x = checkpoint(layer, *args, use_reentrant=False)
@@ -224,7 +288,11 @@ def logits(model: Llama, hidden: torch.Tensor) -> torch.Tensor:
     """(B, T, C) -> (B, T, V) float32 logits, the product accumulated in
     float32 (``llama.logits``).  Low-precision CUDA tensors use
     ``torch.mm(..., out_dtype=torch.float32)`` where the installed PyTorch
-    has it; otherwise both operands are cast to float32 first."""
+    has it; otherwise both operands are cast to float32 first.  A quantized
+    lm_head (``ops.quant``) gives its own output, in the hidden states'
+    type, cast to float32."""
+    if model.lm_head is not None and quant.is_quantized(model.lm_head):
+        return model.lm_head(hidden).float()
     w = model.embed_tokens.weight if model.cfg.tie_embeddings else model.lm_head.weight
     lead = hidden.shape[:-1]
     h = hidden.reshape(-1, hidden.shape[-1])

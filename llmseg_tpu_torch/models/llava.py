@@ -42,14 +42,17 @@ class Llava(nn.Module):
                 images: Optional[torch.Tensor] = None,
                 image_embeds: Optional[torch.Tensor] = None,
                 lora: Optional[LlamaLora] = None,
-                lora_cfg: Optional[LoraConfig] = None, remat=False) -> torch.Tensor:
-        """Multimodal forward -> final hidden states (B, T+N-1, C)."""
+                lora_cfg: Optional[LoraConfig] = None, remat=False,
+                quant_stats: Optional[list] = None) -> torch.Tensor:
+        """Multimodal forward -> final hidden states (B, T+N-1, C).
+        ``quant_stats``: SmoothQuant's calibration collector (``Llama``)."""
         if image_embeds is None:
             image_embeds = self.encode_images(images)
         text_embeds = self.llm.embed_tokens(input_ids)
         x = splice_image_tokens(text_embeds, image_embeds.to(text_embeds.dtype),
                                 image_pos)
-        return self.llm(inputs_embeds=x, lora=lora, lora_cfg=lora_cfg, remat=remat)
+        return self.llm(inputs_embeds=x, lora=lora, lora_cfg=lora_cfg, remat=remat,
+                        quant_stats=quant_stats)
 
 
 def splice_image_tokens(text_embeds: torch.Tensor, image_embeds: torch.Tensor,

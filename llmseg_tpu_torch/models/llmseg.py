@@ -93,6 +93,26 @@ def fold_frozen_inplace(model: LLMSeg) -> LLMSeg:
     return model
 
 
+@torch.inference_mode()
+def calibrate_quant_stats(model: LLMSeg, batch, lora_cfg: Optional[LoraConfig] = None):
+    """Forwards on calibration data that record, per LLaMA layer, the
+    column max |input| of every quantized product's site (SmoothQuant's
+    statistic; run on the bf16 model before ``ops.quant.quantize_llama_inplace
+    (smooth_stats=...)``).  ``batch`` is one batch dict or an iterable of
+    them; several are merged by elementwise max.  Returns a list of dicts
+    of float32 tensors on the model's device, or None for an empty
+    iterable."""
+    if isinstance(batch, dict):
+        batch = (batch,)
+    merged = None
+    for b in batch:
+        st: list = []
+        forward(model, b, lora_cfg=lora_cfg, quant_stats=st)
+        merged = st if merged is None else [
+            {k: torch.maximum(m[k], s[k]) for k in m} for m, s in zip(merged, st)]
+    return merged
+
+
 _INTERP_CACHE: Dict = {}
 
 
@@ -172,10 +192,12 @@ def seg_hidden_index(input_ids: torch.Tensor, cfg: LLMSegConfig):
 
 
 def forward(model: LLMSeg, batch: Dict, *, pool: str = "adjoint",
-            lora_cfg: Optional[LoraConfig] = None, remat=False) -> Dict:
+            lora_cfg: Optional[LoraConfig] = None, remat=False,
+            quant_stats: Optional[list] = None) -> Dict:
     """Shared train/inference forward; ``pool`` picks the pooling route
     ("adjoint", the default, or "unfused": upsampled features, then
-    mask_pooling); ``remat`` is passed to the LLaMA layers."""
+    mask_pooling); ``remat`` and ``quant_stats`` (SmoothQuant's calibration
+    collector) are passed to the LLaMA layers."""
     if pool not in POOL_ROUTES:
         raise ValueError(f"pool must be one of {POOL_ROUTES}, got {pool!r}")
     cfg = model.cfg
@@ -195,7 +217,8 @@ def forward(model: LLMSeg, batch: Dict, *, pool: str = "adjoint",
     hidden = model.llava(input_ids=batch["input_ids"],
                          image_pos=batch["image_pos"],
                          image_embeds=img_embeds[row_img],
-                         lora=model.lora, lora_cfg=lora_cfg, remat=remat)
+                         lora=model.lora, lora_cfg=lora_cfg, remat=remat,
+                         quant_stats=quant_stats)
 
     seg_idx, has_seg = seg_hidden_index(batch["input_ids"], cfg)
     seg_hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device), seg_idx]

@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ARCH = "arch=compute_90a,code=sm_90a"
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signature of each source's launcher, in csrc/<name>.cu
 SIGNATURES = {
     "flash_fwd": [_P, _P, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -34,6 +34,7 @@ SIGNATURES = {
     "factored_decode": [_I] + [_P] * 5,
     "twoway_fused": [_I] + [_P] * 5,
     "flash_fwd_1pass_t": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "quant": [_I] + [_P] * 7 + [_I] * 4 + [_F, _P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

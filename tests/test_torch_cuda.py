@@ -8,7 +8,7 @@ forward kernels (A, B, E, F, J) within 1e-2 + 1e-2 * |ref| (bf16 keeps 8
 significant bits; the kernels also round the probabilities to bf16 before
 the second product, as the TPU kernels do); float32 within 1e-4 (another
 summation order); the backward kernels and kernels G, H and I normwise, as
-their tests state."""
+their tests state; the quant kernels Q1 and Q2 as their tests state."""
 
 import math
 
@@ -17,6 +17,7 @@ import torch
 
 from llmseg_tpu_torch import config as C
 from llmseg_tpu_torch.ops import attention as A
+from llmseg_tpu_torch.ops import quant as Q
 from llmseg_tpu_torch.ops import relpos_attention as R
 from llmseg_tpu_torch.ops import twoway_kernel as TK
 
@@ -611,3 +612,103 @@ def test_kernels_h_i_reject_unsupported_inputs():
         TK.twoway_decode(dec.transformer, dec, emb[:3], pe, tok, 8)
     with pytest.raises(ValueError):     # bf16 takes L a multiple of 64 (the fused tiles)
         TK.twoway_decode(dec.transformer, dec, emb[:, :60, :60], pe[:60, :60], tok, 8)
+
+
+# ---------------------------------------------------------------------------
+# Kernels Q1 and Q2 (csrc/quant.cu) and the W8A8 product around them
+# ---------------------------------------------------------------------------
+
+
+def _ulps(got, ref):
+    """|got - ref| in units in the last place of their type, as integers
+    (the bit patterns of two finite values of one sign)."""
+    view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    return (got.view(view).long() - ref.view(view).long()).abs()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("R,C", [(1, 4096), (17, 4096), (3068, 4096), (3068, 11008),
+                                 (129, 11008), (5, 100)])
+def test_q1_matches_plain(dtype, rms, R, C):
+    """int8 values equal (the same IEEE operations, rounding half to even),
+    including a row of exact ties; the scale equal in the plain form and
+    within 2e-6 relative in the RMS form (its mean of x^2 is summed in
+    another order, and torch.rsqrt may differ from 1 / sqrt by an ulp).
+    C = 100 takes the scalar path (not a whole number of 16-byte vectors)."""
+    g = torch.Generator(device="cuda").manual_seed(R + C)
+    x = torch.randn(R, C, device="cuda", generator=g) * 3
+    x[0, :4] = torch.tensor([127.0, 2.5, -3.5, 0.5])
+    x = x.to(dtype)
+    gamma = None
+    if rms:
+        gamma = (1 + 0.3 * torch.randn(C, device="cuda", generator=g)).to(dtype)
+        gamma[:4] = 1.0
+    xq, sc = Q.quantize_rows(x, gamma, 1e-6)
+    rq, rsc = Q.quantize_rows_plain(x, gamma, 1e-6)
+    assert torch.equal(xq, rq)
+    if rms:
+        torch.testing.assert_close(sc, rsc, rtol=2e-6, atol=0)
+    else:
+        assert torch.equal(sc, rsc)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("extra", [None, "bias", "side"])
+@pytest.mark.parametrize("R,N", [(1, 4096), (17, 11008), (3068, 4096), (129, 4096), (7, 100)])
+def test_q2_matches_plain(out_dtype, extra, R, N):
+    """Within one ulp of the output type of the plain version (the same
+    operations in the same order); N = 100 takes the scalar path."""
+    g = torch.Generator(device="cuda").manual_seed(R * N)
+    acc = torch.randint(-2 ** 22, 2 ** 22, (R, N), device="cuda", generator=g,
+                        dtype=torch.int32)
+    sc = torch.rand(R, 1, device="cuda", generator=g) * 1e-3
+    ws = torch.rand(N, device="cuda", generator=g) * 1e-2
+    bias = (torch.randn(N, device="cuda", generator=g).to(out_dtype)
+            if extra == "bias" else None)
+    side = torch.randn(R, N, device="cuda", generator=g) if extra == "side" else None
+    got = Q.w8a8_epilogue(acc, sc, ws, bias, out_dtype, side)
+    ref = Q.w8a8_epilogue_plain(acc, sc, ws, bias, out_dtype, side)
+    assert got.dtype == out_dtype and _ulps(got, ref).max().item() <= 1
+
+
+@pytest.mark.parametrize("R", [1, 16, 17, 3068])
+def test_int8_product_pads_small_row_counts(R):
+    """The s8 x s8 -> s32 product is exact at every row count, those of 16
+    and fewer padded for torch._int_mm."""
+    g = torch.Generator(device="cuda").manual_seed(R)
+    xq = torch.randint(-127, 128, (R, 4096), device="cuda", generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (1024, 4096), device="cuda", generator=g, dtype=torch.int8)
+    got = Q._int_mm(xq, w)
+    assert got.shape == (R, 1024) and got.dtype == torch.int32
+    assert torch.equal(got.double(), xq.double() @ w.double().t())
+
+
+def test_w8a8_predict_runs_through_q1_and_q2(monkeypatch):
+    """llmseg_tiny predict with the LLaMA in W8A8 (SmoothQuant) on the card
+    against the same model on the CPU, float32 (no TF32 convolutions):
+    within a tenth of the quantization error (a rounding tie may fall the
+    other way); Q1 launches four times a layer, Q2 seven."""
+    from llmseg_tpu_torch.data.synthetic import make_batch
+    from llmseg_tpu_torch.models import llmseg
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+    cfg = C.llmseg_tiny()
+    m_cpu = llmseg.init(cfg, seed=0, device="cpu")
+    b_cpu = make_batch(cfg, num_images=2, rows_per_image=2, text_len=32, seed=1, device="cpu")
+    ref = llmseg.predict(m_cpu, b_cpu, device="cpu")["pred_similarity"]
+    Q.quantize_llama_inplace(m_cpu.llava.llm, bits=8, w8a8=True,
+                             smooth_stats=llmseg.calibrate_quant_stats(m_cpu, b_cpu),
+                             head_dim=cfg.llava.llm.head_dim)
+    m_gpu = llmseg.build(cfg, device="cuda")
+    Q.quantize_llama_inplace(m_gpu.llava.llm, bits=8, w8a8=True)
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    before = {k.name: k.launches for k in Q.KERNELS}
+    got = llmseg.predict(m_gpu, {k: v.cuda() for k, v in b_cpu.items()})["pred_similarity"]
+    launches = {k.name: k.launches - before[k.name] for k in Q.KERNELS}
+    want = llmseg.predict(m_cpu, b_cpu, device="cpu")["pred_similarity"]
+    L = cfg.llava.llm.num_layers
+    assert launches == {"quantize_rows": 4 * L, "w8a8_epilogue": 7 * L}
+    qerr = (want - ref).abs().max().item()
+    assert qerr > 0 and (got.cpu() - want).abs().max().item() <= 0.1 * qerr

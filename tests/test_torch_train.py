@@ -184,7 +184,7 @@ def test_trainer_epoch_and_checkpoint_roundtrip(tmp_path):
 
 
 def test_trainer_refuses_what_the_port_lacks(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="QLoRA.*queue 1 item 10"):
         TC.TrainConfig(quantize_frozen=True)
     with pytest.raises(NotImplementedError, match="one device"):
         TC.TrainConfig(mesh=TC.MeshConfig(data=4))
