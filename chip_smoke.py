@@ -64,6 +64,10 @@ Phases, one JSON line each; any failure exits non-zero:
               against its plain version on the same tensors, then against
               predict on the plain versions (within half the quantization
               error: codes flip in cascade from an ulp of the scale);
+     qlora_in_place  grad_in_place with an int8 frozen base
+              (optim.quantize_skeleton), float32, under its gates; the plain
+              run takes the kernel run's side of a selection-head ReLU kink
+              where the two differ within rounding;
   4. main     llmseg_7b in bf16 (random weights from a seed, LayerScale
               folded), make_batch(4 images, text_len 512) and predict: launch
               counts of every kernel in that run, finite (4, 50) outputs,
@@ -77,6 +81,11 @@ Phases, one JSON line each; any failure exits non-zero:
               quantized W8A8 in place, top-1 agreement and max|dsim| on the
               probe against bf16, launches of A, B, Q1 and Q2 a step, and
               ms/step, img/s and peak memory at batch 4 and 8;
+     valloop  bench.py's val loop (run_valloop) on the port: run_validation
+              over eval_step at batch 8, 48 images, strategy "threshold",
+              in bf16 (before the W8A8 phase) and in W8A8 (on its model):
+              img/s, gIoU, cIoU, the forward-only rate, launches a batch;
+              the numpy compose on the same scores must give the same bits;
   5. train    the LoRA train step at llmseg_7b in bf16 through the Trainer
               (1 image, 1 row, text_len 512, remat "dots"): launch counts per
               step, finite losses, frozen weights bit-identical and trainable
@@ -84,6 +93,12 @@ Phases, one JSON line each; any failure exits non-zero:
      train_breakdown  forward, backward and optimizer times of one step,
               the step under each remat policy, and one step's device time
               by kernel family (torch.profiler) with the idle share;
+     qlora    bench.py's train lane (run_trainstep): the Trainer with an
+              int8 frozen base, remat "dots", 1 image, 1 row, text_len 512:
+              one warm step, three runs of 8 timed steps (the least, the
+              spread), peak memory, launches a step, the products "dots"
+              saved; then a timed step on an int4 base; buffers bit-identical,
+              trainables moved, lm_head and embed_tokens bf16 parameters;
      breakdown  each stage of predict timed alone, and one predict step's
               device time by kernel family with the idle share;
      bwd_device_time  device time (device_ms) of kernels C and D and
@@ -144,6 +159,11 @@ F32_TOL = (1e-4, 0.0)
 BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 MODULE_LIMIT = 1e-4           # tiny predict, card vs CPU, float32
 GRAD_LIMIT = 1e-4             # grad_in_place, float32, per tensor vs max|ref|
+FLIP_LIMIT = 1e-5             # qlora_in_place: a ReLU unit whose gate flips between the
+                              # paths has its pre-activation within rounding of zero,
+FLIP_UNITS = 4                # and a handful of units flip at most
+PLANTED_FAULT = 1e-3          # qlora_in_place's control: LLaMA's attention output scaled
+                              # by 1 + this must fail the same gates
 OUT_DIR = "chiprun_out"
 
 
@@ -1926,6 +1946,403 @@ def w8a8_phase(C, llmseg, make_batch, Q, A, model, batch, bf16_batch4: dict) -> 
     return rec
 
 
+VAL_BATCH, VAL_IMAGES = 8, 48     # bench.py's run_valloop: batch 8, 48 images
+
+
+def valloop_data(make_batch, cfg):
+    """bench.py's run_valloop data: one (480, 640, K) proposal stack at
+    density 0.3 and one (480, 640) ground truth at 0.3 from RandomState(0),
+    shared by every image, and make_batch(seed=i) in bf16 for batch i.  The
+    batches are made on the card before any clock starts (bench.py makes
+    them inside its timed loop; here each draws 19 M normals on the host)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(0)
+    segs_origin = (rng.rand(480, 640, cfg.max_proposals) < 0.3).astype(np.uint8)
+    gt = (rng.rand(480, 640) < 0.3).astype(np.float32)
+    extras = {"segs_origin": [segs_origin] * VAL_BATCH, "masks_list": [[gt]] * VAL_BATCH,
+              "image_paths": [None] * VAL_BATCH, "conversations": [[""]] * VAL_BATCH}
+    batches = [make_batch(cfg, num_images=VAL_BATCH, rows_per_image=1, text_len=512,
+                          dtype=torch.bfloat16, seed=i) for i in range(VAL_IMAGES // VAL_BATCH)]
+    return batches, extras
+
+
+def valloop_phase(E, TS, model, data, kernels, mode: str) -> dict:
+    """bench.py's val-loop lane on the port: ``evaluate.run_validation``
+    (strategy "threshold") over ``train_step.eval_step`` at batch 8 on 48
+    images, after one warm batch: img/s, gIoU and cIoU, the launches of
+    each kernel a batch; the same loop with the forward alone (the scores
+    read, no compose), whose rate beside the first shows the compose's
+    share; the same loop with the numpy compose on the host
+    (``plain=True``, pipelined alike), whose rate shows what the device
+    compose saves; and the gate: the same 48 images' scores through the
+    numpy plain compose give the same gIoU and cIoU to the bit."""
+    import torch
+    batches, extras = data
+    n_batches = len(batches)
+    E.run_validation(TS.eval_step, model, [(batches[0], extras)])
+    torch.cuda.synchronize()
+    scores = []
+
+    def step(m, b):
+        out = TS.eval_step(m, b)
+        scores.append(out)
+        return out
+
+    for kern in kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    res = E.run_validation(step, model, [(b, extras) for b in batches], strategy="threshold")
+    dt = time.perf_counter() - t0
+    launches = {kern.name: kern.launches / n_batches for kern in kernels}
+    # the forward alone, read as the loop reads it (one batch behind)
+    t0 = time.perf_counter()
+    pending = None
+    for b in batches:
+        _, done = E._to_host(TS.eval_step(model, b))
+        if pending is not None:
+            pending.synchronize()
+        pending = done
+    torch.cuda.synchronize()
+    dt_fwd = time.perf_counter() - t0
+    # the loop with the numpy compose in place of the device's
+    t0 = time.perf_counter()
+    host = E.run_validation(TS.eval_step, model, [(b, extras) for b in batches],
+                            strategy="threshold", plain=True)
+    dt_host = time.perf_counter() - t0
+    plain = E.run_validation(lambda m, i: scores[i], None,
+                             [(i, extras) for i in range(n_batches)], strategy="threshold",
+                             plain=True)
+    kept = sum(int((s["prop_valid"] & (s["pred_iou"].float() > 0.5)).sum()) for s in scores)
+    metric = ("val_loop_images_per_sec[llmseg_7b,batch8"
+              + (",int8-w8a8]" if mode == "w8a8" else "]"))
+    rec = {"phase": "valloop", "config": "llmseg_7b", "mode": mode, "batch": VAL_BATCH,
+           "images": VAL_IMAGES, "strategy": "threshold", metric: VAL_IMAGES / dt,
+           "img_per_s": VAL_IMAGES / dt, "seconds": dt,
+           "forward_only_img_per_s": VAL_IMAGES / dt_fwd, "forward_only_seconds": dt_fwd,
+           "compose_share": 1.0 - dt_fwd / dt,
+           "numpy_compose_img_per_s": VAL_IMAGES / dt_host, "numpy_compose_seconds": dt_host,
+           "numpy_compose_share": 1.0 - dt_fwd / dt_host, "numpy_compose_result": host,
+           **res, "plain": plain,
+           "proposals_kept": kept, "launches_per_batch": launches}
+    rec["ok"] = (res == plain and all(math.isfinite(v) for v in res.values())
+                 and len(scores) == n_batches)
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"the val loop's device compose disagrees with the numpy path: {rec}")
+    return rec
+
+
+def relu_gate_flips(runs):
+    """The selection head's ReLU inputs whose sign differs between two runs
+    (``runs``: two lists of (name, pre-activation) of ``relu_inputs``, in
+    the order of the calls): {name: flipped entries}, and the largest
+    |pre-activation| of a flipped entry over the largest of its call."""
+    out, worst = {}, 0.0
+    for (name, a), (name_b, b) in zip(*runs):
+        assert name == name_b, (name, name_b)
+        flip = (a > 0) != (b > 0)
+        if flip.any():
+            out[name] = out.get(name, 0) + int(flip.sum())
+            worst = max(worst, (a[flip].abs().max() / a.abs().max()).item())
+    return out, worst
+
+
+def relu_inputs(select):
+    """(name, nn.Linear) of every product of the selection head that a ReLU
+    follows."""
+    named = dict(select.named_modules())
+    names = [f"blocks.{i}.mlp.fc1" for i in range(len(select.blocks))]
+    names += [f"{head}.layers.{i}" for head in ("iou_head", "embedding_head")
+              for i in range(len(getattr(select, head).layers) - 1)]
+    return [(n, named[n]) for n in names + ["text_fc1"]]
+
+
+def qlora_in_place(C, llmseg, make_batch, A) -> dict:
+    """grads_in_place with an int8 frozen base (``optim.quantize_skeleton``)
+    in float32: loss_fn and the gradient of every trainable parameter
+    through the kernels under remat "dots" (whose recompute runs A and the
+    int8 products again) against LLaMA's attention on the plain path with
+    remat "none", gated as grads_in_place.  A selection-head ReLU whose
+    input sits within rounding of zero takes its kink one way on one path
+    and the other way on the other, and every gradient upstream of it jumps
+    (the int8 base's values put one embedding-head unit there): the plain
+    run takes the kernel run's side of each kink (its forward value's sign
+    flipped, the gradient passed straight through), and the flipped inputs
+    must be within FLIP_LIMIT of their call's largest and at most
+    FLIP_UNITS (``relu_gate_flips``).  Since the reference then follows the
+    kernel run's kinks, a control shows that the gates still see a fault:
+    the kernel run again with A's output scaled by 1 + PLANTED_FAULT, and
+    its plain run, must fail them."""
+    import torch
+    from llmseg_tpu_torch.models import llama
+    from llmseg_tpu_torch.ops import quant as Q
+    from llmseg_tpu_torch.train import optim
+
+    cfg = cut_config(C)
+    lora = C.LoraConfig(rank=8)
+    batch = make_batch(cfg, num_images=1, rows_per_image=1, text_len=512, seed=4)
+    model = llmseg.init(cfg, seed=2, device="cuda", dtype=torch.float32, lora_cfg=lora)
+    with torch.no_grad():
+        g = torch.Generator(device="cuda").manual_seed(5)
+        for name, p in model.named_parameters():
+            if name.startswith("lora.") and name.endswith(".b.weight"):
+                p.copy_(torch.randn(p.shape, device="cuda", generator=g) * 0.02)
+    trainable = optim.partition(model)
+    optim.quantize_skeleton(model, bits=8)
+    quantized = sum(Q.is_quantized(m) for m in model.modules())
+
+    def grads(remat, attention, gates=None):
+        pre = []
+
+        def keep(name):
+            def hook(mod, args, out):
+                pre.append((name, out.detach()))
+                if gates is not None:
+                    gate_name, side = gates[len(pre) - 1]
+                    assert gate_name == name, (gate_name, name)
+                    flip = (out > 0) != (side > 0)
+                    return out + (torch.where(flip, -out, out) - out).detach()
+            return hook
+
+        hooks = [m.register_forward_hook(keep(n)) for n, m in relu_inputs(model.select)]
+        llama.attention = attention
+        try:
+            loss, _ = llmseg.loss_fn(model, batch, lora_cfg=lora, remat=remat)
+        finally:
+            llama.attention = A.attention
+            for h in hooks:
+                h.remove()
+        loss.backward()
+        out = {n: p.grad.float() for n, p in trainable.items()}
+        model.zero_grad(set_to_none=True)
+        return loss.item(), out, pre
+
+    def judge(kernel_run, plain_run):
+        (loss_k, got, pre_k), (loss_p, ref, pre_p) = kernel_run, plain_run
+        flips, flip_pre = relu_gate_flips((pre_p, pre_k))
+        zero = {n for n in ref if n.startswith("select.") and n.endswith(".k.bias")}
+        top = max(r.abs().max().item() for r in ref.values())
+        ratios = sorted((((got[n] - ref[n]).abs().max()
+                          / ref[n].abs().max().clamp_min(1e-30)).item(), n)
+                        for n in ref if n not in zero)
+        noise = max(max(got[n].abs().max().item(), ref[n].abs().max().item()) for n in zero)
+        r = {"loss_kernels": loss_k, "loss_plain": loss_p,
+             "worst_grad_err_vs_max_ref": ratios[-1][0], "worst_tensors": ratios[-3:],
+             "zero_grad_tensors": len(zero), "zero_grad_max_vs_top": noise / top,
+             "tensors": len(ref), "relu_gate_flips": flips,
+             "flipped_units": sum(flips.values()), "flipped_pre_vs_layer_max": flip_pre}
+        r["gates_pass"] = (flip_pre <= FLIP_LIMIT and r["flipped_units"] <= FLIP_UNITS
+                           and r["worst_grad_err_vs_max_ref"] <= GRAD_LIMIT
+                           and r["zero_grad_max_vs_top"] <= GRAD_LIMIT)
+        return r
+
+    for kern in A.KERNELS:
+        kern.launches = 0
+    run_k = grads("dots", A.attention)
+    launches = {kern.name: kern.launches for kern in A.KERNELS}
+    found = judge(run_k, grads("none", plain_attention, gates=run_k[2]))
+
+    def faulty(*args, **kwargs):
+        return A.attention(*args, **kwargs) * (1.0 + PLANTED_FAULT)
+
+    run_f = grads("dots", faulty)
+    control = judge(run_f, grads("none", plain_attention, gates=run_f[2]))
+    control = {k: control[k] for k in ("loss_kernels", "worst_grad_err_vs_max_ref",
+                                       "worst_tensors", "relu_gate_flips", "flipped_units",
+                                       "flipped_pre_vs_layer_max", "gates_pass")}
+    expect = {"flash_fwd": 4, "flash_fwd_1pass": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+              "flash_fwd_1pass_t": 0}
+    rec = {"phase": "qlora_in_place",
+           "config": "llmseg_7b, towers 2-3 blocks, LLaMA 2 layers, LoRA rank 8, int8 base",
+           "dtype": "float32", "limit": GRAD_LIMIT, "quantized_modules": quantized,
+           **found, "launches": launches, "expected_launches": expect,
+           "flip_limit": FLIP_LIMIT, "flip_units_limit": FLIP_UNITS,
+           "planted_fault": {"attention_output_scale": 1.0 + PLANTED_FAULT, **control}}
+    rec["ok"] = (quantized == 7 * cfg.llava.llm.num_layers and found["gates_pass"]
+                 and not control["gates_pass"] and launches == expect)
+    del model, trainable, run_k, run_f
+    torch.cuda.empty_cache()
+    if not rec["ok"]:
+        raise SystemExit(f"QLoRA gradients through the kernels disagree with the plain path, "
+                         f"or the gates miss a planted fault: {rec}")
+    return rec
+
+
+def paired_steps(C, cfg, qlora, batch, pairs: int = 8) -> dict:
+    """The QLoRA Trainer's step against the bf16 LoRA step of the train
+    phase (its Trainer built again beside it, one warm step), each step
+    timed alone, in pairs whose order alternates: the ms of each, the
+    ratios QLoRA / LoRA of the pairs, and their median.  Pairs taken in
+    turns see the same drift of the host, which moves each step by more
+    than the ratio's range between runs."""
+    import statistics
+    import torch
+    from llmseg_tpu_torch.train.trainer import Trainer
+
+    lora = Trainer(C.ExperimentConfig(model=cfg, train=C.TrainConfig(
+        warmup_steps=0, grad_accum_steps=1, lora=C.LoraConfig(rank=8),
+        log_dir=os.path.join(OUT_DIR, "train_runs"))))
+    lora.step(batch)
+
+    def timed(trainer):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step(batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    ms_q, ms_b = [], []
+    for i in range(pairs):
+        if i % 2:
+            ms_q.append(timed(qlora))
+            ms_b.append(timed(lora))
+        else:
+            ms_b.append(timed(lora))
+            ms_q.append(timed(qlora))
+    del lora
+    torch.cuda.empty_cache()
+    ratios = [q / b for q, b in zip(ms_q, ms_b)]
+    return {"qlora_int8_ms": ms_q, "bf16_lora_ms": ms_b, "ratios": ratios,
+            "median_ratio": statistics.median(ratios)}
+
+
+def qlora_phase(C, make_batch, A) -> dict:
+    """bench.py's train lane (run_trainstep) on the port: the Trainer with
+    an int8 frozen base (quantize_frozen, quantize_bits 8), remat "dots",
+    no accumulation (and no warmup, so that the first updates move the
+    trainables), LoRA rank 8, llmseg_7b in bf16, 1 image, 1 row, text_len
+    512.  One warm step, then 8 timed steps three times: the least ms/step
+    and the spread, peak memory, launches a step; which of LLaMA's products
+    remat "dots" saved in one step; the step against the bf16 LoRA step
+    (the train phase's Trainer, built again), timed in 8 pairs in turns,
+    and the median of the pairs' ratios; then an int4 base: one warm step
+    and one timed, with its peak memory.
+    Gates: finite losses, the int8 / int4 buffers bit-identical after the
+    steps, every trainable with a gradient changed (but for entries that
+    bf16 cannot move, as the train phase), lm_head and embed_tokens bf16
+    parameters."""
+    import torch
+    from torch.utils.checkpoint import CheckpointPolicy
+    from llmseg_tpu_torch.models import llama
+    from llmseg_tpu_torch.ops import quant as Q
+    from llmseg_tpu_torch.train.trainer import Trainer
+
+    cfg = C.llmseg_7b()
+    batch = make_batch(cfg, num_images=1, rows_per_image=1, text_len=512, seed=0)
+    L = cfg.llava.llm.num_layers
+    rec = {"phase": "qlora", "config": "llmseg_7b", "dtype": "bfloat16", "lora_rank": 8,
+           "batch_images": 1, "rows": 1, "text_len": 512, "remat": "dots"}
+    for bits in (8, 4):
+        exp = C.ExperimentConfig(model=cfg, train=C.TrainConfig(
+            quantize_frozen=True, quantize_bits=bits, remat_policy="dots",
+            grad_accum_steps=1, warmup_steps=0, lora=C.LoraConfig(rank=8),
+            log_dir=os.path.join(OUT_DIR, "qlora_runs")))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        trainer = Trainer(exp)
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+        llm = trainer.model.llava.llm
+        buffers = [b for b in trainer.model.buffers() if b.dtype in (torch.int8, torch.uint8)]
+        before = checksums(buffers)
+        start = {n: p.detach().clone() for n, p in trainer.trainable.items()}
+        nonzero = {n: torch.zeros((), dtype=torch.bool, device="cuda") for n in trainer.trainable}
+
+        def note_grad(name):
+            def hook(p):
+                nonzero[name].logical_or_(p.grad.ne(0).any())
+            return hook
+
+        hooks = [p.register_post_accumulate_grad_hook(note_grad(n))
+                 for n, p in trainer.trainable.items()]
+        metrics = [trainer.step(batch)]
+        for h in hooks:
+            h.remove()
+        torch.cuda.synchronize()
+        r = {"setup_s": setup_s, "quantized_modules": sum(Q.is_quantized(m) for m in llm.modules())}
+        if bits == 8:
+            for kern in A.KERNELS:
+                kern.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for _ in range(8):
+                    metrics.append(trainer.step(batch))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3 / 8)
+            r["launches_per_step"] = {k.name: k.launches / 24 for k in A.KERNELS}
+            r["expected_launches_per_step"] = {
+                "flash_fwd": 2 * L, "flash_fwd_1pass": cfg.dino.depth,
+                "flash_bwd_dq": L, "flash_bwd_dkv": L, "flash_fwd_1pass_t": 0}
+            r["ms_per_step_runs"] = times
+            r["train_step_ms[llmseg_7b,qlora_int8,remat_dots,batch1]"] = min(times)
+            r["ms_per_step"] = min(times)
+            r["spread_ms"] = max(times) - min(times)
+            r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            # which products remat "dots" keeps: one step, the first pass
+            saved = {}
+            policy = llama._save_dots
+
+            def recording(ctx, op, *args, **kwargs):
+                decision = policy(ctx, op, *args, **kwargs)
+                if decision == CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+                    key = f"{op} {tuple(args[0].shape)}x{tuple(args[1].shape)}"
+                    saved[key] = saved.get(key, 0) + 1
+                return decision
+
+            llama._save_dots = recording
+            try:
+                metrics.append(trainer.step(batch))
+            finally:
+                llama._save_dots = policy
+            r["dots_saved_per_step"] = saved
+            r["dots_saved_int8_products"] = sum(
+                n for k, n in saved.items() if k.startswith("aten.mm.dtype"))
+            r["expected_dots_saved_int8_products"] = 7 * L
+            r["paired_with_bf16_lora"] = paired_steps(C, cfg, trainer, batch)
+        else:   # one timed step after the warm one
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            metrics.append(trainer.step(batch))
+            torch.cuda.synchronize()
+            r["ms_per_step"] = (time.perf_counter() - t0) * 1e3
+            r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.synchronize()
+        losses = [{k: v.item() for k, v in m.items()} for m in metrics]
+        moved = {n for n, p in trainer.trainable.items() if not torch.equal(p, start[n])}
+        with_grad = {n for n, f in nonzero.items() if bool(f)}
+        lr = exp.train.lr
+        held = {n for n in with_grad - moved
+                if trainer.trainable[n].abs().min().item() >= 1024 * lr}
+        r.update({
+            "losses": [m["loss"] for m in losses], "finite": all(
+                math.isfinite(x) for m in losses for x in m.values()),
+            "quantized_buffers": len(buffers),
+            "buffers_bit_identical": bool(torch.equal(checksums(buffers), before)),
+            "trainable_tensors": len(start), "trainable_with_grad": len(with_grad),
+            "trainable_changed": len(moved), "held_by_bf16_rounding": sorted(held),
+            "without_grad": sorted(set(start) - with_grad),
+            "lm_head_embed_bf16_parameters": all(
+                isinstance(p, torch.nn.Parameter) and p.dtype == torch.bfloat16
+                and p.requires_grad for p in (llm.lm_head.weight, llm.embed_tokens.weight))})
+        r["ok"] = (r["finite"] and r["buffers_bit_identical"] and with_grad - held <= moved
+                   and len(moved) > 0 and r["lm_head_embed_bf16_parameters"]
+                   and r["quantized_modules"] == 7 * L
+                   and r.get("launches_per_step") == r.get("expected_launches_per_step")
+                   and r.get("dots_saved_int8_products")
+                   == r.get("expected_dots_saved_int8_products"))
+        rec[f"int{bits}"] = r
+        del trainer, llm, buffers, start, metrics, hooks
+        torch.cuda.empty_cache()
+    rec["ok"] = rec["int8"]["ok"] and rec["int4"]["ok"]
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit("the QLoRA lane failed")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1945,6 +2362,8 @@ def main() -> int:
     from llmseg_tpu_torch.ops import quant as Q
     from llmseg_tpu_torch.ops import relpos_attention as R
     from llmseg_tpu_torch.ops import twoway_kernel as TK
+    from llmseg_tpu_torch.train import evaluate as E
+    from llmseg_tpu_torch.train import train_step as TS
 
     all_kernels = A.KERNELS + R.KERNELS + TK.KERNELS + Q.KERNELS
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 references stay float32
@@ -2039,6 +2458,7 @@ def main() -> int:
     del m_cpu, m_gpu
     emit(kernels_in_place(C, llmseg, make_batch, A))
     emit(grads_in_place(C, llmseg, make_batch, A))
+    emit(qlora_in_place(C, llmseg, make_batch, A))
     emit(sam_in_place(C, S, R, TK, IE))
     emit(w8a8_in_place(C, llmseg, make_batch, Q))
     pixel_in_place(C, S, R, TK, IE, PD, GEN, make_batch, A)
@@ -2115,17 +2535,24 @@ def main() -> int:
     del out, out_t
     torch.cuda.empty_cache()
 
+    # the val loop at batch 8 in bf16, on the same model
+    val_data = valloop_data(make_batch, cfg)
+    valloop_phase(E, TS, model, val_data, A.KERNELS + Q.KERNELS, "bf16")
+
     # the W8A8 headline lane on the same model, quantized in place
     w8a8 = w8a8_phase(C, llmseg, make_batch, Q, A, model, batch,
                       {k: rec[k] for k in ("ms_per_step", "img_per_s", "peak_mem_gb")})
     launches.update({k.name: w8a8["launches"][k.name] for k in Q.KERNELS})
-    del model
+    # the val loop in W8A8, on the model the W8A8 phase quantized
+    valloop_phase(E, TS, model, val_data, A.KERNELS + Q.KERNELS, "w8a8")
+    del model, val_data
     torch.cuda.empty_cache()
 
-    # 5. the train step, timed, then profiled
+    # 5. the train step, timed, then profiled; then QLoRA
     train = train_phase(C, make_batch, A)
     launches.update({k: int(train["launches_per_step"][k])
                      for k in ("flash_bwd_dq", "flash_bwd_dkv")})
+    qlora_phase(C, make_batch, A)
 
     # 6. the pixel-decoder entry point, then SAM everything-mode mask
     # generation at sam_vit_h

@@ -203,10 +203,10 @@ class MeshConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """``llmseg_tpu.config.TrainConfig``'s settings that the port reads, with
-    their defaults; the others (quantize_bits, the evaluation and naming
-    settings, resume, batch_size) come with the code that reads them.  Two
-    settings the port does not have yet raise instead of being ignored: the
-    quantized frozen base (QLoRA) and a mesh of more than one device."""
+    their defaults; the others (the naming settings, resume, batch_size,
+    eval_every_epochs, no_eval) come with the code that reads them (the
+    loader and the entry points).  A mesh of more than one device raises
+    instead of being ignored."""
 
     lr: float = 1e-4                  # stage-2 finetune uses 1e-5
     beta1: float = 0.9
@@ -218,7 +218,8 @@ class TrainConfig:
     grad_accum_steps: int = 10
     grad_clip: float = 1.0
     precision: str = "bf16"
-    quantize_frozen: bool = False
+    quantize_frozen: bool = False    # QLoRA: the frozen LLaMA projections quantized
+    quantize_bits: int = 8           # 8 or 4 (packed nibbles)
     # gradient-checkpoint policy of the LLaMA layers: "dots" keeps the
     # projection matmul outputs and recomputes the rest; "full" recomputes
     # everything; "none" keeps every activation
@@ -227,19 +228,15 @@ class TrainConfig:
     mesh: MeshConfig = field(default_factory=MeshConfig)
     seed: int = 42
     log_dir: str = "./runs/llmseg"
+    save_best_metric: str = "giou"
     print_freq: int = 1
 
     def __post_init__(self):
-        if self.quantize_frozen:
-            raise NotImplementedError(
-                "quantize_frozen (QLoRA: the int8/int4 frozen base under autograd) "
-                "is not ported; ops/quant.py quantizes for inference only "
-                "(ROADMAP queue 1 item 10)")
         m = self.mesh
         if m.data not in (-1, 1) or m.fsdp != 1 or m.tensor != 1:
             raise NotImplementedError(
                 f"the port trains on one device; mesh {m} needs DDP/FSDP "
-                "(ROADMAP queue 1 item 10)")
+                "(ROADMAP queue 1 item 10: DDP)")
 
 
 @dataclass(frozen=True)

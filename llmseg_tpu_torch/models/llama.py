@@ -186,14 +186,17 @@ class LlamaLayer(nn.Module):
         return x + self.mlp_block(x, stats)
 
 
-_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) + (
+    (torch.ops.aten.mm.dtype,) if hasattr(torch.ops.aten.mm, "dtype") else ())
 
 
 def _save_dots(ctx, op, *args, **kwargs):
     """``dots_with_no_batch_dims_saveable``: keep the outputs of the
     projection products (2-D mm / addmm: nn.Linear on (B, T, C), LoRA
-    included); recompute everything else, attention's batched products and
-    kernels included."""
+    included; a quantized base's products too: the weight-only int8 one is
+    ``mm`` with ``out_dtype`` on the card, int4's a plain ``mm`` on the
+    dequantized weight); recompute everything else, attention's batched
+    products and kernels included."""
     return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
             else CheckpointPolicy.PREFER_RECOMPUTE)
 

@@ -196,6 +196,28 @@ def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.float() @ w.float().t()
 
 
+class _Int8MM(torch.autograd.Function):
+    """x (R, K) times the int8 weight w_q (N, K), transposed, times the
+    column scales: (R, N) float32, :func:`_mm_f32`'s product.  Its
+    ``torch.mm`` overload with ``out_dtype``, which the card takes, has no
+    derivative in PyTorch, so the backward is written here:
+    dx = (dy * w_scale) rounded to x's type, times w_q cast to x's type,
+    accumulated in float32 and rounded to x's type.  The int8 weight and
+    its scales are frozen buffers and get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w_q, w_scale):
+        ctx.save_for_backward(w_q, w_scale)
+        ctx.x_dtype = x.dtype
+        return _mm_f32(x, w_q) * w_scale
+
+    @staticmethod
+    def backward(ctx, g):
+        w_q, w_scale = ctx.saved_tensors
+        gs = (g * w_scale).to(ctx.x_dtype)
+        return _mm_f32(gs, w_q.t()).to(ctx.x_dtype), None, None
+
+
 # ---------------------------------------------------------------------------
 # Weight quantizers: nn.Linear -> a quantized module
 # ---------------------------------------------------------------------------
@@ -328,14 +350,16 @@ def qdense(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """x through a quantized module.  Weight-only int8: a product of x and
     the int8 weight (cast to x's type) with a float32 result
     (:func:`_mm_f32`), scaled by the column scales in float32, then rounded
-    to x's type, then the bias.  W8A8: :func:`quantize_activation` and
+    to x's type, then the bias, through :class:`_Int8MM` (which gives
+    QLoRA's frozen base its backward).  W8A8: :func:`quantize_activation` and
     :func:`qdense_act`.  int4: :func:`_qdense4`."""
     if isinstance(m, L.Int4Linear):
         return _qdense4(m, x)
     if isinstance(m, L.W8A8Linear):
         return qdense_act(m, quantize_activation(x), x.dtype)
     lead = x.shape[:-1]
-    y = (_mm_f32(x.reshape(-1, x.shape[-1]), m.w_q) * m.w_scale).to(x.dtype)
+    x2 = x.reshape(-1, x.shape[-1])
+    y = _Int8MM.apply(x2, m.w_q, m.w_scale).to(x.dtype)
     if m.bias is not None:
         y = y + m.bias
     return y.reshape(*lead, y.shape[-1])
@@ -549,15 +573,19 @@ def quantize_llama(llm: nn.Module, bits: int = 8, w8a8: bool = False, smooth_sta
 def quantize_llama_inplace(llm: nn.Module, bits: int = 8, w8a8: bool = False,
                            smooth_stats=None, alpha: Optional[float] = None,
                            lora: Optional[nn.Module] = None,
-                           head_dim: Optional[int] = None) -> nn.Module:
+                           head_dim: Optional[int] = None,
+                           skip: Optional[Callable] = None) -> nn.Module:
     """:func:`quantize_llama` in place, for a model that fills the card: the
     fold (with ``lora`` compensated, see :func:`fold_smooth_llama_inplace`)
     rewrites each weight in place, then each projection is replaced by its
     quantized module and its bf16 weight freed at once, so the extra memory
-    is one weight's, never a second copy of the model."""
+    is one weight's, never a second copy of the model.  ``skip`` (module
+    path tuple -> bool) keeps the projections it selects in full precision
+    (QLoRA's trainable lm_head, ``train.optim.quantize_skeleton``)."""
     if smooth_stats is not None and (w8a8 or bits == 4):
         if alpha is None and not w8a8:
             alpha = W4_SMOOTH_ALPHA
         fold_smooth_llama_inplace(llm, smooth_stats, alpha, lora=lora, head_dim=head_dim)
-    _replace_linears(llm, _llama_pred, _pick_qfn(bits, w8a8))
+    pred = _llama_pred if skip is None else (lambda path: _llama_pred(path) and not skip(path))
+    _replace_linears(llm, pred, _pick_qfn(bits, w8a8))
     return llm

@@ -5,7 +5,9 @@ The trainable set is the JAX package's: the selection head (``select.*``),
 LoRA (``lora.*``), and LLaMA's ``embed_tokens`` and ``lm_head``; the vision
 towers, the projector and the LLaMA base stay frozen.  :func:`partition`
 turns ``requires_grad`` off on the frozen parameters, so gradients and
-optimizer state exist only for the trainable ones.
+optimizer state exist only for the trainable ones; :func:`quantize_skeleton`
+then quantizes the frozen LLaMA projections in place (QLoRA).  The model is
+one module tree, so ``combine`` has no counterpart.
 
 :class:`TrainableOptimizer` is ``make_trainable_optimizer``'s chain:
 ``clip_by_global_norm`` with optax's formula, AdamW (beta 0.9/0.95, eps
@@ -46,6 +48,25 @@ def partition(model: nn.Module) -> "OrderedDict[str, nn.Parameter]":
         if p.requires_grad:
             trainable[name] = p
     return trainable
+
+
+def quantize_skeleton(model: nn.Module, bits: int = 8) -> nn.Module:
+    """QLoRA's frozen base, ``optim.quantize_skeleton``: the LLaMA
+    projections quantized in place to weight-only int8 or packed int4
+    (``quant.quantize_llama_inplace``, no smoothing), after
+    :func:`partition`.  A module that holds a trainable parameter is never
+    quantized: lm_head (and embed_tokens, which is no projection) stays in
+    full precision, as the JAX skeleton's holes do; LoRA is outside the
+    LLaMA."""
+    from llmseg_tpu_torch.ops import quant
+
+    llm = model.llava.llm
+
+    def trainable(path) -> bool:
+        return any(p.requires_grad for p in llm.get_submodule(".".join(path)).parameters())
+
+    quant.quantize_llama_inplace(llm, bits=bits, skip=trainable)
+    return model
 
 
 def warmup_decay_lr(cfg: TrainConfig, count: int) -> float:

@@ -1,6 +1,7 @@
 """The train step, the counterpart of
 ``llmseg_tpu.train.train_step.make_partitioned_train_step``: loss, gradients
-of the trainable subset, and the optimizer's update."""
+of the trainable subset, and the optimizer's update; and the eval step,
+``make_eval_step``'s."""
 
 from __future__ import annotations
 
@@ -24,3 +25,11 @@ def train_step(model: llmseg.LLMSeg, opt: TrainableOptimizer, batch: Dict, *,
     grad_norm = global_norm(p.grad for p in opt.params.values() if p.grad is not None)
     opt.step(grad_norm)
     return {**{k: v.detach() for k, v in aux.items()}, "grad_norm": grad_norm}
+
+
+def eval_step(model: llmseg.LLMSeg, batch: Dict, *, lora_cfg: Optional[LoraConfig] = None,
+              pool: str = "adjoint") -> Dict[str, torch.Tensor]:
+    """``predict`` on the model's device, without autograd: the scores that
+    ``evaluate.run_validation`` reads."""
+    device = next(model.parameters()).device
+    return llmseg.predict(model, batch, device=device, pool=pool, lora_cfg=lora_cfg)

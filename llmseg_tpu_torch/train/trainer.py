@@ -1,17 +1,18 @@
 """Training loop, the counterpart of ``llmseg_tpu.train.trainer.Trainer``:
-init, the trainable partition and the optimizer; epochs of micro-steps with
-grad accumulation, meters and progress printing; checkpoint resume.
+init, the trainable partition, the quantized frozen base (QLoRA) and the
+optimizer; epochs of micro-steps with grad accumulation, meters and
+progress printing; validation (gIoU / cIoU), the best-checkpoint policy and
+checkpoint resume.
 
 It trains on one card (``device="cuda"``, the default) or, when the caller
-asks, on the CPU.  Validation and the best-checkpoint policy need the
-evaluation loop (``train/evaluate.py``, ROADMAP queue 1 item 11) and raise.
+asks, on the CPU.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Iterable, Optional
+from typing import Dict, Iterable, Optional
 
 import torch
 
@@ -19,8 +20,9 @@ from llmseg_tpu_torch.config import ExperimentConfig, LoraConfig
 from llmseg_tpu_torch.device import require
 from llmseg_tpu_torch.models import llmseg
 from llmseg_tpu_torch.train import checkpoint as ckpt_lib
+from llmseg_tpu_torch.train import evaluate as eval_lib
 from llmseg_tpu_torch.train import optim
-from llmseg_tpu_torch.train.train_step import train_step
+from llmseg_tpu_torch.train.train_step import eval_step, train_step
 from llmseg_tpu_torch.utils.metrics import AverageMeter, ProgressMeter
 
 LOSS_KEYS = ("loss", "ce_loss", "align_loss", "regression_loss")
@@ -40,20 +42,30 @@ class Trainer:
                                 dtype=dtype, lora_cfg=self.lora_cfg)
         self.model = model
         self.trainable = optim.partition(model)
+        if cfg.train.quantize_frozen:
+            optim.quantize_skeleton(model, bits=cfg.train.quantize_bits)
         self.opt = optim.make_trainable_optimizer(cfg.train, self.trainable)
         self.remat = cfg.train.remat_policy
         self.global_step = 0
         self.writer = writer
         self.log_dir = cfg.train.log_dir
         os.makedirs(self.log_dir, exist_ok=True)
+        self.best = ckpt_lib.BestKeeper(self.log_dir, cfg.train.save_best_metric)
 
     def step(self, batch) -> dict:
         return train_step(self.model, self.opt, batch, lora_cfg=self.lora_cfg,
                           remat=self.remat, pool=self.pool)
 
+    def eval_step(self, model: llmseg.LLMSeg, batch) -> dict:
+        batch = {k: v.to(self.device) for k, v in batch.items()}
+        return eval_step(model, batch, lora_cfg=self.lora_cfg, pool=self.pool)
+
     # -- checkpointing ------------------------------------------------------
 
     def maybe_resume(self, weights_only: bool = False) -> bool:
+        """Restore the newest checkpoint's trainable parameters (and, unless
+        ``weights_only``, the optimizer state and step).  The frozen weights
+        are the model's own, already quantized under QLoRA."""
         step = ckpt_lib.latest_step(self.log_dir)
         if step is None:
             return False
@@ -105,12 +117,19 @@ class Trainer:
             end = time.time()
         return {name: m.avg for name, m in meters.items()}
 
-    def validate(self, *args, **kwargs):
-        raise NotImplementedError(
-            "validation needs train/evaluate.py, which is not ported yet "
-            "(ROADMAP queue 1 item 11)")
+    def validate(self, batches: Iterable, strategy: str = "threshold",
+                 threshold: float = 0.5, visualize_dir: Optional[str] = None
+                 ) -> Dict[str, float]:
+        """gIoU and cIoU over (batch, extras) pairs (``evaluate.run_validation``),
+        written to the writer as val/giou and val/ciou."""
+        results = eval_lib.run_validation(self.eval_step, self.model, batches,
+                                          strategy=strategy, threshold=threshold,
+                                          visualize_dir=visualize_dir)
+        if self.writer is not None:
+            self.writer.add_scalar("val/giou", results["giou"], self.global_step)
+            self.writer.add_scalar("val/ciou", results["ciou"], self.global_step)
+        return results
 
-    def save_best(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the best-checkpoint policy keys on validation metrics, which need "
-            "train/evaluate.py (ROADMAP queue 1 item 11)")
+    def save_best(self, metrics: Dict[str, float]) -> bool:
+        return self.best.update(self.global_step, metrics, self.trainable,
+                                self.opt.state_dict())

@@ -712,3 +712,101 @@ def test_w8a8_predict_runs_through_q1_and_q2(monkeypatch):
     assert launches == {"quantize_rows": 4 * L, "w8a8_epilogue": 7 * L}
     qerr = (want - ref).abs().max().item()
     assert qerr > 0 and (got.cpu() - want).abs().max().item() <= 0.1 * qerr
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("R,K,N", [(767, 4096, 11008), (17, 11008, 4096), (3, 64, 48)])
+def test_int8_product_backward_matches_the_dequantized_product(dtype, tol, R, K, N):
+    """The weight-only int8 product under autograd (QLoRA's frozen base):
+    dx through ``quant._Int8MM`` against autograd of the float32 product
+    with the dequantized weight, within ``tol`` of max|ref| (bf16: dy * scale
+    and dx are rounded to bf16); the int8 buffers get no gradient."""
+    g = torch.Generator(device="cuda").manual_seed(R)
+    lin = torch.nn.Linear(K, N, bias=False, device="cuda")
+    with torch.no_grad():
+        lin.weight.copy_(torch.randn(N, K, device="cuda", generator=g) * 0.02)
+    q = Q.quantize_dense(lin)
+    x = torch.randn(R, K, device="cuda", generator=g).to(dtype).requires_grad_()
+    dy = torch.randn(R, N, device="cuda", generator=g).to(dtype)
+    y = q(x)
+    y.backward(dy)
+    assert y.dtype == dtype and x.grad.dtype == dtype
+    xr = x.detach().float().requires_grad_()
+    (xr @ (q.w_q.float() * q.w_scale[:, None]).t()).backward(dy.float())
+    err = (x.grad.float() - xr.grad).abs().max().item()
+    assert err <= tol * xr.grad.abs().max().item(), err
+    assert all(b.grad is None and not b.requires_grad for b in q.buffers())
+
+
+def test_device_compose_equals_the_numpy_path():
+    """evaluate.compose_counts on the card: the same counts as the numpy
+    compose, resize and histogram, for every strategy, with and without a
+    resize to the ground truth and with ignored pixels."""
+    import numpy as np
+    from llmseg_tpu_torch.train import evaluate as E
+
+    rng = np.random.RandomState(0)
+    for shape, gt_shape in (((480, 640), (480, 640)), ((300, 410), (480, 640)),
+                            ((1024, 1024), (97, 131))):
+        segs = (rng.rand(*shape, 50) < 0.3).astype(np.uint8)
+        gt = (rng.rand(*gt_shape) < 0.3).astype(np.float32)
+        gt[rng.rand(*gt_shape) < 0.05] = 255.0
+        sim, iou, valid = rng.rand(50), rng.rand(50), rng.rand(50) < 0.9
+        for strategy in E.SELECTORS:
+            keep = E.select(strategy, sim, iou, valid, 0.5)
+            pred = E.compose_mask(segs, keep)
+            if pred.shape != gt.shape:
+                pred = E._nearest_resize_2d(pred, gt.shape)
+            ref = E.SegEvalAccumulator()
+            ref.add(pred, gt)
+            c = E.compose_counts(torch.from_numpy(segs).cuda(),
+                                 torch.as_tensor(np.asarray(keep, np.int64)).cuda(),
+                                 torch.from_numpy(gt).cuda()).cpu().numpy()
+            got = E.SegEvalAccumulator()
+            got.add_counts(c[0], c[1])
+            np.testing.assert_array_equal(got.intersection.sum, ref.intersection.sum)
+            np.testing.assert_array_equal(got.union.sum, ref.union.sum)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_qlora_trainer_two_steps(tmp_path, bits):
+    """A two-step QLoRA Trainer at llmseg_tiny in float32 on the card: the
+    first step's loss equals the CPU's within 1e-4 relative, the losses stay
+    finite, the quantized buffers bit-identical, the trainables move, and
+    validate / save_best run on the card."""
+    import copy
+
+    import numpy as np
+    from llmseg_tpu_torch.data.synthetic import make_batch
+    from llmseg_tpu_torch.models import llmseg
+    from llmseg_tpu_torch.train.trainer import Trainer
+
+    lora = C.LoraConfig(rank=2)
+    cfg = C.ExperimentConfig(model=C.llmseg_tiny(), train=C.TrainConfig(
+        grad_accum_steps=1, epochs=1, steps_per_epoch=2, warmup_steps=0, lr=1e-3,
+        precision="fp32", log_dir=str(tmp_path), lora=lora,
+        quantize_frozen=True, quantize_bits=bits))
+    batches = [make_batch(C.llmseg_tiny(), device="cpu", num_images=1, rows_per_image=2,
+                          text_len=32, seed=40 + i) for i in range(2)]
+    # one set of weights (the CPU's and the card's generators draw apart)
+    model = llmseg.init(C.llmseg_tiny(), seed=0, device="cpu", lora_cfg=lora)
+    gpu = Trainer(cfg, model=copy.deepcopy(model).cuda())
+    cpu = Trainer(cfg, model=model, device="cpu")
+    buffers = {n: b.clone() for n, b in gpu.model.named_buffers()}
+    start = {n: p.detach().clone() for n, p in gpu.trainable.items()}
+    m_cpu = cpu.step(batches[0])
+    m_gpu = [gpu.step({k: v.cuda() for k, v in b.items()}) for b in batches]
+    assert m_gpu[0]["loss"].item() == pytest.approx(m_cpu["loss"].item(), rel=1e-4)
+    assert all(np.isfinite(m["loss"].item()) for m in m_gpu)
+    assert all(torch.equal(b, buffers[n]) for n, b in gpu.model.named_buffers())
+    assert any(not torch.equal(p, start[n]) for n, p in gpu.trainable.items())
+    rng = np.random.RandomState(0)
+    K = C.llmseg_tiny().max_proposals
+    extras = {"segs_origin": [(rng.rand(24, 32, K) < 0.4).astype(np.uint8)],
+              "masks_list": [[(rng.rand(24, 32) < 0.4).astype(np.float32)]],
+              "image_paths": [None], "conversations": [[""]]}
+    val = [(make_batch(C.llmseg_tiny(), device="cpu", num_images=1, text_len=32, seed=50),
+            extras)]
+    res = gpu.validate(val)
+    assert res == gpu.validate(val) and all(np.isfinite(v) for v in res.values())
+    assert gpu.save_best(res)

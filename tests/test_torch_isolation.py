@@ -26,7 +26,7 @@ def test_port_has_every_slice_module():
                  "models.sam.mask_decoder", "models.sam.sam", "models.sam.amg",
                  "ops.relpos_attention", "ops.twoway_kernel", "ops.amg_utils", "ops.nms",
                  "ops.rle", "ops.device_rle", "models.generate", "models.pixel_decoder",
-                 "ops.quant"):
+                 "ops.quant", "train.evaluate"):
         assert f"llmseg_tpu_torch.{name}" in mods, name
 
 
