@@ -11,27 +11,44 @@
 //                      column scale, plus an optional float32 side term,
 //                      rounded once to the output type, then the bias added
 //                      in the output type.
-// The s8 x s8 -> s32 product between them is torch._int_mm.
+// On the main path the product and Q2's rescale are one kernel,
+// w8a8_gemm.cu (w8a8_linear): the s8 x s8 -> s32 product on wgmma with the
+// rescale applied to its accumulators in registers.  The standalone Q2
+// here, after torch._int_mm, is the yardstick that chip_smoke.py times
+// beside it; nothing on the main path launches it.
 //
 // What bounds them on an H100: bytes.  Both do a handful of operations an
 // element; at LLaMA-7B's batch 4 (3068 rows) Q1 reads 2 bytes and writes 1
-// an element, Q2 reads 4 and writes 2, about 2.0 and 7.5 ms of HBM traffic
-// a step over 32 layers.  In plain PyTorch each is several passes (casts,
-// two multiplies, a division, a cast), each a full read and write.
+// an element, about 2.0 ms of HBM traffic a step over 32 layers.
 //
-// What the design does: one pass each.  Q1 gives a row to a CTA of 256
-// threads, which reads it once in 16-byte vectors into shared memory (a
-// 4096 or 11008-wide bf16 row is 8 or 22 KB) while it reduces max|x*gamma|
-// (and the sum of x^2 in the RMS form), then quantizes the staged row and
-// writes it in vectors.  Q2 gives each thread four columns of one row:
-// one 16-byte load of the accumulators, one 8-byte (bf16) store.
+// What the design does.  Q1's RMS form (LLaMA-7B's q/k/v and gate/up
+// inputs, 4096 wide) is a persistent pass for rows of up to 1024 vectors of
+// 16 bytes (8192 bf16 values): a grid of as many 256-thread CTAs as the
+// card holds at once walks the rows, W warps a row (W = 4 at 4096-wide
+// bf16 rows), 8 / W rows in flight a CTA.  Each lane holds its 4 vectors
+// of the row in registers: every byte of x is read from HBM once, nothing
+// is staged in shared memory, and a row's max and sum of squares are
+// reduced by shuffles, then across the row's warps by one shared-memory
+// exchange under a named barrier.  Each lane loads its gamma vectors once
+// and keeps them in registers for all of its rows.  The plain form (the o
+// and down inputs, 4096 and 11008 wide), wider rows and rows that are not
+// a whole number of 16-byte vectors take one 256-thread CTA a row, staged
+// in shared memory: the plain form divides every element by the scale
+// (an IEEE division), and with the more warps in flight that one CTA a
+// row gives it ran faster than on the persistent pass at both widths
+// (scripts/kernel_variants.py).  Q2's standalone rescale gives each thread
+// four columns of one row: one 16-byte load of the accumulators, one
+// 8-byte (bf16) store.
 //
 // Rounding follows the JAX functions exactly, since the int8 values are
 // compared for equality: built without --use_fast_math; the divisions and
 // products are the IEEE-rounded intrinsics (__fdiv_rn, __fmul_rn, so that
 // nvcc cannot contract them into an FMA); rintf rounds half to even, as
 // jnp.round and torch.round do; the plain form divides by the scale and the
-// RMS form multiplies by 127 / max, as their JAX functions do.
+// RMS form multiplies by 127 / max, as their JAX functions do.  The RMS
+// form's int8 values depend only on the row's max and on gamma; its sum of
+// squares is taken in another order than the plain version's, which moves
+// the scale by ulps at most.
 #include "common.cuh"
 
 using namespace llmseg;
@@ -39,6 +56,8 @@ using namespace llmseg;
 namespace {
 
 constexpr int Q1_THREADS = 256;
+constexpr int Q1P_WARPS = 8;        // warps a CTA of the persistent pass
+constexpr int Q1P_NV = 4;           // 16-byte vectors of a row a lane holds
 constexpr int Q2_THREADS = 256;
 constexpr int F32 = 0, BF16 = 1;  // dtype codes of the wrapper
 
@@ -72,8 +91,32 @@ __device__ __forceinline__ void block_max_sum(float& mx, float& sm) {
   sm = warp_sum(sm);
 }
 
-// Q1: one CTA a row.  G is gamma's type (RMS form only).  VEC elements a
-// 16-byte vector when the row allows it, else 1.
+// A row's scale and the factor of its int8 values, from its max |x| (|x *
+// gamma| in the RMS form) and, in the RMS form, its sum of x^2.  Plain:
+// sc = m / 127 and xq = round(x / sc) (`div`); RMS: sc = m rsqrt(mean x^2 +
+// eps) / 127 and xq = round(t * (127 / m)) (`mul`).
+template <bool RMS>
+__device__ __forceinline__ float row_scale(float amax, float ss, int C, float eps, float& div,
+                                           float& mul) {
+  const float m = fmaxf(amax, 1e-6f);
+  div = __fdiv_rn(m, 127.f);
+  mul = __fdiv_rn(127.f, m);
+  if constexpr (!RMS) return div;
+  const float ms = __fdiv_rn(ss, (float)C);
+  const float rs = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(ms, eps)));
+  return __fmul_rn(__fmul_rn(m, rs), 1.f / 127.f);
+}
+
+template <typename T, typename G, bool RMS>
+__device__ __forceinline__ int8_t quantize(T x, G gamma, float div, float mul) {
+  if constexpr (RMS) return q8(__fmul_rn(__fmul_rn(to_f(x), to_f(gamma)), mul));
+  return q8(__fdiv_rn(to_f(x), div));
+}
+
+// Q1's plain form, and rows that the RMS form's persistent pass does not
+// take: one CTA a row, staged in shared memory.  G is gamma's type (RMS
+// form only).  VEC elements a 16-byte vector when the row allows it, else
+// 1.
 template <typename T, typename G, bool RMS, int VEC>
 __global__ void __launch_bounds__(Q1_THREADS)
     quantize_rows_kernel(const T* __restrict__ x, const G* __restrict__ gamma,
@@ -81,9 +124,9 @@ __global__ void __launch_bounds__(Q1_THREADS)
                          float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* row = reinterpret_cast<T*>(smem);
+  const int nv = C / VEC;
   for (int r = blockIdx.x; r < R; r += gridDim.x) {
     const T* xr = x + (size_t)r * C;
-    const int nv = C / VEC;
     float amax = 0.f, ss = 0.f;
     for (int v = threadIdx.x; v < nv; v += Q1_THREADS) {
       T e[VEC];
@@ -107,30 +150,15 @@ __global__ void __launch_bounds__(Q1_THREADS)
       }
     }
     block_max_sum(amax, ss);
-    const float m = fmaxf(amax, 1e-6f);
-    // plain: sc = m / 127, xq = round(x / sc); RMS: xq = round(t * (127 / m))
-    const float s_plain = __fdiv_rn(m, 127.f);
-    const float inv = __fdiv_rn(127.f, m);
-    if (threadIdx.x == 0) {
-      if constexpr (RMS) {
-        const float ms = __fdiv_rn(ss, (float)C);
-        const float rs = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(ms, eps)));
-        sc[r] = __fmul_rn(__fmul_rn(m, rs), 1.f / 127.f);
-      } else {
-        sc[r] = s_plain;
-      }
-    }
+    float div, mul;
+    const float s = row_scale<RMS>(amax, ss, C, eps, div, mul);
+    if (threadIdx.x == 0) sc[r] = s;
     int8_t* qr = xq + (size_t)r * C;
     for (int v = threadIdx.x; v < nv; v += Q1_THREADS) {
       int8_t q[VEC];
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const float xf = to_f(row[v * VEC + j]);
-        if constexpr (RMS)
-          q[j] = q8(__fmul_rn(__fmul_rn(xf, to_f(gamma[v * VEC + j])), inv));
-        else
-          q[j] = q8(__fdiv_rn(xf, s_plain));
-      }
+      for (int j = 0; j < VEC; ++j)
+        q[j] = quantize<T, G, RMS>(row[v * VEC + j], RMS ? gamma[v * VEC + j] : G(), div, mul);
       if constexpr (VEC == 8) {
         uint2 u;
         memcpy(&u, q, sizeof(u));
@@ -144,6 +172,103 @@ __global__ void __launch_bounds__(Q1_THREADS)
       }
     }
     __syncthreads();  // the staged row is rewritten by the next one
+  }
+}
+
+// `bytes` bytes (8, 16 or 32, 16-byte aligned above 8) from global memory
+template <int BYTES>
+__device__ __forceinline__ void load_bytes(void* dst, const void* src) {
+  if constexpr (BYTES == 8) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(src));
+    memcpy(dst, &u, 8);
+  } else {
+#pragma unroll
+    for (int i = 0; i < BYTES / 16; ++i) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(src) + i);
+      memcpy(reinterpret_cast<char*>(dst) + 16 * i, &u, 16);
+    }
+  }
+}
+
+// Q1's RMS form as a persistent pass: W warps a row, 8 / W rows a CTA at
+// once, the grid walking the rows.  Lane l of the row's warp w holds the
+// row's vectors v = 32 W i + 32 w + l, i < Q1P_NV (those below C / VEC),
+// and gamma's at the same places.
+template <typename T, typename G>
+__global__ void __launch_bounds__(32 * Q1P_WARPS, 1)
+    quantize_rows_rms(const T* __restrict__ x, const G* __restrict__ gamma,
+                      int8_t* __restrict__ xq, float* __restrict__ sc, int R, int C, int W,
+                      float eps) {
+  constexpr int VEC = 16 / sizeof(T);
+  __shared__ float red[2][Q1P_WARPS][2];  // a row's partial max and sum, by parity
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = Q1P_WARPS / W, grp = warp / W, wr = warp - grp * W;
+  const int nv = C / VEC, v0 = 32 * wr + lane, vstep = 32 * W;
+  G gv[Q1P_NV][VEC];  // this lane's gamma, for all of its rows
+#pragma unroll
+  for (int i = 0; i < Q1P_NV; ++i)
+    if (v0 + i * vstep < nv)
+      load_bytes<(int)(VEC * sizeof(G))>(gv[i], gamma + (size_t)(v0 + i * vstep) * VEC);
+  int it = 0;
+  for (int r = blockIdx.x * groups + grp; r < R; r += gridDim.x * groups, ++it) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)r * C);
+    uint4 xv[Q1P_NV];
+#pragma unroll
+    for (int i = 0; i < Q1P_NV; ++i)
+      if (v0 + i * vstep < nv) xv[i] = __ldcs(xr + v0 + i * vstep);  // read once
+    float amax = 0.f, ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < Q1P_NV; ++i) {
+      if (v0 + i * vstep >= nv) continue;
+      T e[VEC];
+      memcpy(e, &xv[i], sizeof(e));
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float xf = to_f(e[j]);
+        amax = fmaxf(amax, fabsf(__fmul_rn(xf, to_f(gv[i][j]))));
+        ss = __fmaf_rn(xf, xf, ss);
+      }
+    }
+    // the butterfly leaves the same bits in every lane
+    amax = warp_max(amax);
+    ss = warp_sum(ss);
+    if (W > 1) {
+      float(*part)[2] = red[it & 1] + grp * W;
+      if (lane == 0) {
+        part[wr][0] = amax;
+        part[wr][1] = ss;
+      }
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "r"(32 * W) : "memory");
+      amax = part[0][0];
+      ss = part[0][1];
+      for (int w = 1; w < W; ++w) {  // in a fixed order
+        amax = fmaxf(amax, part[w][0]);
+        ss += part[w][1];
+      }
+    }
+    float div, mul;
+    const float s = row_scale<true>(amax, ss, C, eps, div, mul);
+    if (wr == 0 && lane == 0) sc[r] = s;
+    int8_t* qr = xq + (size_t)r * C;
+#pragma unroll
+    for (int i = 0; i < Q1P_NV; ++i) {
+      const int v = v0 + i * vstep;
+      if (v >= nv) continue;
+      T e[VEC];
+      memcpy(e, &xv[i], sizeof(e));
+      int8_t q[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) q[j] = quantize<T, G, true>(e[j], gv[i][j], div, mul);
+      if constexpr (VEC == 8) {
+        uint2 u;
+        memcpy(&u, q, sizeof(u));
+        *reinterpret_cast<uint2*>(qr + v * VEC) = u;
+      } else {
+        uint32_t u;
+        memcpy(&u, q, sizeof(u));
+        *reinterpret_cast<uint32_t*>(qr + v * VEC) = u;
+      }
+    }
   }
 }
 
@@ -189,12 +314,36 @@ __global__ void __launch_bounds__(Q2_THREADS)
   }
 }
 
+// The CTAs of kern the card holds at once; or -cudaError_t
+template <typename K>
+int resident_ctas(K kern, int threads) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, 0);
+  if (e != cudaSuccess) return -(int)e;
+  return per_sm < 1 ? -(int)cudaErrorInvalidConfiguration : sms * per_sm;
+}
+
 template <typename T, typename G, bool RMS>
 int launch_q1(const void* x, const void* gamma, void* xq, void* sc, int R, int C, float eps,
               cudaStream_t st) {
   constexpr int VEC = 16 / sizeof(T);
+  const int nv = C / VEC;
+  int W = 1;  // the fewest warps a row whose registers hold it
+  while (W < Q1P_WARPS && nv > 32 * W * Q1P_NV) W *= 2;
   const bool vec = C % VEC == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
-                   (reinterpret_cast<uintptr_t>(xq) & 15) == 0;
+                   (reinterpret_cast<uintptr_t>(xq) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(gamma) & 15) == 0;
+  if (RMS && vec && nv <= 32 * W * Q1P_NV) {
+    auto kern = quantize_rows_rms<T, G>;
+    static const int ctas = resident_ctas(kern, 32 * Q1P_WARPS);  // the same at every launch
+    if (ctas < 0) return -ctas;
+    const int groups = Q1P_WARPS / W, need = (R + groups - 1) / groups;
+    kern<<<need < ctas ? need : ctas, 32 * Q1P_WARPS, 0, st>>>(
+        (const T*)x, (const G*)gamma, (int8_t*)xq, (float*)sc, R, C, W, eps);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = ((size_t)C * sizeof(T) + 15) / 16 * 16;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   const int grid = R < 65535 * 8 ? R : 65535 * 8;

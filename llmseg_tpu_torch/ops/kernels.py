@@ -35,6 +35,7 @@ SIGNATURES = {
     "twoway_fused": [_I] + [_P] * 5,
     "flash_fwd_1pass_t": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "quant": [_I] + [_P] * 7 + [_I] * 4 + [_F, _P],
+    "w8a8_gemm": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -13,18 +13,22 @@ operand of the int8 product.
   nibbles packed per byte along the input, unpacked and dequantized in the
   activations' type before the product.
 * W8A8: activations quantized per row (:func:`quantize_activation`, or
-  :func:`rms_quantize_activation` with the RMSNorm folded in), an
-  s8 x s8 -> s32 product (``torch._int_mm``), the rescale by the outer
-  product of the scales (:func:`qdense_act`).  SmoothQuant's static fold
+  :func:`rms_quantize_activation` with the RMSNorm folded in), then an
+  s8 x s8 -> s32 product rescaled by the outer product of the scales
+  (:func:`qdense_act`).  SmoothQuant's static fold
   (:func:`fold_smooth_llama_inplace`) runs on the bf16 model before it is
   quantized.
 
-Kernels (``csrc/quant.cu``), each with its plain version beside it:
-:func:`quantize_rows` (Q1, the per-row quantization of both activation
-forms) and :func:`w8a8_epilogue` (Q2, the rescale).  A CUDA tensor
-launches the kernel or raises; only a tensor on the CPU takes the plain
-version.  Weight-only int8 and int4 are plain PyTorch on every device, as
-they are XLA code in the JAX package.
+Kernels, each with its plain version beside it: :func:`quantize_rows` (Q1,
+``csrc/quant.cu``, the per-row quantization of both activation forms) and
+:func:`w8a8_linear` (Q2, ``csrc/w8a8_gemm.cu``, the int8 product on
+``wgmma`` with the rescale applied to its accumulators in registers).
+:func:`w8a8_epilogue` (the rescale alone, ``csrc/quant.cu``) after
+``torch._int_mm`` is the route Q2 replaced, kept as the yardstick that
+``chip_smoke.py`` times beside it; nothing on the main path calls it.  A
+CUDA tensor launches the kernel or raises; only a tensor on the CPU takes
+the plain version.  Weight-only int8 and int4 are plain PyTorch on every
+device, as they are XLA code in the JAX package.
 """
 
 from __future__ import annotations
@@ -49,12 +53,14 @@ W8A8_OUTLIER_K = int(os.environ.get("LLMSEG_W8A8_OUTLIER_K", "0"))
 W8A8_SMOOTH_ALPHA = float(os.environ.get("LLMSEG_W8A8_SMOOTH_ALPHA", "0.5"))
 W4_SMOOTH_ALPHA = float(os.environ.get("LLMSEG_W4_SMOOTH_ALPHA", "0.25"))
 
-QUANTIZE_ROWS = Kernel("quantize_rows", source="quant")   # Q1, csrc/quant.cu
-W8A8_EPILOGUE = Kernel("w8a8_epilogue", source="quant")   # Q2, csrc/quant.cu
-KERNELS = (QUANTIZE_ROWS, W8A8_EPILOGUE)
+QUANTIZE_ROWS = Kernel("quantize_rows", source="quant")      # Q1, csrc/quant.cu
+W8A8_LINEAR = Kernel("w8a8_linear", source="w8a8_gemm")      # Q2, csrc/w8a8_gemm.cu
+KERNELS = (QUANTIZE_ROWS, W8A8_LINEAR)      # the W8A8 path's
+W8A8_EPILOGUE = Kernel("w8a8_epilogue", source="quant")      # the yardstick's rescale
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/quant.cu
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/quant.cu, w8a8_gemm.cu
 _INT_MM_MIN_ROWS = 17    # torch._int_mm on CUDA takes more than 16 rows
+W8A8_MAX_K = 133144      # |acc| <= K * 127^2 stays inside int32
 _HAS_MM_OUT_DTYPE = hasattr(torch.ops.aten.mm, "dtype")
 
 
@@ -120,16 +126,18 @@ def quantize_rows(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
 
 
 # ---------------------------------------------------------------------------
-# Kernel Q2: the W8A8 epilogue
+# The W8A8 product: kernel Q2 (the product with its rescale), and the rescale
+# alone after torch._int_mm (the route Q2 replaced, a yardstick)
 # ---------------------------------------------------------------------------
 
 
 def w8a8_epilogue_plain(acc: torch.Tensor, sc: torch.Tensor, w_scale: torch.Tensor,
                         bias: Optional[torch.Tensor], out_dtype: torch.dtype,
                         side: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Q2's function: acc (R, N) int32, sc (R, 1), w_scale (N,) and side
-    (R, N) float32 -> ((float(acc) * sc) * w_scale + side) rounded once to
-    ``out_dtype``, then + bias in ``out_dtype`` (``qdense_act``'s order)."""
+    """The rescale of Q2's function: acc (R, N) int32, sc (R, 1), w_scale
+    (N,) and side (R, N) float32 -> ((float(acc) * sc) * w_scale + side)
+    rounded once to ``out_dtype``, then + bias in ``out_dtype``
+    (``qdense_act``'s order)."""
     y = acc.float() * sc * w_scale
     if side is not None:
         y = y + side
@@ -142,23 +150,16 @@ def w8a8_epilogue_plain(acc: torch.Tensor, sc: torch.Tensor, w_scale: torch.Tens
 def w8a8_epilogue(acc: torch.Tensor, sc: torch.Tensor, w_scale: torch.Tensor,
                   bias: Optional[torch.Tensor], out_dtype: torch.dtype,
                   side: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Kernel Q2 wrapper.  Shapes as :func:`w8a8_epilogue_plain`; the output
-    is bf16 or float32, the bias (if any) of the output's type."""
+    """The standalone rescale's wrapper (``csrc/quant.cu``).  Shapes as
+    :func:`w8a8_epilogue_plain`; the output is bf16 or float32, the bias (if
+    any) of the output's type."""
     if acc.device.type == "cpu":
         return w8a8_epilogue_plain(acc, sc, w_scale, bias, out_dtype, side)
     if acc.dim() != 2 or acc.dtype != torch.int32 or not acc.is_contiguous():
         raise ValueError(f"acc must be a contiguous int32 (R, N), got {tuple(acc.shape)} "
                          f"{acc.dtype}")
     R, N = acc.shape
-    if out_dtype not in _DTYPE_CODES:
-        raise ValueError(f"output dtype {out_dtype} is not bf16 or float32")
-    checks = ((sc, (R, 1), torch.float32), (w_scale, (N,), torch.float32),
-              (bias, (N,), out_dtype), (side, (R, N), torch.float32))
-    for t, shape, dtype in checks:
-        if t is not None and (t.shape != shape or t.dtype != dtype or not t.is_cuda
-                              or not t.is_contiguous()):
-            raise ValueError(f"expected a contiguous CUDA {dtype} {shape}, got "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    _check_rescale_operands(R, N, sc, w_scale, bias, out_dtype, side)
     out = torch.empty((R, N), dtype=out_dtype, device=acc.device)
     if R:
         W8A8_EPILOGUE.launch(1, acc.data_ptr(), sc.data_ptr(), w_scale.data_ptr(),
@@ -168,10 +169,68 @@ def w8a8_epilogue(acc: torch.Tensor, sc: torch.Tensor, w_scale: torch.Tensor,
     return out
 
 
+def _check_rescale_operands(R, N, sc, w_scale, bias, out_dtype, side) -> None:
+    if out_dtype not in _DTYPE_CODES:
+        raise ValueError(f"output dtype {out_dtype} is not bf16 or float32")
+    checks = ((sc, (R, 1), torch.float32), (w_scale, (N,), torch.float32),
+              (bias, (N,), out_dtype), (side, (R, N), torch.float32))
+    for t, shape, dtype in checks:
+        if t is not None and (t.shape != shape or t.dtype != dtype or not t.is_cuda
+                              or not t.is_contiguous()):
+            raise ValueError(f"expected a contiguous CUDA {dtype} {shape}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def w8a8_linear_plain(xq: torch.Tensor, sc: torch.Tensor, w_q: torch.Tensor,
+                      w_scale: torch.Tensor, bias: Optional[torch.Tensor],
+                      out_dtype: torch.dtype,
+                      side: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Q2's function: xq (R, K) int8 times w_q (N, K) int8, transposed,
+    exactly in int32, then :func:`w8a8_epilogue_plain`'s rescale (sc (R, 1),
+    w_scale (N,), side (R, N) float32; the bias in ``out_dtype``)."""
+    return w8a8_epilogue_plain(_int_mm(xq, w_q), sc, w_scale, bias, out_dtype, side)
+
+
+def w8a8_linear(xq: torch.Tensor, sc: torch.Tensor, w_q: torch.Tensor,
+                w_scale: torch.Tensor, bias: Optional[torch.Tensor], out_dtype: torch.dtype,
+                side: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel Q2 wrapper: :func:`w8a8_linear_plain`'s function, equal to the
+    bit, in one kernel (``csrc/w8a8_gemm.cu``): the int8 product on
+    ``wgmma`` and its rescale applied to the accumulators in registers; no
+    int32 tensor is formed.  Any R; K a multiple of 16 up to
+    ``W8A8_MAX_K`` and N a multiple of 8 (checked before anything else, on
+    every device but the CPU); the output bf16 or float32."""
+    if xq.device.type == "cpu":
+        return w8a8_linear_plain(xq, sc, w_q, w_scale, bias, out_dtype, side)
+    if xq.dim() != 2 or w_q.dim() != 2 or xq.shape[1] != w_q.shape[1]:
+        raise ValueError(f"expected xq (R, K) and w_q (N, K), got {tuple(xq.shape)} and "
+                         f"{tuple(w_q.shape)}")
+    (R, K), N = xq.shape, w_q.shape[0]
+    if K % 16 or N % 8 or K > W8A8_MAX_K:
+        raise ValueError(f"the W8A8 product takes K a multiple of 16 up to {W8A8_MAX_K} and "
+                         f"N a multiple of 8, got K={K}, N={N}")
+    for t in (xq, w_q):
+        if (t.dtype != torch.int8 or not t.is_cuda or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"expected a contiguous, 16-byte aligned CUDA int8 operand, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    _check_rescale_operands(R, N, sc, w_scale, bias, out_dtype, side)
+    if any(t is not None and t.data_ptr() % 8 for t in (w_scale, bias, side)):
+        raise ValueError("w_scale, bias and side must be 8-byte aligned (read in pairs)")
+    out = torch.empty((R, N), dtype=out_dtype, device=xq.device)
+    if R:
+        W8A8_LINEAR.launch(xq.data_ptr(), w_q.data_ptr(), sc.data_ptr(), w_scale.data_ptr(),
+                           None if bias is None else bias.data_ptr(),
+                           None if side is None else side.data_ptr(), out.data_ptr(), R, N, K,
+                           _DTYPE_CODES[out_dtype])
+    return out
+
+
 def _int_mm(xq: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
-    """xq (R, K) int8 times w_q (N, K) int8, transposed: (R, N) int32, exact.
-    On CUDA ``torch._int_mm`` takes more than 16 rows and K, N multiples of
-    8: fewer rows are padded with zeros (generation's one-token steps)."""
+    """xq (R, K) int8 times w_q (N, K) int8, transposed: (R, N) int32, exact
+    (the plain version's product, and the yardstick's).  On CUDA
+    ``torch._int_mm`` takes more than 16 rows and K, N multiples of 8: fewer
+    rows are padded with zeros."""
     R, K = xq.shape
     if xq.is_cuda:
         N = w_q.shape[0]
@@ -334,15 +393,15 @@ def rms_quantize_activation(x: torch.Tensor, gamma: torch.Tensor,
 def qdense_act(m: L.W8A8Linear, qa: Dict, out_dtype: torch.dtype) -> torch.Tensor:
     """The int8 product against a quantized activation, rescaled by the
     outer product of the row and column scales, plus the float32 outlier
-    side product when ``qa`` carries one."""
+    side product when ``qa`` carries one: one :func:`w8a8_linear`."""
     xq = qa["xq"]
     lead, K = xq.shape[:-1], xq.shape[-1]
-    acc = _int_mm(xq.reshape(-1, K), m.w_q8a)
+    rows = xq.reshape(-1, K)
     side = None
     if "idx" in qa:
         w_rows = m.w_q8a[:, qa["idx"]].float().t() * m.w_scale[None, :]   # (k, out)
-        side = qa["x_out"].reshape(acc.shape[0], -1) @ w_rows
-    y = w8a8_epilogue(acc, qa["sc"].reshape(-1, 1), m.w_scale, m.bias, out_dtype, side)
+        side = qa["x_out"].reshape(rows.shape[0], -1) @ w_rows
+    y = w8a8_linear(rows, qa["sc"].reshape(-1, 1), m.w_q8a, m.w_scale, m.bias, out_dtype, side)
     return y.reshape(*lead, y.shape[-1])
 
 

@@ -1,6 +1,6 @@
-"""Times kernels A, B, J, C, D, E, F, G, H and I of the port, predict
-(through B, and through J), one LoRA train step, one AMG image and one
-pixel-decoder evaluate, for one checkout.
+"""Times kernels A, B, J, C, D, E, F, G, H, I, Q1 and Q2 of the port, predict
+(through B, through J, and in W8A8), one LoRA train step, one AMG image and
+one pixel-decoder evaluate, for one checkout.
 
 Run on a machine with one CUDA card, once per checkout, in turns, so that
 two trees compare within one call (parent, change, change, parent):
@@ -8,7 +8,7 @@ two trees compare within one call (parent, change, change, parent):
     python3 scripts/compare_trees.py <checkout root> <label> [parts]
 
 ``parts`` is a comma-separated subset of
-``fwd,predict,bwd,train,onepass,window,amg_kernels,twoway`` (all by default).  It builds the
+``fwd,predict,bwd,train,onepass,window,amg_kernels,twoway,w8a8`` (all by default).  It builds the
 kernels of that checkout that the parts run and prints one JSON line:
   fwd      A at (128, 767, 767, 128) causal and J at (64, 4097, 4097, 64),
            bf16, on the event clock (ms a call, back to back), and A's host
@@ -51,12 +51,23 @@ kernels of that checkout that the parts run and prints one JSON line:
            text_len 512, 32 new tokens, as chip_smoke's pixel phase): ms
            over 3 after 1 of warm-up, and one evaluate's device time under
            torch.profiler, in all and for H's kernels (the decode's
-           ``tw_`` and ``fd_`` kernels: no other decoder runs there).
+           ``tw_`` and ``fd_`` kernels: no other decoder runs there);
+  w8a8     Q1 (quantize_rows) at 3068 x 4096 in the RMS form (bf16 gamma)
+           and the plain form, and at 3068 x 11008 in the plain form, and the
+           W8A8 product with its rescale at 3068 rows and (K, N) = (4096,
+           4096), (4096, 11008), (11008, 4096), bf16 out, each on the device
+           clock: the checkout's w8a8_linear where it has one (Q2 fused),
+           else torch._int_mm and its standalone rescale (w8a8_epilogue);
+           then llmseg_7b predict in W8A8 (bf16, LayerScale folded,
+           SmoothQuant calibrated on a one-image probe, quantized in place):
+           ms/step over 5 steps at batch 4 and at batch 8, and one batch-4
+           step's device time under torch.profiler, in all and for the
+           ``quantize_rows``, ``w8a8_`` and int8 GEMM kernels.
 It imports only the checkout's ``llmseg_tpu_torch``."""
 import json, math, os, sys, time
 root = os.path.abspath(sys.argv[1])
 parts = set((sys.argv[3] if len(sys.argv) > 3
-              else "fwd,predict,bwd,train,onepass,window,amg_kernels,twoway").split(","))
+              else "fwd,predict,bwd,train,onepass,window,amg_kernels,twoway,w8a8").split(","))
 sys.path.insert(0, root)
 os.chdir(root)
 import torch
@@ -77,6 +88,9 @@ if parts & {"window", "amg_kernels"}:
     names |= {"relpos_fwd", "relpos_window", "factored_decode"}
 if "twoway" in parts:
     names |= {"flash_fwd", "relpos_fwd", "relpos_window", "twoway_fused"}
+if "w8a8" in parts:
+    names |= {"flash_fwd", "flash_fwd_1pass", "quant"} | (
+        {"w8a8_gemm"} if "w8a8_gemm" in kernels.SIGNATURES else set())
 kernels.build(sorted(names), force=True)
 
 
@@ -245,6 +259,48 @@ if "twoway" in parts:
     torch.cuda.synchronize()
     out["evaluate_ms"] = (time.perf_counter() - t0) * 1e3 / 3
 
+if "w8a8" in parts:
+    from llmseg_tpu_torch.ops import quant as Q
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for c, form in ((4096, "rms"), (4096, "plain"), (11008, "plain")):
+        x = (torch.randn(3068, c, device="cuda", generator=g) * 3).to(torch.bfloat16)
+        gamma = ((1 + 0.3 * torch.randn(c, device="cuda", generator=g)).to(torch.bfloat16)
+                 if form == "rms" else None)
+        out[f"q1_{form}_3068x{c}_device_ms"] = dev_ms(lambda: Q.quantize_rows(x, gamma, 1e-6),
+                                                      20)
+    fused = hasattr(Q, "w8a8_linear")
+    out["q2_route"] = "w8a8_linear" if fused else "torch._int_mm + w8a8_epilogue"
+    for k, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
+        xq = torch.randint(-127, 128, (3068, k), device="cuda", generator=g, dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), device="cuda", generator=g, dtype=torch.int8)
+        sc = torch.rand(3068, 1, device="cuda", generator=g) * 1e-3
+        ws = torch.rand(n, device="cuda", generator=g) * 1e-2
+        if fused:
+            run = lambda: Q.w8a8_linear(xq, sc, w, ws, None, torch.bfloat16)
+        else:
+            run = lambda: Q.w8a8_epilogue(torch._int_mm(xq, w.t()), sc, ws, None, torch.bfloat16)
+        out[f"q2_3068x{k}x{n}_device_ms"] = dev_ms(run, 20)
+    del x, gamma, xq, w, sc, ws
+    torch.cuda.empty_cache()
+    cfg = C.llmseg_7b()
+    qmodel = llmseg.fold_frozen_inplace(llmseg.init(cfg, seed=0, device="cuda",
+                                                    dtype=torch.bfloat16))
+    probe = make_batch(cfg, num_images=1, rows_per_image=1, text_len=512, seed=5)
+    Q.quantize_llama_inplace(qmodel.llava.llm, bits=8, w8a8=True,
+                             smooth_stats=llmseg.calibrate_quant_stats(qmodel, probe),
+                             head_dim=cfg.llava.llm.head_dim)
+    torch.cuda.empty_cache()
+    qbatch = {n: make_batch(cfg, num_images=n, rows_per_image=1, text_len=512, seed=0)
+              for n in (4, 8)}
+    for n, b in qbatch.items():
+        llmseg.predict(qmodel, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            llmseg.predict(qmodel, b)
+        torch.cuda.synchronize()
+        out[f"w8a8_predict_batch{n}_ms"] = (time.perf_counter() - t0) * 1e3 / 5
+
 if parts & {"window", "amg_kernels"}:
     from llmseg_tpu_torch.ops import relpos_attention as R
     for BH in ((400, 3200) if "window" in parts else ()):
@@ -343,6 +399,13 @@ if "predict" in parts:
     A.ONEPASS_T = False
     out["predict_onepass_t_device_ms"] = prof["device_ms"]
     out["kernel_j_family_device_ms"] = prof["kernel_j"]
+if "w8a8" in parts:
+    prof = profiled(lambda: llmseg.predict(qmodel, qbatch[4]),
+                    {"kernel_q1": ("quantize_rows",), "kernel_q2": ("w8a8_",),
+                     "matmul_int8": ("imma", "i8816", "i16832", "s8")})
+    out["w8a8_predict_batch4_device_ms"] = prof["device_ms"]
+    for k in ("kernel_q1", "kernel_q2", "matmul_int8"):
+        out[f"w8a8_{k}_family_device_ms"] = prof[k]
 if "train" in parts:
     prof = profiled(lambda: trainer.step(tbatch),
                     {"kernel_c": ("flash_bwd_dq",), "kernel_d": ("flash_bwd_dkv",)})

@@ -1,5 +1,5 @@
-"""Times design choices of kernels C, D, E, F, G, H and I against the ones
-the port keeps.
+"""Times design choices of kernels C, D, E, F, G, H, I and Q2 against the
+ones the port keeps, and checks that a planted fault fails Q2's gate.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -34,7 +34,25 @@ replacing text in them (a variant's constants, or the edits of a
                            sum, p rounded before its normalisation) instead
                            of two (the row statistics, then p normalised
                            before it is rounded, where the TPU kernel
-                           rounds it) (scripts/twoway_fused_online.edits).
+                           rounds it) (scripts/twoway_fused_online.edits);
+  quant_nv16               kernel Q1's RMS pass with 16 vectors of 16 bytes
+                           a lane (its first form) instead of 4: a quarter
+                           of the warps a row, more registers, fewer warps
+                           in flight;
+  quant_mul                kernel Q1's plain form multiplying by 127 / max
+                           and dividing only where the product lies within
+                           2^-13 of a rounding tie (the same int8 values)
+                           instead of dividing every element;
+  w8a8_gemm_cluster        kernel Q2 with two CTAs a cluster sharing their
+                           weight tile by multicast instead of one CTA
+                           loading all of it (scripts/w8a8_gemm_cluster.edits);
+  w8a8_gemm_bn128          kernel Q2 on 128 x 128 output tiles (64 int32
+                           accumulators a thread) and six stages instead of
+                           128 x 256 and four;
+  w8a8_gemm_k_offset       a planted fault, not a design: Q2 reading the
+                           weight tile one k32 step ahead of the activations'
+                           (+32 bytes on its descriptor).  Its gate must fail,
+                           and the line says whether it did (fault_caught).
 An edit names a header as ``(header, text, replacement)``.  Each variant is
 held against its plain version at its main shape (C and D:
 B*H = 32, T = S = 767, D = 128, causal, bf16, chip_smoke.bwd_case's gate;
@@ -44,7 +62,9 @@ and G = 40, the same gate; G: 64 prompts at L = 4096, chip_smoke.g_case's
 gates, which hold each fused kernel against its record's emulation, and a
 bitwise repeat; H: 8 prompts of 6 and 64 of 7 at L = 4096,
 chip_smoke.twoway_case's gates, which hold each fused kernel against its
-record's emulation, and a bitwise repeat) and timed on the device clock
+record's emulation, and a bitwise repeat; Q2: chip_smoke.w8a8_case, equal to the plain version to
+the bit, at 3068 x 4096 x 11008 in bf16, 129 x 11008 x 4096 in float32 with
+a side term and 17 x 64 x 128) and timed on the device clock
 (chip_smoke.device_ms; G and H replayed, with their fused records one at a
 time), in turns with the kept kernel (kept, variant, variant, kept).  One JSON line a variant, with the spill and wgmma lines of
 its ``-Xptxas -v`` report.  ``names``: a comma-separated subset (all by
@@ -104,7 +124,20 @@ VARIANTS = [
     ("factored_decode_upscale_4wg", "factored_decode", [
         ("factored_fused.cuh", "UP_WGS = 3, UP_THREADS = 128 * UP_WGS + 32, UP_STAGES = 6;",
          "UP_WGS = 4, UP_THREADS = 128 * UP_WGS + 32, UP_STAGES = 4;")]),
+    ("quant_nv16", "quant", [
+        ("constexpr int Q1P_NV = 4;", "constexpr int Q1P_NV = 16;")]),
+    ("quant_mul", "quant", [
+        ("  return q8(__fdiv_rn(to_f(x), div));",
+         "  const float q = __fmul_rn(to_f(x), mul), f = q - floorf(q);\n"
+         "  return q8(fabsf(f - 0.5f) < 0x1p-13f ? __fdiv_rn(to_f(x), div) : q);")]),
+    ("w8a8_gemm_cluster", "w8a8_gemm", read_edits("w8a8_gemm_cluster")),
+    ("w8a8_gemm_bn128", "w8a8_gemm", [
+        ("constexpr int BN = 256;", "constexpr int BN = 128;"),
+        ("constexpr int STAGES = 4;", "constexpr int STAGES = 6;")]),
+    ("w8a8_gemm_k_offset", "w8a8_gemm", [
+        ("hopper::desc_kmajor(b + 32 * kk)", "hopper::desc_kmajor(b + 32 * (kk + 1))")]),
 ]
+FAULTS = {"w8a8_gemm_k_offset"}   # planted faults: their check must fail
 
 
 def build_variant(name, source, edits):
@@ -206,8 +239,42 @@ def tw_turn(source, check):
     return out
 
 
+def q1_turn(source, check):
+    """Kernel Q1 at LLaMA-7B's three forms, batch 4, bf16."""
+    from llmseg_tpu_torch.ops import quant as Q
+    bf16, f32 = torch.bfloat16, torch.float32
+    if check:   # raises if the variant is off
+        for R, C, dtype, rms in ((3068, 4096, bf16, True), (3068, 4096, bf16, False),
+                                 (3068, 11008, bf16, False), (129, 4096, f32, True),
+                                 (17, 11008, f32, False), (1, 4096, bf16, True),
+                                 (5, 100, bf16, True)):
+            CS.q1_case(Q, R=R, C=C, dtype=dtype, rms=rms)
+    out = {}
+    for C, rms in ((4096, True), (4096, False), (11008, False)):
+        g = torch.Generator(device="cuda").manual_seed(C)
+        x = (torch.randn(3068, C, device="cuda", generator=g) * 3).to(bf16)
+        gamma = (1 + 0.3 * torch.randn(C, device="cuda", generator=g)).to(bf16) if rms else None
+        out[f"{'rms' if rms else 'plain'}_{C}"] = CS.device_ms(
+            lambda: Q.quantize_rows(x, gamma, 1e-6), 20)
+    return out
+
+
+def w8a8_turn(source, check):
+    """Kernel Q2 at LLaMA-7B's three product shapes, batch 4, bf16."""
+    from llmseg_tpu_torch.ops import quant as Q
+    if check:   # raises if the variant is off
+        CS.w8a8_case(Q, R=3068, K=4096, N=11008, out_dtype=torch.bfloat16)
+        CS.w8a8_case(Q, R=129, K=11008, N=4096, out_dtype=torch.float32, extra="side")
+        CS.w8a8_case(Q, R=17, K=64, N=128, out_dtype=torch.bfloat16)
+    out = {}
+    for k, n in ((4096, 11008), (4096, 4096), (11008, 4096)):
+        args = CS.w8a8_inputs(3068, k, n, torch.bfloat16, None, 0)
+        out[f"{k}x{n}"] = CS.device_ms(lambda: Q.w8a8_linear(*args), 20)
+    return out
+
+
 TURNS = {"relpos_window": window_turn, "relpos_fwd": relpos_fwd_turn, "factored_decode": g_turn,
-         "twoway_fused": tw_turn}
+         "twoway_fused": tw_turn, "w8a8_gemm": w8a8_turn, "quant": q1_turn}
 
 
 def main() -> int:
@@ -218,6 +285,7 @@ def main() -> int:
     want = set(sys.argv[1].split(",")) if len(sys.argv) > 1 else {v[0] for v in VARIANTS}
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
+    missed = []
     for name, source, edits in VARIANTS:
         if name not in want:
             continue
@@ -225,11 +293,26 @@ def main() -> int:
         lib, notes = build_variant(name, source, edits)
         rec = {"variant": name, "replaces": source, "ptxas": notes}
         turn_fn = TURNS.get(source, bwd_turn)
+        if name in FAULTS:
+            kernels._LIBS[source] = lib
+            try:
+                turn_fn(source, True)
+                rec["fault_caught"] = False
+                missed.append(name)
+            except SystemExit as e:
+                rec["fault_caught"], rec["gate"] = True, str(e)[:300]
+            finally:
+                kernels._LIBS[source] = kept
+            print(json.dumps(rec), flush=True)
+            continue
         for turn, which in enumerate(("kept", "variant", "variant", "kept")):
             kernels._LIBS[source] = kept if which == "kept" else lib
             rec.setdefault(f"{which}_device_ms", []).append(turn_fn(source, turn == 1))
         kernels._LIBS[source] = kept
         print(json.dumps(rec), flush=True)
+    if missed:
+        print(f"planted faults that passed their gate: {missed}", file=sys.stderr)
+        return 1
     return 0
 
 

@@ -8,7 +8,8 @@ forward kernels (A, B, E, F, J) within 1e-2 + 1e-2 * |ref| (bf16 keeps 8
 significant bits; the kernels also round the probabilities to bf16 before
 the second product, as the TPU kernels do); float32 within 1e-4 (another
 summation order); the backward kernels and kernels G, H and I normwise, as
-their tests state; the quant kernels Q1 and Q2 as their tests state."""
+their tests state; the quant kernels Q1 and Q2 (and the standalone
+rescale that Q2 replaced) as their tests state."""
 
 import math
 
@@ -615,7 +616,7 @@ def test_kernels_h_i_reject_unsupported_inputs():
 
 
 # ---------------------------------------------------------------------------
-# Kernels Q1 and Q2 (csrc/quant.cu) and the W8A8 product around them
+# Kernels Q1 (csrc/quant.cu) and Q2 (csrc/w8a8_gemm.cu), the W8A8 path
 # ---------------------------------------------------------------------------
 
 
@@ -629,7 +630,7 @@ def _ulps(got, ref):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("rms", [False, True])
 @pytest.mark.parametrize("R,C", [(1, 4096), (17, 4096), (3068, 4096), (3068, 11008),
-                                 (129, 11008), (5, 100)])
+                                 (6136, 4096), (6136, 11008), (129, 11008), (5, 100)])
 def test_q1_matches_plain(dtype, rms, R, C):
     """int8 values equal (the same IEEE operations, rounding half to even),
     including a row of exact ties; the scale equal in the plain form and
@@ -657,8 +658,9 @@ def test_q1_matches_plain(dtype, rms, R, C):
 @pytest.mark.parametrize("extra", [None, "bias", "side"])
 @pytest.mark.parametrize("R,N", [(1, 4096), (17, 11008), (3068, 4096), (129, 4096), (7, 100)])
 def test_q2_matches_plain(out_dtype, extra, R, N):
-    """Within one ulp of the output type of the plain version (the same
-    operations in the same order); N = 100 takes the scalar path."""
+    """The standalone rescale (the yardstick's, after torch._int_mm) within
+    one ulp of the output type of the plain version (the same operations in
+    the same order); N = 100 takes the scalar path."""
     g = torch.Generator(device="cuda").manual_seed(R * N)
     acc = torch.randint(-2 ** 22, 2 ** 22, (R, N), device="cuda", generator=g,
                         dtype=torch.int32)
@@ -670,6 +672,34 @@ def test_q2_matches_plain(out_dtype, extra, R, N):
     got = Q.w8a8_epilogue(acc, sc, ws, bias, out_dtype, side)
     ref = Q.w8a8_epilogue_plain(acc, sc, ws, bias, out_dtype, side)
     assert got.dtype == out_dtype and _ulps(got, ref).max().item() <= 1
+
+
+def _same_bits(got, ref):
+    view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    return got.dtype == ref.dtype and torch.equal(got.view(view), ref.view(view))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("extra", [None, "bias", "side"])
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 11008), (11008, 4096), (64, 128)])
+@pytest.mark.parametrize("R", [1, 16, 17, 129, 3068, 6136])
+def test_q2_w8a8_linear_matches_plain_bitwise(R, K, N, extra, out_dtype):
+    """Kernel Q2 (the int8 product on wgmma with the rescale in registers)
+    against its plain version (torch._int_mm, then the plain rescale), equal
+    to the bit: the int32 sums are exact and the rescale is the same IEEE
+    operations in the same order.  Operands span the int8 range, so a wrong
+    swizzle, descriptor or k step shows in every sum."""
+    g = torch.Generator(device="cuda").manual_seed(R + K + N)
+    xq = torch.randint(-127, 128, (R, K), device="cuda", generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (N, K), device="cuda", generator=g, dtype=torch.int8)
+    sc = torch.rand(R, 1, device="cuda", generator=g) * 1e-3
+    ws = torch.rand(N, device="cuda", generator=g) * 1e-2
+    bias = (torch.randn(N, device="cuda", generator=g).to(out_dtype)
+            if extra == "bias" else None)
+    side = torch.randn(R, N, device="cuda", generator=g) if extra == "side" else None
+    got = Q.w8a8_linear(xq, sc, w, ws, bias, out_dtype, side)
+    ref = Q.w8a8_linear_plain(xq, sc, w, ws, bias, out_dtype, side)
+    assert got.shape == (R, N) and _same_bits(got, ref)
 
 
 @pytest.mark.parametrize("R", [1, 16, 17, 3068])
@@ -688,7 +718,8 @@ def test_w8a8_predict_runs_through_q1_and_q2(monkeypatch):
     """llmseg_tiny predict with the LLaMA in W8A8 (SmoothQuant) on the card
     against the same model on the CPU, float32 (no TF32 convolutions):
     within a tenth of the quantization error (a rounding tie may fall the
-    other way); Q1 launches four times a layer, Q2 seven."""
+    other way); Q1 launches four times a layer, Q2 (w8a8_linear) seven, and
+    neither torch._int_mm nor the standalone rescale runs."""
     from llmseg_tpu_torch.data.synthetic import make_batch
     from llmseg_tpu_torch.models import llmseg
 
@@ -704,12 +735,17 @@ def test_w8a8_predict_runs_through_q1_and_q2(monkeypatch):
     m_gpu = llmseg.build(cfg, device="cuda")
     Q.quantize_llama_inplace(m_gpu.llava.llm, bits=8, w8a8=True)
     m_gpu.load_state_dict(m_cpu.state_dict())
-    before = {k.name: k.launches for k in Q.KERNELS}
+    counted = Q.KERNELS + (Q.W8A8_EPILOGUE,)
+    int_mm, kept_int_mm = [], torch._int_mm
+    monkeypatch.setattr(torch, "_int_mm", lambda *a: int_mm.append(a))
+    before = {k.name: k.launches for k in counted}
     got = llmseg.predict(m_gpu, {k: v.cuda() for k, v in b_cpu.items()})["pred_similarity"]
-    launches = {k.name: k.launches - before[k.name] for k in Q.KERNELS}
+    launches = {k.name: k.launches - before[k.name] for k in counted}
+    monkeypatch.setattr(torch, "_int_mm", kept_int_mm)
     want = llmseg.predict(m_cpu, b_cpu, device="cpu")["pred_similarity"]
     L = cfg.llava.llm.num_layers
-    assert launches == {"quantize_rows": 4 * L, "w8a8_epilogue": 7 * L}
+    assert launches == {"quantize_rows": 4 * L, "w8a8_linear": 7 * L, "w8a8_epilogue": 0}
+    assert not int_mm
     qerr = (want - ref).abs().max().item()
     assert qerr > 0 and (got.cpu() - want).abs().max().item() <= 0.1 * qerr
 

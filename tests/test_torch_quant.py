@@ -220,6 +220,104 @@ def test_shared_activation_quant_matches_per_product():
         torch.testing.assert_close(tquant.qdense_act(m, qa, x.dtype), m(x), rtol=0, atol=0)
 
 
+def _bits(a):
+    """float32 or bf16 values (numpy, JAX or torch) as float32 bit patterns:
+    equal bits, not just equal values (the sign of a zero counts)."""
+    if torch.is_tensor(a):
+        a = a.float().numpy()
+    return np.asarray(a, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("extra", [None, "bias", "side"])
+@pytest.mark.parametrize("R,K,N", [(1, 64, 48), (17, 64, 48), (129, 64, 48), (3, 4096, 4096),
+                                   (3, 11008, 4096)])
+def test_w8a8_linear_plain_matches_qdense_act_bitwise(R, K, N, extra, out_dtype):
+    """Q2's function (the exact int8 product, then the rescale) against JAX's
+    ``qdense_act`` on the same int8 operands and scales, equal to the bit:
+    the int32 sums are exact and the rescale is the same float32 operations
+    in the same order (JAX runs it op by op, so nothing is contracted).  The
+    side term is JAX's own outlier product on the same inputs, handed to
+    the port as its ``side``."""
+    rs = np.random.RandomState(R + K + N)
+    xq = rs.randint(-127, 128, size=(R, K)).astype(np.int8)
+    w = rs.randint(-127, 128, size=(K, N)).astype(np.int8)      # JAX's (in, out)
+    sc = (rs.rand(R, 1) * 1e-2).astype(np.float32)
+    ws = (rs.rand(N) * 1e-2).astype(np.float32)
+    jdt, tdt = getattr(jnp, out_dtype), getattr(torch, out_dtype)
+    p = {"w_q8a": jnp.asarray(w), "w_scale": jnp.asarray(ws)}
+    qa = {"xq": jnp.asarray(xq), "sc": jnp.asarray(sc)}
+    bias = side = None
+    if extra == "bias":
+        p["b"] = jnp.asarray((rs.randn(N) * 0.1).astype(np.float32)).astype(jdt)
+        bias = torch.tensor(np.asarray(p["b"], np.float32)).to(tdt)
+    if extra == "side":
+        qa["idx"] = jnp.asarray(rs.choice(K, 4, replace=False).astype(np.int32))
+        qa["x_out"] = jnp.asarray(rs.randn(R, 4).astype(np.float32))
+        w_rows = p["w_q8a"][qa["idx"]].astype(jnp.float32) * p["w_scale"][None, :]
+        side = torch.tensor(np.asarray(jax.lax.dot_general(
+            qa["x_out"], w_rows, (((1,), (0,)), ((), ())),
+            preferred_element_type=jnp.float32)))
+    ref = jquant.qdense_act(p, qa, jdt)
+    got = tquant.w8a8_linear_plain(torch.tensor(xq), torch.tensor(sc), torch.tensor(w.T.copy()),
+                                   torch.tensor(ws), bias, tdt, side)
+    assert got.dtype == tdt and got.shape == (R, N)
+    np.testing.assert_array_equal(_bits(got), _bits(ref))
+    # the wrapper takes the plain version for a tensor on the CPU
+    again = tquant.w8a8_linear(torch.tensor(xq), torch.tensor(sc), torch.tensor(w.T.copy()),
+                               torch.tensor(ws), bias, tdt, side)
+    np.testing.assert_array_equal(_bits(again), _bits(got))
+
+
+def test_qdense_act_routes_each_product_through_w8a8_linear(monkeypatch):
+    """A W8A8 LLaMA layer's seven products (q, k, v, o, gate, up, down) each
+    call ``w8a8_linear`` once, with their own (K, N), on both W8A8 routes;
+    the standalone rescale is never called."""
+    _, tcfg, _, port, ids = _llama(seed=11)
+    q = tquant.quantize_llama(port, bits=8, w8a8=True)
+    calls = []
+    kept = tquant.w8a8_linear
+
+    def recording(xq, sc, w_q, *args, **kwargs):
+        calls.append((xq.shape[-1], w_q.shape[0]))
+        return kept(xq, sc, w_q, *args, **kwargs)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the standalone rescale ran on the W8A8 path")
+
+    monkeypatch.setattr(tquant, "w8a8_linear", recording)
+    monkeypatch.setattr(tquant, "w8a8_epilogue", refused)
+    H, I = tcfg.hidden_size, tcfg.intermediate_size
+    kv = tcfg.num_kv_heads * tcfg.head_dim
+    layer = [(H, H), (H, kv), (H, kv), (H, H), (H, I), (H, I), (I, H)]
+    with torch.no_grad():
+        q(input_ids=torch.tensor(ids))
+        assert calls == layer * tcfg.num_layers
+        calls.clear()
+        monkeypatch.setattr(tllama, "_rms_qdense", lambda *a: None)   # the shared route
+        q(input_ids=torch.tensor(ids))
+    assert calls == layer * tcfg.num_layers
+
+
+@pytest.mark.parametrize("K,N", [(24, 48), (64, 12), (tquant.W8A8_MAX_K + 8, 48), (64, 48)])
+def test_w8a8_linear_checks_its_shape_contract_before_any_launch(K, N, monkeypatch):
+    """K a multiple of 16 up to W8A8_MAX_K and N a multiple of 8, checked
+    before the kernel is built or launched (tensors on the meta device
+    stand in for the card's); a shape inside the contract goes on to the
+    device check."""
+    def launched(*args):
+        raise AssertionError("launched")
+
+    monkeypatch.setattr(tquant.W8A8_LINEAR, "launch", launched)
+    xq = torch.empty((3, K), dtype=torch.int8, device="meta")
+    w = torch.empty((N, K), dtype=torch.int8, device="meta")
+    sc = torch.empty((3, 1), device="meta")
+    ws = torch.empty((N,), device="meta")
+    ok = (K, N) == (64, 48)
+    with pytest.raises(ValueError, match="CUDA int8" if ok else "multiple of 16 up to"):
+        tquant.w8a8_linear(xq, sc, w, ws, None, torch.bfloat16)
+
+
 # ---------------------------------------------------------------------------
 # SmoothQuant: statistics, plan and fold on a tiny LLaMA
 # ---------------------------------------------------------------------------
