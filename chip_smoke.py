@@ -91,6 +91,25 @@ Phases, one JSON line each; any failure exits non-zero:
               in bf16 (before the W8A8 phase) and in W8A8 (on its model):
               img/s, gIoU, cIoU, the forward-only rate, launches a batch;
               the numpy compose on the same scores must give the same bits;
+     import   a reference checkpoint set written from seeded weights at
+              llmseg_7b width (LLaMA cut to 4 of 32 layers, DINOv2 and CLIP
+              whole, LoRA on q/v, sam_vit_h) into a temporary directory:
+              a DINOv2 hub .pth with its 37 x 37 table, a CLIP HF dir, a
+              LLaVA HF dir in two .bin shards with their index, an LLM-Seg
+              DeepSpeed checkpoint (latest -> global_step10, peft names),
+              a SAM .pth; each imported onto the card by
+              import_weights.torch_import: every parameter equal to its
+              source to the bit, predict equal to the source's to the bit,
+              the DINOv2 table within 1e-6 of this file's float64 resize;
+              seconds, bytes and peak host RSS of each import;
+     serve    on the imported model: predict exported at batch 4,
+              text_len 512 in bf16, then quantized in place to W8A8 and
+              exported again; both saved, the model freed, both loaded and
+              run: equal to eager predict to the bit, launches per call A 4,
+              B 24 (and Q1 16, Q2 28), one per op node; export, save and
+              load seconds, bytes, ms per call beside eager (median of 5,
+              events); SAM's decoder program at sam_vit_h's decoder width,
+              64 prompts, single mask, equal to its eager function;
   5. train    the LoRA train step at llmseg_7b in bf16 through the Trainer
               (1 image, 1 row, text_len 512, remat "dots"): launch counts per
               step, finite losses, frozen weights bit-identical and trainable
@@ -2422,6 +2441,485 @@ def qlora_phase(C, make_batch, A) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# import and serve: reference checkpoints into the port, predict as a program
+# ---------------------------------------------------------------------------
+
+IMPORT_LLAMA_LAYERS = 4       # phases import and serve: an artifact holds its weights
+HUB_GRID = 37                 # dinov2_vitl14's torch.hub position table (518 px)
+POS_LIMIT = 1e-6              # the imported DINOv2 table vs keys_cubic_f64 here
+SERVE_PROMPTS = 64            # SAM decoder program's prompt batch
+
+
+def _lin_sd(sd, ref, mod) -> None:
+    """ref.weight (and ref.bias) from a module with ``weight`` (and
+    ``bias``): nn.Linear, the port's norms and patch convolutions."""
+    sd[f"{ref}.weight"] = mod.weight
+    if getattr(mod, "bias", None) is not None:
+        sd[f"{ref}.bias"] = mod.bias
+
+
+def ref_llama(llm, prefix: str = "model.") -> dict:
+    """HF LLaMA names of a port ``Llama``'s weights.  These writers invert
+    the reference's key maps here, independently of the port's importers."""
+    sd = {f"{prefix}embed_tokens.weight": llm.embed_tokens.weight,
+          f"{prefix}norm.weight": llm.norm.weight}
+    if llm.lm_head is not None:
+        sd["lm_head.weight"] = llm.lm_head.weight
+    for i, layer in enumerate(llm.layers):
+        b = f"{prefix}layers.{i}"
+        sd[f"{b}.input_layernorm.weight"] = layer.input_norm.weight
+        sd[f"{b}.post_attention_layernorm.weight"] = layer.post_norm.weight
+        for n in ("q", "k", "v", "o"):
+            sd[f"{b}.self_attn.{n}_proj.weight"] = getattr(layer.attn, n).weight
+        for n in ("gate", "up", "down"):
+            sd[f"{b}.mlp.{n}_proj.weight"] = getattr(layer.mlp, n).weight
+    return sd
+
+
+def ref_clip(tower, prefix: str = "vision_model.") -> dict:
+    """HF CLIPVisionModel names of a port CLIP ``ViT``."""
+    sd = {f"{prefix}embeddings.patch_embedding.weight": tower.patch_embed.weight,
+          f"{prefix}embeddings.class_embedding": tower.cls_token.reshape(-1),
+          f"{prefix}embeddings.position_embedding.weight": tower.pos_embed[0]}
+    _lin_sd(sd, f"{prefix}pre_layrnorm", tower.pre_norm)
+    _lin_sd(sd, f"{prefix}post_layernorm", tower.norm)
+    for i, blk in enumerate(tower.blocks):
+        b = f"{prefix}encoder.layers.{i}"
+        _lin_sd(sd, f"{b}.layer_norm1", blk.norm1)
+        _lin_sd(sd, f"{b}.layer_norm2", blk.norm2)
+        for n in ("q", "k", "v"):
+            _lin_sd(sd, f"{b}.self_attn.{n}_proj", getattr(blk.attn, n))
+        _lin_sd(sd, f"{b}.self_attn.out_proj", blk.attn.out)
+        _lin_sd(sd, f"{b}.mlp.fc1", blk.mlp.fc1)
+        _lin_sd(sd, f"{b}.mlp.fc2", blk.mlp.fc2)
+    return sd
+
+
+def ref_dinov2(tower, pos_hub) -> dict:
+    """torch.hub dinov2 names of a port DINOv2 ``ViT`` (unfolded), with the
+    hub's position table ``pos_hub`` in place of the model's."""
+    import torch
+    sd = {"cls_token": tower.cls_token, "pos_embed": pos_hub}
+    _lin_sd(sd, "patch_embed.proj", tower.patch_embed)
+    _lin_sd(sd, "norm", tower.norm)
+    for i, blk in enumerate(tower.blocks):
+        b, a = f"blocks.{i}", blk.attn
+        sd[f"{b}.attn.qkv.weight"] = torch.cat([a.q.weight, a.k.weight, a.v.weight], 0)
+        sd[f"{b}.attn.qkv.bias"] = torch.cat([a.q.bias, a.k.bias, a.v.bias])
+        _lin_sd(sd, f"{b}.attn.proj", a.out)
+        _lin_sd(sd, f"{b}.norm1", blk.norm1)
+        _lin_sd(sd, f"{b}.norm2", blk.norm2)
+        _lin_sd(sd, f"{b}.mlp.fc1", blk.mlp.fc1)
+        _lin_sd(sd, f"{b}.mlp.fc2", blk.mlp.fc2)
+        sd[f"{b}.ls1.gamma"] = blk.ls1
+        sd[f"{b}.ls2.gamma"] = blk.ls2
+    return sd
+
+
+def ref_llmseg(model) -> dict:
+    """LISAForCausalLM's checkpoint names under peft (the DeepSpeed
+    ``module``): the LLaMA with LoRA on q/v (``base_layer`` and
+    ``lora_A/B.default``), the projector, the text projection and the
+    ``lisa_*`` head; the frozen towers are not saved."""
+    base = ref_llama(model.llava.llm)
+    _lin_sd(base, "model.mm_projector", model.llava.mm_projector)
+    s = model.select
+    _lin_sd(base, "model.text_hidden_fcs.0.0", s.text_fc1)
+    _lin_sd(base, "model.text_hidden_fcs.0.2", s.text_fc2)
+    base["model.lisa_dino_conv.weight"] = s.dino_conv.weight[:, :, None, None]
+    base["model.lisa_dino_conv.bias"] = s.dino_conv.bias
+
+    def att(ref, m):
+        for n in ("q", "k", "v", "out"):
+            _lin_sd(base, f"{ref}.{n}_proj", getattr(m, n))
+
+    for i, blk in enumerate(s.blocks):
+        b = f"model.lisa_attention_layers.{i}"
+        att(f"{b}.self_attn", blk.self_attn)
+        att(f"{b}.cross_attn_token_to_image", blk.cross_t2i)
+        att(f"{b}.cross_attn_image_to_token", blk.cross_i2t)
+        for n in ("norm1", "norm2", "norm3", "norm4"):
+            _lin_sd(base, f"{b}.{n}", getattr(blk, n))
+        _lin_sd(base, f"{b}.mlp.lin1", blk.mlp.fc1)
+        _lin_sd(base, f"{b}.mlp.lin2", blk.mlp.fc2)
+    att("model.lisa_final_attn", s.final_attn)
+    _lin_sd(base, "model.lisa_norm_final_attn", s.norm_final)
+    for j, n in ((0, 0), (2, 1)):
+        _lin_sd(base, f"model.lisa_iou_head.{j}", s.iou_head.layers[n])
+        _lin_sd(base, f"model.lisa_embedding_head.{j}", s.embedding_head.layers[n])
+    sd = {}
+    for k, v in base.items():
+        if k.startswith("model.layers.") and (".q_proj." in k or ".v_proj." in k):
+            k = k.replace("_proj.", "_proj.base_layer.")
+        sd["base_model.model." + k] = v
+    for i, pairs in enumerate(model.lora.layers):
+        for n, pair in pairs.items():
+            b = f"base_model.model.model.layers.{i}.self_attn.{n}_proj"
+            sd[f"{b}.lora_A.default.weight"] = pair.a.weight
+            sd[f"{b}.lora_B.default.weight"] = pair.b.weight
+    return sd
+
+
+def ref_sam(sam) -> dict:
+    """build_sam's checkpoint names of a port ``Sam``; the transposed-conv
+    taps back to torch's (in, out, kh, kw), unflipped."""
+    sd = {}
+    e = sam.image_encoder
+    _lin_sd(sd, "image_encoder.patch_embed.proj", e.patch_embed)
+    sd["image_encoder.pos_embed"] = e.pos_embed
+    for i, blk in enumerate(e.blocks):
+        b = f"image_encoder.blocks.{i}"
+        _lin_sd(sd, f"{b}.norm1", blk.norm1)
+        _lin_sd(sd, f"{b}.norm2", blk.norm2)
+        _lin_sd(sd, f"{b}.attn.qkv", blk.attn.qkv)
+        _lin_sd(sd, f"{b}.attn.proj", blk.attn.proj)
+        sd[f"{b}.attn.rel_pos_h"] = blk.attn.rel_pos_h
+        sd[f"{b}.attn.rel_pos_w"] = blk.attn.rel_pos_w
+        _lin_sd(sd, f"{b}.mlp.lin1", blk.mlp.fc1)
+        _lin_sd(sd, f"{b}.mlp.lin2", blk.mlp.fc2)
+    for j, n in enumerate(("conv1", "ln1", "conv2", "ln2")):
+        _lin_sd(sd, f"image_encoder.neck.{j}", getattr(e.neck, n))
+    p = sam.prompt_encoder
+    sd["prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"] = p.pe.gaussian
+    for i in range(4):
+        sd[f"prompt_encoder.point_embeddings.{i}.weight"] = p.point_embeddings[i:i + 1]
+    sd["prompt_encoder.not_a_point_embed.weight"] = p.not_a_point_embed
+    sd["prompt_encoder.no_mask_embed.weight"] = p.no_mask_embed
+    for j, n in ((0, "conv1"), (1, "ln1"), (3, "conv2"), (4, "ln2"), (6, "conv3")):
+        _lin_sd(sd, f"prompt_encoder.mask_downscaling.{j}", getattr(p.mask_downscale, n))
+    d, t = sam.mask_decoder, "mask_decoder.transformer"
+    sd["mask_decoder.iou_token.weight"] = d.iou_token
+    sd["mask_decoder.mask_tokens.weight"] = d.mask_tokens
+
+    def att(ref, m):
+        for n in ("q", "k", "v", "out"):
+            _lin_sd(sd, f"{ref}.{n}_proj", getattr(m, n))
+
+    for i, layer in enumerate(d.transformer.layers):
+        b = f"{t}.layers.{i}"
+        att(f"{b}.self_attn", layer.self_attn)
+        att(f"{b}.cross_attn_token_to_image", layer.cross_attn_t2i)
+        att(f"{b}.cross_attn_image_to_token", layer.cross_attn_i2t)
+        for n in ("norm1", "norm2", "norm3", "norm4"):
+            _lin_sd(sd, f"{b}.{n}", getattr(layer, n))
+        _lin_sd(sd, f"{b}.mlp.lin1", layer.mlp.fc1)
+        _lin_sd(sd, f"{b}.mlp.lin2", layer.mlp.fc2)
+    att(f"{t}.final_attn_token_to_image", d.transformer.final_attn)
+    _lin_sd(sd, f"{t}.norm_final_attn", d.transformer.norm_final)
+    for j, n in ((0, "upscale_conv1"), (1, "upscale_ln"), (3, "upscale_conv2")):
+        _lin_sd(sd, f"mask_decoder.output_upscaling.{j}", getattr(d, n))
+    for j in (0, 3):
+        w = sd[f"mask_decoder.output_upscaling.{j}.weight"]
+        sd[f"mask_decoder.output_upscaling.{j}.weight"] = w.flip(2, 3).permute(1, 0, 2, 3)
+    for i, mlp in enumerate(d.hyper_mlps):
+        for j, lin in enumerate(mlp.layers):
+            _lin_sd(sd, f"mask_decoder.output_hypernetworks_mlps.{i}.layers.{j}", lin)
+    for j, lin in enumerate(d.iou_head.layers):
+        _lin_sd(sd, f"mask_decoder.iou_prediction_head.layers.{j}", lin)
+    return sd
+
+
+def host_copy(sd: dict, dtype=None) -> dict:
+    """Each tensor as its own compact host tensor (cast to ``dtype`` if
+    given), as a checkpoint file holds it."""
+    return {k: v.detach().to("cpu", dtype=dtype or v.dtype, copy=True).contiguous()
+            for k, v in sd.items()}
+
+
+def write_checkpoints(root: str, src, sam, pos_hub) -> dict:
+    """The reference's checkpoint set, written under ``root``: a DINOv2 hub
+    ``.pth`` and a CLIP HF dir in float32 (as published), a LLaVA HF dir in
+    bf16 in two ``.bin`` shards with ``pytorch_model.bin.index.json``, an
+    LLM-Seg DeepSpeed checkpoint (``ckpt_model/latest`` ->
+    ``global_step10/mp_rank_00_model_states.pt``, the state dict under
+    ``module``) in bf16, and a SAM ``.pth`` in float32.  Returns each
+    component's path."""
+    import torch
+    f32 = torch.float32
+    paths = {"dinov2": os.path.join(root, "dinov2_vitl14.pth"),
+             "clip": os.path.join(root, "clip-vit-large-patch14"),
+             "llava": os.path.join(root, "llava-7b"),
+             "llmseg": os.path.join(root, "ckpt_model"),
+             "sam": os.path.join(root, "sam_vit_h.pth")}
+    torch.save(host_copy(ref_dinov2(src.dino, pos_hub), f32), paths["dinov2"])
+    os.makedirs(paths["clip"])
+    torch.save(host_copy(ref_clip(src.llava.vision_tower), f32),
+               os.path.join(paths["clip"], "pytorch_model.bin"))
+    os.makedirs(paths["llava"])
+    llava = ref_llama(src.llava.llm)
+    _lin_sd(llava, "model.mm_projector", src.llava.mm_projector)
+    names = list(llava)
+    shards = [names[:len(names) // 2], names[len(names) // 2:]]
+    weight_map = {}
+    for i, part in enumerate(shards):
+        fname = f"pytorch_model-{i + 1:05d}-of-{len(shards):05d}.bin"
+        torch.save(host_copy({k: llava[k] for k in part}), os.path.join(paths["llava"], fname))
+        weight_map.update({k: fname for k in part})
+    with open(os.path.join(paths["llava"], "pytorch_model.bin.index.json"), "w") as f:
+        json.dump({"metadata": {}, "weight_map": weight_map}, f)
+    step = os.path.join(paths["llmseg"], "global_step10")
+    os.makedirs(step)
+    torch.save({"module": host_copy(ref_llmseg(src))},
+               os.path.join(step, "mp_rank_00_model_states.pt"))
+    with open(os.path.join(paths["llmseg"], "latest"), "w") as f:
+        f.write("global_step10")
+    torch.save(host_copy(ref_sam(sam), f32), paths["sam"])
+    return paths
+
+
+def keys_cubic_f64(pos, src: int, dst: int):
+    """``jax.image.resize(method="bicubic")`` of a (1, 1 + src^2, C) table's
+    grid, in float64, from the definition: Keys' cubic (a = -0.5) at
+    half-pixel sample positions, taps outside the input dropped and the
+    rest renormalised, applied along rows then columns."""
+    import numpy as np
+    s = (np.arange(dst) + 0.5) * src / dst - 0.5
+    w = np.zeros((dst, src))
+    for o in range(dst):
+        for i in range(src):
+            x = abs(s[o] - i)
+            w[o, i] = (1.5 * x ** 3 - 2.5 * x ** 2 + 1 if x < 1
+                       else -0.5 * x ** 3 + 2.5 * x ** 2 - 4 * x + 2 if x < 2 else 0.0)
+    w /= w.sum(1, keepdims=True)
+    grid = pos[0, 1:].double().cpu().numpy().reshape(src, src, -1)
+    out = np.einsum("oh,pw,hwc->opc", w, w, grid)
+    return out.reshape(1, dst * dst, -1)
+
+
+def rss_bytes() -> int:
+    """This process's resident set now (``/proc/self/statm``)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def with_peak_rss(fn):
+    """Run ``fn`` while a thread samples the resident set every 5 ms;
+    returns (fn's result, the peak in GB)."""
+    import threading
+    peak, stop = [rss_bytes()], threading.Event()
+
+    def watch():
+        while not stop.wait(0.005):
+            peak[0] = max(peak[0], rss_bytes())
+
+    t = threading.Thread(target=watch, daemon=True)
+    t.start()
+    try:
+        out = fn()
+    finally:
+        stop.set()
+        t.join()
+    return out, max(peak[0], rss_bytes()) / 1e9
+
+
+def dir_bytes(path: str) -> int:
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, n)) for d, _, ns in os.walk(path) for n in ns)
+
+
+def import_phase(C, llmseg, S, TI, make_batch, *, base=None, sam_cfg=None,
+                 hub_grid: int = HUB_GRID, text_len: int = 512, device="cuda") -> dict:
+    """Write the reference checkpoint set from seeded weights at llmseg_7b
+    width (LLaMA cut to IMPORT_LLAMA_LAYERS layers, the towers whole, LoRA
+    on q/v with a nonzero B, sam_vit_h), import each file through the port
+    onto the card, and hold every parameter and predict to their source.
+    ``base``, ``sam_cfg``, ``hub_grid``, ``text_len`` and ``device`` let a
+    CPU test run it small."""
+    import gc
+    import resource
+    import shutil
+    import tempfile
+    import torch
+    bf16 = torch.bfloat16
+    base = base or C.llmseg_7b()
+    sam_cfg = sam_cfg or C.sam_vit_h()
+    cfg = C.replace(base, llava=C.replace(base.llava, llm=C.replace(
+        base.llava.llm, num_layers=min(IMPORT_LLAMA_LAYERS, base.llava.llm.num_layers))))
+    lora_cfg = C.LoraConfig()
+    src = llmseg.init(cfg, seed=21, device=device, dtype=bf16, lora_cfg=lora_cfg)
+    g = torch.Generator(device=device).manual_seed(22)
+    with torch.no_grad():
+        for pairs in src.lora.layers:
+            for pair in pairs.values():
+                pair.b.weight.normal_(0.0, 0.02, generator=g)
+        pos_hub = torch.randn((1, 1 + hub_grid * hub_grid, cfg.dino.hidden_size),
+                              generator=g, device=device) * 0.02
+        src.dino.pos_embed.copy_(TI.interpolate_pos_embed(pos_hub.cpu(), hub_grid,
+                                                          cfg.dino.grid))
+    sam_src = S.init(sam_cfg, seed=23, device=device)
+    root = tempfile.mkdtemp(prefix="llmseg_ckpt_")
+    rec = {"phase": "import", "config": "llmseg_7b", "cut": {
+        "llama_layers": f"{cfg.llava.llm.num_layers} of {base.llava.llm.num_layers}",
+        "dinov2": "whole", "clip": "whole", "sam": "sam_vit_h whole"},
+        "hub_grid": hub_grid, "grid": cfg.dino.grid}
+    try:
+        t0 = time.time()
+        paths = write_checkpoints(root, src, sam_src, pos_hub)
+        gc.collect()
+        rec["write_s"] = time.time() - t0
+        rec["bytes"] = {k: dir_bytes(p) for k, p in paths.items()}
+        rec["rss_before_gb"] = rss_bytes() / 1e9
+        dst = llmseg.build(cfg, device=device, dtype=bf16, lora_cfg=lora_cfg)
+        sam_dst = S.build(sam_cfg, device=device)
+        kw = dict(device=device)
+        steps = (("dinov2", lambda: TI.load_dinov2_into(dst, paths["dinov2"], **kw)),
+                 ("clip", lambda: TI.load_clip_into(dst, paths["clip"], **kw)),
+                 ("llava", lambda: TI.load_llava_into(dst, paths["llava"], **kw)),
+                 ("llmseg", lambda: TI.load_llmseg_into(dst, paths["llmseg"],
+                                                        lora_cfg=lora_cfg, **kw)),
+                 ("sam", lambda: TI.load_sam_into(sam_dst, paths["sam"], **kw)))
+        rec["seconds"], rec["peak_rss_gb"] = {}, {}
+        for name, step in steps:
+            gc.collect()
+            t0 = time.time()
+            _, rec["peak_rss_gb"][name] = with_peak_rss(lambda: (step(), sync(device)))
+            rec["seconds"][name] = time.time() - t0
+        rec["rss_after_gb"] = rss_bytes() / 1e9
+        rec["process_peak_rss_gb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+        ours = TI.interpolate_pos_embed(TI.load_torch_state(paths["dinov2"])["pos_embed"],
+                                        hub_grid, cfg.dino.grid)
+        rec["pos_max_abs_err"] = float(abs(ours[:, 1:].double().numpy() - keys_cubic_f64(
+            pos_hub, hub_grid, cfg.dino.grid)).max())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    src_p, dst_p = dict(src.named_parameters()), dict(dst.named_parameters())
+    differ = [n for n in src_p if n not in dst_p or not torch.equal(src_p[n], dst_p[n])]
+    sam_p = dict(sam_dst.named_parameters())
+    differ += ["sam." + n for n, p in sam_src.named_parameters() if not torch.equal(p, sam_p[n])]
+    batch = make_batch(cfg, num_images=4, rows_per_image=1, text_len=text_len, seed=24,
+                       dtype=bf16, device=device)
+    ref = llmseg.predict(src, batch, lora_cfg=lora_cfg, device=device)
+    got = llmseg.predict(dst, batch, lora_cfg=lora_cfg, device=device)
+    rec["params"] = len(src_p) + len(sam_p)
+    rec["params_differ"] = differ[:5]
+    rec["predict_equal"] = all(torch.equal(ref[k], got[k]) for k in ref)
+    rec["ok"] = (not differ and len(src_p) == len(dst_p) and rec["predict_equal"]
+                 and rec["pos_max_abs_err"] <= POS_LIMIT)
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit("the imported checkpoints differ from their source")
+    del src, sam_src, ref, got
+    torch.cuda.empty_cache()
+    return {"model": dst, "sam": sam_dst, "cfg": cfg, "lora_cfg": lora_cfg, "batch": batch}
+
+
+def sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def event_ms(fn, runs: int = 5) -> float:
+    """Median over ``runs`` calls of one call's time on CUDA events."""
+    import torch
+    times = []
+    for _ in range(runs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
+
+
+def serve_phase(C, llmseg, Q, A, SV, SX, imported) -> dict:
+    """Export predict at batch 4, text_len 512, in bf16 and then in W8A8 on
+    the imported model, save both, free the model, load and run them: equal
+    to eager predict to the bit, the kernels launched once per op node.
+    Then SAM's decoder program at sam_vit_h's decoder width, 64 prompts."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    model, batch, lora_cfg = imported["model"], imported["batch"], imported["lora_cfg"]
+    dev = batch["input_ids"].device
+    n_layers = model.cfg.llava.llm.num_layers
+    shape = dict(num_images=4, rows=4, text_len=batch["input_ids"].shape[1])
+    shapes = SV.predict_arg_shapes(model.cfg, **shape)
+    served = {k: batch[k] for k in shapes}
+    kern = {k.name: k for k in A.KERNELS + Q.KERNELS}
+    expect = {"bf16": {"flash_fwd": n_layers, "flash_fwd_1pass": model.cfg.dino.depth},
+              "w8a8": {"flash_fwd": n_layers, "flash_fwd_1pass": model.cfg.dino.depth,
+                       "quantize_rows": 4 * n_layers, "w8a8_linear": 7 * n_layers}}
+    root = tempfile.mkdtemp(prefix="llmseg_serve_")
+    rec = {"phase": "serve", "config": "llmseg_7b", "cut": f"LLaMA {n_layers} of 32 layers",
+           "dtype": "bfloat16",
+           **shape, "lora": True}
+    eager, paths = {}, {}
+    try:
+        for mode in ("bf16", "w8a8"):
+            if mode == "w8a8":
+                Q.quantize_llama_inplace(model.llava.llm, bits=8, w8a8=True)
+            eager[mode] = llmseg.predict(model, batch, lora_cfg=lora_cfg, device=dev)
+            rec[f"{mode}_eager_ms"] = event_ms(
+                lambda: llmseg.predict(model, batch, lora_cfg=lora_cfg, device=dev))
+            t0 = time.time()
+            ep = SV.export_predict(model, **shape, lora_cfg=lora_cfg)
+            rec[f"{mode}_export_s"] = time.time() - t0
+            rec[f"{mode}_op_nodes"] = {
+                name: sum(1 for n in ep.graph.nodes if str(n.target) == f"llmseg.{name}.default")
+                for name in expect[mode]}
+            paths[mode] = os.path.join(root, f"predict_{mode}.pt2")
+            t0 = time.time()
+            torch.export.save(ep, paths[mode])
+            rec[f"{mode}_save_s"] = time.time() - t0
+            rec[f"{mode}_bytes"] = os.path.getsize(paths[mode])
+            del ep
+        del model, imported["model"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        ok = True
+        for mode in ("bf16", "w8a8"):
+            t0 = time.time()
+            fn = SV.load_predict(paths[mode])
+            sync(dev)
+            rec[f"{mode}_load_s"] = time.time() - t0
+            for k in kern.values():
+                k.launches = 0
+            out = fn(served)
+            sync(dev)
+            launches = {name: kern[name].launches for name in kern}
+            want = dict.fromkeys(kern, 0) | expect[mode]
+            rec[f"{mode}_launches"] = launches
+            rec[f"{mode}_equal"] = all(torch.equal(out[k], eager[mode][k]) for k in eager[mode])
+            rec[f"{mode}_loaded_ms"] = event_ms(lambda: fn(served))
+            ok = ok and (launches == want and rec[f"{mode}_equal"]
+                         and rec[f"{mode}_op_nodes"] == expect[mode])
+            del fn, out
+            torch.cuda.empty_cache()
+        sam = imported["sam"]
+        g = torch.Generator(device=dev).manual_seed(25)
+        S_, D = sam.cfg.prompt.image_embedding_size, sam.cfg.prompt.embed_dim
+        args = (torch.randn((1, S_, S_, D), generator=g, device=dev),
+                torch.rand((SERVE_PROMPTS, 1, 2), generator=g, device=dev)
+                * sam.cfg.encoder.img_size,
+                torch.ones((SERVE_PROMPTS, 1), dtype=torch.int32, device=dev),
+                torch.randn((SERVE_PROMPTS, 4 * S_, 4 * S_, 1), generator=g, device=dev),
+                torch.tensor(1.0, device=dev))
+        t0 = time.time()
+        SX.save_decoder(os.path.join(root, "decoder.pt2"), sam, batch=SERVE_PROMPTS,
+                        return_single_mask=True)
+        rec["decoder_export_save_s"] = time.time() - t0
+        rec["decoder_bytes"] = os.path.getsize(os.path.join(root, "decoder.pt2"))
+        dec = SX.load_decoder(os.path.join(root, "decoder.pt2"))
+        got = dec(*args)
+        with torch.no_grad():
+            ref = SX.DecoderProgram(sam, return_single_mask=True)(*args)
+        rec["decoder_equal"] = all(torch.equal(a, b) for a, b in zip(got, ref))
+        rec["decoder_shapes"] = [list(t.shape) for t in got]
+        rec["decoder_ms"] = event_ms(lambda: dec(*args))
+        rec["ok"] = ok and rec["decoder_equal"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit("a loaded program differs from eager predict or missed its kernels")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2429,11 +2927,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from llmseg_tpu_torch import config as C
+    from llmseg_tpu_torch import serving as SV
     from llmseg_tpu_torch.data.synthetic import make_batch
+    from llmseg_tpu_torch.import_weights import torch_import as TI
     from llmseg_tpu_torch.models import generate as GEN
     from llmseg_tpu_torch.models import llmseg
     from llmseg_tpu_torch.models import pixel_decoder as PD
     from llmseg_tpu_torch.models.sam import amg as AMG
+    from llmseg_tpu_torch.models.sam import export as SX
     from llmseg_tpu_torch.models.sam import image_encoder as IE
     from llmseg_tpu_torch.models.sam import sam as S
     from llmseg_tpu_torch.ops import attention as A
@@ -2625,6 +3126,11 @@ def main() -> int:
     # the val loop in W8A8, on the model the W8A8 phase quantized
     valloop_phase(E, TS, model, val_data, A.KERNELS + Q.KERNELS, "w8a8")
     del model, val_data
+    torch.cuda.empty_cache()
+
+    # reference checkpoints into the port, then predict and SAM's decoder as
+    # exported programs, saved, loaded and run
+    serve_phase(C, llmseg, Q, A, SV, SX, import_phase(C, llmseg, S, TI, make_batch))
     torch.cuda.empty_cache()
 
     # 5. the train step, timed, then profiled; then QLoRA

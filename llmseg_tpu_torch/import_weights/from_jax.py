@@ -1,8 +1,10 @@
 """Load the JAX package's parameter tree into the port's modules.
 
 The tree is given as nested dicts / lists of numpy arrays (for example
-``jax.tree.map(np.asarray, params)``); nothing here imports JAX.  The port's
-module names mirror the tree's keys, so each leaf maps by its path:
+``jax.tree.map(np.asarray, params)``) or of torch tensors, which keep their
+dtype (``import_weights.torch_import`` builds such trees from torch
+checkpoints, bf16 included); nothing here imports JAX.  The port's module
+names mirror the tree's keys, so each leaf maps by its path:
 
   * dense ``w`` (in, out)            -> ``<path>.weight`` (out, in)
   * conv kernel ``w`` HWIO           -> ``<path>.weight`` OIHW (patch
@@ -24,15 +26,18 @@ module names mirror the tree's keys, so each leaf maps by its path:
     ``Int4Linear``).  Both packings pair inputs 2i (low nibble) and 2i + 1,
     so the transposed bytes unpack to the same values.
 
-LayerScale leaves missing from the tree (a folded DINOv2) are removed from
-the module too.  The load is strict: every parameter of the module must come
-from the tree and every leaf must land.  The layout maps are linear, so a
-gradient tree flattens the same way as a parameter tree.
+LayerScale leaves missing from a block the tree names (a folded DINOv2) are
+removed from the module too.  Every leaf must land; by default the load is
+strict, so every parameter of the module must come from the tree, and
+``strict=False`` leaves the parameters the tree does not name as they are
+(a checkpoint set arrives in parts).  A subtree loads into the submodule
+it describes (``load_(model.dino, dino_tree)``).  The layout maps are
+linear, so a gradient tree flattens the same way as a parameter tree.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Union
 
 import numpy as np
 import torch
@@ -45,9 +50,27 @@ _QUANT_LEAVES = {"w_q": (L.Int8Linear, "w_scale"), "w_q8a": (L.W8A8Linear, "w_sc
                  "w_q4": (L.Int4Linear, "w_scale4")}
 
 
-def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
-    """{port parameter name: array in the port's layout}."""
-    out: Dict[str, np.ndarray] = {}
+Array = Union[np.ndarray, torch.Tensor]
+
+
+def _permute(arr: Array, *axes) -> Array:
+    return arr.permute(*axes) if torch.is_tensor(arr) else arr.transpose(*axes)
+
+
+def _tensor(arr: Array) -> torch.Tensor:
+    """A torch tensor of the leaf's dtype; a bf16 numpy array (ml_dtypes,
+    what a bf16 JAX array or safetensors' numpy reader gives) by its bits."""
+    if torch.is_tensor(arr):
+        return arr
+    if arr.dtype.name == "bfloat16":
+        return torch.tensor(np.ascontiguousarray(arr).view(np.uint16)).view(torch.bfloat16)
+    return torch.tensor(arr)
+
+
+def flatten(tree, prefix: str = "") -> Dict[str, Array]:
+    """{port parameter name: array in the port's layout}; torch leaves stay
+    tensors of their own dtype, other leaves become numpy arrays."""
+    out: Dict[str, Array] = {}
     items = (tree.items() if isinstance(tree, dict)
              else ((str(i), v) for i, v in enumerate(tree)))
     for key, val in items:
@@ -55,10 +78,10 @@ def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
         if isinstance(val, (dict, list, tuple)):
             out.update(flatten(val, path + "."))
             continue
-        arr = np.asarray(val)
+        arr = val if torch.is_tensor(val) else np.asarray(val)
         if key == "w":
             name = f"{prefix}weight"
-            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            arr = _permute(arr, 3, 2, 0, 1) if arr.ndim == 4 else arr.T
         elif key == "b" and arr.ndim == 2:      # LoRA B
             name, arr = f"{path}.weight", arr.T
         elif key == "a":                         # LoRA A
@@ -73,7 +96,7 @@ def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
             name = f"{path}.weight"
         else:
             name = path
-        out[name] = np.ascontiguousarray(arr)
+        out[name] = arr.contiguous() if torch.is_tensor(arr) else np.ascontiguousarray(arr)
     return out
 
 
@@ -102,8 +125,8 @@ def _place_quantized(module: nn.Module, flat: Dict[str, np.ndarray]) -> None:
             raise KeyError(f"{name}: the module at {prefix!r} is not an nn.Linear")
         cls, scale = _QUANT_LEAVES[leaf]
         bias = flat.pop(f"{prefix}.bias", None)
-        q = cls(torch.tensor(flat.pop(name)), torch.tensor(flat.pop(f"{prefix}.{scale}")),
-                None if bias is None else torch.tensor(bias).to(lin.weight.dtype))
+        q = cls(_tensor(flat.pop(name)), _tensor(flat.pop(f"{prefix}.{scale}")),
+                None if bias is None else _tensor(bias).to(lin.weight.dtype))
         parent, _, attr = prefix.rpartition(".")
         setattr(module.get_submodule(parent), attr, q.to(lin.weight.device))
 
@@ -116,23 +139,26 @@ def quant_stats(stats, device="cpu") -> List[Dict[str, torch.Tensor]]:
 
 
 @torch.no_grad()
-def load_(module: nn.Module, tree) -> nn.Module:
-    """Copy the JAX tree into ``module`` (cast to its dtype and device).  A
-    quantized leaf replaces the ``nn.Linear`` at its path."""
+def load_(module: nn.Module, tree, *, strict: bool = True) -> nn.Module:
+    """Copy the tree into ``module`` (cast to its dtype and device).  A
+    quantized leaf replaces the ``nn.Linear`` at its path.  ``strict``:
+    every parameter of the module must come from the tree; without it the
+    parameters the tree does not name keep their values."""
     flat = flatten(tree)
     _place_quantized(module, flat)
     for name, _ in list(module.named_parameters()):
         owner_name, _, leaf = name.rpartition(".")
-        if leaf in ("ls1", "ls2") and name not in flat:
+        if (leaf in ("ls1", "ls2") and name not in flat
+                and any(k.startswith(owner_name + ".") for k in flat)):
             setattr(module.get_submodule(owner_name), leaf, None)
     params = dict(module.named_parameters())
-    missing = sorted(set(params) - set(flat))
+    missing = sorted(set(params) - set(flat)) if strict else []
     unexpected = sorted(set(flat) - set(params))
     if missing or unexpected:
         raise KeyError(f"tree/module mismatch: missing {missing[:5]}, "
                        f"unexpected {unexpected[:5]}")
-    for name, p in params.items():
-        src = torch.tensor(flat[name])
+    for name, val in flat.items():
+        p, src = params[name], _tensor(val)
         if tuple(src.shape) != tuple(p.shape):
             raise ValueError(f"{name}: tree {tuple(src.shape)} vs module {tuple(p.shape)}")
         p.copy_(src)

@@ -113,30 +113,24 @@ def calibrate_quant_stats(model: LLMSeg, batch, lora_cfg: Optional[LoraConfig] =
     return merged
 
 
-_INTERP_CACHE: Dict = {}
-
-
-def _interp_matrix(n_in: int, n_out: int) -> np.ndarray:
+def _interp_matrix(n_in: int, n_out: int, device="cpu") -> torch.Tensor:
     """(n_out, n_in) float32 bilinear weights: half-pixel sample coordinates,
     triangle kernel, edge rows renormalised (jax.image.resize('bilinear')
-    applied to the identity)."""
-    key = (n_in, n_out)
-    m = _INTERP_CACHE.get(key)
-    if m is None:
-        scale = n_out / n_in
-        x = (np.arange(n_out, dtype=np.float64) + 0.5) / scale - 0.5
-        i = np.arange(n_in, dtype=np.float64)
-        w = np.maximum(0.0, 1.0 - np.abs(x[:, None] - i[None, :]))
-        w = w / w.sum(-1, keepdims=True)
-        m = w.astype(np.float32)
-        _INTERP_CACHE[key] = m
-    return m
+    applied to the identity).  Computed in float64 on ``device`` by tensor
+    operations, so that an exported program computes it rather than holding
+    a host constant; each row has at most two nonzero taps, so its sum, and
+    the matrix, are the same in any summation order."""
+    f64 = dict(dtype=torch.float64, device=device)
+    x = (torch.arange(n_out, **f64) + 0.5) / torch.full((n_out,), n_out / n_in, **f64) - 0.5
+    i = torch.arange(n_in, **f64)
+    w = (1.0 - (x[:, None] - i[None, :]).abs()).clamp_min(0.0)
+    return (w / w.sum(-1, keepdim=True)).float()
 
 
 def _bilinear_upsample(fmap: torch.Tensor, out: int) -> torch.Tensor:
     """float32 bilinear (B, g, g, C) -> (B, out, out, C) as two separable
     products with the (out, g) interpolation matrix."""
-    M = torch.from_numpy(_interp_matrix(fmap.shape[1], out)).to(fmap.device)
+    M = _interp_matrix(fmap.shape[1], out, fmap.device)
     t = torch.einsum("oh,bhwd->bowd", M, fmap)
     return torch.einsum("ow,bhwd->bhod", M, t)
 
@@ -170,7 +164,7 @@ def _pool_dino_proposals(model: LLMSeg, batch: Dict) -> torch.Tensor:
     g = cfg.dino.grid
     segs = batch["sam_segs"].float()
     if cfg.seg_grid != g:
-        M = torch.from_numpy(_interp_matrix(g, cfg.seg_grid)).to(segs.device)
+        M = _interp_matrix(g, cfg.seg_grid, segs.device)
         t = torch.einsum("Oh,bkOW->bkhW", M, segs)
         segs_g = torch.einsum("Ww,bkhW->bkhw", M, t)
     else:

@@ -26,7 +26,11 @@ kernel B; :func:`flash_bwd_dq`, kernel C; :func:`flash_bwd_dkv`, kernel D;
 :func:`flash_fwd_1pass_t`, kernel J) takes (B*H, L, D) tensors.  For a
 CUDA tensor it launches its kernel or raises; only a tensor on the CPU goes
 to the plain version beside it, which computes the same function step by
-step.
+step.  The inference forwards A, B and J are custom ops
+(``torch.ops.llmseg.flash_fwd``, ``flash_fwd_1pass``, ``flash_fwd_1pass_t``;
+``ops.kernels.kernel_op``), so that ``torch.export`` traces them as nodes
+that launch the kernels; :func:`flash_attention_bias` is A with an additive
+bias.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from llmseg_tpu_torch.ops.kernels import Kernel
+from llmseg_tpu_torch.ops.kernels import Kernel, kernel_op
 
 NEG_INF = -1e9   # finite: fully masked rows stay NaN-free
 LOG2E = 1.4426950408889634
@@ -98,47 +102,87 @@ def flash_fwd_plain(q, k, v, *, causal: bool, bias=None, with_lse=False):
     return o.to(q.dtype), lse
 
 
-def _check_cuda(q, k, v) -> None:
+def _check_shapes(q, k, v) -> None:
     if q.dim() != 3 or k.shape != v.shape or k.dim() != 3 \
             or q.shape[0] != k.shape[0] or q.shape[2] != k.shape[2]:
         raise ValueError(f"expected q (BH, T, D), k/v (BH, S, D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    D = q.shape[2]
-    dtype = q.dtype
+    if k.dtype != q.dtype or v.dtype != q.dtype or q.dtype not in (torch.bfloat16,
+                                                                   torch.float32):
+        raise ValueError(f"q/k/v must share dtype bf16 or float32, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.shape[2] not in (64, 128):
+        raise ValueError(f"head dim {q.shape[2]} not in (64, 128)")
+
+
+def _check_cuda(q, k, v) -> None:
+    """The kernels' contract on CUDA tensors: :func:`_check_shapes`, then
+    each tensor contiguous and 16-byte aligned on the card."""
+    _check_shapes(q, k, v)
     for t in (q, k, v):
         if not t.is_cuda:
             raise ValueError(f"expected CUDA tensors, got {t.device}")
-        if t.dtype != dtype or dtype not in (torch.bfloat16, torch.float32):
-            raise ValueError(f"q/k/v must share dtype bf16 or float32, got {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("q/k/v must be contiguous and 16-byte aligned")
-    if D not in (64, 128):
-        raise ValueError(f"head dim {D} not in (64, 128)")
 
 
-def flash_fwd(q, k, v, *, causal: bool, bias=None, with_lse=False
-              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Kernel A wrapper.  Shapes as :func:`flash_fwd_plain`."""
-    if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, causal=causal, bias=bias,
-                               with_lse=with_lse)
+def _check_bias(bias, q, S) -> None:
+    BH, T = q.shape[:2]
+    if (bias.dtype != torch.float32 or bias.dim() != 3 or bias.shape[1:] != (T, S)
+            or bias.shape[0] not in (1, BH)):
+        raise ValueError(f"bias must be float32 (B*H or 1, T, S), got {bias.dtype} "
+                         f"{tuple(bias.shape)}")
+
+
+def _no_lse(q) -> torch.Tensor:
+    """The op's lse output when none is asked for: an empty float32 tensor
+    (a custom op returns tensors, not None)."""
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+def _flash_fwd_cpu(q, k, v, bias, causal, with_lse):
+    o, lse = flash_fwd_plain(q, k, v, causal=causal, bias=bias, with_lse=with_lse)
+    return o, _no_lse(q) if lse is None else lse
+
+
+def _flash_fwd_fake(q, k, v, bias, causal, with_lse):
+    _check_shapes(q, k, v)
+    if bias is not None:
+        _check_bias(bias, q, k.shape[1])
+    lse = q.new_empty(q.shape[:2], dtype=torch.float32) if with_lse else _no_lse(q)
+    return q.new_empty(q.shape), lse
+
+
+@kernel_op("flash_fwd", cpu=_flash_fwd_cpu, fake=_flash_fwd_fake)
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: Optional[torch.Tensor], causal: bool,
+                  with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel A on the card: checks, then one launch."""
     _check_cuda(q, k, v)
     BH, T, D = q.shape
     S = k.shape[1]
     stride = 0
     if bias is not None:
-        if (not bias.is_cuda or bias.dtype != torch.float32 or not bias.is_contiguous()
-                or bias.shape[1:] != (T, S) or bias.shape[0] not in (1, BH)):
+        _check_bias(bias, q, S)
+        if not bias.is_cuda or not bias.is_contiguous():
             raise ValueError("bias must be contiguous CUDA float32 (B*H or 1, T, S)")
         stride = T * S if bias.shape[0] == BH else 0
     o = torch.empty_like(q)
     lse = (torch.empty((BH, T), dtype=torch.float32, device=q.device)
-           if with_lse else None)
+           if with_lse else _no_lse(q))
     FLASH_FWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      None if bias is None else bias.data_ptr(), stride,
-                     o.data_ptr(), None if lse is None else lse.data_ptr(),
+                     o.data_ptr(), lse.data_ptr() if with_lse else None,
                      BH, T, S, D, int(q.dtype == torch.bfloat16), int(causal))
     return o, lse
+
+
+def flash_fwd(q, k, v, *, causal: bool, bias=None, with_lse=False
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Kernel A wrapper, the op ``llmseg::flash_fwd``.  Shapes as
+    :func:`flash_fwd_plain`."""
+    o, lse = _flash_fwd_op(q, k, v, bias, causal, with_lse)
+    return o, lse if with_lse else None
 
 
 # ---------------------------------------------------------------------------
@@ -172,12 +216,18 @@ def flash_fwd_1pass_plain(q, k, v, kmax):
     return torch.where(ok, o / l, o2 / l2.clamp_min(1e-30)).to(q.dtype)
 
 
-def flash_fwd_1pass(q, k, v) -> torch.Tensor:
-    """Kernel B wrapper.  q (BH, T, D) pre-scaled; k, v (BH, S, D).  On the
-    card the C call computes max_j |k_j| itself, by one reduction kernel
-    into ``kmax``, before kernel B, as kernel J's does."""
-    if q.device.type == "cpu":
-        return flash_fwd_1pass_plain(q, k, v, key_norm_max(k))
+def _onepass_fake(q, k, v):
+    _check_shapes(q, k, v)
+    return q.new_empty(q.shape)
+
+
+@kernel_op("flash_fwd_1pass", cpu=lambda q, k, v: flash_fwd_1pass_plain(q, k, v, key_norm_max(k)),
+           fake=_onepass_fake)
+def flash_fwd_1pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Kernel B, the op ``llmseg::flash_fwd_1pass``.  q (BH, T, D)
+    pre-scaled; k, v (BH, S, D).  On the card the C call computes max_j
+    |k_j| itself, by one reduction kernel into ``kmax``, before kernel B, as
+    kernel J's does."""
     _check_cuda(q, k, v)
     BH, T, D = q.shape
     kmax = torch.empty((BH,), dtype=torch.float32, device=q.device)
@@ -213,12 +263,19 @@ def flash_fwd_1pass_t_plain(q, k, v, kmax):
     return torch.where(ok, ot / l, o2 / l2.clamp_min(1e-30)).to(q.dtype)
 
 
-def flash_fwd_1pass_t(q, k, v) -> torch.Tensor:
-    """Kernel J wrapper.  q (BH, T, D) pre-scaled; k, v (BH, S, D).  Returns
-    o^T (BH, D, T).  On the card the C call computes max_j |k_j| itself, by
-    one reduction kernel into ``kmax``, before kernel J."""
-    if q.device.type == "cpu":
-        return flash_fwd_1pass_t_plain(q, k, v, key_norm_max(k))
+def _onepass_t_fake(q, k, v):
+    _check_shapes(q, k, v)
+    return q.new_empty((q.shape[0], q.shape[2], q.shape[1]))
+
+
+@kernel_op("flash_fwd_1pass_t",
+           cpu=lambda q, k, v: flash_fwd_1pass_t_plain(q, k, v, key_norm_max(k)),
+           fake=_onepass_t_fake)
+def flash_fwd_1pass_t(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Kernel J, the op ``llmseg::flash_fwd_1pass_t``.  q (BH, T, D)
+    pre-scaled; k, v (BH, S, D).  Returns o^T (BH, D, T).  On the card the C
+    call computes max_j |k_j| itself, by one reduction kernel into
+    ``kmax``, before kernel J."""
     _check_cuda(q, k, v)
     BH, T, D = q.shape
     kmax = torch.empty((BH,), dtype=torch.float32, device=q.device)
@@ -342,13 +399,12 @@ class FlashAttentionFn(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def flash_attention(q, k, v, *, causal=False, scale=None):
-    """q (B, T, H, D); k, v (B, S, H, D).  Under autograd (grad enabled and
-    any of q, k, v requiring grad) it runs :class:`FlashAttentionFn`, on
-    every device.  Otherwise causal attention runs kernel A and non-causal
-    kernel B, the inference forward (A with ``ONEPASS`` off, J with
-    ``ONEPASS_T`` on); the grad path never takes kernel B or J, as in the
-    JAX package."""
+def _heads_major(q, k, v, scale):
+    """(B, T, H, D) q and (B, S, H, D) k, v -> (B*H, L, Dp) contiguous, D
+    zero-padded to 64 or 128, q times scale*log2(e) rounded to q's dtype
+    (the JAX package multiplies by that constant in q's dtype: the product
+    of two values of q's dtype is exact in float32 and rounds once either
+    way).  Returns (qf, kf, vf, Dp)."""
     B, T, H, D = q.shape
     S = k.shape[1]
     if D > 128:
@@ -361,9 +417,19 @@ def flash_attention(q, k, v, *, causal=False, scale=None):
             x = torch.nn.functional.pad(x, (0, Dp - D))
         return x.permute(0, 2, 1, 3).reshape(B * H, L, Dp).contiguous()
 
-    # scale*log2(e) folded into q in q's dtype, as the JAX package does
-    qs = q * torch.tensor(scale * LOG2E, dtype=q.dtype, device=q.device)
-    qf, kf, vf = prep(qs, T), prep(k, S), prep(v, S)
+    qs = q * float(torch.tensor(scale * LOG2E, dtype=q.dtype))
+    return prep(qs, T), prep(k, S), prep(v, S), Dp
+
+
+def flash_attention(q, k, v, *, causal=False, scale=None):
+    """q (B, T, H, D); k, v (B, S, H, D).  Under autograd (grad enabled and
+    any of q, k, v requiring grad) it runs :class:`FlashAttentionFn`, on
+    every device.  Otherwise causal attention runs kernel A and non-causal
+    kernel B, the inference forward (A with ``ONEPASS`` off, J with
+    ``ONEPASS_T`` on); the grad path never takes kernel B or J, as in the
+    JAX package."""
+    B, T, H, D = q.shape
+    qf, kf, vf, Dp = _heads_major(q, k, v, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         o = FlashAttentionFn.apply(qf, kf, vf, causal)
     elif causal or not ONEPASS:
@@ -372,6 +438,19 @@ def flash_attention(q, k, v, *, causal=False, scale=None):
         o = flash_fwd_1pass_t(qf, kf, vf).transpose(1, 2)
     else:
         o = flash_fwd_1pass(qf, kf, vf)
+    return o.reshape(B, H, T, Dp).permute(0, 2, 1, 3)[..., :D]
+
+
+def flash_attention_bias(q, k, v, bias, *, scale=None):
+    """Inference-only flash attention with a precomputed additive bias, the
+    port of ``flash_attention_bias``: kernel A, non-causal, with the bias in
+    its exp2 domain (times log2(e) in float32).  q (B, T, H, D); k, v (B, S,
+    H, D); bias (B*H or 1, T, S) float32 or bf16.  No gradient, as in the
+    JAX package (which calls it from no entry point)."""
+    B, T, H, D = q.shape
+    qf, kf, vf, Dp = _heads_major(q, k, v, scale)
+    b = (bias.float() * LOG2E).contiguous()
+    o, _ = flash_fwd(qf, kf, vf, causal=False, bias=b)
     return o.reshape(B, H, T, Dp).permute(0, 2, 1, 3)[..., :D]
 
 

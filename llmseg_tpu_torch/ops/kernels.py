@@ -4,7 +4,19 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds) under ``llmseg_tpu_torch/_build/``, at first use, and loaded with
 ``ctypes``.  :func:`build` compiles several sources at once, one ``nvcc``
-process each.  Nothing here runs at import time.
+process each.  Nothing here builds at import time.
+
+:func:`kernel_op` registers a kernel as a ``torch.library.custom_op`` in
+the ``llmseg`` namespace (``torch.ops.llmseg.<name>``), so that
+``torch.export`` can trace a path that launches it: its CUDA
+implementation launches the kernel, its CPU implementation is the plain
+version, its fake implementation gives only the outputs' shapes and dtypes.
+The ops of the inference forward are defined beside their plain versions:
+kernels A (``flash_fwd``), B (``flash_fwd_1pass``) and J
+(``flash_fwd_1pass_t``) in ``ops/attention.py``, Q1 (``quantize_rows``) and
+Q2 (``w8a8_linear``) in ``ops/quant.py``.  Importing ``llmseg_tpu_torch.ops``
+(so any module of it, this one included) registers all five, which is what
+a program exported through them needs before ``torch.export.load``.
 """
 
 from __future__ import annotations
@@ -14,7 +26,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable
 
 import torch
 
@@ -124,3 +136,20 @@ class Kernel:
             msg = getattr(lib, f"{self.source}_error_string")(err).decode()
             raise RuntimeError(f"{self.name} launch failed: {msg} ({err})")
         self.launches += 1
+
+
+NAMESPACE = "llmseg"
+
+
+def kernel_op(name: str, *, cpu: Callable, fake: Callable) -> Callable:
+    """Decorator: register the decorated function, whose annotations give
+    the schema, as the CUDA implementation of ``llmseg::<name>``, ``cpu``
+    (the plain version, same arguments) as its CPU implementation and
+    ``fake`` (shapes and dtypes only) for tracing.  Returns the op."""
+    def register(cuda_impl: Callable):
+        op = torch.library.custom_op(f"{NAMESPACE}::{name}", cuda_impl, mutates_args=(),
+                                     device_types="cuda")
+        op.register_kernel("cpu", cpu)
+        op.register_fake(fake)
+        return op
+    return register

@@ -27,7 +27,9 @@ Kernels, each with its plain version beside it: :func:`quantize_rows` (Q1,
 ``torch._int_mm`` is the route Q2 replaced, kept as the yardstick that
 ``chip_smoke.py`` times beside it; nothing on the main path calls it.  A
 CUDA tensor launches the kernel or raises; only a tensor on the CPU takes
-the plain version.  Weight-only int8 and int4 are plain PyTorch on every
+the plain version.  Q1 and Q2 are custom ops (``torch.ops.llmseg.
+quantize_rows``, ``w8a8_linear``; ``ops.kernels.kernel_op``), so that an
+exported W8A8 ``predict`` holds them as nodes that launch the kernels.  Weight-only int8 and int4 are plain PyTorch on every
 device, as they are XLA code in the JAX package.
 """
 
@@ -35,7 +37,7 @@ from __future__ import annotations
 
 import copy
 import os
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from llmseg_tpu_torch.models import layers as L
-from llmseg_tpu_torch.ops.kernels import Kernel
+from llmseg_tpu_torch.ops.kernels import Kernel, kernel_op
 
 # The JAX package's knobs, same names and defaults (llmseg_tpu/ops/quant.py):
 # the opt-in LLM.int8-style outlier decomposition (K columns a product kept
@@ -101,19 +103,30 @@ def quantize_rows_plain(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
     return torch.round(t * _div(127.0, m)).clamp(-127, 127).to(torch.int8), sc
 
 
-def quantize_rows(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
-                  eps: float = 1e-6):
-    """Kernel Q1 wrapper.  Shapes and forms as :func:`quantize_rows_plain`;
-    x bf16 or float32, gamma bf16 or float32."""
-    if x.device.type == "cpu":
-        return quantize_rows_plain(x, gamma, eps)
-    if x.dim() != 2 or not x.is_cuda or x.dtype not in _DTYPE_CODES or not x.is_contiguous():
+def _check_rows_shapes(x, gamma) -> None:
+    if x.dim() != 2 or x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"expected bf16/float32 rows (R, C), got {tuple(x.shape)} {x.dtype}")
+    if gamma is not None and (gamma.shape != (x.shape[1],) or gamma.dtype not in _DTYPE_CODES):
+        raise ValueError(f"gamma must be a bf16/float32 ({x.shape[1]},) vector, got "
+                         f"{tuple(gamma.shape)} {gamma.dtype}")
+
+
+def _quantize_rows_fake(x, gamma, eps):
+    _check_rows_shapes(x, gamma)
+    return (x.new_empty(x.shape, dtype=torch.int8),
+            x.new_empty((x.shape[0], 1), dtype=torch.float32))
+
+
+@kernel_op("quantize_rows", cpu=quantize_rows_plain, fake=_quantize_rows_fake)
+def _quantize_rows_op(x: torch.Tensor, gamma: Optional[torch.Tensor],
+                      eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel Q1 on the card: checks, then one launch (none for 0 rows)."""
+    _check_rows_shapes(x, gamma)
+    if not x.is_contiguous():
         raise ValueError(f"expected contiguous CUDA bf16/float32 rows (R, C), got "
                          f"{tuple(x.shape)} {x.dtype} on {x.device}")
     R, C = x.shape
-    if gamma is not None and (gamma.shape != (C,) or not gamma.is_cuda
-                              or gamma.dtype not in _DTYPE_CODES
-                              or not gamma.is_contiguous()):
+    if gamma is not None and (not gamma.is_cuda or not gamma.is_contiguous()):
         raise ValueError(f"gamma must be a contiguous CUDA bf16/float32 ({C},) vector")
     xq = torch.empty((R, C), dtype=torch.int8, device=x.device)
     sc = torch.empty((R, 1), dtype=torch.float32, device=x.device)
@@ -123,6 +136,14 @@ def quantize_rows(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
                              _DTYPE_CODES[x.dtype],
                              0 if gamma is None else _DTYPE_CODES[gamma.dtype], eps)
     return xq, sc
+
+
+def quantize_rows(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
+                  eps: float = 1e-6):
+    """Kernel Q1 wrapper, the op ``llmseg::quantize_rows``.  Shapes and forms
+    as :func:`quantize_rows_plain`; x bf16 or float32, gamma bf16 or
+    float32."""
+    return _quantize_rows_op(x, gamma, eps)
 
 
 # ---------------------------------------------------------------------------
@@ -169,14 +190,16 @@ def w8a8_epilogue(acc: torch.Tensor, sc: torch.Tensor, w_scale: torch.Tensor,
     return out
 
 
-def _check_rescale_operands(R, N, sc, w_scale, bias, out_dtype, side) -> None:
+def _check_rescale_operands(R, N, sc, w_scale, bias, out_dtype, side, *, device=True) -> None:
+    """Shapes and dtypes of the rescale's operands; with ``device`` also
+    that each lies contiguous on the card."""
     if out_dtype not in _DTYPE_CODES:
         raise ValueError(f"output dtype {out_dtype} is not bf16 or float32")
     checks = ((sc, (R, 1), torch.float32), (w_scale, (N,), torch.float32),
               (bias, (N,), out_dtype), (side, (R, N), torch.float32))
     for t, shape, dtype in checks:
-        if t is not None and (t.shape != shape or t.dtype != dtype or not t.is_cuda
-                              or not t.is_contiguous()):
+        if t is not None and (t.shape != shape or t.dtype != dtype or device and (
+                not t.is_cuda or not t.is_contiguous())):
             raise ValueError(f"expected a contiguous CUDA {dtype} {shape}, got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
@@ -191,17 +214,9 @@ def w8a8_linear_plain(xq: torch.Tensor, sc: torch.Tensor, w_q: torch.Tensor,
     return w8a8_epilogue_plain(_int_mm(xq, w_q), sc, w_scale, bias, out_dtype, side)
 
 
-def w8a8_linear(xq: torch.Tensor, sc: torch.Tensor, w_q: torch.Tensor,
-                w_scale: torch.Tensor, bias: Optional[torch.Tensor], out_dtype: torch.dtype,
-                side: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Kernel Q2 wrapper: :func:`w8a8_linear_plain`'s function, equal to the
-    bit, in one kernel (``csrc/w8a8_gemm.cu``): the int8 product on
-    ``wgmma`` and its rescale applied to the accumulators in registers; no
-    int32 tensor is formed.  Any R; K a multiple of 16 up to
-    ``W8A8_MAX_K`` and N a multiple of 8 (checked before anything else, on
-    every device but the CPU); the output bf16 or float32."""
-    if xq.device.type == "cpu":
-        return w8a8_linear_plain(xq, sc, w_q, w_scale, bias, out_dtype, side)
+def _check_w8a8_shapes(xq, sc, w_q, w_scale, bias, out_dtype, side) -> None:
+    """Q2's contract on shapes and dtypes: K a multiple of 16 up to
+    ``W8A8_MAX_K``, N a multiple of 8, int8 operands."""
     if xq.dim() != 2 or w_q.dim() != 2 or xq.shape[1] != w_q.shape[1]:
         raise ValueError(f"expected xq (R, K) and w_q (N, K), got {tuple(xq.shape)} and "
                          f"{tuple(w_q.shape)}")
@@ -209,9 +224,26 @@ def w8a8_linear(xq: torch.Tensor, sc: torch.Tensor, w_q: torch.Tensor,
     if K % 16 or N % 8 or K > W8A8_MAX_K:
         raise ValueError(f"the W8A8 product takes K a multiple of 16 up to {W8A8_MAX_K} and "
                          f"N a multiple of 8, got K={K}, N={N}")
+    if xq.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise ValueError(f"expected int8 operands, got {xq.dtype} and {w_q.dtype}")
+    _check_rescale_operands(R, N, sc, w_scale, bias, out_dtype, side, device=False)
+
+
+def _w8a8_linear_fake(xq, sc, w_q, w_scale, bias, out_dtype, side):
+    _check_w8a8_shapes(xq, sc, w_q, w_scale, bias, out_dtype, side)
+    return xq.new_empty((xq.shape[0], w_q.shape[0]), dtype=out_dtype)
+
+
+@kernel_op("w8a8_linear", cpu=w8a8_linear_plain, fake=_w8a8_linear_fake)
+def _w8a8_linear_op(xq: torch.Tensor, sc: torch.Tensor, w_q: torch.Tensor,
+                    w_scale: torch.Tensor, bias: Optional[torch.Tensor], out_dtype: torch.dtype,
+                    side: Optional[torch.Tensor]) -> torch.Tensor:
+    """Kernel Q2 on the card: the contract, the device checks, then one
+    launch (none for 0 rows)."""
+    _check_w8a8_shapes(xq, sc, w_q, w_scale, bias, out_dtype, side)
+    (R, K), N = xq.shape, w_q.shape[0]
     for t in (xq, w_q):
-        if (t.dtype != torch.int8 or not t.is_cuda or not t.is_contiguous()
-                or t.data_ptr() % 16):
+        if not t.is_cuda or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"expected a contiguous, 16-byte aligned CUDA int8 operand, got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
     _check_rescale_operands(R, N, sc, w_scale, bias, out_dtype, side)
@@ -224,6 +256,19 @@ def w8a8_linear(xq: torch.Tensor, sc: torch.Tensor, w_q: torch.Tensor,
                            None if side is None else side.data_ptr(), out.data_ptr(), R, N, K,
                            _DTYPE_CODES[out_dtype])
     return out
+
+
+def w8a8_linear(xq: torch.Tensor, sc: torch.Tensor, w_q: torch.Tensor,
+                w_scale: torch.Tensor, bias: Optional[torch.Tensor], out_dtype: torch.dtype,
+                side: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel Q2 wrapper, the op ``llmseg::w8a8_linear``:
+    :func:`w8a8_linear_plain`'s function, equal to the bit, in one kernel
+    (``csrc/w8a8_gemm.cu``): the int8 product on ``wgmma`` and its rescale
+    applied to the accumulators in registers; no int32 tensor is formed.
+    Any R; K a multiple of 16 up to ``W8A8_MAX_K`` and N a multiple of 8
+    (checked by the fake implementation as the op is traced, and by the
+    CUDA one before any launch); the output bf16 or float32."""
+    return _w8a8_linear_op(xq, sc, w_q, w_scale, bias, out_dtype, side)
 
 
 def _int_mm(xq: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:

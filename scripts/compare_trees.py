@@ -8,7 +8,8 @@ two trees compare within one call (parent, change, change, parent):
     python3 scripts/compare_trees.py <checkout root> <label> [parts]
 
 ``parts`` is a comma-separated subset of
-``fwd,predict,bwd,train,onepass,window,amg_kernels,twoway,w8a8`` (all by default).  It builds the
+``fwd,predict,bwd,train,onepass,window,amg_kernels,twoway,w8a8,dispatch`` (all but
+``dispatch`` by default).  It builds the
 kernels of that checkout that the parts run and prints one JSON line:
   fwd      A at (128, 767, 767, 128) causal and J at (64, 4097, 4097, 64),
            bf16, on the event clock (ms a call, back to back), and A's host
@@ -62,7 +63,13 @@ kernels of that checkout that the parts run and prints one JSON line:
            SmoothQuant calibrated on a one-image probe, quantized in place):
            ms/step over 5 steps at batch 4 and at batch 8, and one batch-4
            step's device time under torch.profiler, in all and for the
-           ``quantize_rows``, ``w8a8_`` and int8 GEMM kernels.
+           ``quantize_rows``, ``w8a8_`` and int8 GEMM kernels;
+  dispatch the host time of one call of the wrappers of A, B, Q1 and Q2 at
+           small shapes (launch-bound: 200 calls back to back, the host's
+           clock), which moves where a wrapper became a custom op's call
+           through the dispatcher; then llmseg_7b predict (bf16, LayerScale
+           folded) at batch 4 and 8, and the same model in W8A8 (quantized
+           in place as in w8a8) at batch 4 and 8: ms/step over 5 steps.
 It imports only the checkout's ``llmseg_tpu_torch``."""
 import json, math, os, sys, time
 root = os.path.abspath(sys.argv[1])
@@ -88,7 +95,7 @@ if parts & {"window", "amg_kernels"}:
     names |= {"relpos_fwd", "relpos_window", "factored_decode"}
 if "twoway" in parts:
     names |= {"flash_fwd", "relpos_fwd", "relpos_window", "twoway_fused"}
-if "w8a8" in parts:
+if parts & {"w8a8", "dispatch"}:
     names |= {"flash_fwd", "flash_fwd_1pass", "quant"} | (
         {"w8a8_gemm"} if "w8a8_gemm" in kernels.SIGNATURES else set())
 kernels.build(sorted(names), force=True)
@@ -300,6 +307,48 @@ if "w8a8" in parts:
             llmseg.predict(qmodel, b)
         torch.cuda.synchronize()
         out[f"w8a8_predict_batch{n}_ms"] = (time.perf_counter() - t0) * 1e3 / 5
+
+if "dispatch" in parts:
+    from llmseg_tpu_torch.ops import quant as Q
+    g = torch.Generator(device="cuda").manual_seed(0)
+    qa, ka, va = inputs(8, 256, 128)
+    qb, kb, vb = inputs(8, 256, 64)
+    x = torch.randn(16, 4096, device="cuda", generator=g).to(torch.bfloat16)
+    gamma = torch.randn(4096, device="cuda", generator=g).to(torch.bfloat16)
+    xq = torch.randint(-127, 128, (16, 4096), device="cuda", generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (256, 4096), device="cuda", generator=g, dtype=torch.int8)
+    sc = torch.rand(16, 1, device="cuda", generator=g) * 1e-3
+    ws = torch.rand(256, device="cuda", generator=g) * 1e-2
+    out["host_us"] = {
+        "flash_fwd": host_us(lambda: A.flash_fwd(qa, ka, va, causal=True)),
+        "flash_fwd_1pass": host_us(lambda: A.flash_fwd_1pass(qb, kb, vb)),
+        "quantize_rows": host_us(lambda: Q.quantize_rows(x, gamma, 1e-6)),
+        "w8a8_linear": host_us(lambda: Q.w8a8_linear(xq, sc, w, ws, None, torch.bfloat16))}
+    cfg = C.llmseg_7b()
+    dmodel = llmseg.fold_frozen_inplace(llmseg.init(cfg, seed=0, device="cuda",
+                                                    dtype=torch.bfloat16))
+    dbatch = {n: make_batch(cfg, num_images=n, rows_per_image=1, text_len=512, seed=0)
+              for n in (4, 8)}
+
+    def steps(tag):
+        for n, b in dbatch.items():
+            llmseg.predict(dmodel, b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                llmseg.predict(dmodel, b)
+            torch.cuda.synchronize()
+            out[f"dispatch_{tag}_batch{n}_ms"] = (time.perf_counter() - t0) * 1e3 / 5
+
+    steps("bf16")
+    probe = make_batch(cfg, num_images=1, rows_per_image=1, text_len=512, seed=5)
+    Q.quantize_llama_inplace(dmodel.llava.llm, bits=8, w8a8=True,
+                             smooth_stats=llmseg.calibrate_quant_stats(dmodel, probe),
+                             head_dim=cfg.llava.llm.head_dim)
+    torch.cuda.empty_cache()
+    steps("w8a8")
+    del dmodel, dbatch
+    torch.cuda.empty_cache()
 
 if parts & {"window", "amg_kernels"}:
     from llmseg_tpu_torch.ops import relpos_attention as R

@@ -846,3 +846,114 @@ def test_qlora_trainer_two_steps(tmp_path, bits):
     res = gpu.validate(val)
     assert res == gpu.validate(val) and all(np.isfinite(v) for v in res.values())
     assert gpu.save_best(res)
+
+
+# ---------------------------------------------------------------------------
+# The kernels as custom ops, exported programs, flash_attention_bias
+# ---------------------------------------------------------------------------
+
+
+def _op_cases():
+    g = torch.Generator(device="cuda").manual_seed(30)
+    q, k, v = _inputs(4, 300, 300, 64, torch.bfloat16, seed=5)
+    x = torch.randn(17, 4096, device="cuda", generator=g).to(torch.bfloat16)
+    gamma = torch.randn(4096, device="cuda", generator=g).to(torch.bfloat16)
+    xq, sc = Q.quantize_rows_plain(x)
+    w = torch.randint(-127, 128, (256, 4096), dtype=torch.int8, device="cuda", generator=g)
+    ws = torch.rand(256, device="cuda", generator=g) * 1e-2
+    return {
+        "flash_fwd": (A.FLASH_FWD, lambda: torch.ops.llmseg.flash_fwd(q, k, v, None, True, True),
+                      lambda: A.flash_fwd_plain(q, k, v, causal=True, with_lse=True)),
+        "flash_fwd_1pass": (A.FLASH_FWD_1PASS, lambda: torch.ops.llmseg.flash_fwd_1pass(q, k, v),
+                            lambda: A.flash_fwd_1pass_plain(q, k, v, A.key_norm_max(k))),
+        "flash_fwd_1pass_t": (A.FLASH_FWD_1PASS_T,
+                              lambda: torch.ops.llmseg.flash_fwd_1pass_t(q, k, v),
+                              lambda: A.flash_fwd_1pass_t_plain(q, k, v, A.key_norm_max(k))),
+        "quantize_rows": (Q.QUANTIZE_ROWS, lambda: torch.ops.llmseg.quantize_rows(x, gamma, 1e-6),
+                          lambda: Q.quantize_rows_plain(x, gamma, 1e-6)),
+        "w8a8_linear": (Q.W8A8_LINEAR,
+                        lambda: torch.ops.llmseg.w8a8_linear(xq, sc, w, ws, None, torch.bfloat16,
+                                                             None),
+                        lambda: Q.w8a8_linear_plain(xq, sc, w, ws, None, torch.bfloat16)),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_fwd_1pass", "flash_fwd_1pass_t",
+                                  "quantize_rows", "w8a8_linear"])
+def test_custom_op_on_the_card_launches_its_kernel(name):
+    """``torch.ops.llmseg.<name>`` on CUDA tensors runs the CUDA
+    implementation: its kernel's count moves by one, and the result is the
+    kernel's (against the plain version, as the kernel's own test)."""
+    kern, op, plain = _op_cases()[name]
+    before = kern.launches
+    got = op()
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    ref = plain()
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    if name in ("quantize_rows", "w8a8_linear"):
+        assert torch.equal(got[0], ref[0])
+    else:
+        _assert_close(got[0], ref[0].float(), torch.bfloat16)
+
+
+def _serving_cfg():
+    """llmseg_tiny with a 315-token sequence (kernel A from 256) and a
+    644-px DINOv2 (2117 tokens: kernel B from 2048), D = 16 padded to 64."""
+    cfg = C.llmseg_tiny()
+    return C.replace(cfg, dino=C.replace(cfg.dino, img_size=644))
+
+
+@pytest.mark.parametrize("mode", ["float32", "w8a8"])
+def test_exported_predict_runs_the_kernels(tmp_path, mode):
+    """save_predict -> load_predict on the card: equal to eager predict to
+    the bit, and each call launches A per LLaMA layer, B per DINOv2 block
+    and, in W8A8, Q1 four and Q2 seven times a layer, once per op node."""
+    from llmseg_tpu_torch import serving
+    from llmseg_tpu_torch.data.synthetic import make_batch
+    from llmseg_tpu_torch.models import llmseg
+
+    cfg = _serving_cfg()
+    model = llmseg.init(cfg, seed=0)
+    if mode == "w8a8":
+        Q.quantize_llama_inplace(model.llava.llm, bits=8, w8a8=True)
+    batch = make_batch(cfg, num_images=2, rows_per_image=1, text_len=300, seed=1)
+    shape = dict(num_images=2, rows=2, text_len=300, dtype=torch.float32)
+    path = str(tmp_path / "predict.pt2")
+    serving.save_predict(path, model, **shape)
+    fn = serving.load_predict(path)
+    served = {k: batch[k] for k in serving.predict_arg_shapes(cfg, **shape)}
+    eager = llmseg.predict(model, batch)
+    kern = A.KERNELS + Q.KERNELS
+    before = [k.launches for k in kern]
+    got = fn(served)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches - b for k, b in zip(kern, before)}
+    L, D = cfg.llava.llm.num_layers, cfg.dino.depth
+    want = {"flash_fwd": L, "flash_fwd_1pass": D, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_fwd_1pass_t": 0, "quantize_rows": 0, "w8a8_linear": 0}
+    if mode == "w8a8":
+        want.update(quantize_rows=4 * L, w8a8_linear=7 * L)
+    assert launches == want
+    for k in serving.OUTPUTS:
+        assert torch.equal(got[k], eager[k]), k
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("heads_bias", [False, True])
+def test_flash_attention_bias_matches_plain(dtype, heads_bias):
+    """``flash_attention_bias`` (kernel A, non-causal, the bias times log2(e)
+    in float32) against ``attention_plain`` with the same bias: one launch
+    of A."""
+    g = torch.Generator(device="cuda").manual_seed(31)
+    B, T, S, H, D = 2, 300, 200, 4, 64
+    q, k, v = (torch.randn(B, L, H, D, device="cuda", generator=g).to(dtype) for L in (T, S, S))
+    bias = torch.randn(B * H if heads_bias else 1, T, S, device="cuda", generator=g)
+    before = A.FLASH_FWD.launches
+    got = A.flash_attention_bias(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert A.FLASH_FWD.launches == before + 1
+    b4 = bias.reshape(B, H, T, S) if heads_bias else bias[None]
+    ref = A.attention_plain(q.float(), k.float(), v.float(), bias=b4)
+    _assert_close(got, ref, dtype)

@@ -122,7 +122,7 @@ def test_make_batch_matches_jax(seed):
 def test_interp_matrix_matches_jax():
     for n_in, n_out in ((4, 16), (64, 256), (5, 7)):
         np.testing.assert_array_equal(np.asarray(jllmseg._interp_matrix(n_in, n_out)),
-                                      tllmseg._interp_matrix(n_in, n_out))
+                                      tllmseg._interp_matrix(n_in, n_out).numpy())
 
 
 def test_entry_points_default_to_cuda():

@@ -303,8 +303,9 @@ def test_qdense_act_routes_each_product_through_w8a8_linear(monkeypatch):
 def test_w8a8_linear_checks_its_shape_contract_before_any_launch(K, N, monkeypatch):
     """K a multiple of 16 up to W8A8_MAX_K and N a multiple of 8, checked
     before the kernel is built or launched (tensors on the meta device
-    stand in for the card's); a shape inside the contract goes on to the
-    device check."""
+    stand in for the card's and reach the op's fake implementation, which
+    checks shapes and dtypes as ``torch.export`` traces the op); a shape
+    inside the contract gives the output's shape and dtype, and no launch."""
     def launched(*args):
         raise AssertionError("launched")
 
@@ -313,8 +314,11 @@ def test_w8a8_linear_checks_its_shape_contract_before_any_launch(K, N, monkeypat
     w = torch.empty((N, K), dtype=torch.int8, device="meta")
     sc = torch.empty((3, 1), device="meta")
     ws = torch.empty((N,), device="meta")
-    ok = (K, N) == (64, 48)
-    with pytest.raises(ValueError, match="CUDA int8" if ok else "multiple of 16 up to"):
+    if (K, N) == (64, 48):
+        out = tquant.w8a8_linear(xq, sc, w, ws, None, torch.bfloat16)
+        assert (out.device.type, out.shape, out.dtype) == ("meta", (3, N), torch.bfloat16)
+        return
+    with pytest.raises(ValueError, match="multiple of 16 up to"):
         tquant.w8a8_linear(xq, sc, w, ws, None, torch.bfloat16)
 
 
