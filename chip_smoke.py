@@ -110,7 +110,27 @@ Phases, one JSON line each; any failure exits non-zero:
               load seconds, bytes, ms per call beside eager (median of 5,
               events); SAM's decoder program at sam_vit_h's decoder width,
               64 prompts, single mask, equal to its eager function;
-  5. train    the LoRA train step at llmseg_7b in bf16 through the Trainer
+  5. data     the LLM-Seg40K fine-tune path (cli/finetune.py's wiring) on
+              a corpus in the reference's layout written from a seed into
+              a temporary directory (train and validation json, 480 x 640,
+              640 x 480 and 427 x 640 images named under coco/train2017
+              and ego_objects/images, three masks.json files of 50 COCO-RLE
+              proposals an image); the image decode is stood in for by an
+              image made from the seed (the card's machine has no cv2 or
+              PIL), everything after it is the package's code:
+              LLMSegDataset through BatchLoader (batch 1, 8 micro-steps, 2
+              threads, pinned) into Trainer.train_epoch at llmseg_7b, bf16,
+              LoRA r8 (steps_per_epoch 4, grad_accum_steps 2), then
+              ValLLMSegDataset (13 images, batch 8, filler rows invalid)
+              into Trainer.validate; gates: each batch on the card equals,
+              copied back, the numpy batch collate gave; a one-thread
+              loader equals direct dataset[i] + collate calls; finite
+              losses, every LoRA tensor moved; gIoU / cIoU equal the numpy
+              compose's; launches A 64, B 24, C 32, D 32 a micro-step and
+              A 32, B 24 a val batch; the host ms of one __getitem__ by
+              part, collate ms, the loader's wait against the step's ms,
+              peak device memory and host RSS;
+     train    the LoRA train step at llmseg_7b in bf16 through the Trainer
               (1 image, 1 row, text_len 512, remat "dots"): launch counts per
               step, finite losses, frozen weights bit-identical and trainable
               ones changed, ms/step and peak memory;
@@ -2920,6 +2940,417 @@ def serve_phase(C, llmseg, Q, A, SV, SX, imported) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# data: an LLM-Seg40K-layout corpus through the data layer, the loader and
+# the Trainer
+# ---------------------------------------------------------------------------
+
+DATA_SHAPES = ((480, 640), (640, 480), (427, 640))   # the corpus's image sizes
+DATA_PROPOSALS = 50           # COCO-RLE proposals an image (the readers' top_k)
+DATA_TRAIN_IMAGES, DATA_VAL_IMAGES = 6, 7           # 2 questions an image, the last val image 1
+DATA_TRAIN_STEPS, DATA_VAL_LIMIT, DATA_VAL_BATCH = 8, 16, 8
+
+
+def write_llmseg_corpus(root: str, seed: int, shapes=DATA_SHAPES,
+                        proposals: int = DATA_PROPOSALS) -> dict:
+    """An LLM-Seg40K-layout corpus written from ``seed`` under ``root``:
+    ``dataset/llm_seg/{train,validation}.json`` as ``{image: {from_dataset,
+    qa_pairs: [{question, answer, rle_seg}]}}``, images named under
+    ``dataset/coco/train2017`` and ``dataset/ego_objects/images`` (their
+    sizes cycle through ``shapes``; no file is written: ``standin_imread``
+    makes them), and ``sam_masks/{llmseg40k_train,llmseg40k_val,
+    egoobjects}_masks.json`` with ``proposals`` COCO-RLE masks an image
+    (rectangles and discs; the ground truth is the union of one or two of
+    them and a blob of its own).  Returns the paths and each image path's
+    (h, w)."""
+    import numpy as np
+    from llmseg_tpu_torch.ops import rle
+    rng = np.random.RandomState(seed)
+    data, masks_dir = os.path.join(root, "dataset"), os.path.join(root, "sam_masks")
+    dirs = {"coco": os.path.join(data, "coco", "train2017"),
+            "ego_objects": os.path.join(data, "ego_objects", "images")}
+    os.makedirs(os.path.join(data, "llm_seg"))
+    os.makedirs(masks_dir)
+    mask_docs = {"llmseg40k_train": [], "llmseg40k_val": [], "egoobjects": []}
+    shape_of, docs = {}, {"train": {}, "validation": {}}
+    n = 0
+    for split, count in (("train", DATA_TRAIN_IMAGES), ("validation", DATA_VAL_IMAGES)):
+        for i in range(count):
+            h, w = shapes[n % len(shapes)]
+            src = "coco" if n % 2 == 0 else "ego_objects"
+            name = f"{n:012d}.jpg" if src == "coco" else f"ego_{n:06d}.jpg"
+            n += 1
+            shape_of[os.path.join(dirs[src], name)] = (h, w)
+            yy, xx = np.mgrid[:h, :w]
+            props, anns = [], []
+            for k in range(proposals):
+                m = np.zeros((h, w), np.uint8)
+                y0, x0 = rng.randint(0, h - 8), rng.randint(0, w - 8)
+                if k % 2:
+                    r = rng.randint(4, min(h, w) // 3)
+                    m[(yy - y0) ** 2 + (xx - x0) ** 2 < r * r] = 1
+                else:
+                    m[y0:y0 + rng.randint(8, h // 2), x0:x0 + rng.randint(8, w // 2)] = 1
+                props.append(m)
+                r_, area, bbox = rle.encode_stats(m)
+                anns.append({"segmentation": r_, "area": area, "bbox": bbox,
+                             "predicted_iou": 0.9, "stability_score": 0.95})
+            key = ("egoobjects" if src == "ego_objects" else
+                   "llmseg40k_train" if split == "train" else "llmseg40k_val")
+            mask_docs[key].append({"image": name, "target_size": [h, w], "masks": anns})
+            pairs = []
+            for j in range(1 if (split == "validation" and i == count - 1) else 2):
+                gt = props[rng.randint(proposals)].copy()
+                if j:
+                    gt |= props[rng.randint(proposals)]
+                y0, x0 = rng.randint(0, h - 40), rng.randint(0, w - 40)
+                gt[y0:y0 + 40, x0:x0 + 40] = 1
+                pairs.append({"question": f"What in the picture could hold object {n}.{j}?",
+                              "answer": "The box over there [SEG].",
+                              "rle_seg": rle.encode(gt)})
+            docs[split][name] = {"from_dataset": src, "qa_pairs": pairs}
+    paths = {"train": os.path.join(data, "llm_seg", "train.json"),
+             "val": os.path.join(data, "llm_seg", "validation.json"), **dirs}
+    for split, key in (("train", "train"), ("validation", "val")):
+        with open(paths[key], "w") as f:
+            json.dump(docs[split], f)
+    for key, doc in mask_docs.items():
+        paths[key] = os.path.join(masks_dir, f"{key}_masks.json")
+        with open(paths[key], "w") as f:
+            json.dump(doc, f)
+    return {"paths": paths, "shapes": shape_of}
+
+
+def standin_imread(shapes: dict, seed: int):
+    """A stand-in for ``datasets._imread_rgb`` (cv2's decode, which the
+    card's machine lacks): each path's uint8 RGB image of its size, made
+    from ``seed`` and the path; an unknown path raises as a missing file."""
+    import zlib
+
+    import numpy as np
+
+    def imread(path: str):
+        if path not in shapes:
+            raise FileNotFoundError(path)
+        h, w = shapes[path]
+        rng = np.random.RandomState((seed + zlib.crc32(path.encode())) % 2 ** 32)
+        yy, xx = np.mgrid[:h, :w]
+        smooth = np.stack([(xx * 255) // w, (yy * 255) // h, ((xx + yy) * 255) // (h + w)], -1)
+        return np.clip(smooth + rng.randint(-40, 41, (h, w, 3)), 0, 255).astype(np.uint8)
+    return imread
+
+
+def same_tree(a, b) -> bool:
+    """Equal structure and values; numpy arrays and tensors equal in dtype,
+    shape and every bit."""
+    import numpy as np
+    import torch
+    if isinstance(a, torch.Tensor):
+        a = a.cpu().numpy()
+    if isinstance(b, torch.Tensor):
+        b = b.cpu().numpy()
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return (isinstance(a, np.ndarray) and isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and a.shape == b.shape and a.tobytes() == b.tobytes())
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(same_tree(x, y) for x, y in zip(a, b)))
+    return type(a) is type(b) and a == b
+
+
+class SplitTimer:
+    """Wall time spent in named functions, installed as wrappers on module
+    attributes for the ``with`` block and put back after it."""
+
+    def __init__(self, targets: dict):
+        self.targets, self.seconds, self.saved = targets, {}, []
+
+    def __enter__(self):
+        for name, (mod, attr) in self.targets.items():
+            raw = vars(mod)[attr]           # a class's staticmethod stays one
+            fn = getattr(mod, attr)
+            self.saved.append((mod, attr, raw))
+            self.seconds[name] = 0.0
+
+            def timed(*a, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.seconds[_name] += time.perf_counter() - t0
+            setattr(mod, attr, staticmethod(timed) if isinstance(raw, staticmethod) else timed)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in reversed(self.saved):
+            setattr(mod, attr, fn)
+
+
+def data_phase(C, A, *, base=None, device="cuda", shapes=DATA_SHAPES,
+               proposals: int = DATA_PROPOSALS, seed: int = 0) -> dict:
+    """The LLM-Seg40K fine-tune path (``cli/finetune.py``'s wiring) on the
+    port: a corpus in the reference's layout written from ``seed``
+    (``write_llmseg_corpus``), ``datasets._imread_rgb`` stood in for by
+    ``standin_imread`` (everything after the decode is the package's code),
+    ``ByteTokenizer`` with the model's ``[SEG]`` id and vocab aligned as
+    ``cli/common.align_model_to_tokenizer`` does, and ``llmseg_7b`` (or
+    ``base``) in bf16 with LoRA r8 on q/v through the ``Trainer``:
+    ``BatchLoader(LLMSegDataset, collate, 1, 8 steps, 2 threads, pinned)``
+    into ``train_epoch`` (steps_per_epoch 4, grad_accum_steps 2), then
+    ``ValLLMSegDataset`` (limit 16, batch 8, the filler rows of the last
+    batch marked invalid as ``cli/train.py`` does) into ``validate``.
+    Gates: every batch that reaches the device equals, copied back, the
+    numpy batch collate gave for it; a one-thread loader equals direct
+    ``dataset[i]`` + collate calls in order; the losses are finite and
+    every LoRA tensor moved; the val loop's gIoU and cIoU equal the numpy
+    compose's on the same scores to the bit (and so do the other selection
+    strategies' on those scores); on the card, the launches of
+    A, B, C and D a micro-step and of A and B a val batch.  Prints the host
+    ms of one ``__getitem__`` by part, collate ms, the loader's wait
+    (``data_ms``, ``val_data_ms``) against the step's ms, peak device
+    memory, and host RSS before and at its peak.  ``base``, ``device``, ``shapes`` and ``proposals`` let a CPU test
+    run it small."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from llmseg_tpu_torch.data import collate as collate_lib
+    from llmseg_tpu_torch.data import datasets as D
+    from llmseg_tpu_torch.data import image_ops, mask_reader
+    from llmseg_tpu_torch.data.tokenizer import ByteTokenizer, seg_token_id
+    from llmseg_tpu_torch.ops import rle
+    from llmseg_tpu_torch.train import evaluate as E
+    from llmseg_tpu_torch.train.loader import BatchLoader
+    from llmseg_tpu_torch.train.trainer import Trainer
+
+    cuda = torch.device(device).type == "cuda"
+    base = base or C.llmseg_7b()
+    exp = C.ExperimentConfig(model=base, train=C.TrainConfig(
+        warmup_steps=0, steps_per_epoch=DATA_TRAIN_STEPS // 2, grad_accum_steps=2,
+        lora=C.LoraConfig(rank=8), log_dir=os.path.join(OUT_DIR, "data_runs")))
+    tok = ByteTokenizer(model_max_length=exp.data.model_max_length)
+    llm = C.replace(base.llava.llm, vocab_size=max(base.llava.llm.vocab_size, tok.vocab_size))
+    cfg = C.replace(base, llava=C.replace(base.llava, llm=llm), seg_token_id=seg_token_id(tok))
+    exp = C.replace(exp, model=cfg)
+    root = tempfile.mkdtemp(prefix="llmseg40k_")
+    saved_imread = D._imread_rgb
+    try:
+        t0 = time.perf_counter()
+        corpus = write_llmseg_corpus(root, seed, shapes, proposals)
+        write_s = time.perf_counter() - t0
+        p = corpus["paths"]
+        D._imread_rgb = standin_imread(corpus["shapes"], seed)
+        readers = {k: mask_reader.SamMaskReader(p[k], top_k=DATA_PROPOSALS, verbose=False)
+                   for k in ("llmseg40k_train", "llmseg40k_val", "egoobjects")}
+        sizes = dict(image_size=exp.data.image_size, clip_size=exp.data.clip_image_size,
+                     seg_grid=cfg.seg_grid)
+        if not cuda:        # a small run on the CPU: the model's own sizes
+            sizes = dict(image_size=cfg.dino.img_size, clip_size=cfg.llava.vision.img_size,
+                         seg_grid=cfg.seg_grid)
+
+        def train_ds():
+            return D.LLMSegDataset(p["train"], p["coco"], p["ego_objects"],
+                                   readers["llmseg40k_train"], readers["egoobjects"],
+                                   seed=exp.train.seed, **sizes)
+
+        def collate(rows):
+            return lambda samples: collate_lib.collate(
+                samples, tok, num_image_tokens=cfg.llava.num_image_tokens,
+                rows_per_sample=rows, max_proposals=cfg.max_proposals,
+                model_max_length=exp.data.model_max_length)
+
+        # one __getitem__ by part, one thread
+        ds = train_ds()
+        parts = {"rle_decode": (rle, "decode"),
+                 "pad_to_square": (mask_reader.SamMaskReader, "pad_to_square"),
+                 "seg_resize": (D, "resize_segs_bilinear"),
+                 "iou_iop_labels": (D, "compute_all_iou_iop"),
+                 "preprocess_dino": (image_ops, "preprocess_dino"),
+                 "preprocess_clip": (image_ops, "preprocess_clip")}
+        n_timed = 3
+        with SplitTimer(parts) as split:
+            t0 = time.perf_counter()
+            samples = [ds[i] for i in range(n_timed)]
+            getitem_ms = (time.perf_counter() - t0) * 1e3 / n_timed
+        split_ms = {k: v * 1e3 / n_timed for k, v in split.seconds.items()}
+        t0 = time.perf_counter()
+        batch0 = collate(1)(samples[:1])
+        collate_ms = (time.perf_counter() - t0) * 1e3
+        seg_rows = int((batch0[0]["input_ids"] == cfg.seg_token_id).any(1).sum())
+
+        # gate 2: one thread, the loader's batches are dataset[i] + collate in order
+        loader1 = BatchLoader(train_ds(), collate(1), 1, 3, shuffle=True,
+                              seed=exp.train.seed, num_threads=1)
+        direct_ds = train_ds()
+        direct = [collate(1)([direct_ds[i]]) for i in loader1._indices(0)]
+        loader_equals_direct = same_tree(list(loader1.epoch(0)), direct)
+
+        def run():
+            trainer = Trainer(exp, device=device)
+            start = {n: q.detach().clone() for n, q in trainer.trainable.items()
+                     if n.startswith("lora.")}
+            kept, seen, step_ms, data_ms = [], [], [], []
+
+            def keep(samples):          # the producer thread's collate
+                item = collate(1)(samples)
+                kept.append({k: v.copy() for k, v in item[0].items()})
+                return item
+
+            step = trainer.step
+
+            def timed_step(batch):
+                seen.append({k: v.cpu() for k, v in batch.items()})     # waits for the copy
+                t0 = time.perf_counter()
+                out = step(batch)
+                sync(device)
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            def waited(it, into=data_ms):
+                """``it``, with the time each item was waited for."""
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        item = next(it)
+                    except StopIteration:
+                        return
+                    into.append((time.perf_counter() - t0) * 1e3)
+                    yield item
+
+            trainer.step = timed_step       # popped below: it holds the trainer in a cycle
+            loader = BatchLoader(train_ds(), keep, 1, DATA_TRAIN_STEPS, shuffle=True,
+                                 seed=exp.train.seed, num_threads=2, pin_memory=cuda)
+            for kern in A.KERNELS:
+                kern.launches = 0
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            losses = trainer.train_epoch(waited(loader.epoch(0)), epoch=0)
+            sync(device)
+            epoch_s = time.perf_counter() - t0
+            train_launches = {k.name: k.launches for k in A.KERNELS}
+            moved = {n for n, q in start.items() if not torch.equal(trainer.trainable[n], q)}
+
+            # validation: batches of 8, the filler rows of the last one marked invalid
+            val_ds = D.ValLLMSegDataset(p["val"], p["coco"], p["ego_objects"],
+                                        readers["llmseg40k_val"], readers["egoobjects"],
+                                        limit=DATA_VAL_LIMIT, **sizes)
+            n_val = len(val_ds)
+            steps = -(-n_val // DATA_VAL_BATCH)
+            extras_seen, scores = [], []
+
+            def val_batches():
+                vl = BatchLoader(val_ds, collate(1), DATA_VAL_BATCH, steps, num_threads=2,
+                                 pin_memory=cuda)
+                for j, (b, extras) in enumerate(vl.epoch(0)):
+                    n_valid = min(DATA_VAL_BATCH, max(n_val - j * DATA_VAL_BATCH, 0))
+                    extras["row_valid"] = [True] * n_valid + [False] * (DATA_VAL_BATCH - n_valid)
+                    extras_seen.append(extras)
+                    yield b, extras
+
+            eval_step = trainer.eval_step
+
+            def kept_eval(model, b):
+                out = eval_step(model, b)
+                scores.append(out)
+                return out
+
+            trainer.eval_step = kept_eval
+            for kern in A.KERNELS:
+                kern.launches = 0
+            val_data_ms = []
+            t0 = time.perf_counter()
+            res = trainer.validate(waited(val_batches(), val_data_ms))
+            val_s = time.perf_counter() - t0
+            val_launches = {k.name: k.launches for k in A.KERNELS}
+            for name in ("step", "eval_step"):      # the 7B model goes with the trainer
+                vars(trainer).pop(name)
+            replay = [(i, e) for i, e in enumerate(extras_seen)]
+            plain = E.run_validation(lambda m, i: scores[i], None, replay, plain=True)
+            # the other strategies on the same scores: the device compose
+            # against the numpy one
+            by_strategy = {s: (E.run_validation(lambda m, i: scores[i], None, replay, strategy=s),
+                               E.run_validation(lambda m, i: scores[i], None, replay, strategy=s,
+                                                plain=True))
+                           for s in E.SELECTORS if s != "threshold"}
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+            arrived = len(seen) == len(kept) == DATA_TRAIN_STEPS and all(
+                same_tree({k: v.numpy() for k, v in s.items()}, h) for s, h in zip(seen, kept))
+            return dict(losses=losses, epoch_s=epoch_s, step_ms=step_ms, data_ms=data_ms,
+                        train_launches=train_launches, val_launches=val_launches,
+                        lora_tensors=len(start), lora_moved=len(moved), res=res, plain=plain,
+                        by_strategy=by_strategy, n_val=n_val, val_batches=steps, val_s=val_s,
+                        val_data_ms=val_data_ms, peak_gb=peak_gb,
+                        batches_arrived_intact=arrived, global_step=trainer.global_step)
+
+        rss_before_gb = rss_bytes() / 1e9
+        out, peak_rss_gb = with_peak_rss(run)
+    finally:
+        D._imread_rgb = saved_imread
+        shutil.rmtree(root, ignore_errors=True)
+
+    L, depth = cfg.llava.llm.num_layers, cfg.dino.depth
+    expect_train = {"flash_fwd": 2 * L, "flash_fwd_1pass": depth, "flash_bwd_dq": L,
+                    "flash_bwd_dkv": L, "flash_fwd_1pass_t": 0}
+    expect_train = {k: DATA_TRAIN_STEPS * v for k, v in expect_train.items()}
+    expect_val = {"flash_fwd": L, "flash_fwd_1pass": depth, "flash_bwd_dq": 0,
+                  "flash_bwd_dkv": 0, "flash_fwd_1pass_t": 0}
+    expect_val = {k: out["val_batches"] * v for k, v in expect_val.items()}
+    if not cuda:
+        expect_train = {k: 0 for k in expect_train}
+        expect_val = {k: 0 for k in expect_val}
+    steady = out["step_ms"][2:] or out["step_ms"]
+    rec = {"phase": "data", "config": "llmseg_7b" if base == C.llmseg_7b() else "custom",
+           "layout": "LLM-Seg40K (llm_seg/train.json, validation.json; coco/train2017, "
+                     "ego_objects/images; sam_masks/*_masks.json)",
+           "decode": "stand-in: each image path's uint8 RGB made from the seed "
+                     "(standin_imread); the card's machine has no cv2 or PIL to decode a file",
+           "image_shapes": [list(s) for s in shapes], "proposals": proposals,
+           "corpus_write_s": write_s, "seg_token_id": cfg.seg_token_id,
+           "rows_with_seg_token": seg_rows,
+           "getitem_ms": getitem_ms, "getitem_ms_by_part": split_ms,
+           "getitem_ms_other": getitem_ms - sum(split_ms.values()),
+           "collate_ms": collate_ms,
+           "train_steps": DATA_TRAIN_STEPS, "grad_accum_steps": 2,
+           "global_step": out["global_step"], "epoch_s": out["epoch_s"],
+           "step_ms": out["step_ms"], "data_ms": out["data_ms"],
+           "step_ms_mean_after_2": sum(steady) / len(steady),
+           "data_ms_mean_after_2": (sum(out["data_ms"][2:]) / max(len(out["data_ms"]) - 2, 1)),
+           "losses": out["losses"],
+           "lora_tensors": out["lora_tensors"], "lora_moved": out["lora_moved"],
+           "launches_train": out["train_launches"], "expected_launches_train": expect_train,
+           "val_images": out["n_val"], "val_batches": out["val_batches"], "val_s": out["val_s"],
+           "val_data_ms": out["val_data_ms"],
+           "val": out["res"], "val_plain": out["plain"],
+           "val_by_strategy": {k: {"device": d, "plain": q}
+                               for k, (d, q) in out["by_strategy"].items()},
+           "launches_val": out["val_launches"], "expected_launches_val": expect_val,
+           "peak_mem_gb": out["peak_gb"], "host_rss_before_gb": rss_before_gb,
+           "peak_host_rss_gb": peak_rss_gb,
+           "batches_arrived_intact": out["batches_arrived_intact"],
+           "loader_equals_direct_calls": loader_equals_direct}
+    if cuda:
+        rec["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                      "--format=csv,noheader"], capture_output=True,
+                                     text=True).stdout.strip()
+    rec["ok"] = (out["batches_arrived_intact"] and loader_equals_direct
+                 and all(math.isfinite(v) for v in out["losses"].values())
+                 and out["lora_moved"] == out["lora_tensors"] > 0
+                 and out["res"] == out["plain"]
+                 and all(d == q for d, q in out["by_strategy"].values())
+                 and all(math.isfinite(v) for v in out["res"].values())
+                 and out["train_launches"] == expect_train and out["val_launches"] == expect_val
+                 and out["global_step"] == DATA_TRAIN_STEPS // 2 and seg_rows == 1)
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit("the data phase failed")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3133,7 +3564,12 @@ def main() -> int:
     serve_phase(C, llmseg, Q, A, SV, SX, import_phase(C, llmseg, S, TI, make_batch))
     torch.cuda.empty_cache()
 
-    # 5. the train step, timed, then profiled; then QLoRA
+    # 5. the LLM-Seg40K fine-tune path from a corpus in the reference's
+    # layout: the data layer, the loader, the Trainer and the val loop
+    data_phase(C, A)
+    torch.cuda.empty_cache()
+
+    # the train step, timed, then profiled; then QLoRA
     train = train_phase(C, make_batch, A)
     launches.update({k: int(train["launches_per_step"][k])
                      for k in ("flash_bwd_dq", "flash_bwd_dkv")})

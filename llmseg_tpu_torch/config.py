@@ -191,6 +191,29 @@ def llmseg_tiny() -> LLMSegConfig:
 
 
 @dataclass(frozen=True)
+class DataConfig:
+    """A copy of ``llmseg_tpu.config.DataConfig``: where the corpora and the
+    offline SAM masks are, the mixture and its sub-datasets, and the
+    sizes the datasets make."""
+
+    dataset_dir: str = "./dataset"
+    sam_masks_dir: str = "./sam_masks"
+    dataset: str = "sem_seg||refer_seg||reason_seg"
+    sample_rates: Tuple[float, ...] = (9, 3, 1)
+    sem_seg_data: str = "ade20k||cocostuff||pascal_part||paco_lvis||mapillary"
+    refer_seg_data: str = "refclef||refcoco||refcoco+||refcocog"
+    reason_seg_data: str = "ReasonSeg|train"
+    val_dataset: str = "ReasonSeg|val"
+    explanatory: float = 0.1
+    num_classes_per_sample: int = 3
+    image_size: int = 896             # DINOv2 input (reference --image_size 896)
+    clip_image_size: int = 224
+    model_max_length: int = 512
+    num_workers: int = 2
+    exclude_val: bool = False
+
+
+@dataclass(frozen=True)
 class MeshConfig:
     """Device mesh: data ('dp'), fsdp-style param shard ('fsdp'), tensor ('tp').
     The port trains on one card, so only the one-device mesh is accepted."""
@@ -203,9 +226,8 @@ class MeshConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """``llmseg_tpu.config.TrainConfig``'s settings that the port reads, with
-    their defaults; the others (the naming settings, resume, batch_size,
-    eval_every_epochs, no_eval) come with the code that reads them (the
-    loader and the entry points).  A mesh of more than one device raises
+    their defaults; the others (eval_every_epochs, no_eval) come with the
+    entry points that read them.  A mesh of more than one device raises
     instead of being ignored."""
 
     lr: float = 1e-4                  # stage-2 finetune uses 1e-5
@@ -215,6 +237,7 @@ class TrainConfig:
     warmup_steps: int = 100
     epochs: int = 10
     steps_per_epoch: int = 500
+    batch_size: int = 1               # per device
     grad_accum_steps: int = 10
     grad_clip: float = 1.0
     precision: str = "bf16"
@@ -228,8 +251,10 @@ class TrainConfig:
     mesh: MeshConfig = field(default_factory=MeshConfig)
     seed: int = 42
     log_dir: str = "./runs/llmseg"
+    exp_name: str = "llmseg_tpu"
     save_best_metric: str = "giou"
     print_freq: int = 1
+    resume: str = ""
 
     def __post_init__(self):
         m = self.mesh
@@ -241,10 +266,12 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class ExperimentConfig:
-    """The model and training trees of ``llmseg_tpu.config.ExperimentConfig``;
-    its data and AMG trees belong to parts of the package not ported yet."""
+    """The model, data and training trees of
+    ``llmseg_tpu.config.ExperimentConfig``; its AMG tree belongs to the entry
+    points, not ported yet."""
 
     model: LLMSegConfig = field(default_factory=llmseg_7b)
+    data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
 
 

@@ -5,7 +5,10 @@ progress printing; validation (gIoU / cIoU), the best-checkpoint policy and
 checkpoint resume.
 
 It trains on one card (``device="cuda"``, the default) or, when the caller
-asks, on the CPU.
+asks, on the CPU.  A batch is a dict of tensors or of numpy arrays (what
+``data.collate`` gives, alone or as the first item of a tuple); arrays are
+copied to the device here, pinned tensors (``BatchLoader(...,
+pin_memory=True)``) asynchronously.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import os
 import time
 from typing import Dict, Iterable, Optional
 
+import numpy as np
 import torch
 
 from llmseg_tpu_torch.config import ExperimentConfig, LoraConfig
@@ -24,8 +28,13 @@ from llmseg_tpu_torch.train import evaluate as eval_lib
 from llmseg_tpu_torch.train import optim
 from llmseg_tpu_torch.train.train_step import eval_step, train_step
 from llmseg_tpu_torch.utils.metrics import AverageMeter, ProgressMeter
+from llmseg_tpu_torch.utils.profiling import trace
 
 LOSS_KEYS = ("loss", "ce_loss", "align_loss", "regression_loss")
+
+
+def _as_tensor(v) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(v)) if isinstance(v, np.ndarray) else v
 
 
 class Trainer:
@@ -51,14 +60,31 @@ class Trainer:
         self.log_dir = cfg.train.log_dir
         os.makedirs(self.log_dir, exist_ok=True)
         self.best = ckpt_lib.BestKeeper(self.log_dir, cfg.train.save_best_metric)
+        self._staged = None     # the last pinned batch and its copy's event
+
+    def to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """A batch's values on the trainer's device.  A pinned tensor is
+        copied without blocking; it is held (with an event after its copy)
+        until the next call, which waits for that copy before letting it go,
+        so its memory is neither freed nor reused while the copy reads it."""
+        batch = {k: _as_tensor(v) for k, v in batch.items()}
+        pinned = self.device.type == "cuda" and any(v.is_pinned() for v in batch.values())
+        out = {k: v.to(self.device, non_blocking=v.is_pinned()) for k, v in batch.items()}
+        if self._staged is not None:
+            self._staged[1].synchronize()
+            self._staged = None
+        if pinned:
+            done = torch.cuda.Event()
+            done.record()
+            self._staged = (batch, done)
+        return out
 
     def step(self, batch) -> dict:
         return train_step(self.model, self.opt, batch, lora_cfg=self.lora_cfg,
                           remat=self.remat, pool=self.pool)
 
     def eval_step(self, model: llmseg.LLMSeg, batch) -> dict:
-        batch = {k: v.to(self.device) for k, v in batch.items()}
-        return eval_step(model, batch, lora_cfg=self.lora_cfg, pool=self.pool)
+        return eval_step(model, self.to_device(batch), lora_cfg=self.lora_cfg, pool=self.pool)
 
     # -- checkpointing ------------------------------------------------------
 
@@ -82,9 +108,11 @@ class Trainer:
 
     # -- loops --------------------------------------------------------------
 
-    def train_epoch(self, batches: Iterable, epoch: int) -> dict:
-        """One epoch over any iterable of batches (dicts of tensors, or
-        tuples whose first item is one); returns the meters' averages."""
+    def train_epoch(self, batches: Iterable, epoch: int, profile_steps: int = 0) -> dict:
+        """One epoch over any iterable of batches (dicts of tensors or numpy
+        arrays, or tuples whose first item is one); returns the meters'
+        averages.  ``profile_steps`` > 0: a ``torch.profiler`` trace of that
+        many leading micro-steps into <log_dir>/profile."""
         tcfg = self.cfg.train
         meters = {name: AverageMeter(name, ":.4f") for name in LOSS_KEYS}
         batch_time = AverageMeter("time", ":.3f")
@@ -94,12 +122,20 @@ class Trainer:
                                  prefix=f"Epoch: [{epoch}]")
         micro = 0
         end = time.time()
+        profiler = None
         for batch in batches:
             if isinstance(batch, tuple):
                 batch = batch[0]
             data_time.update(time.time() - end)
-            batch = {k: v.to(self.device) for k, v in batch.items()}
-            metrics = self.step(batch)
+            if profile_steps and micro == 0:
+                profiler = trace(os.path.join(self.log_dir, "profile"))
+                profiler.__enter__()
+            metrics = self.step(self.to_device(batch))
+            if profiler is not None and micro + 1 == profile_steps:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                profiler.__exit__(None, None, None)
+                profiler = None
             micro += 1
             if micro % tcfg.grad_accum_steps == 0:
                 self.global_step += 1
@@ -115,6 +151,8 @@ class Trainer:
                         self.writer.add_scalar("metrics/total_secs_per_batch",
                                                batch_time.avg, self.global_step)
             end = time.time()
+        if profiler is not None:     # epoch shorter than profile_steps
+            profiler.__exit__(None, None, None)
         return {name: m.avg for name, m in meters.items()}
 
     def validate(self, batches: Iterable, strategy: str = "threshold",

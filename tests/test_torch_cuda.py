@@ -957,3 +957,51 @@ def test_flash_attention_bias_matches_plain(dtype, heads_bias):
     b4 = bias.reshape(B, H, T, S) if heads_bias else bias[None]
     ref = A.attention_plain(q.float(), k.float(), v.float(), bias=b4)
     _assert_close(got, ref, dtype)
+
+
+def test_pinned_loader_batches_reach_the_card_intact(tmp_path, monkeypatch):
+    """The data layer's batches, pinned in the loader's producer thread and
+    copied to the card without blocking by ``Trainer.to_device``: each,
+    copied back, equals the numpy batch collate gave for it (a pinned
+    buffer freed or reused before its copy ends would differ).  A small
+    LLM-Seg40K-layout corpus from ``chip_smoke.py``'s writer, its image
+    decode stood in for as the smoke does."""
+    import numpy as np
+
+    import chip_smoke as CS
+    from llmseg_tpu_torch.data import collate as collate_lib
+    from llmseg_tpu_torch.data import datasets as D
+    from llmseg_tpu_torch.data.mask_reader import SamMaskReader
+    from llmseg_tpu_torch.data.tokenizer import ByteTokenizer
+    from llmseg_tpu_torch.train.loader import BatchLoader
+    from llmseg_tpu_torch.train.trainer import Trainer
+
+    corpus = CS.write_llmseg_corpus(str(tmp_path), 0, shapes=((60, 80), (80, 60)), proposals=6)
+    p = corpus["paths"]
+    monkeypatch.setattr(D, "_imread_rgb", CS.standin_imread(corpus["shapes"], 0))
+    cfg = C.llmseg_tiny()
+    ds = D.LLMSegDataset(p["train"], p["coco"], p["ego_objects"],
+                         SamMaskReader(p["llmseg40k_train"], verbose=False),
+                         SamMaskReader(p["egoobjects"], verbose=False),
+                         image_size=cfg.dino.img_size, clip_size=cfg.llava.vision.img_size,
+                         seg_grid=cfg.seg_grid)
+    tok, kept = ByteTokenizer(model_max_length=480), []
+
+    def collate(samples):
+        item = collate_lib.collate(samples, tok, num_image_tokens=cfg.llava.num_image_tokens,
+                                   rows_per_sample=1, max_proposals=cfg.max_proposals)
+        kept.append({k: v.copy() for k, v in item[0].items()})
+        return item
+
+    trainer = Trainer(C.ExperimentConfig(model=cfg, train=C.TrainConfig(
+        precision="fp32", log_dir=str(tmp_path / "runs"))))
+    got = []
+    for batch, _ in BatchLoader(ds, collate, 2, 6, pin_memory=True).epoch(0):
+        assert all(v.is_pinned() for v in batch.values())
+        got.append({k: v.cpu().numpy() for k, v in trainer.to_device(batch).items()})
+    assert len(got) == len(kept) == 6
+    for g, h in zip(got, kept):
+        assert set(g) == set(h)
+        for k in h:
+            assert g[k].dtype == h[k].dtype and np.array_equal(g[k], h[k]), k
+

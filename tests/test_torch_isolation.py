@@ -27,7 +27,10 @@ def test_port_has_every_slice_module():
                  "ops.relpos_attention", "ops.twoway_kernel", "ops.amg_utils", "ops.nms",
                  "ops.rle", "ops.device_rle", "models.generate", "models.pixel_decoder",
                  "ops.quant", "train.evaluate", "serving", "models.sam.export",
-                 "import_weights.torch_import", "utils.profiling", "utils.logging"):
+                 "import_weights.torch_import", "utils.profiling", "utils.logging",
+                 "data.prompts", "data.conversation", "data.tokenizer", "data.collate",
+                 "data.coco_api", "data.refer", "data.mask_reader", "data.data_processing",
+                 "data.image_ops", "data.resample", "data.datasets", "train.loader"):
         assert f"llmseg_tpu_torch.{name}" in mods, name
 
 
@@ -63,3 +66,25 @@ def test_kernel_sources_are_in_the_package():
     from llmseg_tpu_torch.ops import kernels
     for name in kernels.SIGNATURES:
         assert (kernels.CSRC / f"{name}.cu").is_file()
+
+
+def test_port_loads_no_image_or_tokenizer_library():
+    """The port, its data layer and loader included, imports neither JAX,
+    the JAX package, PIL, cv2 nor transformers: the card's machine has none
+    of the last three, and each is imported only by the function that
+    needs it (the image decode and polygon fills, the sem-seg label read,
+    HFTokenizer, the weight importers)."""
+    mods = _modules()
+    assert "llmseg_tpu_torch.train.loader" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "roots = ('jax', 'jaxlib', 'llmseg_tpu', 'PIL', 'cv2', 'transformers')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in roots]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
