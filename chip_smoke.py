@@ -130,6 +130,21 @@ Phases, one JSON line each; any failure exits non-zero:
               A 32, B 24 a val batch; the host ms of one __getitem__ by
               part, collate ms, the loader's wait against the step's ms,
               peak device memory and host RSS;
+     cli      the port's command line as a user runs it, one line a run:
+              cli.finetune (llmseg_7b, bf16, LoRA r8, 2 steps of 2
+              micro-steps, LLMSeg|val at batch 1) on the data phase's
+              corpus, cli.validate of that run (its best checkpoint
+              resumed) at batch 8 in bf16 and with --load_8bit --w8a8
+              --calib_batches 1, cli.prepare at vit_h (random weights,
+              filters opened) on three synthetic images at crop layers 0
+              and 1 (the decodes stood in for); gates: finite losses,
+              every LoRA tensor moved, a best checkpoint, the resumed LoRA
+              equal to the saved one, gIoU / cIoU in [0, 1], launches A 64,
+              B 24, C 32, D 32 a micro-step, A 32, B 24 (Q1 128, Q2 224) a
+              val batch, no torch._int_mm, E 4, F 28, G 16 a frame, the
+              masks.json schema read back, each 7B model freed, the peak
+              at most the data phase's + 1 GB; seconds and peak memory a
+              run, ms/image of prepare;
      train    the LoRA train step at llmseg_7b in bf16 through the Trainer
               (1 image, 1 row, text_len 512, remat "dots"): launch counts per
               step, finite losses, frozen weights bit-identical and trainable
@@ -3060,32 +3075,47 @@ def same_tree(a, b) -> bool:
     return type(a) is type(b) and a == b
 
 
-class SplitTimer:
-    """Wall time spent in named functions, installed as wrappers on module
-    attributes for the ``with`` block and put back after it."""
+class Wrapped:
+    """``owner.attr`` replaced for the ``with`` block by ``around(original)``
+    (a class's staticmethod stays one) and put back after it, for each
+    ``(owner, attr, around)``."""
 
-    def __init__(self, targets: dict):
-        self.targets, self.seconds, self.saved = targets, {}, []
+    def __init__(self, *targets):
+        self.targets, self.saved = targets, []
 
     def __enter__(self):
-        for name, (mod, attr) in self.targets.items():
-            raw = vars(mod)[attr]           # a class's staticmethod stays one
-            fn = getattr(mod, attr)
-            self.saved.append((mod, attr, raw))
-            self.seconds[name] = 0.0
-
-            def timed(*a, _fn=fn, _name=name, **kw):
-                t0 = time.perf_counter()
-                try:
-                    return _fn(*a, **kw)
-                finally:
-                    self.seconds[_name] += time.perf_counter() - t0
-            setattr(mod, attr, staticmethod(timed) if isinstance(raw, staticmethod) else timed)
+        for owner, attr, around in self.targets:
+            raw = vars(owner)[attr]
+            self.saved.append((owner, attr, raw))
+            fn = around(getattr(owner, attr))
+            setattr(owner, attr, staticmethod(fn) if isinstance(raw, staticmethod) else fn)
         return self
 
     def __exit__(self, *exc):
-        for mod, attr, fn in reversed(self.saved):
-            setattr(mod, attr, fn)
+        for owner, attr, raw in reversed(self.saved):
+            setattr(owner, attr, raw)
+
+
+class SplitTimer(Wrapped):
+    """Wall time spent in named functions (``{name: (owner, attr)}``),
+    summed in ``seconds`` while the ``with`` block runs."""
+
+    def __init__(self, targets: dict):
+        self.seconds = {name: 0.0 for name in targets}
+
+        def timer(name):
+            def around(fn):
+                def timed(*a, **kw):
+                    t0 = time.perf_counter()
+                    try:
+                        return fn(*a, **kw)
+                    finally:
+                        self.seconds[name] += time.perf_counter() - t0
+                return timed
+            return around
+
+        super().__init__(*((owner, attr, timer(name))
+                           for name, (owner, attr) in targets.items()))
 
 
 def data_phase(C, A, *, base=None, device="cuda", shapes=DATA_SHAPES,
@@ -3351,6 +3381,302 @@ def data_phase(C, A, *, base=None, device="cuda", shapes=DATA_SHAPES,
     return rec
 
 
+# ---------------------------------------------------------------------------
+# cli: the port's command line (llmseg_tpu_torch.cli) driven as a user runs it
+# ---------------------------------------------------------------------------
+
+CLI_STEPS, CLI_ACCUM, CLI_VAL_BATCH = 2, 2, 8
+
+
+def cli_phase(C, kernels_all, *, data_peak_gb=None, device="cuda", model_size="7b",
+              extra_argv=(), shapes=DATA_SHAPES, proposals=DATA_PROPOSALS, prep_images=None,
+              points_per_side=32, seed=0) -> list:
+    """The port's entry points as a user calls them, each through its
+    ``main(argv)``: ``cli.finetune`` (``llmseg_7b``, bf16, LoRA r8, 2 steps
+    of 2 micro-steps, one epoch, ``LLMSeg|val`` at batch 1 on the corpus's
+    13 val questions) on ``write_llmseg_corpus``'s corpus, then
+    ``cli.validate`` of the same run (its best checkpoint auto-resumed) at
+    batch 8, in bf16 and with ``--load_8bit --w8a8 --calib_batches 1``, then
+    ``cli.prepare`` at ``vit_h`` (random weights: no checkpoint) over three
+    seeded images no larger than the SAM input, the filters opened, at
+    ``--crop_n_layers`` 0 and 1.  The image decodes are stood in for
+    (``standin_imread`` for the datasets, ``amg_images()`` for prepare's
+    files): the card's machine has no cv2 or PIL; everything after the
+    decode is the CLI's own code.  Gates: finite losses, every LoRA tensor
+    moved, a best checkpoint written; the resumed LoRA equal to the saved
+    one to the bit; gIoU and cIoU in [0, 1]; the launches of A, B, C, D a
+    micro-step and of A, B, Q1, Q2 a val batch, no ``torch._int_mm``; E, F
+    and G a frame; at least one annotation an image, the reference schema,
+    crop boxes inside the image, masks.json read back by the port's
+    ``SamMaskReader``; each 7B model freed before the next is built (device
+    memory back to where the phase began) and the phase's peak at most the
+    data phase's plus 1 GB.  One line a sub-run with its seconds and peak
+    device memory.  ``device``, ``model_size``, ``extra_argv``, ``shapes``,
+    ``proposals``, ``prep_images`` and ``points_per_side`` let a CPU test
+    run it small."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from llmseg_tpu_torch.cli import common as CC
+    from llmseg_tpu_torch.cli import finetune as CF
+    from llmseg_tpu_torch.cli import prepare as CP
+    from llmseg_tpu_torch.cli import validate as CV
+    from llmseg_tpu_torch.data import datasets as D
+    from llmseg_tpu_torch.data.mask_reader import SamMaskReader
+    from llmseg_tpu_torch.models.sam import amg as AMG
+    from llmseg_tpu_torch.train.trainer import Trainer
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = {"7b": C.llmseg_7b, "tiny": C.llmseg_tiny}[model_size]()
+    L, depth = cfg.llava.llm.num_layers, cfg.dino.depth
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip() if cuda else None
+    names = [k.name for k in kernels_all]
+
+    def expect(**per):
+        return {n: (per.get(n, 0) if cuda else 0) for n in names}
+
+    def counts():
+        return {k.name: k.launches for k in kernels_all}
+
+    def zero():
+        for k in kernels_all:
+            k.launches = 0
+
+    def mem():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            return torch.cuda.memory_allocated() / 1e9
+        return None
+
+    seen = {}        # what the wrappers saw, by run
+
+    def lora(trainer):
+        return {n: p.detach().cpu().clone() for n, p in trainer.trainable.items()
+                if n.startswith("lora.")}
+
+    def counted(tag):
+        """Trainer.train_epoch / validate with the launches of their own
+        run, counted from zero, and their result."""
+        def around(fn):
+            def run(self, *a, **kw):
+                zero()
+                out = fn(self, *a, **kw)
+                sync(self.device)
+                seen.setdefault(tag, []).append({"out": out, "launches": counts()})
+                return out
+            return run
+        return around
+
+    def first_weights(fn):
+        def run(*a, **kw):
+            model = fn(*a, **kw)
+            seen["initial_lora"] = {n: p.detach().cpu().clone() for n, p in
+                                    model.named_parameters() if n.startswith("lora.")}
+            return model
+        return run
+
+    def kept_best(fn):
+        def run(self, metrics):
+            saved = fn(self, metrics)
+            if saved:
+                seen["saved_lora"] = lora(self)
+            return saved
+        return run
+
+    def resumed(fn):
+        def run(self, *a, **kw):
+            out = fn(self, *a, **kw)
+            if out:
+                seen.setdefault("resumed_lora", []).append(lora(self))
+            return out
+        return run
+
+    def sub_run(name, fn):
+        """fn() with its seconds, peak device memory and what stays
+        allocated after it; also the clock at its end."""
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        sync(device)
+        end = time.perf_counter()
+        rec = {"phase": "cli", "run": name, "seconds": end - t0,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None}
+        rec["allocated_after_gb"] = mem()
+        return rec, out, end
+
+    root = tempfile.mkdtemp(prefix="llmseg_cli_")
+    saved_imread, saved_prep_imread = D._imread_rgb, CP._imread_rgb
+    records = []
+    base_gb = mem()
+    t_phase = time.perf_counter()
+    try:
+        corpus = write_llmseg_corpus(root, seed, shapes, proposals)
+        D._imread_rgb = standin_imread(corpus["shapes"], seed)
+        base = ["--model_size", model_size, "--precision", "bf16", "--lora_r", "8",
+                "--dataset_dir", os.path.join(root, "dataset"),
+                "--sam_masks_dir", os.path.join(root, "sam_masks"),
+                "--log_base_dir", os.path.join(root, "runs"), "--exp_name", "cli",
+                "--device", device, *extra_argv]
+        run_dir = os.path.join(root, "runs", "cli")
+        wraps = Wrapped((Trainer, "train_epoch", counted("train")),
+                        (Trainer, "validate", counted("val")),
+                        (Trainer, "save_best", kept_best),
+                        (Trainer, "maybe_resume", resumed),
+                        (CC, "import_initial_params", first_weights))
+
+        # 1. finetune
+        argv = base + ["--steps_per_epoch", str(CLI_STEPS), "--grad_accumulation_steps",
+                       str(CLI_ACCUM), "--epochs", "1", "--warmup_steps", "0"]
+        with wraps:
+            rec, _, _ = sub_run("finetune", lambda: CF.main(argv))
+        (train,), (val,) = seen.pop("train"), seen.pop("val")
+        micro = CLI_STEPS * CLI_ACCUM
+        n_val = len(D.ValLLMSegDataset(corpus["paths"]["val"], corpus["paths"]["coco"],
+                                       corpus["paths"]["ego_objects"],
+                                       SamMaskReader(corpus["paths"]["llmseg40k_val"],
+                                                     verbose=False),
+                                       SamMaskReader(corpus["paths"]["egoobjects"],
+                                                     verbose=False)))
+        init, saved = seen.pop("initial_lora"), seen.get("saved_lora", {})
+        rec.update({
+            "argv": argv, "losses": train["out"], "val": val["out"], "val_images": n_val,
+            "lora_tensors": len(init),
+            "lora_moved": sum(not torch.equal(init[n], saved[n]) for n in saved),
+            "lora_unmoved": [n for n in saved if torch.equal(init[n], saved[n])],
+            "best_written": os.path.isfile(os.path.join(run_dir, "best_meta.json")),
+            "launches_train": train["launches"],
+            "expected_launches_train": expect(flash_fwd=micro * 2 * L,
+                                              flash_fwd_1pass=micro * depth,
+                                              flash_bwd_dq=micro * L, flash_bwd_dkv=micro * L),
+            "launches_val": val["launches"],
+            "expected_launches_val": expect(flash_fwd=n_val * L, flash_fwd_1pass=n_val * depth)})
+        rec["ok"] = (all(math.isfinite(v) for v in train["out"].values())
+                     and "resumed_lora" not in seen
+                     and rec["lora_moved"] == rec["lora_tensors"] > 0 and rec["best_written"]
+                     and rec["launches_train"] == rec["expected_launches_train"]
+                     and rec["launches_val"] == rec["expected_launches_val"])
+        records.append(rec)
+
+        # 2. validate, bf16 then W8A8, each resuming the run's best checkpoint
+        batches = -(-n_val // CLI_VAL_BATCH)
+        for name, flags, q in (("validate", [], False),
+                               ("validate_w8a8", ["--load_8bit", "--w8a8", "--calib_batches",
+                                                  "1"], True)):
+            argv = base + ["--val_dataset", "LLMSeg|val", "--val_batch_size",
+                           str(CLI_VAL_BATCH)] + flags
+            int_mm, kept_int_mm = [], torch._int_mm
+            torch._int_mm = lambda *a: int_mm.append(a) or kept_int_mm(*a)
+            try:
+                with wraps:
+                    rec, res, _ = sub_run(name, lambda: CV.main(argv))
+            finally:
+                torch._int_mm = kept_int_mm
+            (val,), (got_lora,) = seen.pop("val"), seen.pop("resumed_lora")
+            seen.pop("initial_lora")
+            per = dict(flash_fwd=batches * L, flash_fwd_1pass=batches * depth)
+            if q:
+                per.update(quantize_rows=batches * 4 * L, w8a8_linear=batches * 7 * L)
+            rec.update({"argv": argv, "giou": res["giou"], "ciou": res["ciou"],
+                        "val_batches": batches, "launches": val["launches"],
+                        "expected_launches": expect(**per), "torch._int_mm": len(int_mm),
+                        "resumed_lora_equals_saved": set(got_lora) == set(saved) and all(
+                            torch.equal(got_lora[n], saved[n]) for n in saved)})
+            if q:
+                rec["bf16"] = {"giou": records[-1]["giou"], "ciou": records[-1]["ciou"]}
+            rec["ok"] = (0 <= res["giou"] <= 1 and 0 <= res["ciou"] <= 1
+                         and rec["launches"] == rec["expected_launches"]
+                         and (rec["torch._int_mm"] == 0 or not cuda)
+                         and rec["resumed_lora_equals_saved"])
+            records.append(rec)
+        seen.clear()
+
+        # 3. prepare at vit_h, crop layers 0 and 1
+        images = prep_images if prep_images is not None else amg_images()
+        img_dir = os.path.join(root, "images")
+        os.makedirs(img_dir)
+        by_name = {}
+        for i, img in enumerate(images):
+            by_name[f"img{i}.jpg"] = img
+            open(os.path.join(img_dir, f"img{i}.jpg"), "wb").close()    # found by the glob
+        CP._imread_rgb = lambda path: by_name[os.path.basename(path)]
+        per_frame = dict(relpos_fwd=4, relpos_window=28, factored_decode=16)
+        for layers in (0, 1):
+            out = os.path.join(root, f"masks_{layers}.json")
+            argv = ["--image_dir", img_dir, "--output", out, "--device", device,
+                    "--points_per_side", str(points_per_side), "--pred_iou_thresh=-1e9",
+                    "--stability_score_thresh=-1", "--crop_n_layers", str(layers)]
+            submits, started = [], []
+
+            def per_submit(fn):
+                def run(self, image):
+                    zero()
+                    handle = fn(self, image)
+                    submits.append(counts())
+                    return handle
+                return run
+
+            def timed_init(fn):
+                def run(self, *a, **kw):
+                    fn(self, *a, **kw)
+                    sync(device)
+                    started.append(time.perf_counter())
+                return run
+
+            with Wrapped((AMG.AutomaticMaskGenerator, "submit", per_submit),
+                         (AMG.AutomaticMaskGenerator, "__init__", timed_init)):
+                rec, _, end = sub_run(f"prepare_crop_layers_{layers}", lambda: CP.main(argv))
+            with open(out) as f:
+                doc = json.load(f)
+            frames = 1 + sum(4 ** i for i in range(1, layers + 1))
+            reader = SamMaskReader(out, verbose=False)
+            read_back = all(reader.extract_sam_segs(d["image"])["segs_origin"].shape[:2]
+                            == tuple(d["target_size"]) for d in doc if d["masks"])
+            schema = all(set(a) == ANN_KEYS and a["area"] > 0
+                         and a["segmentation"]["size"] == d["target_size"]
+                         and 0 <= a["crop_box"][0] and 0 <= a["crop_box"][1]
+                         and a["crop_box"][0] + a["crop_box"][2] <= d["target_size"][1]
+                         and a["crop_box"][1] + a["crop_box"][3] <= d["target_size"][0]
+                         for d in doc for a in d["masks"])
+            rec.update({
+                "argv": argv, "images": [list(i.shape[:2]) for i in images], "frames": frames,
+                "ms_per_image": (end - started[0]) * 1e3 / len(images),
+                "annotations": [len(d["masks"]) for d in doc],
+                "from_crops": [sum(a["crop_box"] != [0, 0, *d["target_size"][::-1]]
+                                   for a in d["masks"]) for d in doc],
+                "launches_per_image": submits,
+                "expected_launches_per_image": expect(**{k: frames * v
+                                                         for k, v in per_frame.items()}),
+                "schema_ok": schema, "read_back": read_back})
+            rec["ok"] = (len(doc) == len(images) and all(rec["annotations"]) and schema
+                         and read_back and len(submits) == len(images)
+                         and all(s == rec["expected_launches_per_image"] for s in submits))
+            records.append(rec)
+    finally:
+        D._imread_rgb, CP._imread_rgb = saved_imread, saved_prep_imread
+        shutil.rmtree(root, ignore_errors=True)
+    peak = max((r["peak_mem_gb"] for r in records), default=None) if cuda else None
+    for r in records:
+        r["card"] = card
+        r["freed"] = (not cuda) or r["allocated_after_gb"] <= base_gb + 0.5
+        r["ok"] = r["ok"] and r["freed"]
+        emit(r)
+    rec = {"phase": "cli", "run": "all", "seconds": time.perf_counter() - t_phase,
+           "peak_mem_gb": peak, "data_phase_peak_mem_gb": data_peak_gb, "card": card,
+           "runs": {r["run"]: r["ok"] for r in records}}
+    rec["ok"] = all(r["ok"] for r in records) and (
+        peak is None or data_peak_gb is None or peak <= data_peak_gb + 1.0)
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit("the cli phase failed")
+    return records
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3565,8 +3891,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5. the LLM-Seg40K fine-tune path from a corpus in the reference's
-    # layout: the data layer, the loader, the Trainer and the val loop
-    data_phase(C, A)
+    # layout: the data layer, the loader, the Trainer and the val loop; then
+    # the same through the port's command line, with validate and prepare
+    data = data_phase(C, A)
+    torch.cuda.empty_cache()
+    cli_phase(C, all_kernels + (Q.W8A8_EPILOGUE,), data_peak_gb=data["peak_mem_gb"])
     torch.cuda.empty_cache()
 
     # the train step, timed, then profiled; then QLoRA

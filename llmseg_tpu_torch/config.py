@@ -1,16 +1,16 @@
 """Model configuration: the port's own copy of the JAX package's dataclasses.
 
-Only the trees the ReasonSeg ``predict``, training and SAM everything-mode
-(AMG) paths read are kept.  Field names, defaults and presets match
-``llmseg_tpu.config`` so one preset name means one architecture in both
-packages; the data tree is not part of the port yet.
+Only the trees the ReasonSeg ``predict``, training, SAM everything-mode
+(AMG) paths and the command line read are kept.  Field names, defaults and
+presets match ``llmseg_tpu.config`` so one preset name means one
+architecture in both packages.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, Optional, Tuple
 
 
 def replace(cfg, **kw):
@@ -156,6 +156,7 @@ class LLMSegConfig:
     llava: LlavaConfig = field(default_factory=LlavaConfig)
     dino: ViTConfig = field(default_factory=dinov2_vit_l14)
     select: SelectionHeadConfig = field(default_factory=SelectionHeadConfig)
+    sam: Optional["SamConfig"] = None   # the legacy pixel-decoder path only
     loss: LossConfig = field(default_factory=LossConfig)
 
     max_proposals: int = 50           # top-K SAM proposals
@@ -225,10 +226,8 @@ class MeshConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """``llmseg_tpu.config.TrainConfig``'s settings that the port reads, with
-    their defaults; the others (eval_every_epochs, no_eval) come with the
-    entry points that read them.  A mesh of more than one device raises
-    instead of being ignored."""
+    """``llmseg_tpu.config.TrainConfig``'s settings, with their defaults.  A
+    mesh of more than one device raises instead of being ignored."""
 
     lr: float = 1e-4                  # stage-2 finetune uses 1e-5
     beta1: float = 0.9
@@ -253,7 +252,9 @@ class TrainConfig:
     log_dir: str = "./runs/llmseg"
     exp_name: str = "llmseg_tpu"
     save_best_metric: str = "giou"
+    eval_every_epochs: int = 1
     print_freq: int = 1
+    no_eval: bool = False
     resume: str = ""
 
     def __post_init__(self):
@@ -264,15 +265,6 @@ class TrainConfig:
                 "(ROADMAP queue 1 item 10: DDP)")
 
 
-@dataclass(frozen=True)
-class ExperimentConfig:
-    """The model, data and training trees of
-    ``llmseg_tpu.config.ExperimentConfig``; its AMG tree belongs to the entry
-    points, not ported yet."""
-
-    model: LLMSegConfig = field(default_factory=llmseg_7b)
-    data: DataConfig = field(default_factory=DataConfig)
-    train: TrainConfig = field(default_factory=TrainConfig)
 
 
 # ---------------------------------------------------------------------------
@@ -376,3 +368,32 @@ class AMGConfig:
     crop_n_points_downscale_factor: int = 1
     min_mask_region_area: int = 0
     max_masks: int = 512              # static output capacity after filtering
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    """``llmseg_tpu.config.ExperimentConfig``: the model, data, training and
+    AMG trees."""
+
+    model: LLMSegConfig = field(default_factory=llmseg_7b)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    amg: AMGConfig = field(default_factory=AMGConfig)
+
+
+def apply_overrides(cfg: Any, overrides: dict) -> Any:
+    """Apply ``{'a.b.c': val}`` overrides to a (frozen) dataclass tree; a
+    value of another type than the field's (numbers mix freely) raises
+    ``TypeError``."""
+    for key, val in overrides.items():
+        def rec(node, parts):
+            if len(parts) == 1:
+                cur = getattr(node, parts[0])
+                if cur is not None and not isinstance(cur, type(val)) and not (
+                        isinstance(cur, (int, float)) and isinstance(val, (int, float))):
+                    raise TypeError(f"override {key}: {type(val)} vs {type(cur)}")
+                return dataclasses.replace(node, **{parts[0]: val})
+            return dataclasses.replace(
+                node, **{parts[0]: rec(getattr(node, parts[0]), parts[1:])})
+        cfg = rec(cfg, key.split("."))
+    return cfg

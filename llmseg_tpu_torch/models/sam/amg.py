@@ -9,8 +9,11 @@ device.  ``AutomaticMaskGenerator`` drives it: ``submit`` (encode + select),
 ``prefetch`` (survivor metadata, then the upscale of the survivors: run
 boundaries computed on the device, or bit-packed bitmaps when small regions
 are cleaned), ``finish`` (RLE and the annotation schema on the host).  The
-crop cascade (``crop_n_layers > 0``) is not ported: it resizes crops with
-PIL.
+crop cascade (``crop_n_layers > 0``) runs the full frame and every crop
+(resized to the SAM input with ``data.image_ops.resize_longest_side``)
+through the same ``amg_select``, drops candidates on a crop's inner edge,
+upscales each crop's survivors to the crop's extent on the device and
+dedups across crops on the host, smaller crops first.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from llmseg_tpu_torch.config import AMGConfig, SamConfig
+from llmseg_tpu_torch.data import image_ops
 from llmseg_tpu_torch.device import require
 from llmseg_tpu_torch.models.sam import sam as sam_lib
 from llmseg_tpu_torch.ops import amg_utils, device_rle, nms, rle
@@ -48,11 +52,16 @@ def _candidate_filters(low_masks, iou_pred, amg: AMGConfig, cfg: SamConfig,
 
 @torch.no_grad()
 def amg_select(model, amg: AMGConfig, image_embedding: torch.Tensor, points: torch.Tensor,
-               valid_hw: Tuple[int, int]) -> Dict:
+               valid_hw: Tuple[int, int], crop_box=None, orig_box=None,
+               box_scale=None) -> Dict:
     """Grid prompts -> filtered, NMS'd top-K candidates.  image_embedding
     (1, G, G, C); points (P, 2) input-frame pixels; valid_hw the image's
-    extent.  Returns K = max_masks rows: masks_low (K, S, S) bf16, iou,
-    stability, boxes (K, 4) input-frame xyxy, points (K, 2), valid (K,)."""
+    extent.  In the crop cascade, ``crop_box`` and ``orig_box`` are xyxy in
+    the full image's pixels and ``box_scale`` (sx, sy) maps this frame's
+    boxes to the crop's pixels: a candidate whose box touches the crop's
+    edge but not the image's is dropped before the NMS.  Returns K =
+    max_masks rows: masks_low (K, S, S) bf16, iou, stability, boxes (K, 4)
+    input-frame xyxy, points (K, 2), valid (K,)."""
     cfg = model.cfg
     P = points.shape[0]
     B = amg.points_per_batch
@@ -79,11 +88,23 @@ def amg_select(model, amg: AMGConfig, image_embedding: torch.Tensor, points: tor
     binary = masked > cfg.mask_threshold
     boxes = amg_utils.batched_mask_to_box(binary) * (img / S4)
     keep &= binary.any(-1).any(-1)
+    if crop_box is not None:
+        sc = torch.as_tensor(box_scale, dtype=torch.float32, device=boxes.device).repeat(2)
+        keep &= ~amg_utils.is_box_near_crop_edge(boxes * sc, crop_box, orig_box)
     keep_nms = nms.nms(boxes, iou_pred, amg.box_nms_thresh, valid=keep)
     score = torch.where(keep_nms, iou_pred, -torch.inf)
     top = torch.argsort(-score, stable=True)[:amg.max_masks]
     return {"masks_low": masks[top], "iou": iou_pred[top], "stability": stability[top],
             "boxes": boxes[top], "points": point_per_mask[top], "valid": keep_nms[top]}
+
+
+def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(K, H, W) 0/1 -> (K, H, ceil(W / 8)) uint8, MSB first, the last byte
+    zero-padded."""
+    K, H, W = bits.shape
+    bits = torch.nn.functional.pad(bits.int(), (0, (-W) % 8)).reshape(K, H, -1, 8)
+    weights = 2 ** torch.arange(7, -1, -1, device=bits.device, dtype=torch.int32)
+    return (bits * weights).sum(-1).to(torch.uint8)
 
 
 @torch.no_grad()
@@ -93,11 +114,21 @@ def upscale_binary(masks_low: torch.Tensor, out_hw: Tuple[int, int], threshold: 
     the input-frame resolution."""
     if bucket is not None:
         masks_low = masks_low[:bucket]
-    K = masks_low.shape[0]
-    bits = (amg_utils.resize_bilinear(masks_low, out_hw) > threshold).to(torch.uint8)
-    bits = bits.reshape(K, out_hw[0], out_hw[1] // 8, 8)
-    weights = 2 ** torch.arange(7, -1, -1, device=bits.device, dtype=torch.int32)
-    return (bits.int() * weights).sum(-1).to(torch.uint8)
+    return _pack_bits(amg_utils.resize_bilinear(masks_low, out_hw) > threshold)
+
+
+@torch.no_grad()
+def upscale_crop_binary(masks_low: torch.Tensor, rhw: Tuple[int, int], chw: Tuple[int, int],
+                        s_in: int, threshold: float = 0.0,
+                        bucket: Optional[int] = None) -> torch.Tensor:
+    """(K, S, S) crop logits -> (K, ch, ceil(cw / 8)) bit-packed masks at the
+    crop's own extent: low -> (s_in, s_in), the valid (rh, rw) sliced,
+    -> (ch, cw) (antialiased where it shrinks), thresholded, the width
+    padded to a multiple of 8 and packed."""
+    if bucket is not None:
+        masks_low = masks_low[:bucket]
+    up = amg_utils.resize_bilinear(masks_low, (s_in, s_in))[:, :rhw[0], :rhw[1]]
+    return _pack_bits(amg_utils.resize_bilinear(up, chw) > threshold)
 
 
 class AutomaticMaskGenerator:
@@ -129,7 +160,15 @@ class AutomaticMaskGenerator:
             raise ValueError(f"image {h}x{w} exceeds the SAM input {s_in}; "
                              "resize its longest side first")
         if self.amg.crop_n_layers > 0:
-            raise NotImplementedError("the AMG crop cascade is not ported")
+            return self._submit_crops(image)
+        return {"out": self._submit_one(image, self._grid), "hw": (h, w)}
+
+    def _submit_one(self, image: np.ndarray, grid: np.ndarray, crop_box=None,
+                    orig_hw=None) -> Dict:
+        """Encode + select one frame: the image, or one resized crop of it.
+        grid (P, 2) in [0, 1]."""
+        h, w = image.shape[:2]
+        s_in = self.cfg.encoder.img_size
         padded = np.zeros((s_in, s_in, 3), image.dtype)
         padded[:h, :w] = image
         # normalise, then zero outside the image, as the reference pads
@@ -137,24 +176,60 @@ class AutomaticMaskGenerator:
         region[:, :h, :w] = 1.0
         x = torch.from_numpy(padded)[None].to(self.device)
         emb = sam_lib.encode_image(self.model, sam_lib.preprocess(x, self.cfg) * region)
-        points = torch.tensor(self._grid * np.array([w, h]), dtype=torch.float32,
-                              device=self.device)
-        return {"out": amg_select(self.model, self.amg, emb, points, (h, w)), "hw": (h, w)}
+        points = torch.tensor(grid * np.array([w, h]), dtype=torch.float32, device=self.device)
+        kw = {}
+        if crop_box is not None:
+            x0, y0, x1, y1 = crop_box
+            kw = dict(crop_box=crop_box, orig_box=(0, 0, orig_hw[1], orig_hw[0]),
+                      box_scale=((x1 - x0) / w, (y1 - y0) / h))
+        return amg_select(self.model, self.amg, emb, points, (h, w), **kw)
+
+    def _submit_crops(self, image: np.ndarray) -> Dict:
+        """The crop cascade: the full frame and 4^i overlapping crops a
+        layer, each resized so that its longest side is the SAM input (as
+        the reference's predictor does) and selected on its layer's grid;
+        the cross-crop dedup is ``finish``'s."""
+        h, w = image.shape[:2]
+        s_in = self.cfg.encoder.img_size
+        crop_boxes, layer_idxs = amg_utils.generate_crop_boxes(
+            (h, w), self.amg.crop_n_layers, self.amg.crop_overlap_ratio)
+        grids = amg_utils.build_all_layer_point_grids(
+            self.amg.points_per_side, self.amg.crop_n_layers,
+            self.amg.crop_n_points_downscale_factor)
+        crops = []
+        for (x0, y0, x1, y1), layer in zip(crop_boxes, layer_idxs):
+            crop = image[y0:y1, x0:x1]
+            if max(crop.shape[:2]) != s_in:
+                crop = image_ops.resize_longest_side(crop, s_in)
+            out = self._submit_one(crop, grids[layer], crop_box=(x0, y0, x1, y1),
+                                   orig_hw=(h, w))
+            crops.append({"out": out, "crop_box": (x0, y0, x1, y1), "rhw": crop.shape[:2]})
+        return {"crops": crops, "hw": (h, w)}
 
     def _bucket(self, n: int) -> int:
         return min(max(8, 1 << (n - 1).bit_length()), self.amg.max_masks)
+
+    @staticmethod
+    def _pull_survivors(out: Dict):
+        """One frame's survivor count and metadata, on the host."""
+        small = {k: out[k].float().cpu().numpy() for k in ("iou", "stability", "boxes", "points")}
+        small["valid"] = out["valid"].cpu().numpy()
+        return int(small["valid"].sum()), small
 
     @torch.inference_mode()
     def prefetch(self, handle: Dict) -> Dict:
         """Pull the survivor metadata and enqueue the survivors' upscale
         (run boundaries on the device, or bit-packed bitmaps when small
-        regions are cleaned).  Idempotent; ``finish`` calls it."""
+        regions are cleaned; in the crop cascade, each crop's bitmaps at
+        its own extent).  Idempotent; ``finish`` calls it."""
+        if "crops" in handle:
+            if "staged" not in handle:
+                handle["staged"] = self._stage_crops(handle)
+            return handle
         if "n" in handle:
             return handle
         out = handle["out"]
-        small = {k: out[k].float().cpu().numpy() for k in ("iou", "stability", "boxes", "points")}
-        small["valid"] = out["valid"].cpu().numpy()
-        n = int(small["valid"].sum())
+        n, small = self._pull_survivors(out)
         handle["n"], handle["small"] = n, small
         if not n:
             return handle
@@ -172,6 +247,8 @@ class AutomaticMaskGenerator:
         """Download a submit()'s survivors and assemble the annotations."""
         h, w = handle["hw"]
         self.prefetch(handle)
+        if "crops" in handle:
+            return self._assemble(*self._finish_crops(handle), h, w)
         s_in = self.cfg.encoder.img_size
         n, small = handle["n"], handle["small"]
         if n == 0:
@@ -211,6 +288,59 @@ class AutomaticMaskGenerator:
                          "crop_box": [0, 0, w, h]})
         anns.sort(key=lambda a: a["area"], reverse=True)
         return anns
+
+    def _stage_crops(self, handle: Dict) -> List:
+        """Each crop's survivors: their metadata, their points in the full
+        image's pixels, and their bit-packed masks at the crop's extent
+        (enqueued on the device)."""
+        s_in = self.cfg.encoder.img_size
+        staged = []
+        for c in handle["crops"]:
+            out = c["out"]
+            n, small = self._pull_survivors(out)
+            if n == 0:
+                continue
+            x0, y0, x1, y1 = box = c["crop_box"]
+            rh, rw = c["rhw"]
+            scale = torch.tensor([(x1 - x0) / rw, (y1 - y0) / rh], dtype=torch.float32)
+            pts = amg_utils.uncrop_points(torch.from_numpy(small["points"][:n]) * scale, box)
+            packed = upscale_crop_binary(out["masks_low"], (rh, rw), (y1 - y0, x1 - x0), s_in,
+                                         self.cfg.mask_threshold, bucket=self._bucket(n))
+            staged.append((box, n, small, pts.numpy(), packed))
+        return staged
+
+    def _finish_crops(self, handle: Dict):
+        """Every crop's nonempty survivors on full-image canvases, then the
+        cross-crop NMS (run when there is more than one crop) that scores a
+        mask 1 / its crop's area, so the smaller crop's mask wins; the kept
+        ones stay in their order.  Returns (masks, iou, stability, points,
+        crop boxes)."""
+        h, w = handle["hw"]
+        all_masks, all_iou, all_stab, all_pts, all_crop = [], [], [], [], []
+        for box, n, small, pts, packed in handle["staged"]:
+            x0, y0, x1, y1 = box
+            bits = np.unpackbits(packed.cpu().numpy()[:n], axis=-1, count=x1 - x0).astype(bool)
+            for i in range(n):
+                if not bits[i].any():
+                    continue
+                canvas = np.zeros((h, w), bool)
+                canvas[y0:y1, x0:x1] = bits[i]
+                all_masks.append(canvas)
+                all_iou.append(small["iou"][i])
+                all_stab.append(small["stability"][i])
+                all_pts.append(pts[i])
+                all_crop.append(box)
+        if not all_masks:
+            return [], [], [], [], []
+        masks, iou, stability, pts = (np.stack(all_masks), np.asarray(all_iou),
+                                      np.asarray(all_stab), np.asarray(all_pts))
+        if len(handle["crops"]) > 1:
+            scores = np.asarray([1.0 / ((cb[2] - cb[0]) * (cb[3] - cb[1])) for cb in all_crop])
+            keep = np.sort(amg_utils.nms_host(_mask_boxes_np(masks), scores,
+                                              self.amg.crop_nms_thresh))
+            masks, iou, stability, pts = masks[keep], iou[keep], stability[keep], pts[keep]
+            all_crop = [all_crop[i] for i in keep]
+        return masks, iou, stability, pts, all_crop
 
     def _assemble(self, masks, iou, stability, pts, crop_boxes, h: int, w: int) -> List[Dict]:
         """Small-region cleanup, the re-dedup NMS, and the annotations."""

@@ -13,13 +13,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from llmseg_tpu_torch.config import SamConfig
+from llmseg_tpu_torch.config import SamConfig, sam_vit_b, sam_vit_h, sam_vit_l
 from llmseg_tpu_torch.device import require
 from llmseg_tpu_torch.models.sam.image_encoder import ImageEncoder
 from llmseg_tpu_torch.models.sam.mask_decoder import MaskDecoder
 from llmseg_tpu_torch.models.sam.prompt_encoder import PromptEncoder
 from llmseg_tpu_torch.ops import twoway_kernel
 from llmseg_tpu_torch.ops.amg_utils import resize_bilinear
+
+MODEL_REGISTRY = {
+    "vit_h": sam_vit_h,
+    "vit_l": sam_vit_l,
+    "vit_b": sam_vit_b,
+    "default": sam_vit_h,
+}
 
 _NORMAL = ("iou_token", "mask_tokens", "point_embeddings", "not_a_point_embed",
            "no_mask_embed", "gaussian")

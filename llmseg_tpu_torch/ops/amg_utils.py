@@ -1,7 +1,8 @@
 """AMG primitives, the counterpart of ``llmseg_tpu.ops.amg_utils``: point
 grids and crop boxes (numpy), the stability score, mask boxes and the
 crop-edge test (torch, on the masks' device), the host bilinear resize, the
-host greedy NMS and the small-region cleanup (scipy).  Also
+host greedy NMS and the small-region cleanup (scipy), and the uncrop of
+boxes and points.  Also
 :func:`resize_bilinear`, the port of ``jax.image.resize(..., "bilinear")``.
 """
 
@@ -91,11 +92,21 @@ def is_box_near_crop_edge(boxes: torch.Tensor, crop_box, orig_box,
     """True where a box touches the crop edge but not the image edge."""
     crop = torch.as_tensor(crop_box, dtype=torch.float32, device=boxes.device)
     orig = torch.as_tensor(orig_box, dtype=torch.float32, device=boxes.device)
-    offset = torch.stack([crop[0], crop[1], crop[0], crop[1]])
-    b = boxes.float() + offset
+    b = uncrop_boxes_xyxy(boxes.float(), crop)
     near_crop = (b - crop[None]).abs() <= atol
     near_image = (b - orig[None]).abs() <= atol
     return (near_crop & ~near_image).any(-1)
+
+
+def uncrop_boxes_xyxy(boxes: torch.Tensor, crop_box) -> torch.Tensor:
+    """xyxy boxes (..., 4) in a crop's frame -> the full image's (offset by
+    the crop's top-left corner), in the boxes' dtype."""
+    return boxes + torch.as_tensor(crop_box[:2], dtype=boxes.dtype, device=boxes.device).repeat(2)
+
+
+def uncrop_points(points: torch.Tensor, crop_box) -> torch.Tensor:
+    """xy points (..., 2) in a crop's frame -> the full image's."""
+    return points + torch.as_tensor(crop_box[:2], dtype=points.dtype, device=points.device)
 
 
 # ---------------------------------------------------------------------------

@@ -61,12 +61,16 @@ def quantize_skeleton(model: nn.Module, bits: int = 8) -> nn.Module:
     from llmseg_tpu_torch.ops import quant
 
     llm = model.llava.llm
-
-    def trainable(path) -> bool:
-        return any(p.requires_grad for p in llm.get_submodule(".".join(path)).parameters())
-
-    quant.quantize_llama_inplace(llm, bits=bits, skip=trainable)
+    quant.quantize_llama_inplace(llm, bits=bits, skip=holds_trainable(llm))
     return model
+
+
+def holds_trainable(root: nn.Module):
+    """A predicate on module paths (tuples of names) under ``root``: whether
+    that module holds a trainable parameter (one that requires grad)."""
+    def pred(path) -> bool:
+        return any(p.requires_grad for p in root.get_submodule(".".join(path)).parameters())
+    return pred
 
 
 def warmup_decay_lr(cfg: TrainConfig, count: int) -> float:

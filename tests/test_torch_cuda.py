@@ -1005,3 +1005,44 @@ def test_pinned_loader_batches_reach_the_card_intact(tmp_path, monkeypatch):
         for k in h:
             assert g[k].dtype == h[k].dtype and np.array_equal(g[k], h[k]), k
 
+
+
+def test_cli_prepare_runs_the_sam_kernels(tmp_path, monkeypatch):
+    """``cli.prepare.main`` at ``sam_vit_b`` on one image of 683 x 1024 with
+    the crop cascade (``--crop_n_layers 1``: the image and 4 crops, each
+    resized to the 1024 input): kernels E, F and G launch 4, 8 and 16 times
+    a frame, and the annotations keep the reference's schema.  The file's
+    decode is stood in for (the card's machine has no cv2)."""
+    import json
+
+    import numpy as np
+
+    from llmseg_tpu_torch.cli import prepare as CP
+    from llmseg_tpu_torch.models.sam import amg as AMG
+
+    img = np.random.RandomState(0).randint(0, 255, (683, 1024, 3), np.uint8)
+    (tmp_path / "imgs").mkdir()
+    (tmp_path / "imgs" / "a.jpg").write_bytes(b"")
+    monkeypatch.setattr(CP, "_imread_rgb", lambda path: img)
+    kernels = R.KERNELS + TK.KERNELS
+    seen = []
+    submit = AMG.AutomaticMaskGenerator.submit
+
+    def counted(self, image):
+        for k in kernels:
+            k.launches = 0
+        handle = submit(self, image)
+        seen.append({k.name: k.launches for k in kernels})
+        return handle
+
+    monkeypatch.setattr(AMG.AutomaticMaskGenerator, "submit", counted)
+    out = tmp_path / "masks.json"
+    CP.main(["--image_dir", str(tmp_path / "imgs"), "--output", str(out), "--sam_model", "vit_b",
+             "--crop_n_layers", "1", "--pred_iou_thresh=-1e9", "--stability_score_thresh=-1"])
+    assert seen == [{"relpos_fwd": 20, "relpos_window": 40, "factored_decode": 80,
+                     "twoway_decode": 0, "twoway_transformer": 0}]
+    doc = json.loads(out.read_text())
+    assert [d["target_size"] for d in doc] == [[683, 1024]] and doc[0]["masks"]
+    for a in doc[0]["masks"]:
+        x, y, w, h = a["crop_box"]
+        assert a["area"] > 0 and 0 <= x and 0 <= y and x + w <= 1024 and y + h <= 683

@@ -5,6 +5,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 import llmseg_tpu_torch
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -30,7 +32,9 @@ def test_port_has_every_slice_module():
                  "import_weights.torch_import", "utils.profiling", "utils.logging",
                  "data.prompts", "data.conversation", "data.tokenizer", "data.collate",
                  "data.coco_api", "data.refer", "data.mask_reader", "data.data_processing",
-                 "data.image_ops", "data.resample", "data.datasets", "train.loader"):
+                 "data.image_ops", "data.resample", "data.datasets", "train.loader",
+                 "cli.common", "cli.train", "cli.validate", "cli.finetune", "cli.prepare",
+                 "cli.convert_h5"):
         assert f"llmseg_tpu_torch.{name}" in mods, name
 
 
@@ -41,13 +45,35 @@ def test_importing_the_port_loads_no_jax():
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m.startswith('jaxlib.')\n"
-        "       or m == 'llmseg_tpu' or m.startswith('llmseg_tpu.')]\n"
+        "       or m == 'llmseg_tpu' or m.startswith('llmseg_tpu.')\n"
+        "       or m == 'cli' or m.startswith('cli.')]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("entry", ["train", "finetune", "validate", "prepare", "convert_h5"])
+def test_cli_help_loads_no_jax(entry):
+    """``python -m llmseg_tpu_torch.cli.<entry> --help`` prints its usage in
+    a process that never loads JAX, the JAX package or its ``cli``."""
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = ['{entry}', '--help']\n"
+        "try:\n"
+        f"    runpy.run_module('llmseg_tpu_torch.cli.{entry}', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "roots = ('jax', 'jaxlib', 'llmseg_tpu', 'cli')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in roots]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "usage:" in res.stdout and res.stdout.rstrip().endswith("ok")
 
 
 def test_chip_smoke_imports_only_the_port():
@@ -58,7 +84,7 @@ def test_chip_smoke_imports_only_the_port():
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
     assert any(m.startswith("llmseg_tpu_torch") for m in names)
-    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "llmseg_tpu")]
+    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "llmseg_tpu", "cli")]
     assert not bad, bad
 
 
@@ -80,7 +106,7 @@ def test_port_loads_no_image_or_tokenizer_library():
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "roots = ('jax', 'jaxlib', 'llmseg_tpu', 'PIL', 'cv2', 'transformers')\n"
+        "roots = ('jax', 'jaxlib', 'llmseg_tpu', 'cli', 'PIL', 'cv2', 'transformers')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in roots]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n")
