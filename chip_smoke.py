@@ -45,6 +45,10 @@ Phases, one JSON line each; any failure exits non-zero:
               beside their bound, Q2 beside the route it replaced
               (torch._int_mm, then the standalone rescale) and
               torch._int_mm alone, and the padded int8 product exact;
+     sft_kernels  A (with lse), C and D at the LLaVA SFT step's shape,
+              (B*H, T, S, D) = (32, 512, 512, 128) causal bf16, against
+              their plain versions, timed beside their bounds, the plain
+              versions and SDPA (events and the device clock);
   3. modules  llmseg_tiny predict on the card against the same weights on
               the CPU;
      in_place llmseg_7b widths and sequence lengths at two blocks per
@@ -68,6 +72,11 @@ Phases, one JSON line each; any failure exits non-zero:
               bit), then against
               predict on the plain versions (within half the quantization
               error: codes flip in cascade from an ulp of the scale);
+     sft_in_place  LLaVA-7B widths, CLIP 2 blocks, LLaMA 2 layers,
+              float32: sft_loss and every trainable gradient through A
+              (forward and full-remat recompute), C and D against the plain
+              attention path, LoRA r8 and projector-only, within
+              GRAD_LIMIT; A 4, C 2, D 2 launches;
      qlora_in_place  grad_in_place with an int8 frozen base
               (optim.quantize_skeleton), float32, under its gates; the plain
               run takes the kernel run's side of a selection-head ReLU kink
@@ -145,6 +154,22 @@ Phases, one JSON line each; any failure exits non-zero:
               masks.json schema read back, each 7B model freed, the peak
               at most the data phase's + 1 GB; seconds and peak memory a
               run, ms/image of prepare;
+     sft      LLaVA SFT through cli.sft.main in bf16 on a corpus written
+              from a seed (6 image rows, 2 text-only, 2-3 turns; the PIL
+              decode stood in for): --lora_enable 4 steps and
+              --tune_mm_mlp_adapter --conv_type plain 2 steps at 7b, full
+              SFT 2 steps at the size its reckoned peak allows (small);
+              one line a run: seconds, ms a step, peak memory, launches of
+              A, C, D a step (A 64, C 32, D 32 at 7B), first and last
+              ce_loss, frozen checksums unchanged, trainables moved, the
+              saved checkpoint read back equal and deleted;
+     ddp      the Trainer's data-parallel path (parallel/ddp.py) at world
+              size 1, nccl, a TCP store on 127.0.0.1: two steps of the cut
+              llmseg_7b (LoRA r8, bf16) equal to the bit, gradients and
+              parameters, to the same steps outside a process group;
+     mpt      Llava.forward_mpt at llava_tiny + mpt_tiny (ALiBi; MQA with
+              qk_ln and clip_qkv) on the card against the CPU, float32,
+              within MPT_LIMIT;
      train    the LoRA train step at llmseg_7b in bf16 through the Trainer
               (1 image, 1 row, text_len 512, remat "dots"): launch counts per
               step, finite losses, frozen weights bit-identical and trainable
@@ -181,6 +206,9 @@ Phases, one JSON line each; any failure exits non-zero:
               the filters opened, then with NMS off too; launch counts per
               image (E 4, F 28, G 16), annotation schema, ms/image, peak
               memory and one image in parts;
+     rle      AMG finish with NMS off on the amg images, once on the native
+              RLE codec (llmseg_tpu_torch/native, built with g++) and once
+              on the numpy path: the annotations equal, ms of each;
      w8a8_breakdown  the same for a W8A8 step;
      amg_breakdown, pixel_breakdown  one image's (one evaluate's)
               device time by kernel family and the idle share;
@@ -3677,6 +3705,548 @@ def cli_phase(C, kernels_all, *, data_peak_gb=None, device="cuda", model_size="7
     return records
 
 
+# ---------------------------------------------------------------------------
+# LLaVA SFT, data parallelism, the native RLE codec, MPT
+# ---------------------------------------------------------------------------
+
+SFT_SHAPE = dict(BH=32, T=512, S=512, D=128)    # LLaMA-7B over the 512-token spliced sequence
+SFT_IMAGES = ((480, 640), (640, 480), (427, 640), (512, 512), (375, 500), (500, 333))
+SFT_TEXT_ROWS = 2
+SFT_LORA_STEPS, SFT_PROJECTOR_STEPS, SFT_FULL_STEPS = 4, 2, 2
+SFT_LR = 1e-4
+# full SFT at 7B, reckoned before choosing its size: weights, gradients, the
+# clip's scaled copy of the gradients and AdamW's two moments, all in the
+# port's state dtype (the parameters', bf16), plus foreach AdamW's
+# temporaries (one more parameter-sized buffer) and full-remat activations
+SFT_FULL_LIMIT_GB = 70.0
+
+
+def card_name() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+
+
+def sft_kernel_phase(A) -> dict:
+    """Kernels A (with lse, as the training forward calls it), C and D at
+    the SFT step's shape against their plain versions, with their times on
+    the event clock beside their bounds, the plain versions' and SDPA's,
+    and the device clock (``device_ms``) of A, C, D and SDPA's forward and
+    backward on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    a = kernel_case(A, "flash_fwd", **SFT_SHAPE, causal=True, dtype=torch.bfloat16, lse=True,
+                    timed=True, seed=3)
+    cd = bwd_case(A, **SFT_SHAPE, causal=True, dtype=torch.bfloat16, timed=True, repeat=True,
+                  seed=3)
+    dev = bwd_device_times(A, **SFT_SHAPE, causal=True, dtype=torch.bfloat16, seed=3)
+    q, k, v, _ = fwd_inputs(A, SFT_SHAPE["BH"], SFT_SHAPE["T"], SFT_SHAPE["S"], SFT_SHAPE["D"],
+                            torch.bfloat16, seed=3)
+    q4, k4, v4 = (x.unsqueeze(0) for x in (q, k, v))
+    dev["flash_fwd"] = device_ms(lambda: A.flash_fwd(q, k, v, causal=True, with_lse=True), 20)
+    dev["sdpa_forward"] = device_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, scale=1.0 / A.LOG2E), 20)
+    rec = {"phase": "sft_kernels", "shape": "(B*H, T, S, D) = (32, 512, 512, 128), causal, bf16",
+           "card": card_name(), "clock": "ms: events; device_ms: events behind a spin kernel",
+           "flash_fwd": {k: a[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms", "max_abs_err")},
+           **{name: dict(r) for name, r in cd.items()},
+           "device_ms": dev, "ok": True}
+    rec["flash_fwd"]["device_ms"] = dev["flash_fwd"]
+    rec["flash_fwd"]["library_device_ms"] = dev["sdpa_forward"]
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        rec[name]["device_ms"] = dev[name]
+        rec[name]["library_device_ms"] = dev["sdpa_backward"]
+    emit(rec)
+    return rec
+
+
+def sft_cut_config(C):
+    """LLaVA-7B widths (CLIP-L at 224, LLaMA-7B), CLIP 2 blocks, LLaMA 2 layers."""
+    full = C.LlavaConfig()
+    return C.replace(full, llm=C.replace(full.llm, num_layers=2),
+                     vision=C.replace(full.vision, depth=2))
+
+
+def sft_batch(cfg, *, rows: int = 2, seed: int = 0, device="cuda", model_max_length=512):
+    """A collated SFT batch from a seed: row 0 with an image at position 5,
+    row 1 text-only (its splice in the padded tail), half the targets
+    supervised."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    n = cfg.num_image_tokens
+    T = model_max_length - (n - 1)
+    ids = rng.randint(4, cfg.llm.vocab_size - 4, size=(rows, T))
+    labels = ids.copy()
+    labels[:, :T // 2] = -100
+    image_pos = np.full((rows,), T - 1, np.int32)
+    image_pos[0] = 5
+    has_image = np.zeros((rows,), bool)
+    has_image[0] = True
+    s = cfg.vision.img_size
+    arrays = {"images_clip": rng.randn(rows, s, s, 3).astype(np.float32),
+              "input_ids": ids.astype(np.int32), "labels": labels.astype(np.int64),
+              "image_pos": image_pos, "has_image": has_image}
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def sft_in_place(C, A) -> dict:
+    """The cut LLaVA (``sft_cut_config``), float32: ``sft_loss`` and the
+    gradient of every trainable parameter through kernels A (forward and
+    its full-remat recompute), C and D against LLaMA's attention on the
+    plain path without remat, in the LoRA (rank 8) and projector-only
+    regimes.  Gate: each tensor within GRAD_LIMIT of max|ref|, the losses
+    within GRAD_LIMIT relative, A 4, C 2, D 2 launches a step (CLIP's 257
+    tokens take the plain path, as in JAX)."""
+    import torch
+    from llmseg_tpu_torch.models import llama
+    from llmseg_tpu_torch.train import optim, sft
+
+    cfg = sft_cut_config(C)
+    lora = C.LoraConfig(rank=8)
+    batch = sft_batch(cfg, seed=6)
+    rec = {"phase": "sft_in_place", "config": "LLaVA-7B widths, CLIP 2 blocks, LLaMA 2 layers",
+           "dtype": "float32", "limit": GRAD_LIMIT}
+    L = cfg.llm.num_layers
+    expect = {"flash_fwd": 2 * L, "flash_fwd_1pass": 0, "flash_bwd_dq": L,
+              "flash_bwd_dkv": L, "flash_fwd_1pass_t": 0}
+    ok = True
+    for regime, flags in (("lora", dict(lora_enable=True)),
+                          ("projector", dict(tune_mm_mlp_adapter=True))):
+        lcfg = lora if regime == "lora" else None
+        model = sft.init(cfg, seed=2, device="cuda", dtype=torch.float32, lora_cfg=lcfg)
+        if lcfg is not None:
+            with torch.no_grad():   # LoRA B starts at zero: give it a value so A gets a gradient
+                g = torch.Generator(device="cuda").manual_seed(5)
+                for name, p in model.named_parameters():
+                    if name.startswith("lora.") and name.endswith(".b.weight"):
+                        p.copy_(torch.randn(p.shape, device="cuda", generator=g) * 0.02)
+        trainable = optim.partition(model, sft.sft_trainable_mask(model, **flags))
+
+        def grads(remat):
+            loss = sft.sft_loss(model, batch, lora_cfg=lcfg, remat=remat)
+            loss.backward()
+            out = {n: p.grad.detach().clone() for n, p in trainable.items()}
+            model.zero_grad(set_to_none=True)
+            return loss.item(), out
+
+        for kern in A.KERNELS:
+            kern.launches = 0
+        loss_k, got = grads("full")
+        launches = {kern.name: kern.launches for kern in A.KERNELS}
+        llama.attention = plain_attention
+        try:
+            loss_p, ref = grads("none")
+        finally:
+            llama.attention = A.attention
+        ratios = sorted((((got[n] - ref[n]).abs().max()
+                          / ref[n].abs().max().clamp_min(1e-30)).item(), n) for n in ref)
+        r = {"loss_kernels": loss_k, "loss_plain": loss_p, "tensors": len(ref),
+             "worst_grad_err_vs_max_ref": ratios[-1][0], "worst_tensors": ratios[-3:],
+             "launches": launches, "expected_launches": expect}
+        r["ok"] = (abs(loss_k - loss_p) <= GRAD_LIMIT * abs(loss_p) and ratios[-1][0] <= GRAD_LIMIT
+                   and launches == expect and len(ref) > 0)
+        ok = ok and r["ok"]
+        rec[regime] = r
+        del model, trainable, got, ref
+        torch.cuda.empty_cache()
+    rec["ok"] = ok
+    emit(rec)
+    if not ok:
+        raise SystemExit(f"SFT gradients through the kernels disagree with the plain path: {rec}")
+    return rec
+
+
+def write_sft_corpus(root: str, seed: int, *, images=SFT_IMAGES, text_rows=SFT_TEXT_ROWS,
+                     plain: bool = False) -> dict:
+    """A LLaVA SFT json list under ``root`` written from ``seed``: one row
+    an image of ``images`` (2 or 3 turns: every other row opens with a turn
+    of the model's, which the template drops; the <image> token in the
+    first human turn) and ``text_rows`` text-only rows of 3 turns; with ``plain`` (the feature-alignment
+    template) one (<image>, caption) pair an image and no text-only row.
+    No image file is written: returns the json path, the image folder and
+    each image path's size for ``standin_imread``."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    words = ("a red cat on a mat near the window under warm light with two cups and "
+             "a small plant beside an open book").split()
+
+    def sentence(n):
+        return " ".join(words[i] for i in rng.randint(0, len(words), size=n))
+
+    folder = os.path.join(root, "images")
+    items, shapes = [], {}
+    for i, hw in enumerate(images):
+        name = f"{i:04d}.jpg"
+        shapes[os.path.join(folder, name)] = hw
+        if plain:
+            conv = [{"from": "human", "value": "<image>"},
+                    {"from": "gpt", "value": sentence(8 + i)}]
+        else:
+            conv = [{"from": "human", "value": f"{sentence(4)} <image> {sentence(3)}?"},
+                    {"from": "gpt", "value": sentence(10 + 3 * i)}]
+            if i % 2:   # a leading turn of the model's, which the template drops
+                conv.insert(0, {"from": "gpt", "value": sentence(5)})
+        items.append({"id": str(i), "image": name, "conversations": conv})
+    for i in range(0 if plain else text_rows):
+        conv = [{"from": "gpt", "value": sentence(4)},
+                {"from": "human", "value": sentence(6) + "?"},
+                {"from": "gpt", "value": sentence(12)}]
+        items.append({"id": f"t{i}", "conversations": conv})
+    path = os.path.join(root, "plain.json" if plain else "sft.json")
+    with open(path, "w") as f:
+        json.dump(items, f)
+    return {"path": path, "folder": folder, "shapes": shapes}
+
+
+def sft_full_peak_gb(cfg) -> dict:
+    """The reckoning of full SFT's peak at a config: parameters (LLaMA,
+    projector, CLIP) in bf16, and for the trainable ones (LLaMA and the
+    projector) their gradients, the clip's scaled copy, AdamW's two moments
+    and one foreach temporary, each bf16; activations under full remat at
+    one row of 512 tokens (each layer's input kept, one layer's
+    intermediates, the float32 logits and their gradient)."""
+    llm, vis = cfg.llm, cfg.vision
+    d, f, V = llm.hidden_size, llm.intermediate_size, llm.vocab_size
+    per_layer = 4 * d * d + 3 * d * f + 2 * d
+    n_llm = llm.num_layers * per_layer + 2 * V * d + d
+    n_proj = cfg.mm_hidden_size * d + d
+    n_clip = vis.depth * 12 * vis.hidden_size ** 2
+    T, b = 512, 2
+    weights = b * (n_llm + n_proj + n_clip)
+    train = b * (n_llm + n_proj)
+    acts = b * T * d * llm.num_layers + b * T * (10 * d + 2 * f) + 2 * 4 * T * V
+    parts = {"weights": weights, "grads": train, "clip_copy": train, "adamw_moments": 2 * train,
+             "foreach_temp": train, "activations": acts}
+    return {"parts_gb": {k: v / 1e9 for k, v in parts.items()},
+            "total_gb": sum(parts.values()) / 1e9}
+
+
+def sft_phase(C, A, *, device="cuda", sizes=("7b", "7b", None), images=SFT_IMAGES,
+              text_rows=SFT_TEXT_ROWS, mml: int = 512, seed: int = 0) -> list:
+    """LLaVA SFT through the port's command line, ``cli.sft.main`` with
+    ``--version`` empty (random weights from the seed, the byte tokenizer),
+    bf16, on a corpus written from ``seed`` (``write_sft_corpus``: 6 rows
+    with an image, 2 text-only, 2-3 turns each; the decode stood in for by
+    ``standin_imread`` in ``llava_sft._imread_rgb``, as the card's machine
+    has no PIL): (a) ``--lora_enable``, 4 steps, (b)
+    ``--tune_mm_mlp_adapter --conv_type plain`` on a caption corpus of the
+    same images, 2 steps, (c) full SFT, 2 steps, at 7B if
+    ``sft_full_peak_gb`` says it fits in SFT_FULL_LIMIT_GB, else at
+    ``small``.  A line a run: seconds, ms a step after the first, peak
+    memory, launches of A, C, D a step, the first and last ``ce_loss``,
+    frozen checksums unchanged and trainable ones changed, the saved
+    checkpoint read back equal to the model, then deleted."""
+    import shutil
+    import tempfile
+
+    import torch
+    from llmseg_tpu_torch.cli import sft as CS
+    from llmseg_tpu_torch.data import llava_sft as LS
+    from llmseg_tpu_torch.train import checkpoint as ckpt_lib
+    from llmseg_tpu_torch.train import sft
+
+    cuda = torch.device(device).type == "cuda"
+    card = card_name() if cuda else None
+    reckon = sft_full_peak_gb(C.LlavaConfig())
+    full_size = sizes[2] or ("7b" if reckon["total_gb"] <= SFT_FULL_LIMIT_GB else "small")
+    runs = (("lora", sizes[0], ["--lora_enable"], SFT_LORA_STEPS, False),
+            ("projector", sizes[1], ["--tune_mm_mlp_adapter", "--conv_type", "plain"],
+             SFT_PROJECTOR_STEPS, True),
+            ("full", full_size, [], SFT_FULL_STEPS, False))
+    root = tempfile.mkdtemp(prefix="llmseg_sft_")
+    saved_imread = LS._imread_rgb
+    saved_init, saved_make = sft.init, sft.make_sft_train_step
+    records = []
+    try:
+        for name, size, flags, steps, plain in runs:
+            corpus = write_sft_corpus(root, seed, images=images, text_rows=text_rows,
+                                      plain=plain)
+            LS._imread_rgb = standin_imread(corpus["shapes"], seed)
+            seen = {"steps": []}
+
+            def init(*a, **kw):
+                seen["model"] = saved_init(*a, **kw)
+                return seen["model"]
+
+            def make(*a, **kw):
+                model = seen["model"]
+                seen["before"] = {n: checksums([p]) for n, p in model.named_parameters()}
+                step, opt = saved_make(*a, **kw)
+
+                def timed(m, batch):
+                    for kern in A.KERNELS:
+                        kern.launches = 0
+                    sync(device)
+                    t0 = time.perf_counter()
+                    out = step(m, batch)
+                    sync(device)
+                    seen["steps"].append({"ms": (time.perf_counter() - t0) * 1e3,
+                                          "ce_loss": float(out["ce_loss"]),
+                                          "grad_norm": float(out["grad_norm"]),
+                                          "launches": {k.name: k.launches for k in A.KERNELS}})
+                    return out
+                return timed, opt
+
+            sft.init, sft.make_sft_train_step = init, make
+            out_dir = os.path.join(root, f"out_{name}")
+            argv = ["--data_path", corpus["path"], "--image_folder", corpus["folder"],
+                    "--model_size", size, "--precision", "bf16", "--model_max_length", str(mml),
+                    "--max_steps", str(steps), "--print_freq", "1", "--output_dir", out_dir,
+                    "--lr", str(SFT_LR), "--warmup_steps", "0", "--device", device, *flags]
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model = CS.main(argv)
+            sync(device)
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+            mask = sft.sft_trainable_mask(model, tune_mm_mlp_adapter="--tune_mm_mlp_adapter" in flags,
+                                          lora_enable="--lora_enable" in flags)
+            after = {n: checksums([p]) for n, p in model.named_parameters()}
+            frozen_same = all(torch.equal(after[n], seen["before"][n])
+                              for n, t in mask.items() if not t)
+            moved = {n for n, t in mask.items() if t and not torch.equal(after[n], seen["before"][n])}
+            # a bf16 entry x keeps its value under a step below half its ulp,
+            # at least |x| 2^-9; AdamW's first steps are about lr, so a tensor
+            # whose every entry has |x| >= 1024 lr (RMSNorm scales of 1) stays
+            held = sorted(n for n, p in model.named_parameters() if mask[n] and n not in moved
+                          and p.abs().min().item() >= 1024 * SFT_LR)
+            t1 = time.perf_counter()
+            params, _, step = ckpt_lib.restore(out_dir, map_location="cpu")
+            read_back = (step == steps and set(params) == set(after) and all(
+                torch.equal(checksums([params[n].to(device)]), after[n]) for n in after))
+            read_s = time.perf_counter() - t1
+            ckpt_bytes = dir_bytes(out_dir)
+            del params
+            shutil.rmtree(out_dir, ignore_errors=True)
+            L = model.cfg.llm.num_layers
+            expect = {"flash_fwd": 2 * L if cuda else 0, "flash_fwd_1pass": 0,
+                      "flash_bwd_dq": L if cuda else 0, "flash_bwd_dkv": L if cuda else 0,
+                      "flash_fwd_1pass_t": 0}
+            st = seen["steps"]
+            rec = {"phase": "sft", "run": name, "model_size": size, "argv": argv, "card": card,
+                   "seconds": seconds, "steps": len(st),
+                   "ms_per_step_after_first": [s["ms"] for s in st[1:]],
+                   "peak_mem_gb": peak, "launches_per_step": [s["launches"] for s in st],
+                   "expected_launches_per_step": expect,
+                   "ce_loss_first": st[0]["ce_loss"], "ce_loss_last": st[-1]["ce_loss"],
+                   "grad_norm": [s["grad_norm"] for s in st],
+                   "trainable_tensors": sum(mask.values()), "trainable_changed": len(moved),
+                   "held_by_bf16_rounding": held,
+                   "frozen_tensors": len(mask) - sum(mask.values()),
+                   "frozen_checksums_unchanged": frozen_same,
+                   "checkpoint_bytes": ckpt_bytes, "checkpoint_read_back_equal": read_back,
+                   "read_back_s": read_s}
+            if name == "full":
+                rec["full_sft_7b_reckoning"] = {**reckon, "limit_gb": SFT_FULL_LIMIT_GB}
+            rec["ok"] = (len(st) == steps and all(math.isfinite(s["ce_loss"]) for s in st)
+                         and frozen_same and len(moved) > 0 and read_back
+                         and len(moved) + len(held) == rec["trainable_tensors"]
+                         and all(s["launches"] == expect for s in st))
+            emit(rec)
+            records.append(rec)
+            del model, seen
+            if cuda:
+                torch.cuda.empty_cache()
+            if not rec["ok"]:
+                raise SystemExit(f"the sft phase failed: {rec}")
+    finally:
+        LS._imread_rgb = saved_imread
+        sft.init, sft.make_sft_train_step = saved_init, saved_make
+        shutil.rmtree(root, ignore_errors=True)
+    return records
+
+
+def ddp_phase(C, make_batch, A, *, device="cuda", steps: int = 2, cfg=None,
+              log_dir=os.path.join(OUT_DIR, "ddp_runs")) -> dict:
+    """The Trainer's data-parallel path (``parallel/ddp.py``) at world size
+    1: nccl on the card (gloo on the CPU), its store a TCP one on
+    127.0.0.1.  Two Trainer steps of the cut model (``cut_config``, LoRA
+    rank 8, bf16, remat "dots") through the DDP path against the same two
+    steps of a Trainer outside any process group, from the same weights
+    and batches: the gradients each step and the parameters after, equal
+    to the bit; the loss terms equal; launches a step."""
+    import datetime
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from llmseg_tpu_torch.models import llmseg
+    from llmseg_tpu_torch.parallel import ddp
+    from llmseg_tpu_torch.train.trainer import Trainer
+
+    cfg = cfg or cut_config(C)
+    dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
+    exp = C.ExperimentConfig(model=cfg, train=C.TrainConfig(
+        warmup_steps=0, grad_accum_steps=1, lora=C.LoraConfig(rank=8),
+        precision="bf16" if dtype == torch.bfloat16 else "fp32",
+        log_dir=log_dir))
+    text_len = min(512, cfg.max_seq_len - cfg.llava.num_image_tokens)
+    batches = [make_batch(cfg, num_images=1, rows_per_image=2, text_len=text_len, seed=20 + i,
+                          device=device) for i in range(steps)]
+
+    def run():
+        model = llmseg.init(cfg, seed=3, device=device, dtype=dtype, lora_cfg=exp.train.lora)
+        trainer = Trainer(exp, model=model, device=device)
+        grads, launches, terms = [], [], []
+        step = trainer.opt.step
+
+        def recording(norm=None):
+            grads.append({n: p.grad.detach().clone() for n, p in trainer.trainable.items()})
+            return step(norm)
+
+        trainer.opt.step = recording
+        for b in batches:
+            for kern in A.KERNELS:
+                kern.launches = 0
+            m = trainer.step(b)
+            sync(device)
+            launches.append({kern.name: kern.launches for kern in A.KERNELS})
+            terms.append({k: v.item() for k, v in m.items()})
+        params = {n: p.detach().clone() for n, p in trainer.trainable.items()}
+        return grads, params, terms, launches
+
+    t0 = time.perf_counter()
+    ref = run()
+    single_s = time.perf_counter() - t0
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    saved_env = {k: os.environ.get(k) for k in ("MASTER_ADDR", "MASTER_PORT", "RANK",
+                                               "WORLD_SIZE", "LOCAL_RANK")}
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
+                      WORLD_SIZE="1", LOCAL_RANK="0")
+    try:
+        dev = ddp.init_from_env(device, timeout=datetime.timedelta(seconds=120))
+        backend = dist.get_backend()
+        t0 = time.perf_counter()
+        got = run()
+        ddp_s = time.perf_counter() - t0
+        world = ddp.world_size()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    grads_equal = all(set(g) == set(r) and all(torch.equal(g[n], r[n]) for n in r)
+                      for g, r in zip(got[0], ref[0])) and len(got[0]) == steps
+    params_equal = set(got[1]) == set(ref[1]) and all(torch.equal(got[1][n], ref[1][n])
+                                                      for n in ref[1])
+    rec = {"phase": "ddp", "config": "llmseg_7b widths, towers 2-3 blocks, LLaMA 2 layers, "
+           "LoRA rank 8", "dtype": str(dtype).split(".")[-1], "backend": backend,
+           "world_size": world, "device": str(dev), "store": f"tcp 127.0.0.1:{port}",
+           "steps": steps, "grads_equal_to_the_bit": grads_equal,
+           "params_equal_to_the_bit": params_equal, "terms_equal": got[2] == ref[2],
+           "terms": got[2], "launches_per_step": got[3], "launches_single": ref[3],
+           "seconds_single": single_s, "seconds_ddp": ddp_s,
+           "card": card_name() if torch.device(device).type == "cuda" else None}
+    rec["ok"] = (grads_equal and params_equal and rec["terms_equal"] and world == 1
+                 and got[3] == ref[3]
+                 and all(math.isfinite(v) for t in got[2] for v in t.values()))
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"the ddp phase failed: {rec}")
+    return rec
+
+
+def rle_phase(gen, images, device="cuda") -> dict:
+    """AMG ``finish`` with NMS off (``gen`` opened that way) on each image,
+    once on the native RLE codec and once on the numpy path
+    (``LLMSEG_NO_NATIVE``) from the same ``submit``: the annotations equal,
+    and the ms of each."""
+    from llmseg_tpu_torch.native import rle as native
+    t0 = time.perf_counter()
+    native.build(force=True)
+    build_s = time.perf_counter() - t0
+    per = []
+    ok = True
+    saved = os.environ.pop("LLMSEG_NO_NATIVE", None)
+    try:
+        for img in images:
+            h = gen.submit(img)
+            gen.prefetch(h)
+            sync(device)
+            t0 = time.perf_counter()
+            anns_native = gen.finish(h)
+            t1 = time.perf_counter()
+            os.environ["LLMSEG_NO_NATIVE"] = "1"
+            try:
+                anns_numpy = gen.finish(h)
+            finally:
+                os.environ.pop("LLMSEG_NO_NATIVE")
+            t2 = time.perf_counter()
+            same = anns_native == anns_numpy
+            ok = ok and same and len(anns_native) > 1
+            per.append({"hw": list(img.shape[:2]), "annotations": len(anns_native),
+                        "finish_native_ms": (t1 - t0) * 1e3, "finish_numpy_ms": (t2 - t1) * 1e3,
+                        "equal": same})
+    finally:
+        if saved is not None:
+            os.environ["LLMSEG_NO_NATIVE"] = saved
+    rec = {"phase": "rle", "amg": "filters opened, NMS off (box_nms_thresh 1.0)",
+           "native_build_s": build_s, "images": per, "ok": ok}
+    emit(rec)
+    if not ok:
+        raise SystemExit(f"the rle phase failed: {rec}")
+    return rec
+
+
+MPT_LIMIT = 1e-4              # forward_mpt at mpt_tiny, card vs CPU, float32, max|ref|
+
+
+def mpt_phase(C, device="cuda") -> dict:
+    """``Llava.forward_mpt`` (CLIP tower, projector, splice, MPT) at
+    ``llava_tiny`` + ``mpt_tiny`` on the card against the same weights on
+    the CPU, float32; ALiBi and MultiQueryAttention (kv_n_heads 1) with a
+    padding mask on the bare MPT too."""
+    import numpy as np
+    import torch
+    from llmseg_tpu_torch.models import mpt as M
+    from llmseg_tpu_torch.models.llava import Llava
+    from llmseg_tpu_torch.models.llmseg import random_init_
+
+    lcfg = C.llava_tiny()
+    # float32 products stay float32 on the card (no TF32), as main() sets
+    # for every phase
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = {"phase": "mpt", "config": "llava_tiny + mpt_tiny", "limit": MPT_LIMIT}
+    rng = np.random.RandomState(7)
+    ids = torch.from_numpy(rng.randint(4, 200, size=(2, 40)))
+    images = torch.from_numpy(rng.randn(2, 28, 28, 3).astype(np.float32))
+    pos = torch.tensor([1, 3], dtype=torch.int32)
+    mask = torch.ones(2, 40, dtype=torch.bool)
+    mask[1, -7:] = False
+    errs = {}
+    for name, mcfg in (("alibi", C.mpt_tiny(lcfg.llm.vocab_size)),
+                       ("mqa_qk_ln_clip", C.replace(C.mpt_tiny(lcfg.llm.vocab_size),
+                                                    kv_n_heads=1, qk_ln=True, clip_qkv=0.3))):
+        cpu = random_init_(Llava(lcfg, mpt_cfg=mcfg, device="cpu"),
+                           torch.Generator().manual_seed(3))
+        gpu = Llava(lcfg, mpt_cfg=mcfg, device=device)
+        gpu.load_state_dict(cpu.state_dict())
+        with torch.no_grad():
+            h_ref = cpu.forward_mpt(input_ids=ids, image_pos=pos, images=images)
+            h = gpu.forward_mpt(input_ids=ids.to(device), image_pos=pos.to(device),
+                                images=images.to(device))
+            l_ref = M.logits(cpu.llm, cpu.llm(input_ids=ids, attention_mask=mask))
+            lg = M.logits(gpu.llm, gpu.llm(input_ids=ids.to(device),
+                                            attention_mask=mask.to(device)))
+        errs[name] = {"hidden": ((h.cpu() - h_ref).abs().max() / h_ref.abs().max()).item(),
+                      "logits_masked": ((lg.cpu() - l_ref).abs().max()
+                                        / l_ref.abs().max()).item()}
+    rec["max_err_vs_max_ref"] = errs
+    rec["ok"] = all(v <= MPT_LIMIT for e in errs.values() for v in e.values())
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"forward_mpt on the card disagrees with the CPU: {rec}")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3773,6 +4343,7 @@ def main() -> int:
     timed.update(sam_kernel_phase(C, R, TK))
     timed.update(pixel_kernel_phase(C, A, TK))
     timed.update(quant_kernel_phase(Q))
+    sft_kernels = sft_kernel_phase(A)
 
     # 3. the port's modules on the card against the CPU, tiny config
     tiny = C.llmseg_tiny()
@@ -3795,6 +4366,7 @@ def main() -> int:
     del m_cpu, m_gpu
     emit(kernels_in_place(C, llmseg, make_batch, A))
     emit(grads_in_place(C, llmseg, make_batch, A))
+    sft_in_place(C, A)
     emit(qlora_in_place(C, llmseg, make_batch, A))
     emit(sam_in_place(C, S, R, TK, IE))
     emit(w8a8_in_place(C, llmseg, make_batch, Q))
@@ -3898,6 +4470,14 @@ def main() -> int:
     cli_phase(C, all_kernels + (Q.W8A8_EPILOGUE,), data_peak_gb=data["peak_mem_gb"])
     torch.cuda.empty_cache()
 
+    # LLaVA SFT through cli.sft (the slice's path: A, C, D every step), the
+    # Trainer's data-parallel path at world size 1, and MPT
+    sft = sft_phase(C, A)
+    sft_launches = sft[0]["launches_per_step"][-1]
+    ddp_phase(C, make_batch, A)
+    mpt_phase(C)
+    torch.cuda.empty_cache()
+
     # the train step, timed, then profiled; then QLoRA
     train = train_phase(C, make_batch, A)
     launches.update({k: int(train["launches_per_step"][k])
@@ -3911,6 +4491,8 @@ def main() -> int:
     amg = amg_phase(C, S, AMG, all_kernels)
     launches.update({k: amg["launches"][k] for k in ("relpos_fwd", "relpos_window",
                                                      "factored_decode")})
+    rle_phase(AMG.AutomaticMaskGenerator(amg["model"], C.sam_vit_h(), C.AMGConfig(
+        pred_iou_thresh=-1e9, stability_score_thresh=-1.0, box_nms_thresh=1.0)), amg["images"])
 
     # profiled after every timed phase: an AMG image, a predict step by kernel
     # family, and the library yardstick of kernels C and D
@@ -3978,13 +4560,20 @@ def main() -> int:
     for name, (src, rep) in sources.items():
         r = timed[name]
         err = r["max_abs_err"]
+        if name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            # this slice's path: a cli.sft LoRA step at 7B, and the kernel at its shape
+            r = dict(r, sft_launches_per_step=sft_launches[name],
+                     sft_shape={k: sft_kernels[name][k] for k in (
+                         "ms", "bound_ms", "plain_ms", "library_ms", "device_ms",
+                         "library_device_ms") if k in sft_kernels[name]})
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "launches": launches[name],
                      "max_abs_err": max(err.values()) if isinstance(err, dict) else err,
                      "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                      **{k: r[k] for k in ("device_ms", "library_device_ms", "ex2_bound_ms",
-                                          "int_mm_q2_device_ms") if k in r}})
+                                          "int_mm_q2_device_ms", "sft_launches_per_step",
+                                          "sft_shape") if k in r}})
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

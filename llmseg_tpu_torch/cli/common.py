@@ -4,9 +4,12 @@
 ``ExperimentConfig``, and the tokenizer, dataset, reader, collate and
 initial-weight functions every entry shares.
 
-The port runs on one device: ``--device`` (the card by default; ``cpu`` on
-request) picks it, ``--batch_size`` is the global batch, ``--multihost``
-and any ``--mesh_*`` above 1 are refused until the port has DDP.
+``--device`` (the card by default; ``cpu`` on request) picks the device.
+``--multihost`` joins the data-parallel process group that ``torchrun``
+describes (``parallel/ddp.py``: nccl on ``cuda:LOCAL_RANK``, gloo on the
+CPU); ``--batch_size`` is per process, so the global batch is
+``batch_size x world``, as in the JAX CLI; ``--mesh_dp`` is -1 or the
+world size, and ``--mesh_fsdp`` / ``--mesh_tp`` above 1 are refused.
 """
 
 from __future__ import annotations
@@ -104,7 +107,8 @@ def build_parser(name: str) -> argparse.ArgumentParser:
     p.add_argument("--auto_resume", action="store_true", default=True)
     # devices
     p.add_argument("--multihost", action="store_true",
-                   help="several hosts (refused: the port has no DDP yet)")
+                   help="join the data-parallel process group of torchrun's environment "
+                        "(one process a device)")
     p.add_argument("--mesh_dp", type=int, default=-1)
     p.add_argument("--mesh_fsdp", type=int, default=1)
     p.add_argument("--mesh_tp", type=int, default=1)
@@ -114,13 +118,21 @@ def build_parser(name: str) -> argparse.ArgumentParser:
     return p
 
 
-def to_config(args) -> C.ExperimentConfig:
-    """The run's config from the parsed flags.  One process on one device:
-    the global batch is ``--batch_size``; ``--multihost`` exits, and a mesh
-    of more than one device raises in ``TrainConfig``."""
+def maybe_init_multihost(args) -> None:
+    """With ``--multihost``, join the process group and set ``args.device``
+    to this process's device (``ddp.init_from_env``)."""
     if args.multihost:
-        raise SystemExit("--multihost needs DDP, which the port does not have yet "
-                         "(ROADMAP queue 1 item 10: DDP)")
+        from llmseg_tpu_torch.parallel import ddp
+
+        args.device = str(ddp.init_from_env(args.device))
+
+
+def to_config(args) -> C.ExperimentConfig:
+    """The run's config from the parsed flags.  ``--batch_size`` is per
+    process: the config's batch is the global one, ``batch_size`` times the
+    world size; a mesh the port cannot run raises in ``TrainConfig``."""
+    from llmseg_tpu_torch.parallel import ddp
+
     model = {"7b": C.llmseg_7b, "small": C.llmseg_small, "tiny": C.llmseg_tiny}[args.model_size]()
     model = dataclasses.replace(
         model,
@@ -138,7 +150,8 @@ def to_config(args) -> C.ExperimentConfig:
         num_workers=args.workers, exclude_val=args.exclude_val)
     train = C.TrainConfig(
         lr=args.lr, beta1=args.beta1, beta2=args.beta2, warmup_steps=args.warmup_steps,
-        epochs=args.epochs, steps_per_epoch=args.steps_per_epoch, batch_size=args.batch_size,
+        epochs=args.epochs, steps_per_epoch=args.steps_per_epoch,
+        batch_size=args.batch_size * ddp.world_size(),
         grad_accum_steps=args.grad_accumulation_steps, grad_clip=args.grad_clip,
         precision=args.precision, quantize_frozen=args.quantize_frozen,
         quantize_bits=args.quantize_bits, remat_policy=args.remat_policy,

@@ -22,6 +22,7 @@ def main(argv=None):
     parser = common.build_parser("finetune")
     parser.set_defaults(lr=1e-5, epochs=5, val_dataset="LLMSeg|val")
     args = parser.parse_args(argv)
+    common.maybe_init_multihost(args)
     cfg = common.to_config(args)
     lora_cfg = cfg.train.lora
 
@@ -48,8 +49,8 @@ def main(argv=None):
     train_collate = common.build_collate(args, cfg, tokenizer, 1)
     val_collate = common.build_collate(args, cfg, tokenizer, 1)
     micro_per_epoch = cfg.train.steps_per_epoch * cfg.train.grad_accum_steps
-    loader = BatchLoader(train_ds, train_collate, cfg.train.batch_size, micro_per_epoch,
-                         shuffle=True, seed=cfg.train.seed, pin_memory=pin)
+    loader = trainer.batch_loader(train_ds, train_collate, micro_per_epoch, shuffle=True,
+                                  seed=cfg.train.seed)
 
     def val_batches():
         yield from BatchLoader(val_ds, val_collate, 1, len(val_ds), pin_memory=pin).epoch(0)

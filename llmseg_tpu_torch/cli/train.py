@@ -29,6 +29,7 @@ def main(argv=None):
         raise SystemExit("--load_8bit/--load_4bit are inference-only "
                          "(the reference loads them for eval); "
                          "use --quantize_frozen for QLoRA training")
+    common.maybe_init_multihost(args)
     cfg = common.to_config(args)
     lora_cfg = cfg.train.lora
 
@@ -48,19 +49,20 @@ def main(argv=None):
     train_collate = common.build_collate(args, cfg, tokenizer, cfg.data.num_classes_per_sample)
     val_collate = common.build_collate(args, cfg, tokenizer, 1)
     micro_per_epoch = cfg.train.steps_per_epoch * cfg.train.grad_accum_steps
-    train_loader = BatchLoader(train_ds, train_collate, cfg.train.batch_size, micro_per_epoch,
-                               shuffle=False, pin_memory=pin)
+    train_loader = trainer.batch_loader(train_ds, train_collate, micro_per_epoch)
 
     def val_batches(max_steps=None):
-        """Batches of --val_batch_size; the loader tiles a short last batch
-        back to full size, and its filler rows (the trailing ones) are
-        marked invalid so the metrics cover the dataset once."""
+        """Batches of --val_batch_size of this process's shard; the loader
+        tiles a short last batch back to full size, and its filler rows
+        (the trailing ones) are marked invalid so the metrics cover the
+        dataset once."""
         bsz = max(args.val_batch_size, 1)
-        n = len(val_ds)
+        n = len(trainer.shard_range(len(val_ds)))
         steps = -(-n // bsz)
         if max_steps is not None:
             steps = min(steps, max_steps)
-        loader = BatchLoader(val_ds, val_collate, bsz, steps, pin_memory=pin)
+        loader = BatchLoader(val_ds, val_collate, bsz, steps, pin_memory=pin,
+                             process_index=trainer.rank, process_count=trainer.world)
         for j, (batch, extras) in enumerate(loader.epoch(0)):
             n_valid = min(bsz, max(n - j * bsz, 0))
             extras["row_valid"] = [True] * n_valid + [False] * (bsz - n_valid)

@@ -1,9 +1,8 @@
 """Model configuration: the port's own copy of the JAX package's dataclasses.
 
-Only the trees the ReasonSeg ``predict``, training, SAM everything-mode
-(AMG) paths and the command line read are kept.  Field names, defaults and
-presets match ``llmseg_tpu.config`` so one preset name means one
-architecture in both packages.
+Every dataclass and preset of ``llmseg_tpu.config`` is kept.  Field names,
+defaults and presets match, so one preset name means one architecture in
+both packages.
 """
 
 from __future__ import annotations
@@ -85,6 +84,39 @@ def llama_tiny(vocab_size: int = 256) -> LlamaConfig:
     return LlamaConfig(vocab_size=vocab_size, hidden_size=64,
                        intermediate_size=128, num_layers=2, num_heads=4,
                        num_kv_heads=4, head_dim=16, max_seq_len=512)
+
+
+@dataclass(frozen=True)
+class MptConfig:
+    """MPT decoder (the reference's model/llava/model/language_model/mpt/,
+    a LLaVA backbone no entry point selects).  Defaults are MPT-7B's:
+    ALiBi positions, bias-free linears and norms, one fused Wqkv, an
+    exact-GELU FFN."""
+
+    vocab_size: int = 50368
+    d_model: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    kv_n_heads: int = 32             # 1 = MultiQueryAttention
+    expansion_ratio: int = 4
+    max_seq_len: int = 2048
+    alibi: bool = True
+    alibi_bias_max: int = 8
+    learned_pos_emb: bool = False    # used only when alibi is off
+    clip_qkv: Optional[float] = None
+    qk_ln: bool = False
+    softmax_scale: Optional[float] = None
+    no_bias: bool = True
+    ln_eps: float = 1e-5
+
+
+def mpt_7b() -> MptConfig:
+    return MptConfig()
+
+
+def mpt_tiny(vocab_size: int = 256) -> MptConfig:
+    return MptConfig(vocab_size=vocab_size, d_model=64, n_layers=2, n_heads=4,
+                     kv_n_heads=4, expansion_ratio=2, max_seq_len=128)
 
 
 @dataclass(frozen=True)
@@ -217,7 +249,8 @@ class DataConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """Device mesh: data ('dp'), fsdp-style param shard ('fsdp'), tensor ('tp').
-    The port trains on one card, so only the one-device mesh is accepted."""
+    The port has the data axis only (``parallel/ddp.py``: one process a
+    device), so data is -1 or the world size and fsdp, tensor are 1."""
 
     data: int = -1                    # -1 => all remaining devices
     fsdp: int = 1
@@ -227,7 +260,8 @@ class MeshConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """``llmseg_tpu.config.TrainConfig``'s settings, with their defaults.  A
-    mesh of more than one device raises instead of being ignored."""
+    mesh the port cannot run (``ddp.check_mesh``) raises instead of being
+    ignored."""
 
     lr: float = 1e-4                  # stage-2 finetune uses 1e-5
     beta1: float = 0.9
@@ -236,7 +270,7 @@ class TrainConfig:
     warmup_steps: int = 100
     epochs: int = 10
     steps_per_epoch: int = 500
-    batch_size: int = 1               # per device
+    batch_size: int = 1               # the global batch (a process takes batch_size / world)
     grad_accum_steps: int = 10
     grad_clip: float = 1.0
     precision: str = "bf16"
@@ -258,11 +292,9 @@ class TrainConfig:
     resume: str = ""
 
     def __post_init__(self):
-        m = self.mesh
-        if m.data not in (-1, 1) or m.fsdp != 1 or m.tensor != 1:
-            raise NotImplementedError(
-                f"the port trains on one device; mesh {m} needs DDP/FSDP "
-                "(ROADMAP queue 1 item 10: DDP)")
+        from llmseg_tpu_torch.parallel import ddp
+
+        ddp.check_mesh(self.mesh.data, self.mesh.fsdp, self.mesh.tensor)
 
 
 

@@ -14,7 +14,8 @@ names mirror the tree's keys, so each leaf maps by its path:
   * ``b`` (1-D)                      -> ``<path>.bias``
   * norm ``scale`` / ``bias``        -> ``<path>.weight`` / ``<path>.bias``
   * ``embed_tokens`` (V, C)          -> ``embed_tokens.weight``
-  * ``pos_embed``, ``cls_token``, ``ls1``, ``ls2`` and SAM's
+  * ``pos_embed``, ``cls_token``, ``ls1``, ``ls2``, MPT's ``wte`` and
+    ``wpe`` and SAM's
     ``rel_pos_h/w``, ``iou_token``, ``mask_tokens``, ``point_embeddings``,
     ``not_a_point_embed``, ``no_mask_embed``, ``gaussian`` -> same name
   * LoRA ``a`` (in, r), ``b`` (r, out) -> ``<path>.a.weight``, ``<path>.b.weight``
@@ -26,6 +27,9 @@ names mirror the tree's keys, so each leaf maps by its path:
     ``Int4Linear``).  Both packings pair inputs 2i (low nibble) and 2i + 1,
     so the transposed bytes unpack to the same values.
 
+Whole trees load as they are: ``llmseg.init``'s into ``LLMSeg``, a
+``llava.init`` tree with a ``"lora"`` key into ``train.sft.LlavaSFT``, one
+whose ``"llm"`` is an ``mpt.init`` tree into ``Llava(..., mpt_cfg=...)``.
 LayerScale leaves missing from a block the tree names (a folded DINOv2) are
 removed from the module too.  Every leaf must land; by default the load is
 strict, so every parameter of the module must come from the tree, and

@@ -7,6 +7,7 @@ Covers every format the reference consumes:
   * HF CLIP vision tower (openai/clip-vit-large-patch14)     -> ``ViT``
   * DINOv2 torch.hub checkpoint (dinov2_vitl14)              -> ``ViT``
   * DeepSpeed ``mp_rank_00_model_states.pt`` with peft-LoRA  -> ``LLMSeg``
+  * HF ``MptForCausalLM`` (mosaicml naming)                  -> ``Mpt``
 
 Each ``import_*`` builds the JAX package's parameter tree (dense ``w``
 (in, out), conv ``w`` HWIO, transposed-conv taps flipped) from the state
@@ -17,8 +18,6 @@ bf16 on the host; the JAX package turns every tensor into float32 numpy),
 and ``load_`` casts them to the module's.  The thin ``load_*_into`` helpers
 put a component's weights into a model on the card, unless the caller
 asks for the CPU.
-
-Not here yet: ``import_mpt`` waits for the port's MPT.
 """
 
 from __future__ import annotations
@@ -348,6 +347,34 @@ def import_llama(sd: StateDict, cfg, prefix: str = "model.") -> Dict:
     return p
 
 
+def import_mpt(sd: StateDict, cfg, prefix: str = "transformer.") -> Dict:
+    """An MPT checkpoint (HF ``MptForCausalLM``; the reference's vendored
+    branch has the same keys, modeling_mpt.py) -> the ``models/mpt.py``
+    tree.  The head is tied to ``wte``, so none is imported; a norm without
+    a bias (``no_bias``) gets zeros."""
+    def ln(name):
+        w = sd[f"{name}.weight"]
+        return {"scale": w, "bias": sd.get(f"{name}.bias", torch.zeros_like(w))}
+
+    blocks = []
+    for i in range(cfg.n_layers):
+        b = f"{prefix}blocks.{i}"
+        blk = {"norm_1": ln(f"{b}.norm_1"),
+               "attn": {"wqkv": linear(sd, f"{b}.attn.Wqkv"),
+                        "out_proj": linear(sd, f"{b}.attn.out_proj")},
+               "norm_2": ln(f"{b}.norm_2"),
+               "ffn": {"up_proj": linear(sd, f"{b}.ffn.up_proj"),
+                       "down_proj": linear(sd, f"{b}.ffn.down_proj")}}
+        if cfg.qk_ln:
+            blk["attn"]["q_ln"] = ln(f"{b}.attn.q_ln")
+            blk["attn"]["k_ln"] = ln(f"{b}.attn.k_ln")
+        blocks.append(blk)
+    p = {"wte": sd[f"{prefix}wte.weight"], "blocks": blocks, "norm_f": ln(f"{prefix}norm_f")}
+    if f"{prefix}wpe.weight" in sd:
+        p["wpe"] = sd[f"{prefix}wpe.weight"]
+    return p
+
+
 def _pad_vocab(w: torch.Tensor, vocab_size: int) -> torch.Tensor:
     """Resize token embeddings (the reference adds [SEG]/<im_start>/<im_end>
     and resizes, training.py:229).  New rows are the mean of the existing
@@ -570,13 +597,14 @@ def load_dinov2_into(model, path: str, *, device="cuda"):
 
 
 def load_llava_into(model, path: str, *, base: Optional[str] = None, device="cuda"):
-    """An HF LLaVA directory into ``model.llava`` (the LLaMA, and the
-    projector and the vision tower where the directory has them); with
+    """An HF LLaVA directory into ``model.llava`` (an ``LLMSeg``) or into
+    ``model`` itself (a ``Llava``, such as the SFT model): the LLaMA, and
+    the projector and the vision tower where the directory has them; with
     ``base``, ``path`` is a delta directory applied over that base LLaMA."""
-    cfg = model.cfg.llava
-    tree = (import_llava_dir(path, cfg) if base is None
-            else import_llava_delta_dirs(base, path, cfg))
-    return _into(model, model.llava, tree, device, strict=False)
+    llava = getattr(model, "llava", model)
+    tree = (import_llava_dir(path, llava.cfg) if base is None
+            else import_llava_delta_dirs(base, path, llava.cfg))
+    return _into(model, llava, tree, device, strict=False)
 
 
 def load_llmseg_into(model, path: str, *, lora_cfg=None, device="cuda"):

@@ -1,10 +1,13 @@
-"""Training objectives of the selection head, the counterpart of
-``llmseg_tpu.losses`` (``softmax_align_loss`` and ``iou_regression_loss``).
+"""Training objectives, the counterpart of ``llmseg_tpu.losses``: the
+selection head's ``softmax_align_loss`` and ``iou_regression_loss``, and
+the legacy ones that nothing calls (the reference's loss.py, kept for
+parity): the SigLIP-style ``sigmoid_align_loss`` and the pixel decoder's
+``dice_loss`` and ``sigmoid_ce_loss``.
 
-The JAX functions take one conversation row and are ``vmap``-ed over rows;
-these take any leading batch dimensions and return one loss per row.  Every
-loss takes a validity mask, so padded proposals never contribute.  The
-legacy pixel-decoder losses (sigmoid alignment, DICE, BCE) are not ported.
+The JAX alignment and regression functions take one conversation row and
+are ``vmap``-ed over rows; these take any leading batch dimensions and
+return one loss per row.  Every alignment and regression loss takes a
+validity mask, so padded proposals never contribute.
 """
 
 from __future__ import annotations
@@ -55,3 +58,46 @@ def iou_regression_loss(pred_ious: torch.Tensor, gt_ious: torch.Tensor,
     else:
         denom = err.shape[-1]
     return err.sum(-1) / denom * scale
+
+
+def sigmoid_align_loss(proposal_embeds: torch.Tensor, target_embed: torch.Tensor,
+                       gt_ious: torch.Tensor, temperature: torch.Tensor,
+                       bias: torch.Tensor, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """SigLIP-style pairwise sigmoid alignment (reference loss.py:97-129):
+    logits = cos_sim * exp(temperature) + bias (``temperature`` is a log
+    scale), soft labels z = 2 iou - 1, loss -log(sigmoid(z logits) + 1e-8)
+    summed over the valid proposals.  proposal_embeds (..., K, D),
+    target_embed (..., D), gt_ious and valid (..., K) -> (...)."""
+    p = proposal_embeds.float()
+    t = target_embed.float()
+    p = p / (torch.linalg.vector_norm(p, dim=-1, keepdim=True) + 1e-8)
+    t = t / (torch.linalg.vector_norm(t, dim=-1, keepdim=True) + 1e-8)
+    sim = torch.einsum("...kd,...d->...k", p, t)
+    logits = sim * torch.exp(torch.as_tensor(temperature, dtype=torch.float32)) + bias
+    z = 2.0 * gt_ious.float() - 1.0
+    loss = -torch.log(torch.sigmoid(z * logits) + 1e-8)
+    if valid is not None:
+        loss = torch.where(valid, loss, 0.0)
+    return loss.sum(-1)
+
+
+def dice_loss(inputs: torch.Tensor, targets: torch.Tensor, num_masks,
+              scale: float = 1000.0, eps: float = 1e-6) -> torch.Tensor:
+    """DICE on mask logits (reference loss.py:4-27), summed over the masks
+    and divided by ``num_masks``.  inputs, targets (N, H*W) -> ()."""
+    x = torch.sigmoid(inputs.float())
+    t = targets.float()
+    numerator = 2 * (x / scale * t).sum(-1)
+    denominator = (x / scale).sum(-1) + (t / scale).sum(-1)
+    loss = 1 - (numerator + eps) / (denominator + eps)
+    return loss.sum() / (num_masks + 1e-8)
+
+
+def sigmoid_ce_loss(inputs: torch.Tensor, targets: torch.Tensor, num_masks) -> torch.Tensor:
+    """Per-pixel binary cross entropy on mask logits (reference
+    loss.py:30-47), the mean over pixels summed over the masks and divided
+    by ``num_masks``.  inputs, targets (N, H*W) -> ()."""
+    x = inputs.float()
+    t = targets.float()
+    loss = x.clamp_min(0) - x * t + torch.log1p(torch.exp(-x.abs()))
+    return loss.mean(-1).sum() / (num_masks + 1e-8)

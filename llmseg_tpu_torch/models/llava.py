@@ -16,21 +16,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from llmseg_tpu_torch.config import LlavaConfig, LoraConfig
+from llmseg_tpu_torch.config import LlavaConfig, LoraConfig, MptConfig
 from llmseg_tpu_torch.models import vit
 from llmseg_tpu_torch.models.llama import Llama, LlamaLora
+from llmseg_tpu_torch.models.mpt import Mpt
+from llmseg_tpu_torch.parallel import ddp
 
 IGNORE_INDEX = -100
 
 
 class Llava(nn.Module):
-    def __init__(self, cfg: LlavaConfig, *, device=None, dtype=None):
+    """With ``mpt_cfg`` the language model is an ``Mpt`` (the reference's
+    llava_mpt.py; :meth:`forward_mpt`) in place of the LLaMA."""
+
+    def __init__(self, cfg: LlavaConfig, *, mpt_cfg: Optional[MptConfig] = None,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.vision_tower = vit.ViT(cfg.vision, **kw)
-        self.mm_projector = nn.Linear(cfg.mm_hidden_size, cfg.llm.hidden_size, **kw)
-        self.llm = Llama(cfg.llm, **kw)
+        llm_dim = cfg.llm.hidden_size if mpt_cfg is None else mpt_cfg.d_model
+        self.mm_projector = nn.Linear(cfg.mm_hidden_size, llm_dim, **kw)
+        self.llm = Llama(cfg.llm, **kw) if mpt_cfg is None else Mpt(mpt_cfg, **kw)
 
     def encode_images(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) CLIP input -> (B, N, llm_dim) projected tokens."""
@@ -53,6 +60,17 @@ class Llava(nn.Module):
                                 image_pos)
         return self.llm(inputs_embeds=x, lora=lora, lora_cfg=lora_cfg, remat=remat,
                         quant_stats=quant_stats)
+
+    def forward_mpt(self, *, input_ids: torch.Tensor, image_pos: torch.Tensor,
+                    images: Optional[torch.Tensor] = None,
+                    image_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``llava.forward_mpt``: the same tower, projector and splice, the
+        MPT decoder after them.  Final hidden states (B, T+N-1, d)."""
+        if image_embeds is None:
+            image_embeds = self.encode_images(images)
+        text_embeds = self.llm.wte[input_ids]
+        x = splice_image_tokens(text_embeds, image_embeds.to(text_embeds.dtype), image_pos)
+        return self.llm(inputs_embeds=x)
 
 
 def splice_image_tokens(text_embeds: torch.Tensor, image_embeds: torch.Tensor,
@@ -92,11 +110,13 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Shifted cross entropy with IGNORE_INDEX masking, one mean over the
     valid targets; a batch without one gives 0 (the count is at least 1),
     where a mean-reducing cross entropy would give NaN.  Labels may arrive
-    as int32."""
+    as int32.  In a data-parallel run the count is the global batch's
+    (``ddp.global_sum``): each process's loss is its share of the global
+    mean."""
     shift_logits = logits[:, :-1].float()
     shift_labels = labels[:, 1:].long()
     total = F.cross_entropy(shift_logits.reshape(-1, shift_logits.shape[-1]),
                             shift_labels.reshape(-1), ignore_index=IGNORE_INDEX,
                             reduction="sum")
-    count = (shift_labels != IGNORE_INDEX).sum().clamp_min(1)
+    count = ddp.global_sum((shift_labels != IGNORE_INDEX).sum()).clamp_min(1)
     return total / count

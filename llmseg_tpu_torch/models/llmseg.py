@@ -27,6 +27,7 @@ from llmseg_tpu_torch.models import llama, llava, vit
 from llmseg_tpu_torch.models.llama import LlamaLora
 from llmseg_tpu_torch.models.llava import Llava
 from llmseg_tpu_torch.models.selection_head import SelectionHead, mask_pooling
+from llmseg_tpu_torch.parallel import ddp
 
 POOL_ROUTES = ("adjoint", "unfused")
 
@@ -55,11 +56,13 @@ def build(cfg: LLMSegConfig, *, device, dtype=torch.float32,
 def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """The JAX package's initialisers, drawn from ``generator``: LeCun-normal
     weights (std 1/sqrt(fan_in)), zero biases, unit norm scales, truncated
-    normal (std 0.02) token / position / cls embeddings, LayerScale 1e-5,
+    normal (std 0.02) token / position / cls embeddings (MPT's ``wte`` and
+    ``wpe`` too), LayerScale 1e-5,
     LoRA B zero."""
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if name.endswith("embed_tokens.weight") or leaf in ("pos_embed", "cls_token"):
+        if name.endswith("embed_tokens.weight") or leaf in ("pos_embed", "cls_token", "wte",
+                                                            "wpe"):
             tmp = torch.empty(p.shape, dtype=torch.float32, device=p.device)
             p.copy_(nn.init.trunc_normal_(tmp, std=0.02, a=-0.04, b=0.04,
                                           generator=generator))
@@ -235,7 +238,9 @@ def loss_fn(model: LLMSeg, batch: Dict, *, pool: str = "adjoint",
     """Total training loss and its terms, ``llmseg.loss_fn``: causal-LM
     cross entropy over the splice-adjusted labels, plus the KL alignment and
     the IoP regression per row, averaged over the rows of each image and
-    then over the images with at least one valid row.  Extra batch keys:
+    then over the images with at least one valid row.  In a data-parallel
+    run both means divide by the global batch's counts (``ddp``), so each
+    process's terms are its shares of the global ones.  Extra batch keys:
     labels (R, T), gt_ious (R, K), gt_iops (R, K).  Returns
     (total, {"loss", "ce_loss", "align_loss", "regression_loss"})."""
     cfg = model.cfg
@@ -262,7 +267,7 @@ def loss_fn(model: LLMSeg, batch: Dict, *, pool: str = "adjoint",
     rows_per_img = per_image(rv)
     img_valid = rows_per_img > 0
     denom = rows_per_img.clamp_min(1e-8)
-    n_img = img_valid.float().sum().clamp_min(1.0)
+    n_img = ddp.global_sum(img_valid.float().sum()).clamp_min(1.0)
     align = torch.where(img_valid, per_image(align_r * rv) / denom, 0.0).sum() / n_img
     reg = torch.where(img_valid, per_image(reg_r * rv) / denom, 0.0).sum() / n_img
 

@@ -1,13 +1,20 @@
 """COCO run-length encoding, pycocotools-compatible: the counterpart of
-``llmseg_tpu.ops.rle`` (its numpy path).  Runs are column-major and the
-first run counts zeros; ``counts`` strings use pycocotools' delta and 5-bit
-varint encoding."""
+``llmseg_tpu.ops.rle``.  Runs are column-major and the first run counts
+zeros; ``counts`` strings use pycocotools' delta and 5-bit varint encoding.
+
+As in the JAX package, :func:`mask_to_counts`, :func:`counts_to_mask`,
+:func:`encode_packed` and :func:`counts_to_string` (over 8 counts) take the
+native codec (``native/rle.py``, built at first use) unless
+``LLMSEG_NO_NATIVE`` is set; the numpy path beside each is the reference
+the native one is held to."""
 
 from __future__ import annotations
 
 from typing import Dict, List, Sequence
 
 import numpy as np
+
+from llmseg_tpu_torch.native import rle as _native
 
 RLE = Dict  # {"size": [H, W], "counts": str | list[int]}
 
@@ -17,6 +24,8 @@ def counts_to_string(counts: Sequence[int]) -> str:
     fewest 5-bit groups that hold it in two's complement, low group first,
     bit 0x20 on every group but the last, offset by 48."""
     c = np.asarray(counts, np.int64).reshape(-1)
+    if _native.enabled() and c.size > 8:
+        return _native.counts_to_string(c)
     if c.size == 0:
         return ""
     x = c.copy()
@@ -59,10 +68,14 @@ def _runs(mask: np.ndarray) -> np.ndarray:
 
 def mask_to_counts(mask: np.ndarray) -> List[int]:
     """Binary (H, W) -> column-major run lengths, the first run of zeros."""
+    if _native.enabled():
+        return _native.mask_to_counts(np.ascontiguousarray(mask, np.uint8))
     return _runs(mask).tolist()
 
 
 def counts_to_mask(counts: Sequence[int], h: int, w: int) -> np.ndarray:
+    if _native.enabled():
+        return _native.counts_to_mask(np.asarray(counts, np.int64), h, w)
     total = int(np.sum(counts))
     if total != h * w:
         raise ValueError(f"RLE sums to {total}, expected {h * w}")
@@ -73,7 +86,7 @@ def counts_to_mask(counts: Sequence[int], h: int, w: int) -> np.ndarray:
 
 def encode(mask: np.ndarray) -> RLE:
     h, w = mask.shape
-    return {"size": [h, w], "counts": counts_to_string(_runs(mask))}
+    return {"size": [h, w], "counts": counts_to_string(mask_to_counts(mask))}
 
 
 def encode_stats(mask: np.ndarray):
@@ -94,6 +107,9 @@ def encode_packed(packed: np.ndarray, h: int, w: int):
     """Bit-packed (MSB first) mask -> :func:`encode_stats` of its top-left
     (h, w) crop."""
     packed = np.ascontiguousarray(packed, np.uint8)
+    if _native.enabled():
+        s, area_, bbox = _native.packed_encode(packed, h, w)
+        return {"size": [h, w], "counts": s}, area_, bbox
     return encode_stats(np.unpackbits(packed, axis=-1, count=packed.shape[1] * 8)[:h, :w])
 
 

@@ -59,11 +59,14 @@ class BestKeeper:
     the trainable parameters and, when given, the optimizer state (so a
     resume from the best checkpoint restores the whole training state) when
     the metric is strictly greater than the best so far, and records it in
-    ``best_meta.json``, which a new keeper reads back."""
+    ``best_meta.json``, which a new keeper reads back.  With ``write``
+    false it keeps the best and returns the same answers but writes nothing
+    (a data-parallel run's processes other than rank 0)."""
 
-    def __init__(self, log_dir: str, metric: str = "giou"):
+    def __init__(self, log_dir: str, metric: str = "giou", *, write: bool = True):
         self.log_dir = log_dir
         self.metric = metric
+        self.write = write
         self.best = -float("inf")
         path = os.path.join(log_dir, "best_meta.json")
         if os.path.exists(path):
@@ -76,6 +79,8 @@ class BestKeeper:
         if val is None or val <= self.best:
             return False
         self.best = val
+        if not self.write:
+            return True
         save(self.log_dir, step, params, opt_state, metrics)
         with open(os.path.join(self.log_dir, "best_meta.json"), "w") as f:
             json.dump({"step": step, **metrics}, f)

@@ -20,7 +20,7 @@ the parameters untouched in between.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Union
 
 import torch
 from torch import nn
@@ -39,12 +39,20 @@ def trainable_mask(model: nn.Module) -> Dict[str, bool]:
     return {name: is_trainable(name) for name, _ in model.named_parameters()}
 
 
-def partition(model: nn.Module) -> "OrderedDict[str, nn.Parameter]":
+def partition(model: nn.Module, mask: Union[Mapping[str, bool], Callable[[str], bool],
+                                             None] = None) -> "OrderedDict[str, nn.Parameter]":
     """Freeze every parameter outside the trainable set (requires_grad off)
-    and return the trainable ones by name."""
+    and return the trainable ones by name.  ``mask`` overrides
+    ``TRAINABLE_PREFIXES``, as the JAX ``partition(params, mask)`` does: a
+    map from every parameter name to whether it trains, or a predicate on
+    names."""
+    if mask is None:
+        mask = is_trainable
+    elif not callable(mask):
+        mask = mask.__getitem__
     trainable = OrderedDict()
     for name, p in model.named_parameters():
-        p.requires_grad_(is_trainable(name))
+        p.requires_grad_(bool(mask(name)))
         if p.requires_grad:
             trainable[name] = p
     return trainable

@@ -5,7 +5,10 @@ progress printing; validation (gIoU / cIoU), the best-checkpoint policy and
 checkpoint resume.
 
 It trains on one card (``device="cuda"``, the default) or, when the caller
-asks, on the CPU.  A batch is a dict of tensors or of numpy arrays (what
+asks, on the CPU; in a data-parallel run (``parallel/ddp.py``, one process
+a device) each process steps on its own shard, the train step sums the
+gradients over the processes, the meters reduce over them, and only rank 0
+prints, logs and writes checkpoints.  A batch is a dict of tensors or of numpy arrays (what
 ``data.collate`` gives, alone or as the first item of a tuple); arrays are
 copied to the device here, pinned tensors (``BatchLoader(...,
 pin_memory=True)``) asynchronously.
@@ -23,6 +26,7 @@ import torch
 from llmseg_tpu_torch.config import ExperimentConfig, LoraConfig
 from llmseg_tpu_torch.device import require
 from llmseg_tpu_torch.models import llmseg
+from llmseg_tpu_torch.parallel import ddp
 from llmseg_tpu_torch.train import checkpoint as ckpt_lib
 from llmseg_tpu_torch.train import evaluate as eval_lib
 from llmseg_tpu_torch.train import optim
@@ -43,6 +47,7 @@ class Trainer:
                  pool: str = "adjoint", writer=None):
         self.cfg = cfg
         self.device = require(device)
+        self.rank, self.world = ddp.rank(), ddp.world_size()
         self.lora_cfg = lora_cfg if lora_cfg is not None else cfg.train.lora
         self.pool = pool
         dtype = torch.bfloat16 if cfg.train.precision == "bf16" else torch.float32
@@ -59,7 +64,8 @@ class Trainer:
         self.writer = writer
         self.log_dir = cfg.train.log_dir
         os.makedirs(self.log_dir, exist_ok=True)
-        self.best = ckpt_lib.BestKeeper(self.log_dir, cfg.train.save_best_metric)
+        self.best = ckpt_lib.BestKeeper(self.log_dir, cfg.train.save_best_metric,
+                                        write=self.rank == 0)
         self._staged = None     # the last pinned batch and its copy's event
 
     def to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
@@ -85,6 +91,20 @@ class Trainer:
 
     def eval_step(self, model: llmseg.LLMSeg, batch) -> dict:
         return eval_step(model, self.to_device(batch), lora_cfg=self.lora_cfg, pool=self.pool)
+
+    def batch_loader(self, dataset, collate_fn, steps: int, **kw):
+        """A ``BatchLoader`` of this process's shard: ``batch_size / world``
+        samples a batch, ``process_index`` / ``process_count`` from the rank
+        and the world size, pinned batches on the card."""
+        from llmseg_tpu_torch.train.loader import BatchLoader
+
+        return BatchLoader(dataset, collate_fn, self.cfg.train.batch_size // self.world, steps,
+                           process_index=self.rank, process_count=self.world,
+                           pin_memory=self.device.type == "cuda", **kw)
+
+    def shard_range(self, n: int) -> range:
+        """The indices of ``n`` items this process takes."""
+        return range(n)[self.rank::self.world]
 
     # -- checkpointing ------------------------------------------------------
 
@@ -143,7 +163,7 @@ class Trainer:
                     m.update(float(metrics[name]))
                 batch_time.update(time.time() - end)
                 step_in_epoch = micro // tcfg.grad_accum_steps
-                if step_in_epoch % tcfg.print_freq == 0:
+                if step_in_epoch % tcfg.print_freq == 0 and self.rank == 0:
                     progress.display(step_in_epoch)
                     if self.writer is not None:
                         for name, m in meters.items():
@@ -163,7 +183,7 @@ class Trainer:
         results = eval_lib.run_validation(self.eval_step, self.model, batches,
                                           strategy=strategy, threshold=threshold,
                                           visualize_dir=visualize_dir)
-        if self.writer is not None:
+        if self.writer is not None and self.rank == 0:
             self.writer.add_scalar("val/giou", results["giou"], self.global_step)
             self.writer.add_scalar("val/ciou", results["ciou"], self.global_step)
         return results

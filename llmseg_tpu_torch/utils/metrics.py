@@ -1,9 +1,10 @@
 """Metrics and meters, the counterpart of ``llmseg_tpu.utils.metrics``.
 
-The per-proposal IoU/IoP labels are the JAX module's numpy path (the port
-has no native library), vectorised over the proposals; the meters are
-copies.  ``AverageMeter.all_reduce`` is a no-op: the port runs in one
-process.
+The per-proposal IoU/IoP labels are the JAX module's numpy path,
+vectorised over the proposals (the native codec's ``mask_iou_iop`` is
+``native/rle.py``'s, held to it in the tests); the meters are copies, and
+``AverageMeter.all_reduce`` sums over the processes of a data-parallel
+run (``parallel/ddp.py``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from enum import Enum
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
 # ---------------------------------------------------------------------------
@@ -114,7 +116,19 @@ class AverageMeter:
         self.avg = self.sum / max(self.count, 1e-12)
 
     def all_reduce(self):
-        """The cross-process sum; one process holds every count already."""
+        """Sum ``(sum, count)`` over the processes in float64 (the
+        reference's dist.all_reduce, utils/utils.py:76-97); a no-op in one
+        process."""
+        from llmseg_tpu_torch.parallel import ddp
+
+        if not ddp.active():
+            return
+        s = np.asarray(self.sum, np.float64).reshape(-1)
+        arr = torch.from_numpy(np.concatenate([s, [self.count]]))
+        arr = ddp.global_sum(arr.to(ddp.collective_device())).cpu().numpy()
+        self.sum = arr[:-1] if s.size > 1 else float(arr[0])
+        self.count = float(arr[-1])
+        self.avg = self.sum / max(self.count, 1e-12)
 
     def __str__(self):
         val = float(np.mean(self.val))

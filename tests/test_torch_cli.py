@@ -150,10 +150,14 @@ def test_to_config_matches_jax(argv):
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["--multihost"], SystemExit), (["--mesh_tp", "2"], NotImplementedError),
-    (["--mesh_fsdp", "2"], NotImplementedError), (["--mesh_dp", "2"], NotImplementedError)])
+    (["--mesh_dp", "3"], ValueError), (["--mesh_tp", "2"], NotImplementedError),
+    (["--mesh_fsdp", "2"], NotImplementedError), (["--mesh_dp", "2"], ValueError)])
 def test_to_config_refuses_more_than_one_device(argv, error):
-    with pytest.raises(error):
+    """Outside a process group the world is one process: a data axis of
+    more than one device is refused, and the sharded axes always are (their
+    message names their ROADMAP item).  ``tests/test_torch_ddp.py`` runs the
+    data axis over two processes."""
+    with pytest.raises(error, match="world size 1" if error is ValueError else "item 19"):
         tcommon.to_config(tcommon.build_parser("t").parse_args(argv))
 
 

@@ -1046,3 +1046,51 @@ def test_cli_prepare_runs_the_sam_kernels(tmp_path, monkeypatch):
     for a in doc[0]["masks"]:
         x, y, w, h = a["crop_box"]
         assert a["area"] > 0 and 0 <= x and 0 <= y and x + w <= 1024 and y + h <= 683
+
+
+def test_sft_step_launches_a_c_and_d():
+    """One LLaVA SFT step (LoRA, full remat) at LLaMA-7B's head shape over a
+    512-token spliced sequence, 2 layers: A forward and again in the
+    recompute, C and D backward, every layer; CLIP's 257 tokens take the
+    plain path."""
+    from llmseg_tpu_torch.train import optim, sft
+
+    full = C.LlavaConfig()
+    cfg = C.replace(full, llm=C.replace(full.llm, num_layers=2, vocab_size=512),
+                    vision=C.replace(full.vision, depth=1))
+    lora = C.LoraConfig(rank=8)
+    model = sft.init(cfg, seed=0, device="cuda", dtype=torch.bfloat16, lora_cfg=lora)
+    trainable = optim.partition(model, sft.sft_trainable_mask(model, lora_enable=True))
+    step, _ = sft.make_sft_train_step(C.TrainConfig(warmup_steps=0, grad_accum_steps=1),
+                                      trainable, lora_cfg=lora)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    T = 512 - (cfg.num_image_tokens - 1)
+    ids = torch.randint(4, 500, (2, T), device="cuda", generator=g, dtype=torch.int32)
+    batch = {"images_clip": torch.randn(2, 224, 224, 3, device="cuda", generator=g),
+             "input_ids": ids, "labels": ids.long(),
+             "image_pos": torch.tensor([3, T - 1], device="cuda", dtype=torch.int32),
+             "has_image": torch.tensor([True, False], device="cuda")}
+    before = {kern.name: kern.launches for kern in A.KERNELS}
+    out = step(model, batch)
+    torch.cuda.synchronize()
+    after = {kern.name: kern.launches for kern in A.KERNELS}
+    assert {n: after[n] - before[n] for n in after} == {
+        "flash_fwd": 4, "flash_fwd_1pass": 0, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+        "flash_fwd_1pass_t": 0}
+    assert math.isfinite(out["ce_loss"].item()) and math.isfinite(out["grad_norm"].item())
+
+
+def test_native_rle_builds_and_loads():
+    """The card's machine builds the native codec from the checkout and it
+    gives the numpy path's answers."""
+    import numpy as np
+
+    from llmseg_tpu_torch.native import rle as native
+    from llmseg_tpu_torch.ops import rle
+
+    native.build(force=True)
+    assert native.library() is not None
+    m = (np.random.default_rng(0).random((57, 31)) > 0.5).astype(np.uint8)
+    assert native.mask_to_counts(m) == rle._runs(m).tolist()
+    packed = np.packbits(m, axis=-1)
+    assert rle.encode_packed(packed, 57, 31) == rle.encode_stats(m)

@@ -34,7 +34,8 @@ def test_port_has_every_slice_module():
                  "data.coco_api", "data.refer", "data.mask_reader", "data.data_processing",
                  "data.image_ops", "data.resample", "data.datasets", "train.loader",
                  "cli.common", "cli.train", "cli.validate", "cli.finetune", "cli.prepare",
-                 "cli.convert_h5"):
+                 "cli.convert_h5", "data.llava_sft", "train.sft", "cli.sft", "models.mpt",
+                 "cli.parity", "parallel.ddp", "native.rle"):
         assert f"llmseg_tpu_torch.{name}" in mods, name
 
 
@@ -55,7 +56,8 @@ def test_importing_the_port_loads_no_jax():
     assert res.stdout.startswith("ok")
 
 
-@pytest.mark.parametrize("entry", ["train", "finetune", "validate", "prepare", "convert_h5"])
+@pytest.mark.parametrize("entry", ["train", "finetune", "validate", "prepare", "convert_h5",
+                                   "sft", "parity"])
 def test_cli_help_loads_no_jax(entry):
     """``python -m llmseg_tpu_torch.cli.<entry> --help`` prints its usage in
     a process that never loads JAX, the JAX package or its ``cli``."""
@@ -89,9 +91,12 @@ def test_chip_smoke_imports_only_the_port():
 
 
 def test_kernel_sources_are_in_the_package():
+    from llmseg_tpu_torch.native import rle
     from llmseg_tpu_torch.ops import kernels
     for name in kernels.SIGNATURES:
         assert (kernels.CSRC / f"{name}.cu").is_file()
+    assert rle.SOURCE.is_file() and rle.SOURCE.parent == ROOT / "llmseg_tpu_torch" / "native"
+    assert rle.BUILD_DIR == ROOT / "llmseg_tpu_torch" / "_build"
 
 
 def test_port_loads_no_image_or_tokenizer_library():

@@ -1,7 +1,8 @@
 """The port's loss pieces against the JAX package's: ``splice_labels``,
 ``causal_lm_loss`` (with a batch that has no valid target), the two
 selection-head losses with validity masks (JAX ``vmap``-ed over rows, the
-port batched), and LLaMA's float32 ``logits``.  Inputs from numpy seeds,
+port batched), the legacy ones (``sigmoid_align_loss``, ``dice_loss``,
+``sigmoid_ce_loss``), and LLaMA's float32 ``logits``.  Inputs from numpy seeds,
 float32; tolerance 1e-5 relative (one reduction over at most a few hundred
 terms with another summation order); labels exactly."""
 
@@ -107,3 +108,34 @@ def test_logits_are_float32_for_bf16_weights():
     assert out.dtype == torch.float32
     ref = hidden.float() @ model.lm_head.weight.float().t()
     torch.testing.assert_close(out, ref)
+
+
+@pytest.mark.parametrize("masked,temperature,bias", [(False, 0.0, 0.0), (True, 2.3, -1.5),
+                                                     (True, -1.0, 4.0)])
+def test_sigmoid_align_loss_matches_jax(masked, temperature, bias):
+    """The legacy SigLIP-style alignment: log-scale temperature, the 1e-8
+    floor inside the log."""
+    props, target, gt, _, valid = _row_inputs(5)
+    fn = lambda p, t, g, m: JLS.sigmoid_align_loss(p, t, g, jnp.float32(temperature),
+                                                   jnp.float32(bias), m)
+    if masked:
+        ref = jax.vmap(fn)(props, target, gt, valid)
+    else:
+        ref = jax.vmap(lambda p, t, g: fn(p, t, g, None))(props, target, gt)
+    got = TLS.sigmoid_align_loss(torch.tensor(props), torch.tensor(target), torch.tensor(gt),
+                                 torch.tensor(temperature), torch.tensor(bias),
+                                 torch.tensor(valid) if masked else None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("fn", ["dice_loss", "sigmoid_ce_loss"])
+@pytest.mark.parametrize("n,hw,num_masks", [(3, 64, 3.0), (1, 4096, 1.0), (5, 100, 2.0)])
+def test_legacy_mask_losses_match_jax(fn, n, hw, num_masks):
+    """The legacy pixel decoder's DICE and BCE on mask logits, large
+    logits of both signs included."""
+    rng = np.random.RandomState(n + hw)
+    logits = (rng.randn(n, hw) * 6).astype(np.float32)
+    targets = (rng.rand(n, hw) > 0.6).astype(np.float32)
+    ref = getattr(JLS, fn)(jnp.asarray(logits), jnp.asarray(targets), jnp.float32(num_masks))
+    got = getattr(TLS, fn)(torch.tensor(logits), torch.tensor(targets), num_masks)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
