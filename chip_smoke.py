@@ -167,6 +167,24 @@ Phases, one JSON line each; any failure exits non-zero:
               size 1, nccl, a TCP store on 127.0.0.1: two steps of the cut
               llmseg_7b (LoRA r8, bf16) equal to the bit, gradients and
               parameters, to the same steps outside a process group;
+     mesh_in_place  the (dp, fsdp, tp) mesh (parallel/mesh.py), two ranks
+              on this card over gloo (nccl refuses two ranks a device),
+              started as subprocesses on a TCP store on 127.0.0.1, each
+              printing its own lines: the cut llmseg_7b in float32 (LoRA
+              r8, zero-init trainables drawn nonzero, remat "dots"), two
+              Trainer steps at tp=2 and at fsdp=2 on global batches of 2
+              images against the same steps of one process: loss terms,
+              grad_norm, every trainable gradient gathered whole and the
+              parameters after within MESH_LIMIT, the ranks' replicated
+              parameters equal to the bit, A, C, D at H / tp heads;
+     mesh     llmseg_7b in bf16 on the same two ranks: tp=2 at all 32
+              layers (predict at batch 4 against one process's within the
+              bf16 gate, then two steps of 1 image, both ranks on it) and
+              fsdp=2 with LLaMA cut to MESH_FSDP_LAYERS (two steps, 1
+              image a rank); then one step with the collectives clocked;
+              seconds a step after the first, peak memory and launches a
+              rank, the loss gap to one process (finite, within
+              MESH_LOSS_GAP); the one-process references run first;
      mpt      Llava.forward_mpt at llava_tiny + mpt_tiny (ALiBi; MQA with
               qk_ln and clip_qkv) on the card against the CPU, float32,
               within MPT_LIMIT;
@@ -223,6 +241,7 @@ Without CUDA it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -4153,6 +4172,481 @@ def ddp_phase(C, make_batch, A, *, device="cuda", steps: int = 2, cfg=None,
     return rec
 
 
+MESH_LIMIT = 1e-4             # mesh_in_place, float32: the cut models' gate, relative
+MESH_LOSS_GAP = 5e-2          # mesh, bf16: a step's loss against one process's, relative
+MESH_FSDP_LAYERS = 8          # mesh's fsdp sub-run: LLaMA cut to this depth (gloo's gathers)
+MESH_WAIT_S = 600             # the ranks are killed after this
+MESH_POS = {"flash_fwd": 7, "flash_bwd_dq": 8, "flash_bwd_dkv": 8}   # BH among the launch args
+
+
+def split_images(batch: dict, d: int, n: int) -> dict:
+    """Data rank ``d``'s share of a global batch of one row an image, as
+    the JAX package's ``shard_batch`` splits the leading axis over (dp,
+    fsdp)."""
+    k = batch["images_dino"].shape[0] // n
+    out = {key: v[d * k:(d + 1) * k] for key, v in batch.items()}
+    out["row_to_image"] = out["row_to_image"] - d * k
+    return out
+
+
+class LaunchShapes:
+    """While active, the BH argument of every launch of kernels A, C and D
+    (``seen``: (name, BH) in launch order)."""
+
+    def __init__(self, A):
+        self.kerns = [k for k in A.KERNELS if k.name in MESH_POS]
+        self.seen = []
+
+    def __enter__(self):
+        for kern in self.kerns:
+            def launch(*args, _kern=kern, _orig=kern.launch):
+                self.seen.append((_kern.name, args[MESH_POS[_kern.name]]))
+                return _orig(*args)
+            kern.launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        for kern in self.kerns:
+            del kern.launch
+
+    def heads(self, rows: int) -> dict:
+        """{kernel: the head counts it ran at}, for ``rows`` rows."""
+        out = {}
+        for name, bh in self.seen:
+            out.setdefault(name, set()).add(bh // rows)
+        return {k: sorted(v) for k, v in out.items()}
+
+
+class CollectiveClock(Wrapped):
+    """While active, the seconds spent in the mesh's collectives (each
+    call between two synchronisations of the card, so that it is the
+    collective's own time) and their count."""
+
+    NAMES = ("all_gather", "all_reduce", "reduce_scatter")
+
+    def __init__(self, M, device):
+        self.seconds = {n: 0.0 for n in self.NAMES}
+        self.calls = {n: 0 for n in self.NAMES}
+
+        def around(name):
+            def wrap(fn):
+                def timed(*args):
+                    sync(device)
+                    t0 = time.perf_counter()
+                    out = fn(*args)
+                    sync(device)
+                    self.seconds[name] += time.perf_counter() - t0
+                    self.calls[name] += 1
+                    return out
+                return timed
+            return wrap
+
+        super().__init__(*[(M, n, around(n)) for n in self.NAMES])
+
+
+def mesh_subrun(C, A, spec: dict, device: str, axes=(-1, 1, 1)) -> dict:
+    """One sub-run of the mesh phases on mesh ``axes`` (dp, fsdp, tp; the
+    default is one process): the model from ``spec``'s seed (LoRA rank 8;
+    with ``spec["jitter"]`` every trainable tensor that starts at zero,
+    LoRA B and the selection head's biases, drawn nonzero, so that A has a
+    gradient and each tensor after a step is held at its own scale, not at
+    AdamW's step's), the ``Trainer``, ``predict`` on this data rank's images of
+    ``spec["predict"]`` if given, a step on each of ``spec["batches"]``
+    (global batches, split by data rank), with ``spec["timed"]`` the last
+    one with the collectives clocked.  Returns the loss terms, the
+    launches and head counts a step, the times, the peak memory, and as
+    asked the whole gradients and trainable parameters (on the CPU)."""
+    import gc
+
+    import torch
+    from llmseg_tpu_torch.models import llmseg
+    from llmseg_tpu_torch.parallel import mesh as M
+    from llmseg_tpu_torch.train import optim
+    from llmseg_tpu_torch.train.trainer import Trainer
+
+    dp, fsdp, tp = axes
+    dtype = getattr(torch, spec["dtype"])
+    lora = C.LoraConfig(rank=8)
+    exp = C.ExperimentConfig(model=spec["cfg"], train=C.TrainConfig(
+        warmup_steps=0, grad_accum_steps=1, lora=lora,
+        precision="fp32" if dtype == torch.float32 else "bf16",
+        mesh=C.MeshConfig(data=dp, fsdp=fsdp, tensor=tp), log_dir=spec["log_dir"]))
+    t0 = time.perf_counter()
+    model = llmseg.init(spec["cfg"], seed=spec["seed"], device=device, dtype=dtype,
+                        lora_cfg=lora)
+    if spec.get("jitter"):
+        with torch.no_grad():
+            g = torch.Generator(device=device).manual_seed(5)
+            for name, p in model.named_parameters():
+                if optim.is_trainable(name) and not p.any():
+                    p.copy_(torch.randn(p.shape, device=device, generator=g) * 0.02)
+    trainer = Trainer(exp, model=model, device=device)
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    sync(device)
+    d, n = trainer.rank, trainer.world
+    res = {"setup_s": time.perf_counter() - t0, "data_rank": d, "data_size": n,
+           "resident_gb": (torch.cuda.memory_allocated() / 1e9
+                           if torch.device(device).type == "cuda" else None)}
+
+    def counts():
+        return {kern.name: kern.launches for kern in A.KERNELS}
+
+    def zero():
+        for kern in A.KERNELS:
+            kern.launches = 0
+
+    if spec.get("predict") is not None:
+        batch = trainer.to_device(split_images(spec["predict"], d, n))
+        zero()
+        with LaunchShapes(A) as shapes:
+            t0 = time.perf_counter()
+            out = llmseg.predict(model, batch, device=device)
+            sync(device)
+            res["predict_s"] = time.perf_counter() - t0
+        res["predict"] = {k: out[k].float().cpu() for k in ("pred_similarity", "pred_iou")}
+        res["predict_launches"] = counts()
+        res["predict_heads"] = shapes.heads(batch["input_ids"].shape[0])
+        del out
+
+    grads = []
+    if spec.get("grads"):
+        step = trainer.opt.step
+
+        def recording(norm=None):
+            grads.append({n_: M.gather_tensor(p.grad.detach(), trainer.specs[n_], trainer.mesh)
+                          .float().cpu() for n_, p in trainer.trainable.items()})
+            return step(norm)
+
+        trainer.opt.step = recording
+    res.update(terms=[], launches=[], heads=[], step_s=[])
+    for i, b in enumerate(spec["batches"]):
+        batch = trainer.to_device(split_images(b, d, n))
+        zero()
+        clock = CollectiveClock(M, device) if spec.get("timed") and i == len(
+            spec["batches"]) - 1 else contextlib.nullcontext()
+        with LaunchShapes(A) as shapes, clock:
+            t0 = time.perf_counter()
+            m = trainer.step(batch)
+            sync(device)
+            res["step_s"].append(time.perf_counter() - t0)
+        res["terms"].append({k: v.item() for k, v in m.items()})
+        res["launches"].append(counts())
+        res["heads"].append(shapes.heads(batch["input_ids"].shape[0]))
+    if spec.get("timed"):
+        res["collective_s"], res["collective_calls"] = clock.seconds, clock.calls
+    if torch.device(device).type == "cuda":
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["grads"] = grads
+    replicated = [n_ for n_ in trainer.trainable if not any(trainer.specs[n_])]
+    res["replicated"] = {n_: trainer.trainable[n_].detach().cpu() for n_ in replicated}
+    if spec.get("params"):
+        res["params"] = {n_: p.detach().float().cpu() for n_, p in trainer.full_params().items()}
+    del trainer, model, batch
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def mesh_rank(root: str, device: str) -> int:
+    """One rank of the mesh phases (``mesh_phase`` starts two): joins the
+    process group of the environment on gloo, runs each sub-run of
+    ``<root>/inputs.pt`` on its mesh, writes ``<root>/<run>_rank<r>.pt``
+    and prints a line a sub-run."""
+    import datetime
+
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from llmseg_tpu_torch import config as C
+    from llmseg_tpu_torch.ops import attention as A
+    from llmseg_tpu_torch.parallel import ddp
+
+    dev = ddp.init_from_env(device, timeout=datetime.timedelta(seconds=120), backend="gloo")
+    rank = ddp.rank()
+    try:
+        for spec in torch.load(os.path.join(root, "inputs.pt"), weights_only=False):
+            res = mesh_subrun(C, A, spec, str(dev), spec["mesh"])
+            torch.save(res, os.path.join(root, f"{spec['name']}_rank{rank}.pt"))
+            emit({"phase": "mesh_rank", "rank": rank, "run": spec["name"], "device": str(dev),
+                  "mesh": dict(zip(("dp", "fsdp", "tp"), spec["mesh"])),
+                  **{k: res.get(k) for k in ("data_rank", "setup_s", "step_s", "collective_s",
+                                             "resident_gb", "peak_gb", "terms", "launches",
+                                             "heads", "predict_launches", "predict_heads")}})
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_ranks(root: str, device: str, world: int = 2) -> list:
+    """Start ``world`` ranks of ``mesh_rank`` (a TCP store on 127.0.0.1,
+    every rank on this card: LOCAL_RANK 0), wait for them (killing any
+    left after MESH_WAIT_S), print their lines, and fail if one fails."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke as CS; "
+            "sys.exit(CS.mesh_rank(sys.argv[2], sys.argv[3]))")
+    procs, outs = [], [os.path.join(root, f"rank{r}.log") for r in range(world)]
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        with open(outs[rank], "w") as out:
+            procs.append(subprocess.Popen([sys.executable, "-c", code, here, root, device],
+                                          env=env, stdout=out, stderr=subprocess.STDOUT))
+    deadline = time.time() + MESH_WAIT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.time(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    logs = []
+    for path in outs:
+        with open(path) as f:
+            logs.append(f.read())
+        print(logs[-1], end="", flush=True)
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        raise SystemExit(f"mesh ranks {failed} failed (return codes "
+                         f"{[p.returncode for p in procs]})")
+    return logs
+
+
+def _rel(got, ref) -> float:
+    """Relative Frobenius distance; 0 / 0 counts as agreement."""
+    num, den = (got - ref).norm().item(), ref.norm().item()
+    return 0.0 if num == 0 else num / max(den, 1e-30)
+
+
+def _zero_grad_tensor(name: str) -> bool:
+    # the selection head's attention key biases: their exact gradient is
+    # zero (a key bias shifts a whole softmax row), so both runs give noise
+    return name.startswith("select.") and name.endswith(".k.bias")
+
+
+def mesh_phase(C, make_batch, A, *, device="cuda", in_place_cfg=None, full_cfg=None,
+               fsdp_layers: int = MESH_FSDP_LAYERS, text_len: int = 512,
+               predict_images: int = 4) -> dict:
+    """The (dp, fsdp, tp) mesh (``parallel/mesh.py``) with both ranks on
+    this card over gloo (nccl refuses two ranks on one device).  The one-
+    process references run first, here, and are freed before the ranks
+    start.
+
+    mesh_in_place: the cut model (``cut_config``), float32, LoRA rank 8
+    (its B and the selection head's biases drawn nonzero), remat "dots":
+    two Trainer steps at tp=2 and at fsdp=2 on two global batches of 2
+    images against the same two steps of one process: the loss terms and
+    grad_norm, every trainable gradient gathered to its whole shape
+    (relative Frobenius) and the trainable parameters after, within
+    MESH_LIMIT: LLaMA's trainables per tensor, the selection head (whole
+    on every rank, after LLaMA) as one vector, each of its tensors'
+    distance printed, its attention key biases (exact gradient zero)
+    against the step's largest gradient; the two ranks' replicated
+    trainable parameters equal to the bit; kernels A, C, D launched at
+    H / tp heads, B on the towers.
+
+    mesh: llmseg_7b in bf16 (all 32 layers at tp=2; the fsdp sub-run's
+    LLaMA cut to ``fsdp_layers``, its line says so): tp=2 predict at batch
+    4 against one process's within the bf16 gate, then two steps at 1
+    image a step (both ranks on it); fsdp=2 two steps at 1 image a rank;
+    the second step of each with its collectives clocked.  Printed: seconds a
+    step after the first, peak memory a rank, launches a step a rank, the
+    loss gap to one process (gated at MESH_LOSS_GAP and finite)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    cuda = torch.device(device).type == "cuda"
+    in_cfg = in_place_cfg or cut_config(C)
+    full = full_cfg or C.llmseg_7b()
+    fsdp_cfg = C.replace(full, llava=C.replace(full.llava, llm=C.replace(
+        full.llava.llm, num_layers=min(fsdp_layers, full.llava.llm.num_layers))))
+    bf16 = "bfloat16" if cuda else "float32"
+    root = tempfile.mkdtemp(prefix="mesh_")
+
+    def batches(cfg, images, seed):
+        return [make_batch(cfg, num_images=images, rows_per_image=1, text_len=text_len,
+                           seed=seed + i, device="cpu") for i in range(2)]
+
+    log = os.path.join(root, "log")
+    base = dict(jitter=False, grads=False, params=False, timed=False, log_dir=log)
+    in_place = dict(base, cfg=in_cfg, dtype="float32", seed=6, batches=batches(in_cfg, 2, 30),
+                    jitter=True, grads=True, params=True)
+    runs = [dict(in_place, name="in_place_tp2", mesh=(1, 1, 2)),
+            dict(in_place, name="in_place_fsdp2", mesh=(1, 2, 1)),
+            dict(base, name="full_tp2", mesh=(1, 1, 2), cfg=full, dtype=bf16, seed=0,
+                 batches=batches(full, 1, 40), timed=True,
+                 predict=make_batch(full, num_images=predict_images, rows_per_image=1,
+                                    text_len=text_len, seed=45, device="cpu")),
+            dict(base, name="full_fsdp2", mesh=(1, 2, 1), cfg=fsdp_cfg, dtype=bf16, seed=0,
+                 batches=batches(fsdp_cfg, 2, 50), timed=True)]
+    try:
+        t0 = time.perf_counter()
+        refs = {"in_place": mesh_subrun(C, A, in_place, device)}
+        refs["full_tp2"] = mesh_subrun(C, A, runs[2], device)
+        refs["full_fsdp2"] = mesh_subrun(C, A, runs[3], device)
+        ref_s = time.perf_counter() - t0
+        torch.save(runs, os.path.join(root, "inputs.pt"))
+        t0 = time.perf_counter()
+        mesh_ranks(root, device)
+        ranks_s = time.perf_counter() - t0
+        got = {r["name"]: [torch.load(os.path.join(root, f"{r['name']}_rank{k}.pt"),
+                                      weights_only=False) for k in range(2)] for r in runs}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    llm = in_cfg.llava.llm
+    lr = C.TrainConfig().lr
+    card = card_name() if cuda else None
+
+    def expect_step(cfg):
+        if not cuda:
+            return {k.name: 0 for k in A.KERNELS}
+        L = cfg.llava.llm.num_layers
+        return {"flash_fwd": 2 * L, "flash_fwd_1pass": cfg.dino.depth, "flash_bwd_dq": L,
+                "flash_bwd_dkv": L, "flash_fwd_1pass_t": 0}
+
+    def heads_ok(heads, cfg, tp, kernels=tuple(MESH_POS)):
+        want = cfg.llava.llm.num_heads // tp
+        return not cuda or heads == {k: [want] for k in kernels}
+
+    def bitwise_replicated(pair):
+        a, b = (r["replicated"] for r in pair)
+        return set(a) == set(b) and all(torch.equal(a[n], b[n]) for n in a)
+
+    records = {}
+    ref = refs["in_place"]
+    for name, tp in (("in_place_tp2", 2), ("in_place_fsdp2", 1)):
+        pair = got[name]
+        r0 = pair[0]
+        terms = max(abs(g[k] - f[k]) / max(abs(f[k]), 1e-30)
+                    for g, f in zip(r0["terms"], ref["terms"]) for k in f)
+        top = max(g.abs().max().item() for step in ref["grads"] for g in step.values())
+        # LLaMA's trainables (embed_tokens, lm_head, LoRA), whose work the
+        # mesh splits, per tensor; the selection head, whole on every rank
+        # and after LLaMA, as one vector: some of its gradients (attention
+        # q and k, the last embedding layer's bias) are small differences
+        # of large terms, which float32 rounding of the mesh's sums moves
+        # by up to 6e-4 of themselves (an H100 at tp=2 and fsdp=2);
+        # its key biases, whose exact gradient is zero, against the top
+        grad_errs, head_errs, head_tensors, zero_errs = [], [], [], []
+        for gs, fs in zip(r0["grads"], ref["grads"]):
+            head = [n_ for n_ in fs if n_.startswith("select.") and not _zero_grad_tensor(n_)]
+            head_errs.append(_rel(torch.cat([gs[n_].flatten() for n_ in head]),
+                                  torch.cat([fs[n_].flatten() for n_ in head])))
+            head_tensors += [(_rel(gs[n_], fs[n_]), n_) for n_ in head]
+            grad_errs += [(_rel(gs[n_], f), n_) for n_, f in fs.items()
+                          if not n_.startswith("select.")]
+            zero_errs += [(gs[n_] - f).abs().max().item() / top for n_, f in fs.items()
+                          if _zero_grad_tensor(n_)]
+        grad_errs.sort()
+        head_tensors.sort()
+        param_errs = sorted((_rel(p, ref["params"][n_]), n_) for n_, p in r0["params"].items()
+                            if not _zero_grad_tensor(n_))
+        zero_moves = max((p - ref["params"][n_]).abs().max().item()
+                         for n_, p in r0["params"].items() if _zero_grad_tensor(n_))
+        rec = {"phase": "mesh_in_place", "run": name, "config": "llmseg_7b widths, towers 2-3 "
+               "blocks, LLaMA 2 layers, LoRA rank 8, zero-init trainables drawn "
+               "nonzero, remat dots",
+               "dtype": "float32", "backend": "gloo", "ranks_on_one_card": 2,
+               "mesh": dict(zip(("dp", "fsdp", "tp"), runs[0 if tp == 2 else 1]["mesh"])),
+               "limit": MESH_LIMIT, "steps": len(ref["terms"]),
+               "global_images_a_step": 2, "images_a_rank": 2 // r0["data_size"],
+               "terms": r0["terms"], "terms_one_process": ref["terms"],
+               "worst_term_err": terms, "worst_llama_grad_err": grad_errs[-1][0],
+               "worst_llama_grad_tensors": grad_errs[-3:], "head_grad_err": head_errs,
+               "head_worst_tensors": head_tensors[-3:],
+               "zero_grad_err_vs_top": max(zero_errs),
+               "worst_param_err": param_errs[-1][0], "worst_param_tensors": param_errs[-2:],
+               "zero_grad_params_moved_apart": zero_moves,
+               "replicated_equal_to_the_bit": bitwise_replicated(pair),
+               "launches_per_step": r0["launches"], "expected": expect_step(in_cfg),
+               "heads": r0["heads"], "heads_expected": llm.num_heads // tp,
+               "seconds_ranks": ranks_s, "seconds_references": ref_s, "card": card}
+        rec["ok"] = (terms <= MESH_LIMIT and grad_errs[-1][0] <= MESH_LIMIT
+                     and max(head_errs) <= MESH_LIMIT and max(zero_errs) <= MESH_LIMIT
+                     and param_errs[-1][0] <= MESH_LIMIT
+                     and zero_moves <= 4 * lr and rec["replicated_equal_to_the_bit"]
+                     and all(lc == rec["expected"] for r in pair for lc in r["launches"])
+                     and all(heads_ok(h, in_cfg, tp) for r in pair for h in r["heads"]))
+        emit(rec)
+        records[name] = rec
+
+    for name, tp, cfg in (("full_tp2", 2, full), ("full_fsdp2", 1, fsdp_cfg)):
+        pair, one = got[name], refs[name]
+        r0 = pair[0]
+        gaps = [abs(g["loss"] - f["loss"]) / abs(f["loss"]) for g, f in zip(r0["terms"],
+                                                                          one["terms"])]
+        coll = r0.get("collective_s") or {}
+        rec = {"phase": "mesh", "run": name, "config": "llmseg_7b" + (
+               "" if cfg.llava.llm.num_layers == full.llava.llm.num_layers else
+               f", LLaMA cut to {cfg.llava.llm.num_layers} of "
+               f"{full.llava.llm.num_layers} layers (gloo's gathers)"),
+               "dtype": bf16, "backend": "gloo", "ranks_on_one_card": 2,
+               "mesh": dict(zip(("dp", "fsdp", "tp"), (1, 2 // tp, tp))),
+               "images_a_step_a_rank": 1, "text_len": text_len,
+               "loss_gap": gaps, "loss_gap_limit": MESH_LOSS_GAP,
+               "terms": r0["terms"], "terms_one_process": one["terms"],
+               "s_per_step_after_first": [r["step_s"][1:] for r in pair],
+               "s_per_step_one_process": one["step_s"][1:],
+               "collective_s": [r.get("collective_s") for r in pair],
+               "collective_calls": r0.get("collective_calls"),
+               "collective_share_of_the_last_step": (sum(coll.values()) / r0["step_s"][-1]
+                                                     if coll else None),
+               "peak_gb_a_rank": [r.get("peak_gb") for r in pair],
+               "resident_gb_a_rank": [r.get("resident_gb") for r in pair],
+               "peak_gb_one_process": one.get("peak_gb"),
+               "launches_per_step_a_rank": [r["launches"] for r in pair],
+               "expected": expect_step(cfg), "heads": r0["heads"],
+               "heads_expected": cfg.llava.llm.num_heads // tp,
+               "replicated_equal_to_the_bit": bitwise_replicated(pair), "card": card,
+               "note": "two ranks share one card over gloo: these times measure no scaling"}
+        ok = (all(math.isfinite(g) and g <= MESH_LOSS_GAP for g in gaps)
+              and all(math.isfinite(v) for r in pair for t in r["terms"] for v in t.values())
+              and all(lc == rec["expected"] for r in pair for lc in r["launches"])
+              and all(heads_ok(h, cfg, tp) for r in pair for h in r["heads"])
+              and rec["replicated_equal_to_the_bit"])
+        if "predict" in one:
+            atol, rtol = BF16_TOL if cuda else F32_TOL
+            diffs = {}
+            for k, f in one["predict"].items():
+                d_ = (r0["predict"][k] - f).abs()
+                diffs[k] = {"max_abs": d_.max().item(),
+                            "worst_over_gate": (d_ - atol - rtol * f.abs()).max().item()}
+            rec.update(predict_batch=predict_images, atol=atol, rtol=rtol,
+                       predict_vs_one_process=diffs,
+                       predict_ranks_equal=all(torch.equal(pair[0]["predict"][k],
+                                                           pair[1]["predict"][k])
+                                               for k in one["predict"]),
+                       predict_launches=r0["predict_launches"],
+                       predict_s=[r["predict_s"] for r in pair],
+                       predict_s_one_process=one["predict_s"],
+                       predict_heads=r0["predict_heads"])
+            ok = ok and all(v["worst_over_gate"] <= 0 for v in diffs.values()) and (
+                rec["predict_ranks_equal"] and heads_ok(r0["predict_heads"], cfg, tp, ("flash_fwd",))
+                and all(math.isfinite(v) for f in r0["predict"].values()
+                        for v in (f.min().item(), f.max().item())))
+        rec["ok"] = bool(ok)
+        emit(rec)
+        records[name] = rec
+    failed = [name for name, rec in records.items() if not rec["ok"]]
+    if failed:
+        raise SystemExit(f"the mesh phases' gates failed: {failed}")
+    return records
+
+
 def rle_phase(gen, images, device="cuda") -> dict:
     """AMG ``finish`` with NMS off (``gen`` opened that way) on each image,
     once on the native RLE codec and once on the numpy path
@@ -4475,6 +4969,7 @@ def main() -> int:
     sft = sft_phase(C, A)
     sft_launches = sft[0]["launches_per_step"][-1]
     ddp_phase(C, make_batch, A)
+    mesh = mesh_phase(C, make_batch, A)
     mpt_phase(C)
     torch.cuda.empty_cache()
 
@@ -4566,6 +5061,11 @@ def main() -> int:
                      sft_shape={k: sft_kernels[name][k] for k in (
                          "ms", "bound_ms", "plain_ms", "library_ms", "device_ms",
                          "library_device_ms") if k in sft_kernels[name]})
+        if name in ("flash_fwd", "flash_fwd_1pass", "flash_bwd_dq", "flash_bwd_dkv"):
+            # the mesh phase: a tp=2 step at 7B on one rank, A, C, D at H / 2 heads
+            tp2 = mesh["full_tp2"]
+            r = dict(r, mesh_tp2_launches_per_step_a_rank=tp2["launches_per_step_a_rank"][0][-1][
+                name], **({"mesh_tp2_heads": tp2["heads"][-1][name]} if name in MESH_POS else {}))
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "launches": launches[name],
                      "max_abs_err": max(err.values()) if isinstance(err, dict) else err,
@@ -4573,7 +5073,8 @@ def main() -> int:
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                      **{k: r[k] for k in ("device_ms", "library_device_ms", "ex2_bound_ms",
                                           "int_mm_q2_device_ms", "sft_launches_per_step",
-                                          "sft_shape") if k in r}})
+                                          "sft_shape", "mesh_tp2_launches_per_step_a_rank",
+                                          "mesh_tp2_heads") if k in r}})
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

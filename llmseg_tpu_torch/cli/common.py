@@ -5,11 +5,13 @@
 initial-weight functions every entry shares.
 
 ``--device`` (the card by default; ``cpu`` on request) picks the device.
-``--multihost`` joins the data-parallel process group that ``torchrun``
-describes (``parallel/ddp.py``: nccl on ``cuda:LOCAL_RANK``, gloo on the
-CPU); ``--batch_size`` is per process, so the global batch is
-``batch_size x world``, as in the JAX CLI; ``--mesh_dp`` is -1 or the
-world size, and ``--mesh_fsdp`` / ``--mesh_tp`` above 1 are refused.
+``--multihost`` joins the process group that ``torchrun`` describes
+(``parallel/ddp.py``: nccl on ``cuda:LOCAL_RANK``, gloo on the CPU), over
+which ``--mesh_dp`` x ``--mesh_fsdp`` x ``--mesh_tp`` lays the mesh
+(``parallel/mesh.py``; their product must be the world size, and
+``--mesh_dp`` -1 takes what the others leave); ``--batch_size`` is per
+data rank, so the global batch is ``batch_size x dp x fsdp`` (never x tp),
+as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -107,8 +109,8 @@ def build_parser(name: str) -> argparse.ArgumentParser:
     p.add_argument("--auto_resume", action="store_true", default=True)
     # devices
     p.add_argument("--multihost", action="store_true",
-                   help="join the data-parallel process group of torchrun's environment "
-                        "(one process a device)")
+                   help="join the process group of torchrun's environment "
+                        "(one process a device; the mesh flags lay it out)")
     p.add_argument("--mesh_dp", type=int, default=-1)
     p.add_argument("--mesh_fsdp", type=int, default=1)
     p.add_argument("--mesh_tp", type=int, default=1)
@@ -129,10 +131,12 @@ def maybe_init_multihost(args) -> None:
 
 def to_config(args) -> C.ExperimentConfig:
     """The run's config from the parsed flags.  ``--batch_size`` is per
-    process: the config's batch is the global one, ``batch_size`` times the
-    world size; a mesh the port cannot run raises in ``TrainConfig``."""
+    data rank: the config's batch is the global one, ``batch_size`` times
+    dp x fsdp; a mesh that does not fit the world raises ``ValueError``."""
     from llmseg_tpu_torch.parallel import ddp
+    from llmseg_tpu_torch.parallel.mesh import mesh_shape
 
+    dp, fsdp, _ = mesh_shape(args.mesh_dp, args.mesh_fsdp, args.mesh_tp, ddp.world_size())
     model = {"7b": C.llmseg_7b, "small": C.llmseg_small, "tiny": C.llmseg_tiny}[args.model_size]()
     model = dataclasses.replace(
         model,
@@ -151,7 +155,7 @@ def to_config(args) -> C.ExperimentConfig:
     train = C.TrainConfig(
         lr=args.lr, beta1=args.beta1, beta2=args.beta2, warmup_steps=args.warmup_steps,
         epochs=args.epochs, steps_per_epoch=args.steps_per_epoch,
-        batch_size=args.batch_size * ddp.world_size(),
+        batch_size=args.batch_size * dp * fsdp,
         grad_accum_steps=args.grad_accumulation_steps, grad_clip=args.grad_clip,
         precision=args.precision, quantize_frozen=args.quantize_frozen,
         quantize_bits=args.quantize_bits, remat_policy=args.remat_policy,

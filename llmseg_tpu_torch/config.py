@@ -248,9 +248,9 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh: data ('dp'), fsdp-style param shard ('fsdp'), tensor ('tp').
-    The port has the data axis only (``parallel/ddp.py``: one process a
-    device), so data is -1 or the world size and fsdp, tensor are 1."""
+    """Device mesh: data ('dp'), fsdp-style param shard ('fsdp'), tensor ('tp'),
+    one process a device (``parallel/mesh.py``): dp x fsdp x tp must be the
+    world size, and data -1 takes what fsdp and tensor leave."""
 
     data: int = -1                    # -1 => all remaining devices
     fsdp: int = 1
@@ -260,8 +260,8 @@ class MeshConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """``llmseg_tpu.config.TrainConfig``'s settings, with their defaults.  A
-    mesh the port cannot run (``ddp.check_mesh``) raises instead of being
-    ignored."""
+    mesh that does not fit the process group (``ddp.check_mesh``) raises
+    instead of being ignored."""
 
     lr: float = 1e-4                  # stage-2 finetune uses 1e-5
     beta1: float = 0.9
@@ -270,7 +270,7 @@ class TrainConfig:
     warmup_steps: int = 100
     epochs: int = 10
     steps_per_epoch: int = 500
-    batch_size: int = 1               # the global batch (a process takes batch_size / world)
+    batch_size: int = 1               # the global batch (a data rank takes batch_size / (dp x fsdp))
     grad_accum_steps: int = 10
     grad_clip: float = 1.0
     precision: str = "bf16"

@@ -7,7 +7,9 @@ in a static cache of T + max_new_tokens positions; its causal attention
 goes through ``ops.attention.attention`` (kernel A on the card).  Each
 decode step writes its K and V into the cache in place and attends over
 the whole cache with the plain attention and a -1e9 mask on the positions
-after it, as the JAX package's step does with ``attention_xla``.
+after it, as the JAX package's step does with ``attention_xla``.  It runs
+on a whole LLaMA: one sharded over a mesh with fsdp or tp above 1
+(``parallel/mesh.py``) raises.
 """
 
 from __future__ import annotations
@@ -33,6 +35,9 @@ def prefill_cache(llm: Llama, inputs_embeds: torch.Tensor, total_len: int, *,
     """The prompt (B, T, C) through the model, recording K and V.  Returns
     (final-norm hidden states (B, T, C), per layer (k, v) caches of shape
     (B, total_len, H_kv, Dh), positions T and later zero)."""
+    if llm.mesh is not None:
+        raise NotImplementedError("generation runs on a whole LLaMA, not one sharded "
+                                  "over a mesh with fsdp or tp above 1")
     cfg = llm.cfg
     B, T, _ = inputs_embeds.shape
     cos, sin = L.rope_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,

@@ -12,6 +12,14 @@ folded into the activation quantization (:func:`_rms_qdense`, kernel Q1 on
 the card), and the products of one input share one quantization
 (:func:`_shared_qdense`).  ``quant_stats`` collects SmoothQuant's
 calibration statistics.
+
+On a mesh with fsdp or tp above 1 (``parallel/mesh.py``'s
+``shard_params`` sets ``mesh`` on the ``Llama`` and its layers) each
+weight is this rank's block: a layer gathers its weights over fsdp where it
+uses them, q, k, v, gate, up and LoRA B are split by columns over tp (the
+local heads: H / tp, H_kv / tp), o and down by rows with their partial
+products summed over tp, and the embedding and the logits are split by
+vocabulary.  Without a mesh the path is the single-device one.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from llmseg_tpu_torch.config import LlamaConfig, LoraConfig
 from llmseg_tpu_torch.models import layers as L
 from llmseg_tpu_torch.ops import quant
 from llmseg_tpu_torch.ops.attention import attention
+from llmseg_tpu_torch.parallel import mesh as M
 
 
 class LlamaAttention(nn.Module):
@@ -61,8 +70,13 @@ class LoraPair(nn.Module):
         self.a = nn.Linear(in_dim, rank, **kw)
         self.b = nn.Linear(rank, out_dim, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.b(self.a(x))
+    def forward(self, x: torch.Tensor, mesh: Optional[M.Mesh] = None) -> torch.Tensor:
+        """On a mesh: A gathered over fsdp, its output's gradient summed
+        over tp (each tp rank's B is a block of columns)."""
+        if mesh is None:
+            return self.b(self.a(x))
+        u = F.linear(x, M.fsdp_weight(self.a.weight, 1, mesh))
+        return F.linear(M.copy_to_tp(u, mesh), self.b.weight)
 
 
 class LlamaLora(nn.Module):
@@ -111,6 +125,8 @@ def _colmax(x: torch.Tensor) -> torch.Tensor:
 
 
 class LlamaLayer(nn.Module):
+    mesh: Optional[M.Mesh] = None     # set by parallel.mesh.shard_params
+
     def __init__(self, cfg: LlamaConfig, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -119,6 +135,22 @@ class LlamaLayer(nn.Module):
         self.attn = LlamaAttention(cfg, **kw)
         self.post_norm = L.RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
         self.mlp = LlamaMLP(cfg, **kw)
+
+    def _columns(self, mods, x):
+        """The products of a column split: ``mod(x)`` each; on a mesh x's
+        gradient summed over tp and each weight gathered over fsdp."""
+        if self.mesh is None:
+            return [m(x) for m in mods]
+        x = M.copy_to_tp(x, self.mesh)
+        return [F.linear(x, M.fsdp_weight(m.weight, 1, self.mesh)) for m in mods]
+
+    def _rows(self, mod, x):
+        """The product of a row split: ``mod(x)``; on a mesh the weight
+        gathered over fsdp and the partial products summed over tp."""
+        if self.mesh is None:
+            return mod(x)
+        return M.reduce_from_tp(F.linear(x, M.fsdp_weight(mod.weight, 0, self.mesh)),
+                                self.mesh)
 
     def qkv(self, x_raw, cos, sin, lora: Optional[nn.ModuleDict], scaling: float,
             positions: Optional[torch.Tensor] = None, stats: Optional[dict] = None):
@@ -135,14 +167,15 @@ class LlamaLayer(nn.Module):
             if stats is not None:
                 stats["attn_in"] = _colmax(x)
             shared = _shared_qdense((a.q, a.k, a.v), x)
-            q, k, v = shared if shared is not None else (a.q(x), a.k(x), a.v(x))
+            q, k, v = shared if shared is not None else self._columns((a.q, a.k, a.v), x)
             if lora is not None and "q" in lora:
-                q = q + lora["q"](x) * scaling
+                q = q + lora["q"](x, self.mesh) * scaling
             if lora is not None and "v" in lora:
-                v = v + lora["v"](x) * scaling
-        q = L.apply_rope(q.reshape(B, T, cfg.num_heads, cfg.head_dim), cos, sin, positions)
-        k = L.apply_rope(k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim), cos, sin, positions)
-        return q, k, v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+                v = v + lora["v"](x, self.mesh) * scaling
+        # the heads this rank holds: all of them, or H / tp on a mesh
+        q = L.apply_rope(q.reshape(B, T, -1, cfg.head_dim), cos, sin, positions)
+        k = L.apply_rope(k.reshape(B, T, -1, cfg.head_dim), cos, sin, positions)
+        return q, k, v.reshape(B, T, -1, cfg.head_dim)
 
     def repeat_kv(self, k, v):
         """Grouped-query heads: k and v repeated to the query heads."""
@@ -159,7 +192,7 @@ class LlamaLayer(nn.Module):
         o = attention(q, k, v, causal=True).reshape(B, T, -1)
         if stats is not None:
             stats["o_in"] = _colmax(o)
-        return self.attn.o(o)
+        return self._rows(self.attn.o, o)
 
     def mlp_block(self, x_raw, stats: Optional[dict] = None):
         """RMSNorm and the MLP, ``_mlp_block``: the fused W8A8 route for
@@ -174,11 +207,11 @@ class LlamaLayer(nn.Module):
             if stats is not None:
                 stats["mlp_in"] = _colmax(x)
             shared = _shared_qdense((m.gate, m.up), x)
-            gate, up = shared if shared is not None else (m.gate(x), m.up(x))
+            gate, up = shared if shared is not None else self._columns((m.gate, m.up), x)
         h = F.silu(gate) * up
         if stats is not None:
             stats["down_in"] = _colmax(h)
-        return m.down(h)
+        return self._rows(m.down, h)
 
     def forward(self, x, cos, sin, lora=None, scaling: float = 1.0,
                 stats: Optional[dict] = None):
@@ -214,6 +247,8 @@ def remat_policy(remat) -> str:
 
 
 class Llama(nn.Module):
+    mesh: Optional[M.Mesh] = None     # set by parallel.mesh.shard_params
+
     def __init__(self, cfg: LlamaConfig, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -224,6 +259,19 @@ class Llama(nn.Module):
         self.norm = L.RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
         self.lm_head = (None if cfg.tie_embeddings else
                         nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, **kw))
+
+    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Token embeddings.  On a mesh the table is split by vocabulary
+        over tp: ids outside this rank's rows give zeros, and the sum over
+        tp has each id's row from its owner (exactly: the others add
+        zeros); the gradient lands on the owner's rows alone."""
+        if self.mesh is None:
+            return self.embed_tokens(input_ids)
+        w = M.fsdp_weight(self.embed_tokens.weight, 1, self.mesh)
+        local = input_ids - self.mesh.coord("tp") * w.shape[0]
+        inside = (local >= 0) & (local < w.shape[0])
+        x = F.embedding(torch.where(inside, local, 0), w)
+        return M.reduce_from_tp(torch.where(inside[..., None], x, 0.0), self.mesh)
 
     def forward(self, *, input_ids: Optional[torch.Tensor] = None,
                 inputs_embeds: Optional[torch.Tensor] = None,
@@ -242,7 +290,7 @@ class Llama(nn.Module):
         policy = remat_policy(remat)
         if quant_stats is not None and policy != "none":
             raise ValueError("quant_stats collection is incompatible with remat")
-        x = self.embed_tokens(input_ids) if inputs_embeds is None else inputs_embeds
+        x = self.embed(input_ids) if inputs_embeds is None else inputs_embeds
         T = x.shape[1]
         if T > cfg.max_seq_len:
             raise ValueError(f"sequence length {T} > max_seq_len {cfg.max_seq_len}")
@@ -293,14 +341,17 @@ def logits(model: Llama, hidden: torch.Tensor) -> torch.Tensor:
     ``torch.mm(..., out_dtype=torch.float32)`` where the installed PyTorch
     has it; otherwise both operands are cast to float32 first.  A quantized
     lm_head (``ops.quant``) gives its own output, in the hidden states'
-    type, cast to float32."""
+    type, cast to float32.  On a mesh each tp rank computes its vocabulary
+    columns, which are gathered over tp (the backward takes this rank's)."""
     if model.lm_head is not None and quant.is_quantized(model.lm_head):
         return model.lm_head(hidden).float()
     w = model.embed_tokens.weight if model.cfg.tie_embeddings else model.lm_head.weight
+    w = M.fsdp_weight(w, 1, model.mesh)
     lead = hidden.shape[:-1]
-    h = hidden.reshape(-1, hidden.shape[-1])
+    h = M.copy_to_tp(hidden.reshape(-1, hidden.shape[-1]), model.mesh)
     if h.is_cuda and h.dtype != torch.float32 and _HAS_MM_OUT_DTYPE:
         out = _LogitsMM.apply(h, w)
     else:
         out = h.float() @ w.float().t()
-    return out.reshape(*lead, w.shape[0])
+    out = M.gather_from_tp(out, -1, model.mesh)
+    return out.reshape(*lead, out.shape[-1])

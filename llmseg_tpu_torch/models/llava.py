@@ -55,7 +55,7 @@ class Llava(nn.Module):
         ``quant_stats``: SmoothQuant's calibration collector (``Llama``)."""
         if image_embeds is None:
             image_embeds = self.encode_images(images)
-        text_embeds = self.llm.embed_tokens(input_ids)
+        text_embeds = self.llm.embed(input_ids)
         x = splice_image_tokens(text_embeds, image_embeds.to(text_embeds.dtype),
                                 image_pos)
         return self.llm(inputs_embeds=x, lora=lora, lora_cfg=lora_cfg, remat=remat,
@@ -106,17 +106,17 @@ def splice_labels(labels: torch.Tensor, image_pos: torch.Tensor,
     return torch.where(in_image, IGNORE_INDEX, gathered)
 
 
-def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor, group=None) -> torch.Tensor:
     """Shifted cross entropy with IGNORE_INDEX masking, one mean over the
     valid targets; a batch without one gives 0 (the count is at least 1),
     where a mean-reducing cross entropy would give NaN.  Labels may arrive
     as int32.  In a data-parallel run the count is the global batch's
-    (``ddp.global_sum``): each process's loss is its share of the global
-    mean."""
+    (``ddp.global_sum`` over ``group``, the data group; the world when
+    None): each process's loss is its share of the global mean."""
     shift_logits = logits[:, :-1].float()
     shift_labels = labels[:, 1:].long()
     total = F.cross_entropy(shift_logits.reshape(-1, shift_logits.shape[-1]),
                             shift_labels.reshape(-1), ignore_index=IGNORE_INDEX,
                             reduction="sum")
-    count = ddp.global_sum((shift_labels != IGNORE_INDEX).sum()).clamp_min(1)
+    count = ddp.global_sum((shift_labels != IGNORE_INDEX).sum(), group).clamp_min(1)
     return total / count

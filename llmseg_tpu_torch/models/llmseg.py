@@ -28,11 +28,14 @@ from llmseg_tpu_torch.models.llama import LlamaLora
 from llmseg_tpu_torch.models.llava import Llava
 from llmseg_tpu_torch.models.selection_head import SelectionHead, mask_pooling
 from llmseg_tpu_torch.parallel import ddp
+from llmseg_tpu_torch.parallel import mesh as M
 
 POOL_ROUTES = ("adjoint", "unfused")
 
 
 class LLMSeg(nn.Module):
+    mesh: Optional[M.Mesh] = None     # set by parallel.mesh.shard_params
+
     def __init__(self, cfg: LLMSegConfig, lora_cfg: Optional[LoraConfig] = None,
                  *, device=None, dtype=None):
         super().__init__()
@@ -239,8 +242,9 @@ def loss_fn(model: LLMSeg, batch: Dict, *, pool: str = "adjoint",
     cross entropy over the splice-adjusted labels, plus the KL alignment and
     the IoP regression per row, averaged over the rows of each image and
     then over the images with at least one valid row.  In a data-parallel
-    run both means divide by the global batch's counts (``ddp``), so each
-    process's terms are its shares of the global ones.  Extra batch keys:
+    run both means divide by the global batch's counts (``ddp``, over the
+    mesh's data group), so each process's terms are its shares of the
+    global ones.  Extra batch keys:
     labels (R, T), gt_ious (R, K), gt_iops (R, K).  Returns
     (total, {"loss", "ce_loss", "align_loss", "regression_loss"})."""
     cfg = model.cfg
@@ -251,7 +255,8 @@ def loss_fn(model: LLMSeg, batch: Dict, *, pool: str = "adjoint",
     labels = llava.splice_labels(batch["labels"], batch["image_pos"],
                                  cfg.llava.num_image_tokens)
     labels = torch.where(batch["row_valid"][:, None], labels, llava.IGNORE_INDEX)
-    ce = llava.causal_lm_loss(lg, labels)
+    group = M.data_group(model)
+    ce = llava.causal_lm_loss(lg, labels, group)
 
     align_r = LS.softmax_align_loss(out["seg_features"], out["pred_embeddings"],
                                     batch["gt_ious"], out["prop_valid"],
@@ -267,7 +272,7 @@ def loss_fn(model: LLMSeg, batch: Dict, *, pool: str = "adjoint",
     rows_per_img = per_image(rv)
     img_valid = rows_per_img > 0
     denom = rows_per_img.clamp_min(1e-8)
-    n_img = ddp.global_sum(img_valid.float().sum()).clamp_min(1.0)
+    n_img = ddp.global_sum(img_valid.float().sum(), group).clamp_min(1.0)
     align = torch.where(img_valid, per_image(align_r * rv) / denom, 0.0).sum() / n_img
     reg = torch.where(img_valid, per_image(reg_r * rv) / denom, 0.0).sum() / n_img
 

@@ -685,7 +685,13 @@ def quantize_llama_inplace(llm: nn.Module, bits: int = 8, w8a8: bool = False,
     quantized module and its bf16 weight freed at once, so the extra memory
     is one weight's, never a second copy of the model.  ``skip`` (module
     path tuple -> bool) keeps the projections it selects in full precision
-    (QLoRA's trainable lm_head, ``train.optim.quantize_skeleton``)."""
+    (QLoRA's trainable lm_head, ``train.optim.quantize_skeleton``).  A
+    LLaMA sharded over a mesh (``parallel/mesh.py``) raises
+    ``NotImplementedError``."""
+    if getattr(llm, "mesh", None) is not None:
+        from llmseg_tpu_torch.parallel.mesh import QUANTIZED
+
+        raise NotImplementedError(QUANTIZED)
     if smooth_stats is not None and (w8a8 or bits == 4):
         if alpha is None and not w8a8:
             alpha = W4_SMOOTH_ALPHA

@@ -1,41 +1,42 @@
-"""Data parallelism, the dp axis of the JAX package's ``parallel/mesh.py``:
-one process per device, each on its own shard of the global batch.
+"""The process group and data parallelism: one process per device, each on
+its own shard of the global batch.  ``parallel/mesh.py`` lays the (dp,
+fsdp, tp) mesh over this group; its data axes (dp x fsdp) are the ones this
+module's sums run over.
 
 Start-up (:func:`init_from_env`) reads ``torchrun``'s environment (RANK,
 WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT), as the JAX CLI's
 ``--multihost`` calls ``jax.distributed.initialize()``: nccl on the card
-(``cuda:LOCAL_RANK``), gloo on the CPU.
+(``cuda:LOCAL_RANK``), gloo on the CPU, or the backend the caller names.
 
 The JAX package computes one program over the global batch, so its loss
 divides by global counts: the cross entropy by the valid targets of the
 whole batch, the alignment and regression terms by its images with a valid
 row.  Here each process sums its own rows' terms and divides by those
-global counts (:func:`global_sum` of the local counts, in the loss), so
-each process's loss is its share of the global one; :func:`all_reduce_grads`
-then sums the trainable gradients over the processes (one all-reduce of a
-flat buffer per dtype, after backward), and the sum is the gradient of the
-global loss on every process, equal counts per rank or not.  One
+global counts (:func:`global_sum` of the local counts over the data group, in the loss),
+so each process's loss is its share of the global one;
+:func:`all_reduce_grads` then sums the trainable gradients over the data
+group (one all-reduce of a flat buffer per dtype, after backward), and the
+sum is the gradient of the global loss on every process, equal counts per
+rank or not.  The tp ranks of one data rank see the same rows, so a sum
+over the world would count them tp times: with tp or fsdp above 1 the
+callers pass the mesh's data group (``mesh.Mesh.data``).  One
 all-reduce after backward, rather than ``DistributedDataParallel``: the
 loss is a function of the model's parts (``llmseg.loss_fn``), not one
 module's ``forward`` for DDP's wrapper to hook, the layers are
 recomputed under remat, and the gradient is wanted as a sum, not DDP's
 mean.  Outside a process group every function here is the identity.
-
-Only the dp axis exists: ``fsdp`` and ``tp`` above 1 are refused
-(:func:`check_mesh`).
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-from typing import Iterable
+from typing import Iterable, Optional
 
 import torch
 import torch.distributed as dist
 
 TIMEOUT = datetime.timedelta(seconds=600)
-SHARDED_AXES = "ROADMAP queue 1 item 19: FSDP2 and tensor parallelism"
 
 
 def active() -> bool:
@@ -50,11 +51,12 @@ def world_size() -> int:
     return dist.get_world_size() if active() else 1
 
 
-def init_from_env(device: str = "cuda", timeout: datetime.timedelta = TIMEOUT
-                  ) -> torch.device:
+def init_from_env(device: str = "cuda", timeout: datetime.timedelta = TIMEOUT,
+                  backend: Optional[str] = None) -> torch.device:
     """Join the process group ``torchrun`` describes in the environment and
-    return this process's device: ``cuda:LOCAL_RANK`` (nccl) for a CUDA
-    ``device``, the CPU (gloo) otherwise."""
+    return this process's device: ``cuda:LOCAL_RANK`` (nccl unless
+    ``backend`` says otherwise) for a CUDA ``device``, the CPU (gloo)
+    otherwise.  Two ranks on one card need gloo: nccl refuses them."""
     from llmseg_tpu_torch.device import require
 
     dev = require(device)
@@ -62,23 +64,19 @@ def init_from_env(device: str = "cuda", timeout: datetime.timedelta = TIMEOUT
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(dev)
     if not active():
-        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
-                                init_method="env://", timeout=timeout,
-                                **({"device_id": dev} if dev.type == "cuda" else {}))
+        backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+        dist.init_process_group(backend, init_method="env://", timeout=timeout,
+                                **({"device_id": dev} if backend == "nccl" else {}))
     print(f"multihost: process {rank()}/{world_size()}, device {dev}", flush=True)
     return dev
 
 
 def check_mesh(data: int, fsdp: int, tensor: int) -> None:
-    """The mesh a run asks for: ``data`` -1 or the world size; ``fsdp`` and
-    ``tensor`` 1."""
-    if fsdp != 1 or tensor != 1:
-        raise NotImplementedError(
-            f"mesh fsdp={fsdp}, tp={tensor}: the port has only the data axis; "
-            f"sharded parameters are {SHARDED_AXES}")
-    if data not in (-1, world_size()):
-        raise ValueError(f"mesh data={data}: must be -1 or the world size {world_size()} "
-                         "(one device a process)")
+    """The mesh a run asks for: dp x fsdp x tp must be the world size
+    (``data`` -1 takes what fsdp and tp leave); ``ValueError`` otherwise."""
+    from llmseg_tpu_torch.parallel.mesh import mesh_shape
+
+    mesh_shape(data, fsdp, tensor, world_size())
 
 
 def collective_device() -> torch.device:
@@ -89,19 +87,21 @@ def collective_device() -> torch.device:
     return torch.device("cpu")
 
 
-def global_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the processes, without gradient (a count)."""
+def global_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` (the world when None), without
+    gradient (a count)."""
     if not active():
         return x
     y = x.detach().clone()
-    dist.all_reduce(y)
+    dist.all_reduce(y, group=group)
     return y
 
 
 @torch.no_grad()
-def all_reduce_grads(params: Iterable[torch.nn.Parameter]) -> None:
-    """Sum every parameter's gradient over the processes, in place; a
-    parameter without one takes part with zeros (and keeps the sum)."""
+def all_reduce_grads(params: Iterable[torch.nn.Parameter], group=None) -> None:
+    """Sum every parameter's gradient over ``group`` (the world when None),
+    in place; a parameter without one takes part with zeros (and keeps the
+    sum)."""
     if not active():
         return
     params = list(params)
@@ -111,7 +111,7 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter]) -> None:
     for dtype in sorted({p.grad.dtype for p in params}, key=str):
         grads = [p.grad for p in params if p.grad.dtype == dtype]
         flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         offset = 0
         for g in grads:
             g.copy_(flat[offset:offset + g.numel()].view_as(g))

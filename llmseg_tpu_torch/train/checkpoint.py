@@ -2,7 +2,9 @@
 ``llmseg_tpu.train.checkpoint`` (Orbax there, ``torch.save`` here).
 
 Layout: ``<log_dir>/ckpt/<step>/state.pt`` holds the trainable parameters
-by name, the optimizer state and the step; ``<log_dir>/ckpt/latest`` names
+by name, the optimizer state and the step, all whole whatever the mesh
+(the Trainer gathers a sharded run's blocks over fsdp and tp, as JAX's
+checkpoint holds global arrays); ``<log_dir>/ckpt/latest`` names
 the newest step; ``<log_dir>/ckpt/<step>/meta.json`` the metrics it was saved
 with, if any.  The frozen weights are not saved: they come from the same
 initialisation or import as before (and, under QLoRA, its quantization).
@@ -61,7 +63,10 @@ class BestKeeper:
     the metric is strictly greater than the best so far, and records it in
     ``best_meta.json``, which a new keeper reads back.  With ``write``
     false it keeps the best and returns the same answers but writes nothing
-    (a data-parallel run's processes other than rank 0)."""
+    (a data-parallel run's processes other than rank 0).  ``params`` and
+    ``opt_state`` may be functions that return them, called on every
+    process when the metric improves (a gather over the mesh, which every
+    rank joins) and before the write."""
 
     def __init__(self, log_dir: str, metric: str = "giou", *, write: bool = True):
         self.log_dir = log_dir
@@ -79,6 +84,8 @@ class BestKeeper:
         if val is None or val <= self.best:
             return False
         self.best = val
+        params = params() if callable(params) else params
+        opt_state = opt_state() if callable(opt_state) else opt_state
         if not self.write:
             return True
         save(self.log_dir, step, params, opt_state, metrics)

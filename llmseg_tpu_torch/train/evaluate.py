@@ -29,6 +29,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from llmseg_tpu_torch.parallel import mesh as M
 from llmseg_tpu_torch.utils.metrics import AverageMeter, Summary, intersection_and_union
 
 EVAL_SIZE = 1024   # both masks are compared at 1024 x 1024
@@ -147,7 +148,12 @@ def select(strategy: str, sim, iou, valid, threshold: float = 0.5) -> np.ndarray
 
 
 class SegEvalAccumulator:
-    def __init__(self):
+    """gIoU / cIoU counts; :meth:`result` sums them over ``group`` (the
+    world when None; a mesh's data group, whose tp ranks count the same
+    images once)."""
+
+    def __init__(self, group=None):
+        self.group = group
         self.intersection = AverageMeter("Intersec", ":6.3f", Summary.SUM)
         self.union = AverageMeter("Union", ":6.3f", Summary.SUM)
         self.acc_iou = AverageMeter("gIoU", ":6.3f", Summary.SUM)
@@ -170,9 +176,9 @@ class SegEvalAccumulator:
         self.acc_iou.update(acc, n=1)
 
     def result(self) -> Dict[str, float]:
-        self.intersection.all_reduce()
-        self.union.all_reduce()
-        self.acc_iou.all_reduce()
+        self.intersection.all_reduce(self.group)
+        self.union.all_reduce(self.group)
+        self.acc_iou.all_reduce(self.group)
         iou_class = self.intersection.sum / (self.union.sum + 1e-10)
         return {"giou": float(np.asarray(self.acc_iou.avg).reshape(-1)[1]),
                 "ciou": float(np.asarray(iou_class).reshape(-1)[1])}
@@ -212,8 +218,9 @@ def run_validation(eval_step: Callable, model, batches: Iterable,
     and an event, so reading them waits for batch i's forward alone; the
     compose and the counts run on a side stream of the card, beside the
     next forward.  ``plain`` composes and counts with numpy on the host
-    instead (the JAX loop's way)."""
-    acc = SegEvalAccumulator()
+    instead (the JAX loop's way).  On a mesh (``model.mesh``) the counts
+    are summed over its data group."""
+    acc = SegEvalAccumulator(M.data_group(model))
     counts = []      # per image, (2, 2) on the device, read at the end
     side = None      # the card's side stream, made at the first batch on it
 

@@ -14,7 +14,10 @@ one module tree, so ``combine`` has no counterpart.
 1e-8), the warmup-decay schedule counted in optimizer updates, and, for
 ``grad_accum_steps > 1``, ``optax.MultiSteps``: the running mean of the
 micro-step gradients, one update every ``grad_accum_steps`` micro-steps and
-the parameters untouched in between.
+the parameters untouched in between.  On a mesh with fsdp or tp above 1
+(``parallel/mesh.py``) the parameters are this rank's blocks: AdamW and
+its state run on the blocks, and the clip's norm is that of the whole
+gradient (``mesh.grad_norm``).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from torch import nn
 
 from llmseg_tpu_torch.config import TrainConfig
+from llmseg_tpu_torch.parallel import mesh as M
 
 TRAINABLE_PREFIXES = ("select.", "lora.", "llava.llm.embed_tokens.", "llava.llm.lm_head.")
 
@@ -112,9 +116,11 @@ class TrainableOptimizer:
     ``.grad``, clears them, and returns True when it updated the
     parameters."""
 
-    def __init__(self, cfg: TrainConfig, params: Dict[str, nn.Parameter]):
+    def __init__(self, cfg: TrainConfig, params: Dict[str, nn.Parameter],
+                 mesh: Optional[M.Mesh] = None, specs: Optional[Dict[str, M.Spec]] = None):
         self.cfg = cfg
         self.params = params
+        self.mesh, self.specs = mesh, specs
         self.adamw = torch.optim.AdamW(list(params.values()), lr=cfg.lr,
                                        betas=(cfg.beta1, cfg.beta2), eps=1e-8,
                                        weight_decay=cfg.weight_decay)
@@ -125,6 +131,13 @@ class TrainableOptimizer:
     def _grads(self) -> List[torch.Tensor]:
         return [p.grad if p.grad is not None else torch.zeros_like(p)
                 for p in self.params.values()]
+
+    def norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of ``grads`` ({parameter name: gradient}): of the
+        whole gradient on a sharded mesh."""
+        if self.mesh is None or not self.mesh.sharded:
+            return global_norm(grads.values())
+        return M.grad_norm(grads, self.specs, self.mesh)
 
     @torch.no_grad()
     def step(self, norm: Optional[torch.Tensor] = None) -> bool:
@@ -144,7 +157,7 @@ class TrainableOptimizer:
                 return False
             grads, self.acc, norm = self.acc, [], None
         if norm is None:
-            norm = global_norm(grads)
+            norm = self.norm(dict(zip(self.params, grads)))
         if norm >=self.cfg.grad_clip:  # optax: t / |g| * c
             grads = [g / norm.to(g.dtype) * self.cfg.grad_clip for g in grads]
         for p, g in zip(self.params.values(), grads):
@@ -169,6 +182,7 @@ class TrainableOptimizer:
         self.acc = list(state["acc"])
 
 
-def make_trainable_optimizer(cfg: TrainConfig,
-                             params: Dict[str, nn.Parameter]) -> TrainableOptimizer:
-    return TrainableOptimizer(cfg, params)
+def make_trainable_optimizer(cfg: TrainConfig, params: Dict[str, nn.Parameter],
+                             mesh: Optional[M.Mesh] = None,
+                             specs: Optional[Dict[str, M.Spec]] = None) -> TrainableOptimizer:
+    return TrainableOptimizer(cfg, params, mesh, specs)

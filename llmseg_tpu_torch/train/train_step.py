@@ -12,7 +12,8 @@ import torch
 from llmseg_tpu_torch.config import LoraConfig
 from llmseg_tpu_torch.models import llmseg
 from llmseg_tpu_torch.parallel import ddp
-from llmseg_tpu_torch.train.optim import TrainableOptimizer, global_norm
+from llmseg_tpu_torch.parallel import mesh as M
+from llmseg_tpu_torch.train.optim import TrainableOptimizer
 
 
 def train_step(model: llmseg.LLMSeg, opt: TrainableOptimizer, batch: Dict, *,
@@ -22,16 +23,18 @@ def train_step(model: llmseg.LLMSeg, opt: TrainableOptimizer, batch: Dict, *,
     norm of this micro-step's gradient (before accumulation and clipping),
     as 0-d tensors on the model's device.  In a data-parallel run
     (``parallel/ddp.py``) each process's loss is its share of the global
-    batch's: the gradients are summed over the processes before the norm
-    and the update, and the returned terms are the global ones."""
+    batch's: the gradients are summed over the data group before the norm
+    and the update, and the returned terms are the global ones.  On a mesh
+    with fsdp or tp above 1 the gradients are this rank's blocks
+    (``parallel/mesh.py``) and ``grad_norm`` is the whole gradient's."""
     loss, aux = llmseg.loss_fn(model, batch, pool=pool, lora_cfg=lora_cfg, remat=remat)
     loss.backward()
-    ddp.all_reduce_grads(opt.params.values())
-    grad_norm = global_norm(p.grad for p in opt.params.values() if p.grad is not None)
+    M.reduce_grads(opt.params, opt.specs, opt.mesh)
+    grad_norm = opt.norm({n: p.grad for n, p in opt.params.items() if p.grad is not None})
     opt.step(grad_norm)
     terms = {k: v.detach() for k, v in aux.items()}
     if ddp.active():
-        summed = ddp.global_sum(torch.stack(list(terms.values())))
+        summed = ddp.global_sum(torch.stack(list(terms.values())), M.data_group(model))
         terms = dict(zip(terms, summed.unbind()))
     return {**terms, "grad_norm": grad_norm}
 

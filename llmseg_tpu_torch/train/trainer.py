@@ -5,13 +5,15 @@ progress printing; validation (gIoU / cIoU), the best-checkpoint policy and
 checkpoint resume.
 
 It trains on one card (``device="cuda"``, the default) or, when the caller
-asks, on the CPU; in a data-parallel run (``parallel/ddp.py``, one process
-a device) each process steps on its own shard, the train step sums the
-gradients over the processes, the meters reduce over them, and only rank 0
-prints, logs and writes checkpoints.  A batch is a dict of tensors or of numpy arrays (what
-``data.collate`` gives, alone or as the first item of a tuple); arrays are
-copied to the device here, pinned tensors (``BatchLoader(...,
-pin_memory=True)``) asynchronously.
+asks, on the CPU; on a mesh (``parallel/mesh.py``: ``cfg.train.mesh``, one
+process a device) each data rank steps on its own shard of the batch, the
+model is sharded by JAX's rules before the trainable partition (so AdamW's
+state lives on the blocks), the train step sums the gradients over the
+data axes, the meters reduce over them, checkpoints hold whole tensors,
+and only global rank 0 prints, logs and writes checkpoints.  A batch is a
+dict of tensors or of numpy arrays (what ``data.collate`` gives, alone or
+as the first item of a tuple); arrays are copied to the device here,
+pinned tensors (``BatchLoader(..., pin_memory=True)``) asynchronously.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from llmseg_tpu_torch.config import ExperimentConfig, LoraConfig
 from llmseg_tpu_torch.device import require
 from llmseg_tpu_torch.models import llmseg
 from llmseg_tpu_torch.parallel import ddp
+from llmseg_tpu_torch.parallel import mesh as M
 from llmseg_tpu_torch.train import checkpoint as ckpt_lib
 from llmseg_tpu_torch.train import evaluate as eval_lib
 from llmseg_tpu_torch.train import optim
@@ -47,7 +50,10 @@ class Trainer:
                  pool: str = "adjoint", writer=None):
         self.cfg = cfg
         self.device = require(device)
-        self.rank, self.world = ddp.rank(), ddp.world_size()
+        self.mesh = M.make_mesh(cfg.train.mesh)
+        # the data rank and the data axes' size (dp x fsdp): the batch's split
+        self.rank, self.world = self.mesh.data_rank, self.mesh.data_size
+        self.main = ddp.rank() == 0
         self.lora_cfg = lora_cfg if lora_cfg is not None else cfg.train.lora
         self.pool = pool
         dtype = torch.bfloat16 if cfg.train.precision == "bf16" else torch.float32
@@ -55,17 +61,21 @@ class Trainer:
             model = llmseg.init(cfg.model, seed=cfg.train.seed, device=self.device,
                                 dtype=dtype, lora_cfg=self.lora_cfg)
         self.model = model
+        if cfg.train.quantize_frozen and self.mesh.sharded:
+            raise NotImplementedError(M.QUANTIZED)
+        self.specs = M.shard_params(model, self.mesh)
         self.trainable = optim.partition(model)
         if cfg.train.quantize_frozen:
             optim.quantize_skeleton(model, bits=cfg.train.quantize_bits)
-        self.opt = optim.make_trainable_optimizer(cfg.train, self.trainable)
+        self.opt = optim.make_trainable_optimizer(cfg.train, self.trainable, self.mesh,
+                                                  self.specs)
         self.remat = cfg.train.remat_policy
         self.global_step = 0
         self.writer = writer
         self.log_dir = cfg.train.log_dir
         os.makedirs(self.log_dir, exist_ok=True)
         self.best = ckpt_lib.BestKeeper(self.log_dir, cfg.train.save_best_metric,
-                                        write=self.rank == 0)
+                                        write=self.main)
         self._staged = None     # the last pinned batch and its copy's event
 
     def to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
@@ -93,9 +103,10 @@ class Trainer:
         return eval_step(model, self.to_device(batch), lora_cfg=self.lora_cfg, pool=self.pool)
 
     def batch_loader(self, dataset, collate_fn, steps: int, **kw):
-        """A ``BatchLoader`` of this process's shard: ``batch_size / world``
-        samples a batch, ``process_index`` / ``process_count`` from the rank
-        and the world size, pinned batches on the card."""
+        """A ``BatchLoader`` of this process's shard: ``batch_size / (dp x
+        fsdp)`` samples a batch, ``process_index`` / ``process_count`` from
+        the data rank and the data axes' size (every tp rank of a data rank
+        reads the same rows), pinned batches on the card."""
         from llmseg_tpu_torch.train.loader import BatchLoader
 
         return BatchLoader(dataset, collate_fn, self.cfg.train.batch_size // self.world, steps,
@@ -103,14 +114,27 @@ class Trainer:
                            pin_memory=self.device.type == "cuda", **kw)
 
     def shard_range(self, n: int) -> range:
-        """The indices of ``n`` items this process takes."""
+        """The indices of ``n`` items this process's data rank takes."""
         return range(n)[self.rank::self.world]
+
+    def full_params(self) -> Dict[str, torch.Tensor]:
+        """The trainable parameters, whole (gathered over fsdp and tp on a
+        sharded mesh; every rank must call it)."""
+        return M.gather_full(self.model, self.trainable)
+
+    def full_opt_state(self) -> dict:
+        """The optimizer's state with whole tensors (as :meth:`full_params`)."""
+        state = self.opt.state_dict()
+        if not self.mesh.sharded:
+            return state
+        return M.gather_opt_state(state, self.trainable, self.specs, self.mesh)
 
     # -- checkpointing ------------------------------------------------------
 
     def maybe_resume(self, weights_only: bool = False) -> bool:
         """Restore the newest checkpoint's trainable parameters (and, unless
-        ``weights_only``, the optimizer state and step).  The frozen weights
+        ``weights_only``, the optimizer state and step), each whole tensor
+        sliced to this rank's block on a sharded mesh.  The frozen weights
         are the model's own, already quantized under QLoRA."""
         step = ckpt_lib.latest_step(self.log_dir)
         if step is None:
@@ -119,8 +143,10 @@ class Trainer:
                                                    map_location=self.device)
         with torch.no_grad():
             for name, p in self.trainable.items():
-                p.copy_(params[name])
+                p.copy_(M.local_block(params[name], self.specs[name], self.mesh))
         if not weights_only and opt_state is not None:
+            if self.mesh.sharded:
+                opt_state = M.slice_opt_state(opt_state, self.trainable, self.specs, self.mesh)
             self.opt.load_state_dict(opt_state)
             self.global_step = step
         print(f"resumed from step {step} (weights_only={weights_only})")
@@ -163,7 +189,7 @@ class Trainer:
                     m.update(float(metrics[name]))
                 batch_time.update(time.time() - end)
                 step_in_epoch = micro // tcfg.grad_accum_steps
-                if step_in_epoch % tcfg.print_freq == 0 and self.rank == 0:
+                if step_in_epoch % tcfg.print_freq == 0 and self.main:
                     progress.display(step_in_epoch)
                     if self.writer is not None:
                         for name, m in meters.items():
@@ -178,16 +204,17 @@ class Trainer:
     def validate(self, batches: Iterable, strategy: str = "threshold",
                  threshold: float = 0.5, visualize_dir: Optional[str] = None
                  ) -> Dict[str, float]:
-        """gIoU and cIoU over (batch, extras) pairs (``evaluate.run_validation``),
-        written to the writer as val/giou and val/ciou."""
+        """gIoU and cIoU over (batch, extras) pairs (``evaluate.run_validation``,
+        the counts summed over the data group), written to the writer as
+        val/giou and val/ciou."""
         results = eval_lib.run_validation(self.eval_step, self.model, batches,
                                           strategy=strategy, threshold=threshold,
                                           visualize_dir=visualize_dir)
-        if self.writer is not None and self.rank == 0:
+        if self.writer is not None and self.main:
             self.writer.add_scalar("val/giou", results["giou"], self.global_step)
             self.writer.add_scalar("val/ciou", results["ciou"], self.global_step)
         return results
 
     def save_best(self, metrics: Dict[str, float]) -> bool:
-        return self.best.update(self.global_step, metrics, self.trainable,
-                                self.opt.state_dict())
+        return self.best.update(self.global_step, metrics, self.full_params,
+                                self.full_opt_state)

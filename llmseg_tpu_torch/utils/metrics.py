@@ -115,17 +115,17 @@ class AverageMeter:
         self.count += n
         self.avg = self.sum / max(self.count, 1e-12)
 
-    def all_reduce(self):
-        """Sum ``(sum, count)`` over the processes in float64 (the
-        reference's dist.all_reduce, utils/utils.py:76-97); a no-op in one
-        process."""
+    def all_reduce(self, group=None):
+        """Sum ``(sum, count)`` over ``group`` (the world when None; a
+        mesh's data group) in float64 (the reference's dist.all_reduce,
+        utils/utils.py:76-97); a no-op in one process."""
         from llmseg_tpu_torch.parallel import ddp
 
         if not ddp.active():
             return
         s = np.asarray(self.sum, np.float64).reshape(-1)
         arr = torch.from_numpy(np.concatenate([s, [self.count]]))
-        arr = ddp.global_sum(arr.to(ddp.collective_device())).cpu().numpy()
+        arr = ddp.global_sum(arr.to(ddp.collective_device()), group).cpu().numpy()
         self.sum = arr[:-1] if s.size > 1 else float(arr[0])
         self.count = float(arr[-1])
         self.avg = self.sum / max(self.count, 1e-12)

@@ -150,15 +150,36 @@ def test_to_config_matches_jax(argv):
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["--mesh_dp", "3"], ValueError), (["--mesh_tp", "2"], NotImplementedError),
-    (["--mesh_fsdp", "2"], NotImplementedError), (["--mesh_dp", "2"], ValueError)])
+    (["--mesh_dp", "3"], ValueError), (["--mesh_tp", "2"], ValueError),
+    (["--mesh_fsdp", "2"], ValueError), (["--mesh_dp", "2"], ValueError)])
 def test_to_config_refuses_more_than_one_device(argv, error):
-    """Outside a process group the world is one process: a data axis of
-    more than one device is refused, and the sharded axes always are (their
-    message names their ROADMAP item).  ``tests/test_torch_ddp.py`` runs the
-    data axis over two processes."""
-    with pytest.raises(error, match="world size 1" if error is ValueError else "item 19"):
+    """Outside a process group the world is one process: a mesh of more
+    than one device, on the data axis or a sharded one, does not fit it and
+    raises ``ValueError`` naming the world size.  ``tests/test_torch_ddp.py``
+    runs the data axis over two processes, ``tests/test_torch_mesh.py`` the
+    fsdp and tp axes."""
+    with pytest.raises(error, match="must be the world size 1"):
         tcommon.to_config(tcommon.build_parser("t").parse_args(argv))
+
+
+@pytest.mark.parametrize("argv", [
+    ["--batch_size", "3", "--mesh_tp", "2", "--mesh_fsdp", "2"],
+    ["--batch_size", "2", "--mesh_tp", "2"],
+    ["--batch_size", "2", "--mesh_dp", "2", "--mesh_tp", "4"]], ids=["fsdp2_tp2", "tp2", "dp2_tp4"])
+def test_to_config_global_batch_is_per_data_rank(argv, monkeypatch):
+    """In a world of 8 processes (JAX's 8 CPU devices here) the global
+    batch is --batch_size x dp x fsdp, never x tp, as JAX's to_config."""
+    from llmseg_tpu_torch.parallel import ddp
+
+    monkeypatch.setattr(ddp, "world_size", lambda: len(jax.devices()))
+    assert len(jax.devices()) == 8
+    j = dataclasses.asdict(jcommon.to_config(jcommon.build_parser("t").parse_args(argv)))
+    t = dataclasses.asdict(tcommon.to_config(tcommon.build_parser("t").parse_args(argv)))
+    args = tcommon.build_parser("t").parse_args(argv)
+    dp = args.mesh_dp if args.mesh_dp > 0 else 8 // (args.mesh_fsdp * args.mesh_tp)
+    assert t["train"]["batch_size"] == j["train"]["batch_size"] == (
+        args.batch_size * dp * args.mesh_fsdp)
+    assert t == j
 
 
 @pytest.mark.parametrize("overrides", [

@@ -18,8 +18,8 @@ trainable parameters after both steps within 1e-5 of JAX's
 is zero, within 2 lr an update, as in ``tests/test_torch_train.py``), equal
 to the bit on both ranks, the epoch's loss terms within 1e-5 of JAX's; the
 meters' ``all_reduce``; disjoint loader shards; only rank 0 prints and
-writes its checkpoint; a data axis other than the world and the sharded
-axes refused.  ``init_process_group`` times out after 60 s and the test
+writes its checkpoint; a mesh whose product is not the world size refused
+(the sharded axes themselves run in ``tests/test_torch_mesh.py``).  ``init_process_group`` times out after 60 s and the test
 kills both workers after 300 s."""
 
 import os
@@ -208,11 +208,15 @@ def test_meters_loader_and_writes(run):
     assert not os.path.exists(run["root"] / "log1")  or not os.listdir(run["root"] / "log1")
     assert "Epoch: [0]" in r0["stdout"] and r1["stdout"] == ""
     for r in (r0, r1):
-        assert "must be -1 or the world size 2" in r["refused"]
+        assert "data=3, fsdp=1, tp=1: dp x fsdp x tp must be the world size 2" in r["refused"]
     assert all("multihost: process" in log for log in run["logs"])
 
 
 def test_sharded_axes_are_refused():
+    """Outside a process group the world is one process: a mesh of two
+    devices on any axis does not fit it and raises ``ValueError`` naming
+    the world size (inside a group of two, fsdp and tp run:
+    ``tests/test_torch_mesh.py``)."""
     for mesh in (TC.MeshConfig(fsdp=2), TC.MeshConfig(tensor=2), TC.MeshConfig(data=2)):
-        with pytest.raises((NotImplementedError, ValueError)):
+        with pytest.raises(ValueError, match="must be the world size 1"):
             TC.TrainConfig(mesh=mesh)

@@ -184,13 +184,15 @@ def test_trainer_epoch_and_checkpoint_roundtrip(tmp_path):
 
 
 def test_trainer_refuses_what_the_port_lacks(tmp_path):
-    """A data axis wider than the world (one process here: the two-process
-    run is tests/test_torch_ddp.py), the sharded axes (FSDP, tensor
-    parallel: ROADMAP queue 1 item 19) and a card that is not there.
-    QLoRA, validate and save_best work now (tests/test_torch_qlora.py)."""
-    with pytest.raises(ValueError, match="data=4: must be -1 or the world size 1"):
+    """A mesh wider than the world (one process here: the two-process runs
+    are tests/test_torch_ddp.py and tests/test_torch_mesh.py), on the data
+    axis or a sharded one, and a card that is not there.  QLoRA, validate
+    and save_best work now (tests/test_torch_qlora.py)."""
+    with pytest.raises(ValueError, match="data=4, fsdp=1, tp=1: dp x fsdp x tp must be the "
+                                         "world size 1"):
         TC.TrainConfig(mesh=TC.MeshConfig(data=4))
-    with pytest.raises(NotImplementedError, match="item 19: FSDP2 and tensor parallelism"):
+    with pytest.raises(ValueError, match="data=-1, fsdp=2, tp=1: dp x fsdp x tp must be the "
+                                         "world size 1"):
         TC.TrainConfig(mesh=TC.MeshConfig(fsdp=2))
     trainer = ttrainer.Trainer(_experiment(tmp_path), device="cpu")
     assert not trainer.maybe_resume()
