@@ -45,6 +45,11 @@ Phases, one JSON line each; any failure exits non-zero:
               beside their bound, Q2 beside the route it replaced
               (torch._int_mm, then the standalone rescale) and
               torch._int_mm alone, and the padded int8 product exact;
+              then Q1's split forms (a) and (b), Q2's int32 output and the
+              standalone rescale at llmseg_7b's tp = 2 row split (2048 and
+              5504 wide, 4096 out; 3068 and 1534 rows), at tp = 4's blocks
+              and off the tiles, to the bit, timed beside their bounds,
+              their plain versions and torch's one call where it exists;
      sft_kernels  A (with lse), C and D at the LLaVA SFT step's shape,
               (B*H, T, S, D) = (32, 512, 512, 128) causal bf16, against
               their plain versions, timed beside their bounds, the plain
@@ -185,6 +190,19 @@ Phases, one JSON line each; any failure exits non-zero:
               seconds a step after the first, peak memory and launches a
               rank, the loss gap to one process (finite, within
               MESH_LOSS_GAP); the one-process references run first;
+     qmesh_in_place  a quantized LLaMA on the same two ranks, the cut
+              llmseg_7b in float32: W8A8 predict at tp=2 equal to one
+              process's to the bit, a rank's launches of Q1 (its RMS form,
+              forms (a) and (b) at o and down), Q2 (w8a8_linear, its int32
+              output at o and down) and the standalone rescale counted;
+              QLoRA int8 at tp=2 and int4 at fsdp=2, two steps each within
+              MESH_LIMIT of one process (mesh_in_place's gates);
+     qmesh    llmseg_7b in bf16: W8A8 predict at tp=2 (32 layers, batch 2)
+              folded from a calibration forward on the mesh, ranks equal
+              and within the bf16 gate of one process's; a QLoRA int8 step
+              at tp=2 (32 layers) and an int4 step at fsdp=2 (LLaMA cut to
+              MESH_FSDP_LAYERS): the loss gap within MESH_LOSS_GAP, seconds
+              a step, the collectives' share, peak memory a rank;
      mpt      Llava.forward_mpt at llava_tiny + mpt_tiny (ALiBi; MQA with
               qk_ln and clip_qkv) on the card against the CPU, float32,
               within MPT_LIMIT;
@@ -1873,6 +1891,132 @@ def q2_case(Q, *, R, N, out_dtype, extra=None, seed=0) -> dict:
     if not rec["ok"]:
         raise SystemExit(f"the standalone rescale disagrees with its plain version: {rec}")
     return rec
+
+
+def split_forms_case(Q, *, R, C, dtype, timed=False, seed=0) -> dict:
+    """Q1's split forms of a mesh's row split against their plain versions,
+    to the bit: (a) the rows' max |x|; (b) the int8 values for a row scale
+    taken over a wider row (x and another block, as the MAX over tp gives
+    it), with exact ties.  Timed: each form's event and device clocks, its
+    plain version, its bound (bytes), and for (a) the one PyTorch call of
+    the same function (``torch.linalg.vector_norm`` of order inf)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed + R + C)
+    x = torch.randn(R, C, device="cuda", generator=g) * 3
+    x[0, :4] = torch.tensor([127.0, 2.5, -3.5, 0.5])
+    x = x.to(dtype)
+    other = (torch.randn(R, C, device="cuda", generator=g) * 4).to(dtype)
+    amax = Q.row_absmax(x)
+    sc = Q._div(torch.maximum(amax, Q.row_absmax_plain(other)).clamp_min(1e-6), 127.0)
+    sc[0] = 1.0
+    xq = Q.quantize_rows_scaled(x, sc)
+    torch.cuda.synchronize()
+    recs = {}
+    for name, got, ref in (("row_absmax", amax, Q.row_absmax_plain(x)),
+                           ("quantize_rows_scaled", xq, Q.quantize_rows_scaled_plain(x, sc))):
+        rec = {"kernel": name, "R": R, "C": C, "dtype": str(dtype).split(".")[-1],
+               "max_abs_err": (got.double() - ref.double()).abs().max().item(),
+               "bitwise": bool(torch.equal(got, ref))}
+        rec["ok"] = rec["bitwise"]
+        recs[name] = rec
+    if timed:
+        e = x.element_size()
+        a, b = recs["row_absmax"], recs["quantize_rows_scaled"]
+        run_a = lambda: Q.row_absmax(x)                                   # noqa: E731
+        run_b = lambda: Q.quantize_rows_scaled(x, sc)                     # noqa: E731
+        lib_a = lambda: torch.linalg.vector_norm(x, float("inf"), dim=-1,  # noqa: E731
+                                                 keepdim=True, dtype=torch.float32)
+        a.update(ms=cuda_ms(run_a, 20), device_ms=device_ms(run_a, 20),
+                 plain_ms=cuda_ms(lambda: Q.row_absmax_plain(x), 5),
+                 library_ms=cuda_ms(lib_a, 20), library_device_ms=device_ms(lib_a, 20))
+        a["bound_ms"], a["bound_by"] = bound(R * C * e + R * 4, 0)
+        b.update(ms=cuda_ms(run_b, 20), device_ms=device_ms(run_b, 20),
+                 plain_ms=cuda_ms(lambda: Q.quantize_rows_scaled_plain(x, sc), 5),
+                 library_ms=None)
+        b["bound_ms"], b["bound_by"] = bound(R * C * (e + 1) + R * 4, 0)
+    for rec in recs.values():
+        emit(rec)
+        if not rec["ok"]:
+            raise SystemExit(f"Q1's split form disagrees with its plain version: {rec}")
+    return recs
+
+
+def int32_case(Q, *, R, K, N, timed=False, seed=0) -> dict:
+    """Q2's int32 output against the exact int8 product, to the bit; timed:
+    beside ``torch._int_mm`` (the library call), its bound (int8
+    operations at the card's peak, or the operands' and output's bytes)."""
+    import torch
+    xq, _, w, *_ = w8a8_inputs(R, K, N, torch.float32, None, seed)
+    got = Q.w8a8_int_mm(xq, w)
+    ref = Q._int_mm(xq, w)
+    torch.cuda.synchronize()
+    rec = {"kernel": "w8a8_int32", "R": R, "K": K, "N": N,
+           "max_abs_err": (got.double() - ref.double()).abs().max().item(),
+           "bitwise": bool(torch.equal(got, ref))}
+    rec["ok"] = rec["bitwise"]
+    if timed:
+        wt = w.t()
+        run = lambda: Q.w8a8_int_mm(xq, w)                              # noqa: E731
+        lib = lambda: torch._int_mm(xq, wt)                             # noqa: E731
+        rec.update(ms=cuda_ms(run, 20), device_ms=device_ms(run, 20),
+                   library_ms=cuda_ms(lib, 20), library_device_ms=device_ms(lib, 20),
+                   plain_ms=cuda_ms(lambda: Q._int_mm(xq, w), 5))
+        rec["bound_ms"], rec["bound_by"] = bound(R * K + N * K + 4 * R * N, 2 * R * K * N,
+                                                 INT8_OPS_PER_S)
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"Q2's int32 output disagrees with the exact product: {rec}")
+    return rec
+
+
+def epilogue_timed(Q, *, R, N, out_dtype) -> dict:
+    """The standalone rescale on the row split's path (after the int32 sum
+    over tp): its values against its plain version (ulps, and whether every
+    bit agrees), its clocks, its plain version's, its bound (bytes)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(R + N)
+    acc = torch.randint(-2 ** 24, 2 ** 24, (R, N), device="cuda", generator=g, dtype=torch.int32)
+    sc = torch.rand(R, 1, device="cuda", generator=g) * 1e-3
+    ws = torch.rand(N, device="cuda", generator=g) * 1e-2
+    got = Q.w8a8_epilogue(acc, sc, ws, None, out_dtype)
+    ref = Q.w8a8_epilogue_plain(acc, sc, ws, None, out_dtype)
+    torch.cuda.synchronize()
+    run = lambda: Q.w8a8_epilogue(acc, sc, ws, None, out_dtype)          # noqa: E731
+    rec = {"kernel": "w8a8_epilogue", "R": R, "N": N, "out_dtype": str(out_dtype).split(".")[-1],
+           "max_abs_err": (got.float() - ref.float()).abs().max().item(),
+           "max_ulps": ulps(got, ref).max().item(), "bitwise": same_bits(got, ref),
+           "ms": cuda_ms(run, 20), "device_ms": device_ms(run, 20),
+           "plain_ms": cuda_ms(lambda: Q.w8a8_epilogue_plain(acc, sc, ws, None, out_dtype), 5),
+           "library_ms": None}
+    rec["bound_ms"], rec["bound_by"] = bound(R * N * (4 + got.element_size()) + 4 * (R + N), 0)
+    rec["ok"] = rec["max_ulps"] <= Q2_ULPS
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"the standalone rescale disagrees with its plain version: {rec}")
+    return rec
+
+
+def mesh_quant_kernel_phase(Q) -> dict:
+    """Q1's split forms, Q2's int32 output and the standalone rescale at
+    llmseg_7b's tp = 2 row split (o's input 2048 wide, down's 5504, their
+    4096 outputs) at batch 4 (3068 rows; timed) and batch 2 (1534, the
+    qmesh phase's), at tp = 4's blocks (1024, 2752: a partial 256-column
+    tile of Q2) and off the tiles (1, 17 rows; 100 wide: Q1's scalar path),
+    in bf16 and float32."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    r4, r2 = 4 * SEQ_7B, 2 * SEQ_7B
+    forms = split_forms_case(Q, R=r4, C=5504, dtype=bf16, timed=True)
+    for r, c in ((r4, 2048), (r2, 2048), (r2, 5504), (17, 2752), (1, 1024), (5, 100)):
+        split_forms_case(Q, R=r, C=c, dtype=bf16)
+    split_forms_case(Q, R=129, C=2048, dtype=f32)
+    i32 = int32_case(Q, R=r4, K=5504, N=4096, timed=True)
+    for r, k, n in ((r4, 2048, 4096), (r2, 5504, 4096), (r2, 4096, 2752), (17, 2752, 4096),
+                    (1, 4096, 5504), (129, 64, 128)):
+        int32_case(Q, R=r, K=k, N=n)
+    epi = epilogue_timed(Q, R=r4, N=4096, out_dtype=bf16)
+    epilogue_timed(Q, R=r2, N=4096, out_dtype=f32)
+    return {**forms, "w8a8_int32": i32, "w8a8_epilogue": epi}
 
 
 def quant_kernel_phase(Q) -> dict:
@@ -4230,10 +4374,10 @@ class CollectiveClock(Wrapped):
 
         def around(name):
             def wrap(fn):
-                def timed(*args):
+                def timed(*args, **kw):
                     sync(device)
                     t0 = time.perf_counter()
-                    out = fn(*args)
+                    out = fn(*args, **kw)
                     sync(device)
                     self.seconds[name] += time.perf_counter() - t0
                     self.calls[name] += 1
@@ -4253,7 +4397,8 @@ def mesh_subrun(C, A, spec: dict, device: str, axes=(-1, 1, 1)) -> dict:
     AdamW's step's), the ``Trainer``, ``predict`` on this data rank's images of
     ``spec["predict"]`` if given, a step on each of ``spec["batches"]``
     (global batches, split by data rank), with ``spec["timed"]`` the last
-    one with the collectives clocked.  Returns the loss terms, the
+    one with the collectives clocked; with ``spec["bits"]`` (8 or 4) the
+    Trainer's frozen LLaMA quantized (QLoRA).  Returns the loss terms, the
     launches and head counts a step, the times, the peak memory, and as
     asked the whole gradients and trainable parameters (on the CPU)."""
     import gc
@@ -4270,6 +4415,7 @@ def mesh_subrun(C, A, spec: dict, device: str, axes=(-1, 1, 1)) -> dict:
     exp = C.ExperimentConfig(model=spec["cfg"], train=C.TrainConfig(
         warmup_steps=0, grad_accum_steps=1, lora=lora,
         precision="fp32" if dtype == torch.float32 else "bf16",
+        quantize_frozen=bool(spec.get("bits")), quantize_bits=spec.get("bits") or 8,
         mesh=C.MeshConfig(data=dp, fsdp=fsdp, tensor=tp), log_dir=spec["log_dir"]))
     t0 = time.perf_counter()
     model = llmseg.init(spec["cfg"], seed=spec["seed"], device=device, dtype=dtype,
@@ -4369,13 +4515,16 @@ def mesh_rank(root: str, device: str) -> int:
     rank = ddp.rank()
     try:
         for spec in torch.load(os.path.join(root, "inputs.pt"), weights_only=False):
-            res = mesh_subrun(C, A, spec, str(dev), spec["mesh"])
+            run = qmesh_predict_subrun if spec.get("kind") == "w8a8_predict" else mesh_subrun
+            res = run(C, A, spec, str(dev), spec["mesh"])
             torch.save(res, os.path.join(root, f"{spec['name']}_rank{rank}.pt"))
             emit({"phase": "mesh_rank", "rank": rank, "run": spec["name"], "device": str(dev),
                   "mesh": dict(zip(("dp", "fsdp", "tp"), spec["mesh"])),
                   **{k: res.get(k) for k in ("data_rank", "setup_s", "step_s", "collective_s",
                                              "resident_gb", "peak_gb", "terms", "launches",
-                                             "heads", "predict_launches", "predict_heads")}})
+                                             "heads", "predict_launches", "predict_heads",
+                                             "predict_s", "quantize_s", "calibrate_s")
+                     if k in res}})
     finally:
         torch.distributed.destroy_process_group()
     return 0
@@ -4433,6 +4582,152 @@ def _zero_grad_tensor(name: str) -> bool:
     # the selection head's attention key biases: their exact gradient is
     # zero (a key bias shifts a whole softmax row), so both runs give noise
     return name.startswith("select.") and name.endswith(".k.bias")
+
+
+def expect_step(A, cfg, cuda: bool) -> dict:
+    """Launches of kernels A-D and J in one LoRA train step."""
+    if not cuda:
+        return {k.name: 0 for k in A.KERNELS}
+    L = cfg.llava.llm.num_layers
+    return {"flash_fwd": 2 * L, "flash_fwd_1pass": cfg.dino.depth, "flash_bwd_dq": L,
+            "flash_bwd_dkv": L, "flash_fwd_1pass_t": 0}
+
+
+def heads_ok(heads, cfg, tp, cuda: bool, kernels=tuple(MESH_POS)) -> bool:
+    want = cfg.llava.llm.num_heads // tp
+    return not cuda or heads == {k: [want] for k in kernels}
+
+
+def bitwise_replicated(pair) -> bool:
+    a, b = (r["replicated"] for r in pair)
+    return set(a) == set(b) and all(torch_equal(a[n], b[n]) for n in a)
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return bool(torch.equal(a, b))
+
+
+def mesh_in_place_gates(pair, ref, A, cfg, tp, lr, cuda, mode=None) -> dict:
+    """A cut model's two steps on the mesh (``pair``: both ranks' sub-runs)
+    against one process's (``ref``): the loss terms, every trainable
+    gradient gathered whole and the trainables after, within MESH_LIMIT,
+    as ``mesh_phase`` states; the record without its phase and run."""
+    import torch
+    r0 = pair[0]
+    terms = max(abs(g[k] - f[k]) / max(abs(f[k]), 1e-30)
+                for g, f in zip(r0["terms"], ref["terms"]) for k in f)
+    top = max(g.abs().max().item() for step in ref["grads"] for g in step.values())
+    # LLaMA's trainables (embed_tokens, lm_head, LoRA), whose work the
+    # mesh splits, per tensor; the selection head, whole on every rank
+    # and after LLaMA, as one vector: some of its gradients (attention
+    # q and k, the last embedding layer's bias) are small differences
+    # of large terms, which float32 rounding of the mesh's sums moves
+    # by up to 6e-4 of themselves (an H100 at tp=2 and fsdp=2);
+    # its key biases, whose exact gradient is zero, against the top
+    grad_errs, head_errs, head_tensors, zero_errs = [], [], [], []
+    for gs, fs in zip(r0["grads"], ref["grads"]):
+        head = [n_ for n_ in fs if n_.startswith("select.") and not _zero_grad_tensor(n_)]
+        head_errs.append(_rel(torch.cat([gs[n_].flatten() for n_ in head]),
+                              torch.cat([fs[n_].flatten() for n_ in head])))
+        head_tensors += [(_rel(gs[n_], fs[n_]), n_) for n_ in head]
+        grad_errs += [(_rel(gs[n_], f), n_) for n_, f in fs.items()
+                      if not n_.startswith("select.")]
+        zero_errs += [(gs[n_] - f).abs().max().item() / top for n_, f in fs.items()
+                      if _zero_grad_tensor(n_)]
+    grad_errs.sort()
+    head_tensors.sort()
+    param_errs = sorted((_rel(p, ref["params"][n_]), n_) for n_, p in r0["params"].items()
+                        if not _zero_grad_tensor(n_))
+    zero_moves = max((p - ref["params"][n_]).abs().max().item()
+                     for n_, p in r0["params"].items() if _zero_grad_tensor(n_))
+    rec = {"config": "llmseg_7b widths, towers 2-3 blocks, LLaMA 2 layers, LoRA rank 8, "
+           "zero-init trainables drawn nonzero, remat dots"
+           + ("" if mode is None else f", {mode}"),
+           "dtype": "float32", "backend": "gloo", "ranks_on_one_card": 2,
+           "limit": MESH_LIMIT, "steps": len(ref["terms"]),
+           "global_images_a_step": 2, "images_a_rank": 2 // r0["data_size"],
+           "terms": r0["terms"], "terms_one_process": ref["terms"],
+           "worst_term_err": terms, "worst_llama_grad_err": grad_errs[-1][0],
+           "worst_llama_grad_tensors": grad_errs[-3:], "head_grad_err": head_errs,
+           "head_worst_tensors": head_tensors[-3:],
+           "zero_grad_err_vs_top": max(zero_errs),
+           "worst_param_err": param_errs[-1][0], "worst_param_tensors": param_errs[-2:],
+           "zero_grad_params_moved_apart": zero_moves,
+           "replicated_equal_to_the_bit": bitwise_replicated(pair),
+           "launches_per_step": r0["launches"], "expected": expect_step(A, cfg, cuda),
+           "heads": r0["heads"]}
+    rec["ok"] = (terms <= MESH_LIMIT and grad_errs[-1][0] <= MESH_LIMIT
+                 and max(head_errs) <= MESH_LIMIT and max(zero_errs) <= MESH_LIMIT
+                 and param_errs[-1][0] <= MESH_LIMIT
+                 and zero_moves <= 4 * lr and rec["replicated_equal_to_the_bit"]
+                 and all(lc == rec["expected"] for r in pair for lc in r["launches"])
+                 and all(heads_ok(h, cfg, tp, cuda) for r in pair for h in r["heads"]))
+    return rec
+
+
+def mesh_full_gates(pair, one, A, cfg, full, tp, dtype, cuda, text_len,
+                    predict_images=None) -> dict:
+    """A 7B run's steps (and ``predict``) on the mesh (``pair``) against one
+    process's (``one``): the loss gap within MESH_LOSS_GAP, the times, the
+    collectives' share, the peak memory, the launches and head counts, as
+    ``mesh_phase`` states; the record without its phase and run."""
+    import torch
+    r0 = pair[0]
+    gaps = [abs(g["loss"] - f["loss"]) / abs(f["loss"]) for g, f in zip(r0["terms"],
+                                                                      one["terms"])]
+    coll = r0.get("collective_s") or {}
+    rec = {"config": "llmseg_7b" + (
+           "" if cfg.llava.llm.num_layers == full.llava.llm.num_layers else
+           f", LLaMA cut to {cfg.llava.llm.num_layers} of "
+           f"{full.llava.llm.num_layers} layers (gloo's gathers)"),
+           "dtype": dtype, "backend": "gloo", "ranks_on_one_card": 2,
+           "mesh": dict(zip(("dp", "fsdp", "tp"), (1, 2 // tp, tp))),
+           "images_a_step_a_rank": 1, "text_len": text_len,
+           "loss_gap": gaps, "loss_gap_limit": MESH_LOSS_GAP,
+           "terms": r0["terms"], "terms_one_process": one["terms"],
+           "s_per_step_after_first": [r["step_s"][1:] for r in pair],
+           "s_per_step_one_process": one["step_s"][1:],
+           "collective_s": [r.get("collective_s") for r in pair],
+           "collective_calls": r0.get("collective_calls"),
+           "collective_share_of_the_last_step": (sum(coll.values()) / r0["step_s"][-1]
+                                                 if coll else None),
+           "peak_gb_a_rank": [r.get("peak_gb") for r in pair],
+           "resident_gb_a_rank": [r.get("resident_gb") for r in pair],
+           "peak_gb_one_process": one.get("peak_gb"),
+           "launches_per_step_a_rank": [r["launches"] for r in pair],
+           "expected": expect_step(A, cfg, cuda), "heads": r0["heads"],
+           "heads_expected": cfg.llava.llm.num_heads // tp,
+           "replicated_equal_to_the_bit": bitwise_replicated(pair),
+           "note": "two ranks share one card over gloo: these times measure no scaling"}
+    ok = (all(math.isfinite(g) and g <= MESH_LOSS_GAP for g in gaps)
+          and all(math.isfinite(v) for r in pair for t in r["terms"] for v in t.values())
+          and all(lc == rec["expected"] for r in pair for lc in r["launches"])
+          and all(heads_ok(h, cfg, tp, cuda) for r in pair for h in r["heads"])
+          and rec["replicated_equal_to_the_bit"])
+    if "predict" in one:
+        atol, rtol = BF16_TOL if cuda else F32_TOL
+        diffs = {}
+        for k, f in one["predict"].items():
+            d_ = (r0["predict"][k] - f).abs()
+            diffs[k] = {"max_abs": d_.max().item(),
+                        "worst_over_gate": (d_ - atol - rtol * f.abs()).max().item()}
+        rec.update(predict_batch=predict_images, atol=atol, rtol=rtol,
+                   predict_vs_one_process=diffs,
+                   predict_ranks_equal=all(torch.equal(pair[0]["predict"][k],
+                                                       pair[1]["predict"][k])
+                                           for k in one["predict"]),
+                   predict_launches=r0["predict_launches"],
+                   predict_s=[r["predict_s"] for r in pair],
+                   predict_s_one_process=one["predict_s"],
+                   predict_heads=r0["predict_heads"])
+        ok = ok and all(v["worst_over_gate"] <= 0 for v in diffs.values()) and (
+            rec["predict_ranks_equal"]
+            and heads_ok(r0["predict_heads"], cfg, tp, cuda, ("flash_fwd",))
+            and all(math.isfinite(v) for f in r0["predict"].values()
+                    for v in (f.min().item(), f.max().item())))
+    rec["ok"] = bool(ok)
+    return rec
 
 
 def mesh_phase(C, make_batch, A, *, device="cuda", in_place_cfg=None, full_cfg=None,
@@ -4510,140 +4805,267 @@ def mesh_phase(C, make_batch, A, *, device="cuda", in_place_cfg=None, full_cfg=N
     llm = in_cfg.llava.llm
     lr = C.TrainConfig().lr
     card = card_name() if cuda else None
-
-    def expect_step(cfg):
-        if not cuda:
-            return {k.name: 0 for k in A.KERNELS}
-        L = cfg.llava.llm.num_layers
-        return {"flash_fwd": 2 * L, "flash_fwd_1pass": cfg.dino.depth, "flash_bwd_dq": L,
-                "flash_bwd_dkv": L, "flash_fwd_1pass_t": 0}
-
-    def heads_ok(heads, cfg, tp, kernels=tuple(MESH_POS)):
-        want = cfg.llava.llm.num_heads // tp
-        return not cuda or heads == {k: [want] for k in kernels}
-
-    def bitwise_replicated(pair):
-        a, b = (r["replicated"] for r in pair)
-        return set(a) == set(b) and all(torch.equal(a[n], b[n]) for n in a)
-
     records = {}
     ref = refs["in_place"]
     for name, tp in (("in_place_tp2", 2), ("in_place_fsdp2", 1)):
-        pair = got[name]
-        r0 = pair[0]
-        terms = max(abs(g[k] - f[k]) / max(abs(f[k]), 1e-30)
-                    for g, f in zip(r0["terms"], ref["terms"]) for k in f)
-        top = max(g.abs().max().item() for step in ref["grads"] for g in step.values())
-        # LLaMA's trainables (embed_tokens, lm_head, LoRA), whose work the
-        # mesh splits, per tensor; the selection head, whole on every rank
-        # and after LLaMA, as one vector: some of its gradients (attention
-        # q and k, the last embedding layer's bias) are small differences
-        # of large terms, which float32 rounding of the mesh's sums moves
-        # by up to 6e-4 of themselves (an H100 at tp=2 and fsdp=2);
-        # its key biases, whose exact gradient is zero, against the top
-        grad_errs, head_errs, head_tensors, zero_errs = [], [], [], []
-        for gs, fs in zip(r0["grads"], ref["grads"]):
-            head = [n_ for n_ in fs if n_.startswith("select.") and not _zero_grad_tensor(n_)]
-            head_errs.append(_rel(torch.cat([gs[n_].flatten() for n_ in head]),
-                                  torch.cat([fs[n_].flatten() for n_ in head])))
-            head_tensors += [(_rel(gs[n_], fs[n_]), n_) for n_ in head]
-            grad_errs += [(_rel(gs[n_], f), n_) for n_, f in fs.items()
-                          if not n_.startswith("select.")]
-            zero_errs += [(gs[n_] - f).abs().max().item() / top for n_, f in fs.items()
-                          if _zero_grad_tensor(n_)]
-        grad_errs.sort()
-        head_tensors.sort()
-        param_errs = sorted((_rel(p, ref["params"][n_]), n_) for n_, p in r0["params"].items()
-                            if not _zero_grad_tensor(n_))
-        zero_moves = max((p - ref["params"][n_]).abs().max().item()
-                         for n_, p in r0["params"].items() if _zero_grad_tensor(n_))
-        rec = {"phase": "mesh_in_place", "run": name, "config": "llmseg_7b widths, towers 2-3 "
-               "blocks, LLaMA 2 layers, LoRA rank 8, zero-init trainables drawn "
-               "nonzero, remat dots",
-               "dtype": "float32", "backend": "gloo", "ranks_on_one_card": 2,
-               "mesh": dict(zip(("dp", "fsdp", "tp"), runs[0 if tp == 2 else 1]["mesh"])),
-               "limit": MESH_LIMIT, "steps": len(ref["terms"]),
-               "global_images_a_step": 2, "images_a_rank": 2 // r0["data_size"],
-               "terms": r0["terms"], "terms_one_process": ref["terms"],
-               "worst_term_err": terms, "worst_llama_grad_err": grad_errs[-1][0],
-               "worst_llama_grad_tensors": grad_errs[-3:], "head_grad_err": head_errs,
-               "head_worst_tensors": head_tensors[-3:],
-               "zero_grad_err_vs_top": max(zero_errs),
-               "worst_param_err": param_errs[-1][0], "worst_param_tensors": param_errs[-2:],
-               "zero_grad_params_moved_apart": zero_moves,
-               "replicated_equal_to_the_bit": bitwise_replicated(pair),
-               "launches_per_step": r0["launches"], "expected": expect_step(in_cfg),
-               "heads": r0["heads"], "heads_expected": llm.num_heads // tp,
-               "seconds_ranks": ranks_s, "seconds_references": ref_s, "card": card}
-        rec["ok"] = (terms <= MESH_LIMIT and grad_errs[-1][0] <= MESH_LIMIT
-                     and max(head_errs) <= MESH_LIMIT and max(zero_errs) <= MESH_LIMIT
-                     and param_errs[-1][0] <= MESH_LIMIT
-                     and zero_moves <= 4 * lr and rec["replicated_equal_to_the_bit"]
-                     and all(lc == rec["expected"] for r in pair for lc in r["launches"])
-                     and all(heads_ok(h, in_cfg, tp) for r in pair for h in r["heads"]))
+        rec = {"phase": "mesh_in_place", "run": name,
+               **mesh_in_place_gates(got[name], ref, A, in_cfg, tp, lr, cuda)}
+        rec.update(mesh=dict(zip(("dp", "fsdp", "tp"), runs[0 if tp == 2 else 1]["mesh"])),
+                   heads_expected=llm.num_heads // tp, seconds_ranks=ranks_s,
+                   seconds_references=ref_s, card=card)
         emit(rec)
         records[name] = rec
-
     for name, tp, cfg in (("full_tp2", 2, full), ("full_fsdp2", 1, fsdp_cfg)):
-        pair, one = got[name], refs[name]
-        r0 = pair[0]
-        gaps = [abs(g["loss"] - f["loss"]) / abs(f["loss"]) for g, f in zip(r0["terms"],
-                                                                          one["terms"])]
-        coll = r0.get("collective_s") or {}
-        rec = {"phase": "mesh", "run": name, "config": "llmseg_7b" + (
-               "" if cfg.llava.llm.num_layers == full.llava.llm.num_layers else
-               f", LLaMA cut to {cfg.llava.llm.num_layers} of "
-               f"{full.llava.llm.num_layers} layers (gloo's gathers)"),
-               "dtype": bf16, "backend": "gloo", "ranks_on_one_card": 2,
-               "mesh": dict(zip(("dp", "fsdp", "tp"), (1, 2 // tp, tp))),
-               "images_a_step_a_rank": 1, "text_len": text_len,
-               "loss_gap": gaps, "loss_gap_limit": MESH_LOSS_GAP,
-               "terms": r0["terms"], "terms_one_process": one["terms"],
-               "s_per_step_after_first": [r["step_s"][1:] for r in pair],
-               "s_per_step_one_process": one["step_s"][1:],
-               "collective_s": [r.get("collective_s") for r in pair],
-               "collective_calls": r0.get("collective_calls"),
-               "collective_share_of_the_last_step": (sum(coll.values()) / r0["step_s"][-1]
-                                                     if coll else None),
-               "peak_gb_a_rank": [r.get("peak_gb") for r in pair],
-               "resident_gb_a_rank": [r.get("resident_gb") for r in pair],
-               "peak_gb_one_process": one.get("peak_gb"),
-               "launches_per_step_a_rank": [r["launches"] for r in pair],
-               "expected": expect_step(cfg), "heads": r0["heads"],
-               "heads_expected": cfg.llava.llm.num_heads // tp,
-               "replicated_equal_to_the_bit": bitwise_replicated(pair), "card": card,
-               "note": "two ranks share one card over gloo: these times measure no scaling"}
-        ok = (all(math.isfinite(g) and g <= MESH_LOSS_GAP for g in gaps)
-              and all(math.isfinite(v) for r in pair for t in r["terms"] for v in t.values())
-              and all(lc == rec["expected"] for r in pair for lc in r["launches"])
-              and all(heads_ok(h, cfg, tp) for r in pair for h in r["heads"])
-              and rec["replicated_equal_to_the_bit"])
-        if "predict" in one:
-            atol, rtol = BF16_TOL if cuda else F32_TOL
-            diffs = {}
-            for k, f in one["predict"].items():
-                d_ = (r0["predict"][k] - f).abs()
-                diffs[k] = {"max_abs": d_.max().item(),
-                            "worst_over_gate": (d_ - atol - rtol * f.abs()).max().item()}
-            rec.update(predict_batch=predict_images, atol=atol, rtol=rtol,
-                       predict_vs_one_process=diffs,
-                       predict_ranks_equal=all(torch.equal(pair[0]["predict"][k],
-                                                           pair[1]["predict"][k])
-                                               for k in one["predict"]),
-                       predict_launches=r0["predict_launches"],
-                       predict_s=[r["predict_s"] for r in pair],
-                       predict_s_one_process=one["predict_s"],
-                       predict_heads=r0["predict_heads"])
-            ok = ok and all(v["worst_over_gate"] <= 0 for v in diffs.values()) and (
-                rec["predict_ranks_equal"] and heads_ok(r0["predict_heads"], cfg, tp, ("flash_fwd",))
-                and all(math.isfinite(v) for f in r0["predict"].values()
-                        for v in (f.min().item(), f.max().item())))
-        rec["ok"] = bool(ok)
+        rec = {"phase": "mesh", "run": name, **mesh_full_gates(
+            got[name], refs[name], A, cfg, full, tp, bf16, cuda, text_len, predict_images)}
+        rec["card"] = card
         emit(rec)
         records[name] = rec
     failed = [name for name, rec in records.items() if not rec["ok"]]
     if failed:
         raise SystemExit(f"the mesh phases' gates failed: {failed}")
+    return records
+
+
+# ---------------------------------------------------------------------------
+# A quantized LLaMA on the mesh: W8A8 predict through Q1's split forms, Q2's
+# int32 output and the standalone rescale; QLoRA int8 and int4 steps
+# ---------------------------------------------------------------------------
+
+
+def qmesh_predict_subrun(C, A, spec: dict, device: str, axes=(-1, 1, 1)) -> dict:
+    """W8A8 ``predict`` on mesh ``axes`` (one process by default): the model
+    from ``spec``'s seed, sharded, with ``spec["calib"]`` calibrated on this
+    data rank's images (``calibrate_quant_stats`` on the mesh) and
+    SmoothQuant-folded, quantized in place (W8A8, lm_head included), then
+    ``predict`` on this data rank's images of ``spec["predict"]`` twice: the
+    first call counts the launches of Q1, Q2 and the mesh's split forms,
+    the second is timed and must repeat the first to the bit."""
+    import gc
+
+    import torch
+    from llmseg_tpu_torch.models import llmseg
+    from llmseg_tpu_torch.ops import quant as Q
+    from llmseg_tpu_torch.parallel import mesh as M
+
+    dp, fsdp, tp = axes
+    cfg, dtype = spec["cfg"], getattr(torch, spec["dtype"])
+    cuda = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    model = llmseg.init(cfg, seed=spec["seed"], device=device, dtype=dtype)
+    mesh = M.make_mesh(C.MeshConfig(data=dp, fsdp=fsdp, tensor=tp))
+    M.shard_params(model, mesh)
+    d, n = mesh.data_rank, mesh.data_size
+    res = {"setup_s": time.perf_counter() - t0, "data_rank": d, "data_size": n}
+
+    def on_device(b):
+        return {k: v.to(device) for k, v in split_images(b, d, n).items()}
+
+    stats = None
+    if spec.get("calib") is not None:
+        t0 = time.perf_counter()
+        stats = llmseg.calibrate_quant_stats(model, on_device(spec["calib"]))
+        sync(device)
+        res["calibrate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Q.quantize_llama_inplace(model.llava.llm, bits=8, w8a8=True, smooth_stats=stats,
+                             head_dim=cfg.llava.llm.head_dim)
+    sync(device)
+    res["quantize_s"] = time.perf_counter() - t0
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res["resident_gb"] = torch.cuda.memory_allocated() / 1e9
+    batch = on_device(spec["predict"])
+    kernels = A.KERNELS + Q.KERNELS + Q.MESH_KERNELS
+    for kern in kernels:
+        kern.launches = 0
+    first = llmseg.predict(model, batch, device=device)
+    sync(device)
+    res["predict_launches"] = {kern.name: kern.launches for kern in kernels}
+    t0 = time.perf_counter()
+    out = llmseg.predict(model, batch, device=device)
+    sync(device)
+    res["predict_s"] = time.perf_counter() - t0
+    keys = ("pred_similarity", "pred_iou")
+    res["repeat_equal"] = all(torch.equal(first[k], out[k]) for k in keys)
+    res["predict"] = {k: out[k].float().cpu() for k in keys}
+    if cuda:
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model, batch, out, first
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return res
+
+
+def qmesh_phase(C, make_batch, A, Q, *, device="cuda", in_place_cfg=None, full_cfg=None,
+                fsdp_layers: int = MESH_FSDP_LAYERS, text_len: int = 512,
+                predict_images: int = 2) -> dict:
+    """A quantized LLaMA on the (dp, fsdp, tp) mesh with both ranks on this
+    card over gloo, after the one-process references (``mesh_phase``'s
+    recipe).
+
+    qmesh_in_place: the cut model (``cut_config``), float32.  W8A8
+    ``predict`` at tp=2 (unfolded, 4 images) equal to one process's on the
+    card to the bit, with the launches a rank of Q1 (RMS form at q/k/v and
+    gate/up, forms (a) and (b) at o and down), Q2 (w8a8_linear at the
+    column split, its int32 output at the row split) and the standalone
+    rescale; then QLoRA (LoRA rank 8, its B and the selection head's
+    biases drawn nonzero, remat "dots") int8 at tp=2 and int4 at fsdp=2:
+    two Trainer steps each against one process's, the loss terms, every
+    trainable gradient gathered whole and the trainables after, within
+    MESH_LIMIT (``mesh_phase``'s gates), kernels A, C, D at H / tp heads.
+
+    qmesh: llmseg_7b in bf16.  W8A8 ``predict`` at tp=2 (32 layers, batch
+    ``predict_images``) with the SmoothQuant fold from a calibration
+    forward on the mesh, against one process's (its own calibration):
+    ranks equal, max |diff|, seconds a call, peak memory a rank, the
+    launches; a QLoRA int8 step at tp=2 (32 layers) and an int4 step at
+    fsdp=2 (LLaMA cut to ``fsdp_layers``): the loss gap to one process
+    within MESH_LOSS_GAP, seconds a step, the share of the last step in
+    gloo's collectives, peak memory a rank."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    cuda = torch.device(device).type == "cuda"
+    in_cfg = in_place_cfg or cut_config(C)
+    full = full_cfg or C.llmseg_7b()
+    fsdp_cfg = C.replace(full, llava=C.replace(full.llava, llm=C.replace(
+        full.llava.llm, num_layers=min(fsdp_layers, full.llava.llm.num_layers))))
+    bf16 = "bfloat16" if cuda else "float32"
+    root = tempfile.mkdtemp(prefix="qmesh_")
+
+    def batches(cfg, images, seed):
+        return [make_batch(cfg, num_images=images, rows_per_image=1, text_len=text_len,
+                           seed=seed + i, device="cpu") for i in range(2)]
+
+    def one_batch(cfg, images, seed):
+        return make_batch(cfg, num_images=images, rows_per_image=1, text_len=text_len,
+                          seed=seed, device="cpu")
+
+    log = os.path.join(root, "log")
+    base = dict(jitter=False, grads=False, params=False, timed=False, log_dir=log)
+    in_place = dict(base, cfg=in_cfg, dtype="float32", seed=6, batches=batches(in_cfg, 2, 60),
+                    jitter=True, grads=True, params=True)
+    runs = [dict(name="in_place_w8a8_tp2", kind="w8a8_predict", mesh=(1, 1, 2), cfg=in_cfg,
+                 dtype="float32", seed=7, predict=one_batch(in_cfg, 4, 65)),
+            dict(in_place, name="in_place_int8_tp2", mesh=(1, 1, 2), bits=8),
+            dict(in_place, name="in_place_int4_fsdp2", mesh=(1, 2, 1), bits=4),
+            dict(name="full_w8a8_tp2", kind="w8a8_predict", mesh=(1, 1, 2), cfg=full,
+                 dtype=bf16, seed=0, predict=one_batch(full, predict_images, 70),
+                 calib=one_batch(full, predict_images, 75)),
+            dict(base, name="full_int8_tp2", mesh=(1, 1, 2), cfg=full, dtype=bf16, seed=0,
+                 bits=8, batches=batches(full, 1, 80), timed=True),
+            dict(base, name="full_int4_fsdp2", mesh=(1, 2, 1), cfg=fsdp_cfg, dtype=bf16, seed=0,
+                 bits=4, batches=batches(fsdp_cfg, 2, 90), timed=True)]
+    try:
+        t0 = time.perf_counter()
+        refs = {}
+        for r in runs:
+            one = qmesh_predict_subrun if r.get("kind") == "w8a8_predict" else mesh_subrun
+            refs[r["name"]] = one(C, A, r, device)
+        ref_s = time.perf_counter() - t0
+        torch.save(runs, os.path.join(root, "inputs.pt"))
+        t0 = time.perf_counter()
+        mesh_ranks(root, device)
+        ranks_s = time.perf_counter() - t0
+        got = {r["name"]: [torch.load(os.path.join(root, f"{r['name']}_rank{k}.pt"),
+                                      weights_only=False) for k in range(2)] for r in runs}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    card = card_name() if cuda else None
+    mesh_of = {r["name"]: dict(zip(("dp", "fsdp", "tp"), r["mesh"])) for r in runs}
+    keys = ("pred_similarity", "pred_iou")
+    records = {}
+
+    def expect_w8a8(cfg, tp):
+        """Launches of one W8A8 predict a rank: A at every LLaMA layer, B at
+        every DINOv2 block, Q1's RMS form at q/k/v and gate/up, Q2 at the
+        column split's five products (predict forms no logits); at tp > 1
+        the row split's o and down through Q1 (a), (b), Q2's int32 output
+        and the rescale, else through Q1's plain form and Q2."""
+        if not cuda:
+            return {k.name: 0 for k in A.KERNELS + Q.KERNELS + Q.MESH_KERNELS}
+        L = cfg.llava.llm.num_layers
+        split = 2 * L if tp > 1 else 0
+        return {"flash_fwd": L, "flash_fwd_1pass": cfg.dino.depth, "flash_bwd_dq": 0,
+                "flash_bwd_dkv": 0, "flash_fwd_1pass_t": 0,
+                "quantize_rows": 4 * L - split, "w8a8_linear": 7 * L - split,
+                "row_absmax": split, "quantize_rows_scaled": split, "w8a8_int32": split,
+                "w8a8_epilogue": split}
+
+    for name, cfg in (("in_place_w8a8_tp2", in_cfg), ("full_w8a8_tp2", full)):
+        pair, one = got[name], refs[name]
+        r0 = pair[0]
+        diff = {k: (r0["predict"][k] - one["predict"][k]).abs().max().item() for k in keys}
+        rec = {"phase": "qmesh_in_place" if name.startswith("in_place") else "qmesh",
+               "run": name, "config": ("llmseg_7b widths, towers 2-3 blocks, LLaMA 2 layers"
+                                       if name.startswith("in_place") else "llmseg_7b"),
+               "dtype": "float32" if name.startswith("in_place") else bf16,
+               "mode": "W8A8" + (", SmoothQuant fold from a calibration forward on the mesh"
+                                 if "calib" in runs[[r["name"] for r in runs].index(name)]
+                                 else ", unfolded"),
+               "backend": "gloo", "ranks_on_one_card": 2, "mesh": mesh_of[name],
+               "images_a_rank": r0["predict"]["pred_similarity"].shape[0],
+               "max_abs_diff_vs_one_process": diff,
+               "equal_to_one_process_to_the_bit": all(
+                   torch.equal(r0["predict"][k], one["predict"][k]) for k in keys),
+               "ranks_equal": all(torch.equal(pair[0]["predict"][k], pair[1]["predict"][k])
+                                  for k in keys),
+               "repeat_equal": all(r["repeat_equal"] for r in pair) and one["repeat_equal"],
+               "launches_a_rank": r0["predict_launches"],
+               "launches_one_process": one["predict_launches"],
+               "expected": expect_w8a8(cfg, 2), "expected_one_process": expect_w8a8(cfg, 1),
+               "predict_s": [r["predict_s"] for r in pair], "predict_s_one_process":
+               one["predict_s"], "calibrate_s": [r.get("calibrate_s") for r in pair],
+               "quantize_s": [r["quantize_s"] for r in pair],
+               "peak_gb_a_rank": [r.get("peak_gb") for r in pair],
+               "resident_gb_a_rank": [r.get("resident_gb") for r in pair],
+               "peak_gb_one_process": one.get("peak_gb"), "card": card,
+               "seconds_ranks": ranks_s, "seconds_references": ref_s}
+        finite = all(math.isfinite(v) for r in pair for f in r["predict"].values()
+                     for v in (f.min().item(), f.max().item()))
+        ok = (finite and rec["ranks_equal"] and rec["repeat_equal"]
+              and all(r["predict_launches"] == rec["expected"] for r in pair)
+              and one["predict_launches"] == rec["expected_one_process"])
+        if name.startswith("in_place"):
+            ok = ok and rec["equal_to_one_process_to_the_bit"]
+        else:
+            # each side calibrates on its own: the mesh's float sums over tp
+            # move the statistics by ulps, so codes may flip; the bf16 gate
+            atol, rtol = BF16_TOL if cuda else F32_TOL
+            worst = max((r0["predict"][k] - one["predict"][k]).abs().sub(
+                atol + rtol * one["predict"][k].abs()).max().item() for k in keys)
+            rec.update(atol=atol, rtol=rtol, worst_over_gate=worst)
+            ok = ok and worst <= 0
+        rec["ok"] = bool(ok)
+        emit(rec)
+        records[name] = rec
+
+    lr = C.TrainConfig().lr
+    llm = in_cfg.llava.llm
+    for name, tp in (("in_place_int8_tp2", 2), ("in_place_int4_fsdp2", 1)):
+        pair, ref = got[name], refs[name]
+        rec = {"phase": "qmesh_in_place", **mesh_in_place_gates(
+            pair, ref, A, in_cfg, tp, lr, cuda, mode=f"QLoRA int{8 if '8' in name else 4}")}
+        rec.update(run=name, mesh=mesh_of[name], heads_expected=llm.num_heads // tp,
+                   seconds_ranks=ranks_s, seconds_references=ref_s, card=card)
+        emit(rec)
+        records[name] = rec
+    for name, tp, cfg in (("full_int8_tp2", 2, full), ("full_int4_fsdp2", 1, fsdp_cfg)):
+        rec = {"phase": "qmesh", **mesh_full_gates(got[name], refs[name], A, cfg, full, tp,
+                                                   bf16, cuda, text_len)}
+        rec.update(run=name, mode=f"QLoRA int{8 if '8' in name else 4}", card=card)
+        emit(rec)
+        records[name] = rec
+    failed = [name for name, rec in records.items() if not rec["ok"]]
+    if failed:
+        raise SystemExit(f"the quantized mesh phases' gates failed: {failed}")
     return records
 
 
@@ -4837,6 +5259,7 @@ def main() -> int:
     timed.update(sam_kernel_phase(C, R, TK))
     timed.update(pixel_kernel_phase(C, A, TK))
     timed.update(quant_kernel_phase(Q))
+    timed.update(mesh_quant_kernel_phase(Q))
     sft_kernels = sft_kernel_phase(A)
 
     # 3. the port's modules on the card against the CPU, tiny config
@@ -4970,6 +5393,7 @@ def main() -> int:
     sft_launches = sft[0]["launches_per_step"][-1]
     ddp_phase(C, make_batch, A)
     mesh = mesh_phase(C, make_batch, A)
+    qmesh = qmesh_phase(C, make_batch, A, Q)
     mpt_phase(C)
     torch.cuda.empty_cache()
 
@@ -5050,7 +5474,25 @@ def main() -> int:
                                  ":168 rms_quantize_activation (XLA code)"),
                "w8a8_linear": ("llmseg_tpu_torch/csrc/w8a8_gemm.cu",
                                "llmseg_tpu/ops/quant.py:194 qdense_act: the int8 dot and its "
-                               "rescale (XLA code)")}
+                               "rescale (XLA code)"),
+               "row_absmax": ("llmseg_tpu_torch/csrc/quant.cu",
+                              "llmseg_tpu/ops/quant.py:161 quantize_activation's row max, "
+                              "all-reduced over tp by GSPMD at o and down (XLA code)"),
+               "quantize_rows_scaled": ("llmseg_tpu_torch/csrc/quant.cu",
+                                        "llmseg_tpu/ops/quant.py:164 quantize_activation's "
+                                        "int8 values for the row scale (XLA code)"),
+               "w8a8_int32": ("llmseg_tpu_torch/csrc/w8a8_gemm.cu",
+                              "llmseg_tpu/ops/quant.py:199 qdense_act's s8 x s8 -> s32 dot, "
+                              "its partial sums summed over tp by GSPMD (XLA code)"),
+               "w8a8_epilogue": ("llmseg_tpu_torch/csrc/quant.cu",
+                                 "llmseg_tpu/ops/quant.py:203 qdense_act's rescale after the "
+                                 "int32 sum (XLA code)")}
+    # this slice's path: the quantized mesh at tp = 2, a rank's W8A8 predict
+    # (batch 2, 7B) and its QLoRA int8 step (32 layers)
+    q_pred = qmesh["full_w8a8_tp2"]["launches_a_rank"]
+    q_step = qmesh["full_int8_tp2"]["launches_per_step_a_rank"][0][-1]
+    for name in ("row_absmax", "quantize_rows_scaled", "w8a8_int32", "w8a8_epilogue"):
+        launches[name] = q_pred[name]
     rows = []
     for name, (src, rep) in sources.items():
         r = timed[name]
@@ -5066,6 +5508,10 @@ def main() -> int:
             tp2 = mesh["full_tp2"]
             r = dict(r, mesh_tp2_launches_per_step_a_rank=tp2["launches_per_step_a_rank"][0][-1][
                 name], **({"mesh_tp2_heads": tp2["heads"][-1][name]} if name in MESH_POS else {}))
+        if name in q_pred:
+            r = dict(r, qmesh_tp2_predict_launches_a_rank=q_pred[name],
+                     **({"qmesh_tp2_qlora_step_launches_a_rank": q_step[name]}
+                        if name in q_step else {}))
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "launches": launches[name],
                      "max_abs_err": max(err.values()) if isinstance(err, dict) else err,
@@ -5074,7 +5520,8 @@ def main() -> int:
                      **{k: r[k] for k in ("device_ms", "library_device_ms", "ex2_bound_ms",
                                           "int_mm_q2_device_ms", "sft_launches_per_step",
                                           "sft_shape", "mesh_tp2_launches_per_step_a_rank",
-                                          "mesh_tp2_heads") if k in r}})
+                                          "mesh_tp2_heads", "qmesh_tp2_predict_launches_a_rank",
+                                          "qmesh_tp2_qlora_step_launches_a_rank") if k in r}})
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

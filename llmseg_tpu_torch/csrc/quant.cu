@@ -11,11 +11,19 @@
 //                      column scale, plus an optional float32 side term,
 //                      rounded once to the output type, then the bias added
 //                      in the output type.
-// On the main path the product and Q2's rescale are one kernel,
+// On one process the product and Q2's rescale are one kernel,
 // w8a8_gemm.cu (w8a8_linear): the s8 x s8 -> s32 product on wgmma with the
-// rescale applied to its accumulators in registers.  The standalone Q2
-// here, after torch._int_mm, is the yardstick that chip_smoke.py times
-// beside it; nothing on the main path launches it.
+// rescale applied to its accumulators in registers.  On a mesh with tp
+// above 1 the row-split products (o, down) see a K block of their input,
+// and the row scale and the int32 sums must cover the whole K, so Q1 runs
+// in two forms with a MAX over tp between them:
+//   Q1 (a) row_absmax      the rows' max |x| (op 2), written unquantized;
+//   Q1 (b) quantize_scaled the int8 values for the caller's row scale
+//                          (op 3): xq = clip(round(x / sc)), the plain
+//                          form's division;
+// then w8a8_gemm.cu's int32 output, an int32 sum over tp, and the
+// standalone Q2 rescale here (op 1).  After torch._int_mm the standalone
+// rescale is also the yardstick that chip_smoke.py times beside Q2.
 //
 // What bounds them on an H100: bytes.  Both do a handful of operations an
 // element; at LLaMA-7B's batch 4 (3068 rows) Q1 reads 2 bytes and writes 1
@@ -314,6 +322,88 @@ __global__ void __launch_bounds__(Q2_THREADS)
   }
 }
 
+// Q1 (a): one CTA a row, the row's max |x| reduced as in the plain form.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(Q1_THREADS)
+    row_absmax_kernel(const T* __restrict__ x, float* __restrict__ amax, int R, int C) {
+  const int nv = C / VEC;
+  for (int r = blockIdx.x; r < R; r += gridDim.x) {
+    const T* xr = x + (size_t)r * C;
+    float m = 0.f, unused = 0.f;
+    for (int v = threadIdx.x; v < nv; v += Q1_THREADS) {
+      T e[VEC];
+      if constexpr (VEC > 1) {
+        const uint4 u = __ldcs(reinterpret_cast<const uint4*>(xr) + v);  // read once
+        memcpy(e, &u, sizeof(u));
+      } else {
+        e[0] = xr[v];
+      }
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) m = fmaxf(m, fabsf(to_f(e[j])));
+    }
+    block_max_sum(m, unused);
+    if (threadIdx.x == 0) amax[r] = m;
+    __syncthreads();  // the reduction's shared memory is reused by the next row
+  }
+}
+
+// Q1 (b): thread i of a row's CTAs takes its VEC elements i VEC.. (a 16-byte
+// vector, or one element when the row is not a whole number of them)
+template <typename T, int VEC>
+__global__ void __launch_bounds__(Q1_THREADS)
+    quantize_scaled_kernel(const T* __restrict__ x, const float* __restrict__ sc,
+                           int8_t* __restrict__ xq, int R, int C) {
+  const int v = blockIdx.x * Q1_THREADS + threadIdx.x;
+  if (v * VEC >= C) return;
+  for (int r = blockIdx.y; r < R; r += gridDim.y) {
+    const size_t base = (size_t)r * C + (size_t)v * VEC;
+    const float s = __ldg(sc + r);
+    T e[VEC];
+    if constexpr (VEC > 1) {
+      const uint4 u = __ldcs(reinterpret_cast<const uint4*>(x + base));
+      memcpy(e, &u, sizeof(u));
+    } else {
+      e[0] = x[base];
+    }
+    int8_t q[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) q[j] = q8(__fdiv_rn(to_f(e[j]), s));
+    if constexpr (VEC == 8) {
+      uint2 u;
+      memcpy(&u, q, sizeof(u));
+      *reinterpret_cast<uint2*>(xq + base) = u;
+    } else if constexpr (VEC == 4) {
+      uint32_t u;
+      memcpy(&u, q, sizeof(u));
+      *reinterpret_cast<uint32_t*>(xq + base) = u;
+    } else {
+      xq[base] = q[0];
+    }
+  }
+}
+
+template <typename T>
+int launch_absmax(const void* x, void* amax, int R, int C, cudaStream_t st) {
+  constexpr int VEC = 16 / sizeof(T);
+  const bool vec = C % VEC == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const int grid = R < 65535 * 8 ? R : 65535 * 8;
+  auto kern = vec ? row_absmax_kernel<T, VEC> : row_absmax_kernel<T, 1>;
+  kern<<<grid, Q1_THREADS, 0, st>>>((const T*)x, (float*)amax, R, C);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_scaled(const void* x, const void* sc, void* xq, int R, int C, cudaStream_t st) {
+  constexpr int VEC = 16 / sizeof(T);
+  const bool vec = C % VEC == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(xq) & 15) == 0;
+  const int per_cta = Q1_THREADS * (vec ? VEC : 1);
+  const dim3 grid((C + per_cta - 1) / per_cta, R < 65535 ? R : 65535);
+  auto kern = vec ? quantize_scaled_kernel<T, VEC> : quantize_scaled_kernel<T, 1>;
+  kern<<<grid, Q1_THREADS, 0, st>>>((const T*)x, (const float*)sc, (int8_t*)xq, R, C);
+  return (int)cudaGetLastError();
+}
+
 // The CTAs of kern the card holds at once; or -cudaError_t
 template <typename K>
 int resident_ctas(K kern, int threads) {
@@ -387,6 +477,9 @@ int launch_q2(const void* acc, const void* sc, const void* ws, const void* bias,
 // op 1, Q2: p0 acc (R, C) int32, p1 sc (R,), p2 w_scale (C,) float32, p3
 //   bias (C,) of `in_dtype` or null, p4 side (R, C) float32 or null, o0 the
 //   output (R, C) of `in_dtype`.
+// op 2, Q1 (a): p0 x (R, C) of `in_dtype`, o1 the rows' max |x| (R,) float32.
+// op 3, Q1 (b): p0 x (R, C) of `in_dtype`, p1 sc (R,) float32, o0 xq (R, C)
+//   int8.
 extern "C" int quant(int op, const void* p0, const void* p1, const void* p2, const void* p3,
                      const void* p4, void* o0, void* o1, int R, int C, int in_dtype,
                      int aux_dtype, float eps, void* stream) {
@@ -398,6 +491,10 @@ extern "C" int quant(int op, const void* p0, const void* p1, const void* p2, con
     return launch_q1_gamma<float>(p0, p1, aux_dtype, o0, o1, R, C, eps, st);
   if (op == 1 && in_dtype == BF16) return launch_q2<bf16>(p0, p1, p2, p3, p4, o0, R, C, st);
   if (op == 1 && in_dtype == F32) return launch_q2<float>(p0, p1, p2, p3, p4, o0, R, C, st);
+  if (op == 2 && in_dtype == BF16) return launch_absmax<bf16>(p0, o1, R, C, st);
+  if (op == 2 && in_dtype == F32) return launch_absmax<float>(p0, o1, R, C, st);
+  if (op == 3 && in_dtype == BF16) return launch_scaled<bf16>(p0, p1, o0, R, C, st);
+  if (op == 3 && in_dtype == F32) return launch_scaled<float>(p0, p1, o0, R, C, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -13,6 +13,10 @@
 // output equals the plain version (torch._int_mm, then quant.cu's Q2
 // epilogue) to the bit.
 //
+// With an int32 output (the row split of a mesh with tp above 1, whose
+// int32 partial sums are summed over tp before quant.cu's rescale) the
+// epilogue stores the accumulators as they are: no scale or bias is read.
+//
 // What bounds it on an H100: operations.  At LLaMA-7B's W8A8 products
 // (3068 rows at batch 4; K, N in {4096, 11008}) a product is 103 to 277 G
 // int8 operations, 0.052 to 0.140 ms at the card's 1,979 TOPS, against 30
@@ -45,6 +49,8 @@
 //     the epilogue (one dependent load a column chunk) and stored as pairs
 //     (a warp's store touching 8 rows), they made a tile at K = 4096 take
 //     some 8 us beyond its main loop.
+#include <type_traits>
+
 #include "hopper.cuh"
 
 using namespace llmseg;
@@ -62,7 +68,7 @@ constexpr int OUT_LINES = 16;       // a consumer warp's rows, staged 128 bytes 
 constexpr uint32_t OUT_BYTES = 4 * CWG * OUT_LINES * 128;  // after the stages
 constexpr int SLACK = 1024;         // the dynamic base's alignment to 1024 bytes
 constexpr int SMEM = STAGES * STAGE + OUT_BYTES + SLACK;
-constexpr int F32 = 0, BF16 = 1;    // dtype codes of the wrapper
+constexpr int F32 = 0, BF16 = 1, I32 = 2;  // dtype codes of the wrapper
 static_assert(BN <= 128 * CWG, "a consumer thread loads one column of a tile's scales");
 
 struct Bars {
@@ -102,6 +108,9 @@ __device__ __forceinline__ uint32_t pack_pair(float y0, float y1, const bf16* bi
   memcpy(&u, &o, sizeof(u));
   return u;
 }
+
+template <typename O>
+constexpr bool kInt32 = std::is_same<O, int32_t>::value;  // the accumulators as they are
 
 template <typename O>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -153,14 +162,17 @@ __global__ void __launch_bounds__(THREADS, 1)
       // what the epilogue reads, loaded now so that the main loop hides the
       // latency: the column scales and bias into shared memory (a consumer
       // thread a column), the row scales into registers
-      if (threadIdx.x < BN) {
-        const int c = n0 + threadIdx.x;
-        cols.ws[par][threadIdx.x] = c < N ? __ldg(ws + c) : 0.f;
-        if (bias) cols.bias[par][threadIdx.x] = c < N ? bias[c] : O(0.f);
-      }
-      float s[2];
+      float s[2] = {0.f, 0.f};
+      if constexpr (!kInt32<O>) {
+        if (threadIdx.x < BN) {
+          const int c = n0 + threadIdx.x;
+          cols.ws[par][threadIdx.x] = c < N ? __ldg(ws + c) : 0.f;
+          if (bias) cols.bias[par][threadIdx.x] = c < N ? bias[c] : O(0.f);
+        }
 #pragma unroll
-      for (int h = 0; h < 2; ++h) s[h] = m0 + r_lo + 8 * h < R ? __ldg(sc + m0 + r_lo + 8 * h) : 0.f;
+        for (int h = 0; h < 2; ++h)
+          s[h] = m0 + r_lo + 8 * h < R ? __ldg(sc + m0 + r_lo + 8 * h) : 0.f;
+      }
       uint32_t acc[BN / 2];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
@@ -211,22 +223,30 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int jj = 0; jj < CB / 8; ++jj) {
           const int j = q * (CB / 8) + jj, col = 8 * j + 2 * t4;
-          const float2 w = *reinterpret_cast<const float2*>(&cols.ws[par][col]);
+          float2 w = make_float2(0.f, 0.f);
+          if constexpr (!kInt32<O>) w = *reinterpret_cast<const float2*>(&cols.ws[par][col]);
           const uint32_t byte = (8 * jj + 2 * t4) * sizeof(O);  // in the 128-byte line
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int line = g + 8 * h;
-            float y0 = __fmul_rn(__fmul_rn(__int2float_rn((int)acc[4 * j + 2 * h]), s[h]), w.x);
-            float y1 = __fmul_rn(__fmul_rn(__int2float_rn((int)acc[4 * j + 2 * h + 1]), s[h]), w.y);
-            if (side && row0 + line < R && n0 + col < N) {
-              const float2 sd = __ldg(reinterpret_cast<const float2*>(
-                  side + (size_t)(row0 + line) * N + n0 + col));
-              y0 = __fadd_rn(y0, sd.x);
-              y1 = __fadd_rn(y1, sd.y);
+            unsigned char* dst =
+                lines + line * 128 + ((((byte >> 4) ^ line) & 7) << 4) + (byte & 15);
+            if constexpr (kInt32<O>) {
+              *reinterpret_cast<uint2*>(dst) =
+                  make_uint2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+            } else {
+              float y0 = __fmul_rn(__fmul_rn(__int2float_rn((int)acc[4 * j + 2 * h]), s[h]), w.x);
+              float y1 =
+                  __fmul_rn(__fmul_rn(__int2float_rn((int)acc[4 * j + 2 * h + 1]), s[h]), w.y);
+              if (side && row0 + line < R && n0 + col < N) {
+                const float2 sd = __ldg(reinterpret_cast<const float2*>(
+                    side + (size_t)(row0 + line) * N + n0 + col));
+                y0 = __fadd_rn(y0, sd.x);
+                y1 = __fadd_rn(y1, sd.y);
+              }
+              auto v = pack_pair(y0, y1, bias ? &cols.bias[par][col] : nullptr);
+              *reinterpret_cast<decltype(v)*>(dst) = v;
             }
-            auto v = pack_pair(y0, y1, bias ? &cols.bias[par][col] : nullptr);
-            *reinterpret_cast<decltype(v)*>(
-                lines + line * 128 + ((((byte >> 4) ^ line) & 7) << 4) + (byte & 15)) = v;
           }
         }
         __syncwarp();
@@ -279,7 +299,8 @@ int launch(const void* xq, const void* w, const void* sc, const void* ws, const 
 
 // xq (R, K) int8, w (N, K) int8, both contiguous and 16-byte aligned; sc
 // (R,) and w_scale (N,) float32; bias (N,) of the output's type or null;
-// side (R, N) float32 or null; out (R, N) of `out_dtype` (bf16 or float32).
+// side (R, N) float32 or null; out (R, N) of `out_dtype` (bf16 or float32;
+// or int32: the accumulators, with sc, w_scale, bias and side unread).
 // K a multiple of 16 up to 133,144 (|acc| <= K * 127^2 stays in int32), N a
 // multiple of 8, R >= 1.  Returns the launch's cudaError_t.
 extern "C" int w8a8_gemm(const void* xq, const void* w, const void* sc, const void* ws,
@@ -290,6 +311,8 @@ extern "C" int w8a8_gemm(const void* xq, const void* w, const void* sc, const vo
     return (int)cudaErrorInvalidValue;
   if (out_dtype == BF16) return launch<bf16>(xq, w, sc, ws, bias, side, out, R, N, K, st);
   if (out_dtype == F32) return launch<float>(xq, w, sc, ws, bias, side, out, R, N, K, st);
+  if (out_dtype == I32)
+    return launch<int32_t>(xq, w, nullptr, nullptr, nullptr, nullptr, out, R, N, K, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -19,7 +19,13 @@ weight is this rank's block: a layer gathers its weights over fsdp where it
 uses them, q, k, v, gate, up and LoRA B are split by columns over tp (the
 local heads: H / tp, H_kv / tp), o and down by rows with their partial
 products summed over tp, and the embedding and the logits are split by
-vocabulary.  Without a mesh the path is the single-device one.
+vocabulary.  A quantized projection on a mesh holds its codes and scales
+as blocks (``parallel/mesh.py``'s ``quant_spec``): a layer gathers them
+over fsdp where it uses them (``mesh.fsdp_module``), runs the column split
+on this rank's output columns as one process does, and the row split
+through ``quant.qdense_rows`` (the products summed over tp before the
+scales: in float32 for int8, in int32 for W8A8; int4 on the input
+gathered over tp).  Without a mesh the path is the single-device one.
 """
 
 from __future__ import annotations
@@ -98,7 +104,8 @@ class LlamaLora(nn.Module):
 def _shared_qdense(mods, x):
     """One activation quantization shared by the W8A8 products of one input
     (the same as quantizing for each: it depends on x alone).  None unless
-    every module is W8A8."""
+    every module is W8A8.  On a mesh the column split's modules: the input
+    is whole on every tp rank, the products give this rank's columns."""
     if not all(isinstance(m, L.W8A8Linear) for m in mods):
         return None
     qa = quant.quantize_activation(x)
@@ -136,19 +143,40 @@ class LlamaLayer(nn.Module):
         self.post_norm = L.RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
         self.mlp = LlamaMLP(cfg, **kw)
 
+    def _local(self, mods, out: str = "tp"):
+        """The column split's modules (``out`` "tp"; the row split's:
+        "fsdp") as a layer uses them: a quantized one with its codes and
+        scales whole over fsdp, another as it is."""
+        if self.mesh is None:
+            return mods
+        return [M.fsdp_module(m, out, self.mesh) if quant.is_quantized(m) else m for m in mods]
+
+    def _w8a8(self, mods):
+        """The modules of one input as the W8A8 routes take them (gathered
+        over fsdp once, on a mesh), or as they are when one is not W8A8
+        (the routes then decline them)."""
+        if all(isinstance(m, L.W8A8Linear) for m in mods):
+            return self._local(mods)
+        return mods
+
     def _columns(self, mods, x):
         """The products of a column split: ``mod(x)`` each; on a mesh x's
         gradient summed over tp and each weight gathered over fsdp."""
         if self.mesh is None:
             return [m(x) for m in mods]
         x = M.copy_to_tp(x, self.mesh)
-        return [F.linear(x, M.fsdp_weight(m.weight, 1, self.mesh)) for m in mods]
+        return [m(x) if quant.is_quantized(m) else
+                F.linear(x, M.fsdp_weight(m.weight, 1, self.mesh)) for m in self._local(mods)]
 
     def _rows(self, mod, x):
         """The product of a row split: ``mod(x)``; on a mesh the weight
-        gathered over fsdp and the partial products summed over tp."""
+        gathered over fsdp and the partial products summed over tp (a
+        quantized one: ``quant.qdense_rows``)."""
         if self.mesh is None:
             return mod(x)
+        if quant.is_quantized(mod):
+            (mod,) = self._local((mod,), "fsdp")
+            return mod(x) if self.mesh.tp == 1 else quant.qdense_rows(mod, x, self.mesh)
         return M.reduce_from_tp(F.linear(x, M.fsdp_weight(mod.weight, 0, self.mesh)),
                                 self.mesh)
 
@@ -159,14 +187,15 @@ class LlamaLayer(nn.Module):
         (B, T, H_kv, Dh).  ``stats`` receives 'attn_in'."""
         cfg, a = self.cfg, self.attn
         B, T, _ = x_raw.shape
-        fused = _rms_qdense((a.q, a.k, a.v), x_raw, self.input_norm, lora, stats)
+        w8a8 = self._w8a8((a.q, a.k, a.v))
+        fused = _rms_qdense(w8a8, x_raw, self.input_norm, lora, stats)
         if fused is not None:
             q, k, v = fused
         else:
             x = self.input_norm(x_raw)
             if stats is not None:
                 stats["attn_in"] = _colmax(x)
-            shared = _shared_qdense((a.q, a.k, a.v), x)
+            shared = _shared_qdense(w8a8, x)
             q, k, v = shared if shared is not None else self._columns((a.q, a.k, a.v), x)
             if lora is not None and "q" in lora:
                 q = q + lora["q"](x, self.mesh) * scaling
@@ -199,14 +228,15 @@ class LlamaLayer(nn.Module):
         gate/up where it applies.  ``stats`` receives 'mlp_in' and
         'down_in'."""
         m = self.mlp
-        fused = _rms_qdense((m.gate, m.up), x_raw, self.post_norm, None, stats)
+        w8a8 = self._w8a8((m.gate, m.up))
+        fused = _rms_qdense(w8a8, x_raw, self.post_norm, None, stats)
         if fused is not None:
             gate, up = fused
         else:
             x = self.post_norm(x_raw)
             if stats is not None:
                 stats["mlp_in"] = _colmax(x)
-            shared = _shared_qdense((m.gate, m.up), x)
+            shared = _shared_qdense(w8a8, x)
             gate, up = shared if shared is not None else self._columns((m.gate, m.up), x)
         h = F.silu(gate) * up
         if stats is not None:
@@ -344,7 +374,10 @@ def logits(model: Llama, hidden: torch.Tensor) -> torch.Tensor:
     type, cast to float32.  On a mesh each tp rank computes its vocabulary
     columns, which are gathered over tp (the backward takes this rank's)."""
     if model.lm_head is not None and quant.is_quantized(model.lm_head):
-        return model.lm_head(hidden).float()
+        if model.mesh is None:
+            return model.lm_head(hidden).float()
+        head = M.fsdp_module(model.lm_head, "tp", model.mesh)
+        return M.gather_from_tp(head(M.copy_to_tp(hidden, model.mesh)).float(), -1, model.mesh)
     w = model.embed_tokens.weight if model.cfg.tie_embeddings else model.lm_head.weight
     w = M.fsdp_weight(w, 1, model.mesh)
     lead = hidden.shape[:-1]

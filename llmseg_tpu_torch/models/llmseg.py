@@ -107,7 +107,11 @@ def calibrate_quant_stats(model: LLMSeg, batch, lora_cfg: Optional[LoraConfig] =
     (smooth_stats=...)``).  ``batch`` is one batch dict or an iterable of
     them; several are merged by elementwise max.  Returns a list of dicts
     of float32 tensors on the model's device, or None for an empty
-    iterable."""
+    iterable.  On a mesh (``model.mesh``) each rank sees its data rank's
+    rows: the o and down sites' columns of this rank's heads and MLP
+    block are gathered over tp in rank order, and every site's maxima are
+    taken over the data group, so that every rank holds one process's
+    statistics of the global batch (a max is exact in any order)."""
     if isinstance(batch, dict):
         batch = (batch,)
     merged = None
@@ -116,7 +120,18 @@ def calibrate_quant_stats(model: LLMSeg, batch, lora_cfg: Optional[LoraConfig] =
         forward(model, b, lora_cfg=lora_cfg, quant_stats=st)
         merged = st if merged is None else [
             {k: torch.maximum(m[k], s[k]) for k in m} for m, s in zip(merged, st)]
-    return merged
+    mesh = getattr(model, "mesh", None)
+    if merged is None or mesh is None or mesh.data is None:
+        return merged
+    out = []
+    for layer in merged:
+        st = {}
+        for k, v in layer.items():
+            if k in ("o_in", "down_in") and mesh.tp > 1:
+                v = M.all_gather(v, 0, mesh.groups["tp"], mesh.tp)
+            st[k] = M.all_reduce_max(v, mesh.data) if mesh.data_size > 1 else v
+        out.append(st)
+    return out
 
 
 def _interp_matrix(n_in: int, n_out: int, device="cpu") -> torch.Tensor:

@@ -23,14 +23,23 @@ Kernels, each with its plain version beside it: :func:`quantize_rows` (Q1,
 ``csrc/quant.cu``, the per-row quantization of both activation forms) and
 :func:`w8a8_linear` (Q2, ``csrc/w8a8_gemm.cu``, the int8 product on
 ``wgmma`` with the rescale applied to its accumulators in registers).
-:func:`w8a8_epilogue` (the rescale alone, ``csrc/quant.cu``) after
-``torch._int_mm`` is the route Q2 replaced, kept as the yardstick that
-``chip_smoke.py`` times beside it; nothing on the main path calls it.  A
-CUDA tensor launches the kernel or raises; only a tensor on the CPU takes
-the plain version.  Q1 and Q2 are custom ops (``torch.ops.llmseg.
+
+On a mesh with tp above 1 (``parallel/mesh.py``) the row-split W8A8
+products (o, down) see this rank's block of the input: Q1's two split
+forms, :func:`row_absmax` (the rows' max |x|) and
+:func:`quantize_rows_scaled` (the int8 values for a row scale the caller
+gives: the max over tp's, which every rank then shares), Q2's int32 form
+:func:`w8a8_int_mm` (the product of this rank's K block, summed over tp in
+int32), then :func:`w8a8_epilogue` (the rescale alone, ``csrc/quant.cu``)
+after that sum (:func:`qdense_rows`).  The result equals one process's
+W8A8 product to the bit.
+
+A CUDA tensor launches the kernel or raises; only a tensor on the CPU
+takes the plain version.  Q1 and Q2 are custom ops (``torch.ops.llmseg.
 quantize_rows``, ``w8a8_linear``; ``ops.kernels.kernel_op``), so that an
-exported W8A8 ``predict`` holds them as nodes that launch the kernels.  Weight-only int8 and int4 are plain PyTorch on every
-device, as they are XLA code in the JAX package.
+exported W8A8 ``predict`` holds them as nodes that launch the kernels.
+Weight-only int8 and int4 are plain PyTorch on every device, as they are
+XLA code in the JAX package.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from torch import nn
 
 from llmseg_tpu_torch.models import layers as L
 from llmseg_tpu_torch.ops.kernels import Kernel, kernel_op
+from llmseg_tpu_torch.parallel import mesh as M
 
 # The JAX package's knobs, same names and defaults (llmseg_tpu/ops/quant.py):
 # the opt-in LLM.int8-style outlier decomposition (K columns a product kept
@@ -58,9 +68,15 @@ W4_SMOOTH_ALPHA = float(os.environ.get("LLMSEG_W4_SMOOTH_ALPHA", "0.25"))
 QUANTIZE_ROWS = Kernel("quantize_rows", source="quant")      # Q1, csrc/quant.cu
 W8A8_LINEAR = Kernel("w8a8_linear", source="w8a8_gemm")      # Q2, csrc/w8a8_gemm.cu
 KERNELS = (QUANTIZE_ROWS, W8A8_LINEAR)      # the W8A8 path's
-W8A8_EPILOGUE = Kernel("w8a8_epilogue", source="quant")      # the yardstick's rescale
+W8A8_EPILOGUE = Kernel("w8a8_epilogue", source="quant")      # the rescale alone
+ROW_ABSMAX = Kernel("row_absmax", source="quant")            # Q1's form (a)
+QUANTIZE_ROWS_SCALED = Kernel("quantize_rows_scaled", source="quant")   # Q1's form (b)
+W8A8_INT32 = Kernel("w8a8_int32", source="w8a8_gemm")       # Q2's int32 output
+# the row split's on a mesh with tp above 1 (qdense_rows)
+MESH_KERNELS = (ROW_ABSMAX, QUANTIZE_ROWS_SCALED, W8A8_INT32, W8A8_EPILOGUE)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/quant.cu, w8a8_gemm.cu
+_INT32_CODE = 2                                         # w8a8_gemm.cu's int32 output
 _INT_MM_MIN_ROWS = 17    # torch._int_mm on CUDA takes more than 16 rows
 W8A8_MAX_K = 133144      # |acc| <= K * 127^2 stays inside int32
 _HAS_MM_OUT_DTYPE = hasattr(torch.ops.aten.mm, "dtype")
@@ -146,9 +162,60 @@ def quantize_rows(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
     return _quantize_rows_op(x, gamma, eps)
 
 
+def row_absmax_plain(x: torch.Tensor) -> torch.Tensor:
+    """Q1's form (a) on (R, C) rows: max |x| a row, (R, 1) float32."""
+    return x.float().abs().amax(-1, keepdim=True)
+
+
+def quantize_rows_scaled_plain(x: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
+    """Q1's form (b): (R, C) rows and a row scale sc (R, 1) float32 ->
+    clip(round(x / sc)) int8, the plain form's values for that scale."""
+    return torch.round(_div(x.float(), sc)).clamp(-127, 127).to(torch.int8)
+
+
+def _check_rows(x: torch.Tensor) -> None:
+    if x.dim() != 2 or x.dtype not in _DTYPE_CODES or not x.is_contiguous():
+        raise ValueError(f"expected contiguous bf16/float32 rows (R, C), got "
+                         f"{tuple(x.shape)} {x.dtype} on {x.device}")
+
+
+def row_absmax(x: torch.Tensor) -> torch.Tensor:
+    """Q1's form (a) wrapper (``csrc/quant.cu``, op 2): the rows' max |x|,
+    written without quantizing.  Shapes as :func:`row_absmax_plain`."""
+    if x.device.type == "cpu":
+        return row_absmax_plain(x)
+    _check_rows(x)
+    R, C = x.shape
+    out = torch.empty((R, 1), dtype=torch.float32, device=x.device)
+    if R:
+        ROW_ABSMAX.launch(2, x.data_ptr(), None, None, None, None, None, out.data_ptr(), R, C,
+                          _DTYPE_CODES[x.dtype], 0, 0.0)
+    return out
+
+
+def quantize_rows_scaled(x: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
+    """Q1's form (b) wrapper (``csrc/quant.cu``, op 3): the int8 values of
+    (R, C) rows for the caller's row scale sc (R, 1) float32, dividing as
+    :func:`quantize_rows_scaled_plain` does."""
+    if x.device.type == "cpu":
+        return quantize_rows_scaled_plain(x, sc)
+    _check_rows(x)
+    R, C = x.shape
+    if sc.shape != (R, 1) or sc.dtype != torch.float32 or not sc.is_cuda \
+            or not sc.is_contiguous():
+        raise ValueError(f"sc must be a contiguous CUDA float32 ({R}, 1), got "
+                         f"{tuple(sc.shape)} {sc.dtype} on {sc.device}")
+    xq = torch.empty((R, C), dtype=torch.int8, device=x.device)
+    if R:
+        QUANTIZE_ROWS_SCALED.launch(3, x.data_ptr(), sc.data_ptr(), None, None, None,
+                                    xq.data_ptr(), None, R, C, _DTYPE_CODES[x.dtype], 0, 0.0)
+    return xq
+
+
 # ---------------------------------------------------------------------------
-# The W8A8 product: kernel Q2 (the product with its rescale), and the rescale
-# alone after torch._int_mm (the route Q2 replaced, a yardstick)
+# The W8A8 product: kernel Q2 (the product with its rescale, or its int32
+# accumulators), and the rescale alone (after the row split's int32 sum over
+# tp; after torch._int_mm, the route Q2 replaced, it is the yardstick)
 # ---------------------------------------------------------------------------
 
 
@@ -171,9 +238,10 @@ def w8a8_epilogue_plain(acc: torch.Tensor, sc: torch.Tensor, w_scale: torch.Tens
 def w8a8_epilogue(acc: torch.Tensor, sc: torch.Tensor, w_scale: torch.Tensor,
                   bias: Optional[torch.Tensor], out_dtype: torch.dtype,
                   side: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The standalone rescale's wrapper (``csrc/quant.cu``).  Shapes as
-    :func:`w8a8_epilogue_plain`; the output is bf16 or float32, the bias (if
-    any) of the output's type."""
+    """The standalone rescale's wrapper (``csrc/quant.cu``, op 1): on the
+    row split's path after the int32 sum over tp (:func:`qdense_rows`).
+    Shapes as :func:`w8a8_epilogue_plain`; the output is bf16 or float32,
+    the bias (if any) of the output's type."""
     if acc.device.type == "cpu":
         return w8a8_epilogue_plain(acc, sc, w_scale, bias, out_dtype, side)
     if acc.dim() != 2 or acc.dtype != torch.int32 or not acc.is_contiguous():
@@ -271,6 +339,27 @@ def w8a8_linear(xq: torch.Tensor, sc: torch.Tensor, w_q: torch.Tensor,
     return _w8a8_linear_op(xq, sc, w_q, w_scale, bias, out_dtype, side)
 
 
+def w8a8_int_mm(xq: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """Q2's int32 output (``csrc/w8a8_gemm.cu``, output code 2): xq (R, K)
+    int8 times w_q (N, K) int8, transposed, its accumulators stored as
+    they are, (R, N) int32, exact.  The contract of :func:`w8a8_linear` (K
+    a multiple of 16 up to ``W8A8_MAX_K``, N a multiple of 8); the plain
+    version is :func:`_int_mm`."""
+    if xq.device.type == "cpu":
+        return _int_mm(xq, w_q)
+    _check_w8a8_shapes(xq, None, w_q, None, None, torch.float32, None)
+    (R, K), N = xq.shape, w_q.shape[0]
+    for t in (xq, w_q):
+        if not t.is_cuda or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"expected a contiguous, 16-byte aligned CUDA int8 operand, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    out = torch.empty((R, N), dtype=torch.int32, device=xq.device)
+    if R:
+        W8A8_INT32.launch(xq.data_ptr(), w_q.data_ptr(), None, None, None, None, out.data_ptr(),
+                          R, N, K, _INT32_CODE)
+    return out
+
+
 def _int_mm(xq: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     """xq (R, K) int8 times w_q (N, K) int8, transposed: (R, N) int32, exact
     (the plain version's product, and the yardstick's).  On CUDA
@@ -307,19 +396,25 @@ class _Int8MM(torch.autograd.Function):
     derivative in PyTorch, so the backward is written here:
     dx = (dy * w_scale) rounded to x's type, times w_q cast to x's type,
     accumulated in float32 and rounded to x's type.  The int8 weight and
-    its scales are frozen buffers and get no gradient."""
+    its scales are frozen buffers and get no gradient.  With ``mesh`` (the
+    row split: x and w_q hold this rank's K block) the float32 products are
+    summed over tp before the scales, as JAX's partitioned dot sums them;
+    the gradient of this rank's block needs no sum."""
 
     @staticmethod
-    def forward(ctx, x, w_q, w_scale):
+    def forward(ctx, x, w_q, w_scale, mesh=None):
         ctx.save_for_backward(w_q, w_scale)
         ctx.x_dtype = x.dtype
-        return _mm_f32(x, w_q) * w_scale
+        y = _mm_f32(x, w_q)
+        if mesh is not None:
+            y = M.all_reduce(y, mesh.groups["tp"])
+        return y * w_scale
 
     @staticmethod
     def backward(ctx, g):
         w_q, w_scale = ctx.saved_tensors
         gs = (g * w_scale).to(ctx.x_dtype)
-        return _mm_f32(gs, w_q.t()).to(ctx.x_dtype), None, None
+        return _mm_f32(gs, w_q.t()).to(ctx.x_dtype), None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -450,22 +545,62 @@ def qdense_act(m: L.W8A8Linear, qa: Dict, out_dtype: torch.dtype) -> torch.Tenso
     return y.reshape(*lead, y.shape[-1])
 
 
-def qdense(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def qdense(m: nn.Module, x: torch.Tensor, mesh: Optional[M.Mesh] = None) -> torch.Tensor:
     """x through a quantized module.  Weight-only int8: a product of x and
     the int8 weight (cast to x's type) with a float32 result
     (:func:`_mm_f32`), scaled by the column scales in float32, then rounded
     to x's type, then the bias, through :class:`_Int8MM` (which gives
-    QLoRA's frozen base its backward).  W8A8: :func:`quantize_activation` and
-    :func:`qdense_act`.  int4: :func:`_qdense4`."""
+    QLoRA's frozen base its backward; with ``mesh``, the row split's sum
+    over tp).  W8A8: :func:`quantize_activation` and :func:`qdense_act`.
+    int4: :func:`_qdense4`."""
     if isinstance(m, L.Int4Linear):
         return _qdense4(m, x)
     if isinstance(m, L.W8A8Linear):
         return qdense_act(m, quantize_activation(x), x.dtype)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    y = _Int8MM.apply(x2, m.w_q, m.w_scale).to(x.dtype)
+    y = _Int8MM.apply(x2, m.w_q, m.w_scale, mesh).to(x.dtype)
     if m.bias is not None:
         y = y + m.bias
+    return y.reshape(*lead, y.shape[-1])
+
+
+def qdense_rows(m: nn.Module, x: torch.Tensor, mesh: M.Mesh) -> torch.Tensor:
+    """The row split of a quantized projection (o, down) on a mesh with tp
+    above 1: x (..., K / tp) is this rank's block of the input and ``m``
+    holds the codes of this rank's K block, whole over fsdp
+    (``mesh.fsdp_module``).  The output is the whole product on every tp
+    rank, as one process's:
+
+      * int8: the float32 products summed over tp, then the scales
+        (:class:`_Int8MM`);
+      * W8A8: each row's max |x| over its blocks (Q1's form (a), then a
+        MAX over tp), the int8 values for that shared scale (Q1's form
+        (b)), this block's int32 product (Q2's int32 output), summed over
+        tp in int32, then the rescale and the bias (:func:`w8a8_epilogue`):
+        equal to one process's product to the bit.  With the outlier
+        decomposition on, the input and the codes are gathered over tp
+        and the one-process product runs;
+      * int4: a group of 128 inputs spans the tp blocks (down's 86 groups
+        at 7B do not divide over tp = 4), so the input is gathered over tp
+        (the gradient takes this rank's columns) and each rank computes the
+        whole product from the whole packed codes it holds."""
+    if isinstance(m, L.Int4Linear):
+        return _qdense4(m, M.gather_from_tp(x, -1, mesh))
+    if not isinstance(m, L.W8A8Linear):
+        return qdense(m, x, mesh)
+    if W8A8_OUTLIER_K > 0:
+        whole = copy.copy(m)
+        whole._buffers = {**m._buffers, "w_q8a": M.all_gather(m.w_q8a, 1, mesh.groups["tp"],
+                                                              mesh.tp)}
+        return qdense(whole, M.all_gather(x, x.dim() - 1, mesh.groups["tp"], mesh.tp))
+    lead, K = x.shape[:-1], x.shape[-1]
+    rows = x.reshape(-1, K).contiguous()
+    amax = M.all_reduce_max(row_absmax(rows), mesh.groups["tp"])
+    sc = _div(amax.clamp_min(1e-6), 127.0)
+    acc = w8a8_int_mm(quantize_rows_scaled(rows, sc), m.w_q8a)
+    acc = M.all_reduce(acc, mesh.groups["tp"])
+    y = w8a8_epilogue(acc, sc, m.w_scale, m.bias, x.dtype)
     return y.reshape(*lead, y.shape[-1])
 
 
@@ -493,9 +628,25 @@ def _smooth_scales(a_max, w_max, alpha: float) -> torch.Tensor:
     return torch.where(ok, s, torch.ones_like(s))
 
 
-def _wmax(lin: nn.Linear) -> torch.Tensor:
-    """max |w| over the outputs, per input channel."""
-    return lin.weight.detach().float().abs().amax(0)
+def _mesh_of(llm: nn.Module) -> Optional[M.Mesh]:
+    """A LLaMA's mesh where it is sharded, else None."""
+    mesh = getattr(llm, "mesh", None)
+    return mesh if mesh is not None and mesh.sharded else None
+
+
+def _wmax(lin: nn.Linear, mesh: Optional[M.Mesh] = None, spec=M.COLUMN) -> torch.Tensor:
+    """max |w| over the outputs, per input channel, of the whole weight: on
+    a mesh (``spec`` its axes) the block's maxima taken over the output
+    axis's ranks and gathered along the input axis (exact)."""
+    w = lin.weight.detach().float().abs().amax(0)
+    if mesh is None:
+        return w
+    out, inp = spec
+    if out and mesh.size(out) > 1:
+        w = M.all_reduce_max(w, mesh.groups[out])
+    if inp and mesh.size(inp) > 1:
+        w = M.all_gather(w, 0, mesh.groups[inp], mesh.size(inp))
+    return w
 
 
 @torch.no_grad()
@@ -512,26 +663,30 @@ def llama_smooth_plan(llm: nn.Module, stats, alpha: Optional[float] = None,
     ``num_heads / num_kv_heads`` o channels, so with ``head_dim`` s is one
     per kv-shared group (the group max of both statistics) and 'o_rows'
     repeats it; without ``head_dim`` the o site is skipped ('o' None).
-    lm_head has no calibration site and stays unsmoothed."""
+    lm_head has no calibration site and stays unsmoothed.  On a mesh the
+    vectors are the whole ones, on every rank."""
     alpha = W8A8_SMOOTH_ALPHA if alpha is None else alpha
+    mesh = _mesh_of(llm)
+    tp = 1 if mesh is None else mesh.tp
     plan = []
     for layer, st in zip(llm.layers, stats):
         a, m = layer.attn, layer.mlp
         dev = a.q.weight.device
         st = {k: _f32(v, dev) for k, v in st.items()}
-        wm_qkv = torch.maximum(torch.maximum(_wmax(a.q), _wmax(a.k)), _wmax(a.v))
-        wm_gu = torch.maximum(_wmax(m.gate), _wmax(m.up))
-        o_in, v_out = a.o.weight.shape[1], a.v.weight.shape[0]
+        wm_qkv = torch.maximum(torch.maximum(_wmax(a.q, mesh), _wmax(a.k, mesh)),
+                               _wmax(a.v, mesh))
+        wm_gu = torch.maximum(_wmax(m.gate, mesh), _wmax(m.up, mesh))
+        o_in, v_out = a.o.weight.shape[1] * tp, a.v.weight.shape[0] * tp
         rep = o_in // v_out
         if rep == 1:
-            s_o = s_o_rows = _smooth_scales(st["o_in"], _wmax(a.o), alpha)
+            s_o = s_o_rows = _smooth_scales(st["o_in"], _wmax(a.o, mesh, M.ROW), alpha)
         elif head_dim is not None:
             n_kv = v_out // head_dim
 
             def grp(v):
                 return v.reshape(n_kv, rep, head_dim).amax(1).reshape(-1)
 
-            s_o = _smooth_scales(grp(st["o_in"]), grp(_wmax(a.o)), alpha)
+            s_o = _smooth_scales(grp(st["o_in"]), grp(_wmax(a.o, mesh, M.ROW)), alpha)
             s_o_rows = s_o.reshape(n_kv, 1, head_dim).expand(n_kv, rep, head_dim).reshape(-1)
         else:
             s_o = s_o_rows = None
@@ -540,22 +695,32 @@ def llama_smooth_plan(llm: nn.Module, stats, alpha: Optional[float] = None,
             "o": s_o,
             "o_rows": s_o_rows,
             "mlp": _smooth_scales(st["mlp_in"], wm_gu, alpha),
-            "down": _smooth_scales(st["down_in"], _wmax(m.down), alpha),
+            "down": _smooth_scales(st["down_in"], _wmax(m.down, mesh, M.ROW), alpha),
         })
     return plan
 
 
-def _scale_in(w: torch.Tensor, s: torch.Tensor) -> None:
-    """w (out, in) *= s per input channel (a row of the JAX (in, out) kernel)."""
-    w.copy_((w.float() * s[None, :]).to(w.dtype))
+def _block(s: torch.Tensor, axis: Optional[str], mesh: Optional[M.Mesh]) -> torch.Tensor:
+    """This rank's block of a whole per-channel vector along ``axis``."""
+    return s if mesh is None or axis is None else M.local_block(s, (axis,), mesh)
 
 
-def _scale_in_div_out(w: torch.Tensor, s_in: torch.Tensor, s_out: torch.Tensor) -> None:
+def _scale_in(w: torch.Tensor, s: torch.Tensor, mesh=None, spec=M.COLUMN) -> None:
+    """w (out, in) *= s per input channel (a row of the JAX (in, out)
+    kernel); on a mesh w is the block of axes ``spec`` and s is whole."""
+    w.copy_((w.float() * _block(s, spec[1], mesh)[None, :]).to(w.dtype))
+
+
+def _scale_in_div_out(w: torch.Tensor, s_in: torch.Tensor, s_out: torch.Tensor,
+                      mesh=None, spec=M.COLUMN) -> None:
+    s_in, s_out = _block(s_in, spec[1], mesh), _block(s_out, spec[0], mesh)
     w.copy_((w.float() * s_in[None, :] / s_out[:, None]).to(w.dtype))
 
 
-def _div_out(w: torch.Tensor, s: torch.Tensor) -> None:
-    """w (out, ...) /= s per output channel (a vector: a bias or a gamma)."""
+def _div_out(w: torch.Tensor, s: torch.Tensor, mesh=None, axis=None) -> None:
+    """w (out, ...) /= s per output channel (a vector: a bias or a gamma;
+    a matrix: LoRA's B, its output axis ``axis`` on a mesh)."""
+    s = _block(s, axis, mesh)
     shape = (-1,) + (1,) * (w.dim() - 1)
     w.copy_((w.float() / s.reshape(shape)).to(w.dtype))
 
@@ -577,36 +742,40 @@ def fold_smooth_llama_inplace(llm: nn.Module, smooth_stats, alpha: Optional[floa
     memory is one weight's.  ``lora``: the live ``LlamaLora`` overlay that
     will run on the folded base; it must be given so that it is
     compensated too (q/v A input channels *= s_attn, v B outputs /= s_o).
-    ``head_dim`` enables the exact grouped-query o fold."""
+    ``head_dim`` enables the exact grouped-query o fold.  On a mesh each
+    weight is this rank's block and takes its block of the (whole) scales:
+    every element's arithmetic is one process's, so the folded blocks are
+    one process's blocks to the bit."""
+    mesh = _mesh_of(llm)
     plan = llama_smooth_plan(llm, smooth_stats, alpha, head_dim)
     lora_layers = [None] * len(plan) if lora is None else lora.layers
     for layer, e, ll in zip(llm.layers, plan, lora_layers):
         a, m = layer.attn, layer.mlp
         _div_out(layer.input_norm.weight, e["attn"])
-        _scale_in(a.q.weight, e["attn"])
-        _scale_in(a.k.weight, e["attn"])
+        _scale_in(a.q.weight, e["attn"], mesh)
+        _scale_in(a.k.weight, e["attn"], mesh)
         if e["o"] is None:
-            _scale_in(a.v.weight, e["attn"])
+            _scale_in(a.v.weight, e["attn"], mesh)
         else:
-            _scale_in_div_out(a.v.weight, e["attn"], e["o"])
+            _scale_in_div_out(a.v.weight, e["attn"], e["o"], mesh)
             if a.v.bias is not None:
                 _div_out(a.v.bias, e["o"])
-            _scale_in(a.o.weight, e["o_rows"])
+            _scale_in(a.o.weight, e["o_rows"], mesh, M.ROW)
         if ll:
             unknown = set(ll.keys()) - {"q", "v"}
             if unknown:
                 raise ValueError(f"LoRA targets {unknown} have no SmoothQuant compensation")
             for name in ("q", "v"):
                 if name in ll:
-                    _scale_in(ll[name].a.weight, e["attn"])
+                    _scale_in(ll[name].a.weight, e["attn"], mesh, M.LORA_A)
             if "v" in ll and e["o"] is not None:
-                _div_out(ll["v"].b.weight, e["o"])
+                _div_out(ll["v"].b.weight, e["o"], mesh, M.LORA_B[0])
         _div_out(layer.post_norm.weight, e["mlp"])
-        _scale_in(m.gate.weight, e["mlp"])
-        _scale_in_div_out(m.up.weight, e["mlp"], e["down"])
+        _scale_in(m.gate.weight, e["mlp"], mesh)
+        _scale_in_div_out(m.up.weight, e["mlp"], e["down"], mesh)
         if m.up.bias is not None:
             _div_out(m.up.bias, e["down"])
-        _scale_in(m.down.weight, e["down"])
+        _scale_in(m.down.weight, e["down"], mesh, M.ROW)
     return llm
 
 
@@ -625,17 +794,32 @@ def _pick_qfn(bits: int, w8a8: bool) -> Callable[[nn.Linear], nn.Module]:
     return quantize_dense_w8a8 if w8a8 else quantize_dense
 
 
-def _replace_linears(root: nn.Module, predicate, qfn) -> None:
+def _replace_linears(root: nn.Module, predicate, qfn, mesh: Optional[M.Mesh] = None) -> None:
     """Replace, one at a time, every ``nn.Linear`` under ``root`` whose path
     (a tuple of names) the predicate selects; each old module (and its
-    weight) is freed as soon as its quantized copy is in place."""
+    weight) is freed as soon as its quantized copy is in place.  With
+    ``mesh`` (``root`` a sharded ``Llama``) each weight is gathered whole
+    over the mesh, quantized as in one process and its codes and scales
+    sliced to this rank's blocks (``mesh.quant_spec``), so that they are
+    one process's to the bit; the whole copy is freed before the next."""
     names = [n for n, mod in root.named_modules()
              if n and isinstance(mod, nn.Linear)
              and (predicate is None or predicate(tuple(n.split("."))))]
     for name in names:
         parent_name, _, leaf = name.rpartition(".")
         parent = root.get_submodule(parent_name)
-        setattr(parent, leaf, qfn(getattr(parent, leaf)))
+        lin = getattr(parent, leaf)
+        if mesh is None:
+            setattr(parent, leaf, qfn(lin))
+            continue
+        out = M.out_axis(name)
+        whole = nn.Module()
+        whole.weight = M.gather_tensor(lin.weight.detach(), M.quant_spec(out, "w_q", 2), mesh)
+        whole.bias = None if lin.bias is None else lin.bias.detach()
+        q = qfn(whole)
+        del whole
+        M.shard_buffers(q, out, mesh)
+        setattr(parent, leaf, q)
 
 
 def quantize_tree(module: nn.Module, predicate=None, bits: int = 8,
@@ -686,16 +870,14 @@ def quantize_llama_inplace(llm: nn.Module, bits: int = 8, w8a8: bool = False,
     is one weight's, never a second copy of the model.  ``skip`` (module
     path tuple -> bool) keeps the projections it selects in full precision
     (QLoRA's trainable lm_head, ``train.optim.quantize_skeleton``).  A
-    LLaMA sharded over a mesh (``parallel/mesh.py``) raises
-    ``NotImplementedError``."""
-    if getattr(llm, "mesh", None) is not None:
-        from llmseg_tpu_torch.parallel.mesh import QUANTIZED
-
-        raise NotImplementedError(QUANTIZED)
+    LLaMA sharded over a mesh (``parallel/mesh.py``) is folded on its
+    blocks and quantized one whole projection at a time, its codes and
+    scales left as this rank's blocks: the extra memory is still one
+    weight's."""
     if smooth_stats is not None and (w8a8 or bits == 4):
         if alpha is None and not w8a8:
             alpha = W4_SMOOTH_ALPHA
         fold_smooth_llama_inplace(llm, smooth_stats, alpha, lora=lora, head_dim=head_dim)
     pred = _llama_pred if skip is None else (lambda path: _llama_pred(path) and not skip(path))
-    _replace_linears(llm, pred, _pick_qfn(bits, w8a8))
+    _replace_linears(llm, pred, _pick_qfn(bits, w8a8), _mesh_of(llm))
     return llm

@@ -12,12 +12,19 @@ head and MLP axes over ``tp`` (Megatron's column split for q, k, v, gate,
 up and LoRA B; the row split for o and down, whose partial products are
 summed over tp), the vocabulary of embed_tokens and lm_head over ``tp``,
 and the other axis of each over ``fsdp``.  The towers, the projector, the
-selection head and every 1-D leaf stay whole on every rank.
+selection head and every 1-D parameter stay whole on every rank.  A
+quantized projection (``models.layers``' int8, W8A8 and int4 modules)
+holds its codes and scales as buffers, laid out as JAX's quantized leaves
+come out on its mesh (:func:`quant_spec`): the int8 codes as the weight,
+the scales and the bias along the output axis's mesh axis, int4's packed
+codes and group scales along the output axis alone (a group of 128 inputs
+is never cut).
 
 The collectives are explicit, through the helpers below:
 
   * a frozen weight stored as its 1/fsdp block is all-gathered
-    (:func:`fsdp_weight`) where a layer uses it and dropped after; a
+    (:func:`fsdp_weight`; a quantized block's codes and scales,
+    :func:`fsdp_module`) where a layer uses it and dropped after; a
     trainable one (LoRA A, embed_tokens, lm_head) is gathered by a
     ``Function`` whose backward reduce-scatters the gradient over fsdp, so
     the gradient and the optimizer state live on the block alone;
@@ -42,6 +49,7 @@ identity.
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, Optional, Tuple
 
@@ -52,8 +60,11 @@ from torch import nn
 from llmseg_tpu_torch.parallel import ddp
 
 AXES = ("dp", "fsdp", "tp")
-QUANTIZED = ("a quantized LLaMA (QLoRA, W8A8) on a mesh with fsdp or tp above 1 is "
-             "ROADMAP queue 1 item 20")
+# the axes of LLaMA's (out, in) weights in the port's layout (_jax_rule on
+# JAX's (in, out), reversed): the column split (q, k, v, gate, up, lm_head),
+# the row split (o, down); LoRA's A (rank, in) and B (out, rank)
+COLUMN, ROW = ("tp", "fsdp"), ("fsdp", "tp")
+LORA_A, LORA_B = (None, "fsdp"), ("tp", None)
 
 Spec = Tuple[Optional[str], ...]
 
@@ -189,11 +200,12 @@ def _jax_path(name: str) -> Tuple[str, bool]:
 
 
 def param_spec(model: nn.Module) -> Dict[str, Spec]:
-    """{parameter name: the mesh axis of each of its dims, or None}: JAX's
-    ``param_spec`` on the port's names and layouts.  LLaMA's leaves
-    (``llava.llm.*``) and LoRA's (``lora.*``) follow ``_llm_spec``, stated
-    on JAX's axes and reversed where the port stores a leaf transposed;
-    everything else is replicated."""
+    """{parameter or quantized buffer name: the mesh axis of each of its
+    dims, or None}: JAX's ``param_spec`` on the port's names and layouts.
+    LLaMA's leaves (``llava.llm.*``) and LoRA's (``lora.*``) follow
+    ``_llm_spec``, stated on JAX's axes and reversed where the port stores
+    a leaf transposed; the buffers of LLaMA's quantized projections follow
+    :func:`quant_spec`; everything else is replicated."""
     specs = {}
     for name, p in model.named_parameters():
         spec: Spec = (None,) * p.ndim
@@ -204,7 +216,27 @@ def param_spec(model: nn.Module) -> Dict[str, Spec]:
                 if transposed and p.ndim == 2:
                     spec = spec[::-1]
         specs[name] = spec
+    specs.update({n: quant_spec(out, buf, t.ndim) for n, out, buf, t in _quant_buffers(model)})
     return specs
+
+
+def out_axis(path: str) -> Optional[str]:
+    """The mesh axis of the output dim of LLaMA's projection at ``path``
+    (a module path inside the ``Llama``): "tp" for the column split (q, k,
+    v, gate, up, lm_head), "fsdp" for the row split (o, down)."""
+    return _jax_rule(path.replace(".", "/") + "/w", 2)[1]
+
+
+def quant_spec(out: Optional[str], buf: str, ndim: int) -> Spec:
+    """The axes of a quantized projection's buffer in the port's layouts,
+    given the output axis's mesh axis ``out``: the int8 codes ``w_q`` /
+    ``w_q8a`` (out, in) as the bf16 weight (the input axis over the other
+    of fsdp and tp); ``w_scale`` and the bias (out,), int4's ``w_q4`` (out,
+    padded_in / 2) and ``w_scale4`` (out, n_groups) along the output axis
+    alone."""
+    if buf in ("w_q", "w_q8a"):
+        return {"tp": COLUMN, "fsdp": ROW}.get(out, (None, None))
+    return (out,) + (None,) * (ndim - 1)
 
 
 def local_block(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
@@ -230,28 +262,63 @@ def gather_tensor(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
     return t
 
 
+def _llm(model: nn.Module):
+    """An ``LLMSeg``'s LLaMA, or None for another module."""
+    llava = getattr(model, "llava", None)
+    return getattr(llava, "llm", None)
+
+
 def _llm_modules(model: nn.Module):
-    llm = model.llava.llm
+    llm = _llm(model)
     return llm, [llm, *llm.layers]
+
+
+def _quant_buffers(model: nn.Module):
+    """(name, the output axis's mesh axis, buffer name, tensor) of every
+    buffer of an ``LLMSeg``'s quantized LLaMA projections."""
+    from llmseg_tpu_torch.ops import quant
+
+    llm = _llm(model)
+    for path, m in ([] if llm is None else llm.named_modules()):
+        if quant.is_quantized(m):
+            for buf, t in m.named_buffers(recurse=False):
+                yield f"llava.llm.{path}.{buf}", out_axis(path), buf, t
+
+
+def _named_tensors(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """Every parameter, and every buffer of LLaMA's quantized projections,
+    by name."""
+    return {**dict(model.named_parameters()),
+            **{n: t for n, _, _, t in _quant_buffers(model)}}
+
+
+def shard_buffers(m: nn.Module, out: Optional[str], mesh: Mesh) -> None:
+    """Slice a quantized projection's buffers, in place, to this rank's
+    blocks (:func:`quant_spec`)."""
+    for buf, t in list(m.named_buffers(recurse=False)):
+        block = local_block(t, quant_spec(out, buf, t.ndim), mesh)
+        if block.shape != t.shape:
+            m._buffers[buf] = block.clone()
 
 
 @torch.no_grad()
 def shard_params(model: nn.Module, mesh: Mesh) -> Dict[str, Spec]:
-    """Slice every parameter of an ``LLMSeg`` in place to this rank's block
+    """Slice every parameter of an ``LLMSeg``, and every buffer of its
+    LLaMA's quantized projections, in place to this rank's block
     (:func:`param_spec`) and hand the mesh to the model and its LLaMA.
-    Returns the specs.  A quantized LLaMA on a sharded mesh raises
-    ``NotImplementedError``."""
+    Returns the specs."""
     from llmseg_tpu_torch.ops import quant
 
     specs = param_spec(model)
     if mesh.sharded:
         llm, owners = _llm_modules(model)
-        if any(quant.is_quantized(m) for m in llm.modules()):
-            raise NotImplementedError(QUANTIZED)
         for name, p in model.named_parameters():
             block = local_block(p.data, specs[name], mesh)
             if block.shape != p.shape:
                 p.data = block.clone()
+        for path, m in llm.named_modules():
+            if quant.is_quantized(m):
+                shard_buffers(m, out_axis(path), mesh)
         for m in owners:
             m.mesh = mesh
     model.mesh = mesh
@@ -260,17 +327,18 @@ def shard_params(model: nn.Module, mesh: Mesh) -> Dict[str, Spec]:
 
 def gather_full(model: nn.Module, names: Optional[Iterable[str]] = None
                 ) -> Dict[str, torch.Tensor]:
-    """The inverse of :func:`shard_params`: {name: the whole parameter}
-    for ``names`` (every parameter when None), gathered over fsdp and tp;
-    an unsharded parameter is returned as it is.  Every rank must call it."""
+    """The inverse of :func:`shard_params`: {name: the whole tensor} for
+    ``names`` (every parameter and quantized buffer when None), gathered
+    over fsdp and tp; an unsharded one is returned as it is.  Every rank
+    must call it."""
     mesh = getattr(model, "mesh", None)
-    params = dict(model.named_parameters())
-    names = list(params) if names is None else list(names)
+    tensors = _named_tensors(model)
+    names = list(tensors) if names is None else list(names)
     if mesh is None or not mesh.sharded:
-        return {n: params[n] for n in names}
+        return {n: tensors[n] for n in names}
     specs = param_spec(model)
     with torch.no_grad():
-        return {n: gather_tensor(params[n].detach(), specs[n], mesh) for n in names}
+        return {n: gather_tensor(tensors[n].detach(), specs[n], mesh) for n in names}
 
 
 def gather_opt_state(state: dict, names, specs: Dict[str, Spec], mesh: Mesh) -> dict:
@@ -316,11 +384,16 @@ def reduce_scatter(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     return out.movedim(0, dim).contiguous()
 
 
-def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of ``x`` over ``group``, as a new tensor."""
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The sum (or ``op``) of ``x`` over ``group``, as a new tensor."""
     y = x.contiguous().clone()
-    dist.all_reduce(y, group=group)
+    dist.all_reduce(y, op=op, group=group)
     return y
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``group``, as a new tensor."""
+    return all_reduce(x, group, dist.ReduceOp.MAX)
 
 
 class _GatherFSDP(torch.autograd.Function):
@@ -387,6 +460,24 @@ def fsdp_weight(w: torch.Tensor, dim: int, mesh: Optional[Mesh]) -> torch.Tensor
         return _GatherFSDP.apply(w, dim, mesh)
     with torch.no_grad():
         return all_gather(w, dim, mesh.groups["fsdp"], mesh.fsdp)
+
+
+def fsdp_module(m: nn.Module, out: Optional[str], mesh: Optional[Mesh]) -> nn.Module:
+    """A quantized projection whose codes and scales are stored as fsdp
+    blocks, with them whole over fsdp (:func:`quant_spec` with output axis
+    ``out``): a shallow copy that holds the gathered buffers, dropped by
+    the caller after its product.  The buffers are frozen: no graph."""
+    if mesh is None or mesh.fsdp == 1:
+        return m
+    bufs = {}
+    with torch.no_grad():
+        for buf, t in m.named_buffers(recurse=False):
+            spec = quant_spec(out, buf, t.ndim)
+            bufs[buf] = (all_gather(t, spec.index("fsdp"), mesh.groups["fsdp"], mesh.fsdp)
+                         if "fsdp" in spec else t)
+    g = copy.copy(m)
+    g._buffers = {**m._buffers, **bufs}
+    return g
 
 
 def copy_to_tp(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:

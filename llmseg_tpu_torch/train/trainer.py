@@ -1,6 +1,6 @@
 """Training loop, the counterpart of ``llmseg_tpu.train.trainer.Trainer``:
-init, the trainable partition, the quantized frozen base (QLoRA) and the
-optimizer; epochs of micro-steps with grad accumulation, meters and
+init, the trainable partition, the quantized frozen base (QLoRA, on any
+mesh) and the optimizer; epochs of micro-steps with grad accumulation, meters and
 progress printing; validation (gIoU / cIoU), the best-checkpoint policy and
 checkpoint resume.
 
@@ -61,12 +61,13 @@ class Trainer:
             model = llmseg.init(cfg.model, seed=cfg.train.seed, device=self.device,
                                 dtype=dtype, lora_cfg=self.lora_cfg)
         self.model = model
-        if cfg.train.quantize_frozen and self.mesh.sharded:
-            raise NotImplementedError(M.QUANTIZED)
         self.specs = M.shard_params(model, self.mesh)
         self.trainable = optim.partition(model)
         if cfg.train.quantize_frozen:
+            # on a sharded mesh each projection is gathered, quantized and
+            # sliced (ops/quant.py); the specs then name its codes and scales
             optim.quantize_skeleton(model, bits=cfg.train.quantize_bits)
+            self.specs = M.param_spec(model)
         self.opt = optim.make_trainable_optimizer(cfg.train, self.trainable, self.mesh,
                                                   self.specs)
         self.remat = cfg.train.remat_policy

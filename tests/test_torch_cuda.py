@@ -8,8 +8,8 @@ forward kernels (A, B, E, F, J) within 1e-2 + 1e-2 * |ref| (bf16 keeps 8
 significant bits; the kernels also round the probabilities to bf16 before
 the second product, as the TPU kernels do); float32 within 1e-4 (another
 summation order); the backward kernels and kernels G, H and I normwise, as
-their tests state; the quant kernels Q1 and Q2 (and the standalone
-rescale that Q2 replaced) as their tests state."""
+their tests state; the quant kernels Q1 and Q2 (their split forms of a
+mesh's row split, and the standalone rescale) as their tests state."""
 
 import math
 
@@ -700,6 +700,45 @@ def test_q2_w8a8_linear_matches_plain_bitwise(R, K, N, extra, out_dtype):
     got = Q.w8a8_linear(xq, sc, w, ws, bias, out_dtype, side)
     ref = Q.w8a8_linear_plain(xq, sc, w, ws, bias, out_dtype, side)
     assert got.shape == (R, N) and _same_bits(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R,C", [(1, 2048), (17, 2048), (3068, 2048), (3068, 5504),
+                                 (1534, 2752), (129, 5504), (5, 100), (3, 64)])
+def test_q1_split_forms_match_plain(dtype, R, C):
+    """Q1's forms on a mesh's row split (the o and down inputs' tp blocks
+    at 7B: 2048 and 5504 wide at tp = 2, 1024 and 2752 at tp = 4): form (a),
+    the rows' max |x|, and form (b), the int8 values for a given row scale
+    (here the whole row's, of blocks twice as wide), equal to their plain
+    versions to the bit, exact ties included; C = 100 takes the scalar
+    path."""
+    g = torch.Generator(device="cuda").manual_seed(R + C)
+    x = torch.randn(R, C, device="cuda", generator=g) * 3
+    x[0, :4] = torch.tensor([127.0, 2.5, -3.5, 0.5])
+    x = x.to(dtype)
+    amax = Q.row_absmax(x)
+    assert amax.shape == (R, 1) and torch.equal(amax, Q.row_absmax_plain(x))
+    other = (torch.randn(R, C, device="cuda", generator=g) * 4).to(dtype)
+    sc = Q._div(torch.maximum(amax, Q.row_absmax_plain(other)).clamp_min(1e-6), 127.0)
+    sc[0] = 1.0          # the exact ties of row 0: 2.5 -> 2, -3.5 -> -4, 0.5 -> 0
+    xq = Q.quantize_rows_scaled(x, sc)
+    assert torch.equal(xq, Q.quantize_rows_scaled_plain(x, sc))
+    assert xq[0, 1:4].tolist() == [2, -4, 0]
+
+
+@pytest.mark.parametrize("K,N", [(2048, 4096), (5504, 4096), (4096, 2048), (4096, 5504),
+                                 (2752, 4096), (4096, 2752), (64, 128)])
+@pytest.mark.parametrize("R", [1, 16, 17, 129, 1534, 3068])
+def test_q2_int32_output_matches_plain_bitwise(R, K, N):
+    """Q2's int32 output (the accumulators as they are) against torch's
+    exact int8 product, to the bit, at the shapes of a mesh's tp blocks at
+    7B (N = 2752 ends in a partial 256-column tile)."""
+    g = torch.Generator(device="cuda").manual_seed(R + K + N)
+    xq = torch.randint(-127, 128, (R, K), device="cuda", generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (N, K), device="cuda", generator=g, dtype=torch.int8)
+    got = Q.w8a8_int_mm(xq, w)
+    assert got.dtype == torch.int32 and got.shape == (R, N)
+    assert torch.equal(got, Q._int_mm(xq, w))
 
 
 @pytest.mark.parametrize("R", [1, 16, 17, 3068])

@@ -155,13 +155,13 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _launch(root, case, world):
+def _launch(root, case, world, worker=WORKER):
     port = _free_port()
     procs = []
     for rank in range(world):
         env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), OMP_NUM_THREADS="1")
-        procs.append(subprocess.Popen([sys.executable, WORKER, root, case], env=env,
+        procs.append(subprocess.Popen([sys.executable, worker, root, case], env=env,
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True))
     return procs
@@ -388,22 +388,18 @@ def test_tp2_checkpoint_loads_into_one_process_trainer(run):
     assert tuple(state["exp_avg"].shape) == (cfg_llm.vocab_size, cfg_llm.hidden_size)
 
 
-def test_a_quantized_llama_on_a_sharded_mesh_is_refused():
-    """QLoRA and W8A8 on a mesh with fsdp or tp above 1 are ROADMAP queue 1
-    item 20: quantizing a sharded LLaMA and sharding a quantized one each
-    raise (the Trainer checks ``quantize_frozen`` before it shards)."""
+def test_a_data_parallel_mesh_keeps_a_quantized_model():
+    """A data-parallel mesh shards nothing: a quantized model keeps every
+    buffer whole and takes the single-device path (the quantized model on
+    a mesh with fsdp or tp above 1: ``tests/test_torch_qmesh.py``)."""
     from llmseg_tpu_torch.ops import quant
 
     model = tllmseg.build(TC.llmseg_tiny(), device="cpu", lora_cfg=TLORA)
-    M.shard_params(model, M.Mesh(1, 1, 2, rank=1))
-    with pytest.raises(NotImplementedError, match="item 20"):
-        quant.quantize_llama_inplace(model.llava.llm, bits=8)
-    model = tllmseg.build(TC.llmseg_tiny(), device="cpu", lora_cfg=TLORA)
     quant.quantize_llama_inplace(model.llava.llm, bits=8)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        M.shard_params(model, M.Mesh(1, 2, 1, rank=0))
-    # a data-parallel mesh shards nothing and keeps the quantized model
+    before = {n: b.shape for n, b in model.named_buffers()}
     assert M.shard_params(model, M.Mesh(2, 1, 1, rank=1)) == M.param_spec(model)
+    assert {n: b.shape for n, b in model.named_buffers()} == before
+    assert model.llava.llm.mesh is None
 
 
 def test_generation_refuses_a_sharded_llama():
