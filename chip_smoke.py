@@ -70,7 +70,10 @@ Phases, one JSON line each; any failure exits non-zero:
               SAM encoder cut to 2-3 blocks, 8 images, 8 new tokens,
               float32: generation (prefill through A), the SAM encoder (E,
               F) and the decode (H) against the plain paths, with the
-              smallest top-1 / top-2 logit gap of the generated steps;
+              smallest top-1 / top-2 logit gap of the generated steps; then
+              with row 0's CLIP image and text in every row, the first
+              emitted token declared [SEG] and evaluate on both routes: a
+              [SEG] in every row, masks over -1e8 and within MODULE_LIMIT;
      w8a8_in_place  the cut llmseg_7b in float32 with its LLaMA calibrated
               and quantized W8A8: predict through Q1 and Q2, each call
               against its plain version on the same tensors (Q2 to the
@@ -236,12 +239,30 @@ Phases, one JSON line each; any failure exits non-zero:
               E 4, F 28, H 1), finite outputs of the right shapes (the
               masks before the [SEG] select too), ms/evaluate, images/s,
               peak memory and the split into CLIP, prefill, decode steps,
-              SAM encoder, and SAM decode with postprocess;
+              SAM encoder, and SAM decode with postprocess; then with row
+              0's CLIP image and text in every row, its first emitted token
+              declared [SEG] and evaluate run again: each row's mask
+              finite, over -1e8, equal to its pre-select mask, the same
+              launches, ms beside the run without [SEG];
      amg      sam_vit_h in bf16 (random weights from a seed): generate() on
               three synthetic images with the default AMGConfig, then with
               the filters opened, then with NMS off too; launch counts per
               image (E 4, F 28, G 16), annotation schema, ms/image, peak
               memory and one image in parts;
+     amg_crops  the crop cascade with survivors: crop_sam (sam_tiny's
+              64-px input at patch 2, a 32 x 32 grid, the least at which a
+              frame takes E, F and G; SAM's decoder widths) in float32 from
+              seeded weights (seeded_sam, the upscale's taps tied), copied
+              to the card; generate() on a 48 x 64 image at crop layers 1
+              and 2, min_mask_region_area 0 and 20, against the same
+              generator on the CPU: every annotation equal (the scores
+              within kernel G's float32 IoU limit), crop masks staged,
+              upscaled and deduplicated, full-frame and crop masks among
+              the survivors, E 1, F 1, G 4 a frame; cli.prepare over three
+              images at crop layers 1 (generators in float32) on the card
+              against the CPU, equal; generate in bf16 against the CPU in
+              bf16, the median IoU of masks matched by box at least
+              CROP_BF16_MEDIAN_IOU;
      rle      AMG finish with NMS off on the amg images, once on the native
               RLE codec (llmseg_tpu_torch/native, built with g++) and once
               on the numpy path: the annotations equal, ms of each;
@@ -1382,6 +1403,337 @@ def amg_phase(C, S, AMG, kernels_all) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The crop cascade with survivors: a narrow SAM whose frames take E, F and G
+# ---------------------------------------------------------------------------
+
+# sam_tiny's 64-pixel input at patch 2: a 32 x 32 grid, the least at which a
+# frame's decode takes kernel G (1024 image tokens, twoway_kernel.should_fuse)
+# and its global block kernel E (T > 512; the windowed block takes F), with
+# SAM's decoder widths (256, 8 heads), which G's bf16 route takes
+CROP_SAM = {"encoder": dict(img_size=64, patch_size=2, embed_dim=32, depth=2, num_heads=2,
+                            window_size=14, global_attn_indexes=(1,)),
+            "prompt": dict(image_embedding_size=32, input_image_size=64)}
+CROP_WEIGHTS = dict(seed=5, amp=0.1, tied_upscale=True)    # crop masks survive under these
+CROP_CASES = ((1, 0), (2, 0), (1, 20), (2, 20))   # (crop_n_layers, min_mask_region_area)
+CROP_AMG = dict(points_per_side=8, points_per_batch=16, pred_iou_thresh=-1e9,
+                stability_score_thresh=-1.0, box_nms_thresh=0.95, max_masks=64)
+CROP_PREP_SHAPES = ((48, 64), (64, 40), (64, 64))  # prepare's images, none over the input
+CROP_BF16_MEDIAN_IOU = 0.5    # bf16, card vs CPU: the median IoU of masks matched by box
+CROP_BF16_COUNT = 4           # and the annotation counts' difference
+
+
+def crop_sam(C):
+    """``CROP_SAM`` built from ``C``'s dataclasses: the port's config
+    module, or one with classes of the same names and fields."""
+    return C.SamConfig(encoder=C.SamEncoderConfig(**CROP_SAM["encoder"]),
+                       prompt=C.SamPromptConfig(**CROP_SAM["prompt"]))
+
+
+def seeded_sam(cfg=None, *, seed: int = 1, amp: float = 0.5, tied_upscale: bool = False):
+    """A SAM on the CPU, in float32: ``sam.init(cfg, seed)`` (``sam_tiny`` by
+    default) plus seeded noise of ``amp`` on every parameter; weights under
+    which AMG's crops of a 48 x 64 image keep masks clear of their inner
+    edges (the reference's 20-pixel band), so that the cross-crop dedup has
+    work.  ``tied_upscale`` gives each of the mask decoder's two transposed
+    convolutions one kernel for all four taps: random taps lay a 4 x 4
+    pattern over every low-res mask that outweighs the image's part some
+    50 to 1, so at a 32 x 32 grid every mask's box spans its frame."""
+    import torch
+    from llmseg_tpu_torch import config as C
+    from llmseg_tpu_torch.models.sam import sam as S
+    m = S.init(cfg or C.sam_tiny(), device="cpu", seed=seed)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.add_(amp * torch.randn(p.shape, generator=g))
+        if tied_upscale:
+            for conv in (m.mask_decoder.upscale_conv1, m.mask_decoder.upscale_conv2):
+                conv.weight.copy_(conv.weight[..., :1, :1].expand_as(conv.weight))
+    return m
+
+
+def crop_image(hw=(48, 64), seed: int = 1):
+    """The seeded uint8 image the crop cascade's tests run on."""
+    import numpy as np
+    return np.random.RandomState(seed).randint(0, 255, (*hw, 3), np.uint8)
+
+
+def score_gap(a, b) -> float:
+    """The larger of two annotations' score gaps, each of max(1, |b|)."""
+    return max(abs(a[k] - b[k]) / max(1.0, abs(b[k]))
+               for k in ("predicted_iou", "stability_score"))
+
+
+def annotation_diffs(got, ref, score_tol: float) -> list:
+    """Where two annotation lists differ: their counts, then each key of each
+    annotation exactly, but the two scores within ``score_tol`` of
+    max(1, |ref|).  Empty when they agree."""
+    if len(got) != len(ref):
+        return [{"count": [len(got), len(ref)]}]
+    out = []
+    for i, (a, b) in enumerate(zip(got, ref)):
+        for k in sorted(set(a) | set(b)):
+            if k in ("predicted_iou", "stability_score"):
+                if k not in a or k not in b or abs(a[k] - b[k]) > score_tol * max(1.0, abs(b[k])):
+                    out.append({"index": i, "key": k, "got": a.get(k), "ref": b.get(k)})
+            elif a.get(k) != b.get(k):
+                out.append({"index": i, "key": k})
+    return out
+
+
+def match_by_box(got, ref) -> list:
+    """For each annotation of ``got``, the IoU of its mask with that of the
+    ``ref`` annotation whose box overlaps its box most, the best mask among
+    boxes that overlap it equally (0 when ``ref`` is empty)."""
+    import numpy as np
+    from llmseg_tpu_torch.ops import rle
+
+    def box_iou(a, b):
+        ax, ay, aw, ah = a
+        bx, by, bw, bh = b
+        iw = max(0.0, min(ax + aw, bx + bw) - max(ax, bx))
+        ih = max(0.0, min(ay + ah, by + bh) - max(ay, by))
+        inter = iw * ih
+        return inter / max(aw * ah + bw * bh - inter, 1e-9)
+
+    def mask_iou(a, b):
+        ma, mb = rle.decode(a["segmentation"]), rle.decode(b["segmentation"])
+        return float(np.logical_and(ma, mb).sum() / max(np.logical_or(ma, mb).sum(), 1))
+
+    out = []
+    for a in got:
+        ious = [box_iou(a["bbox"], r["bbox"]) for r in ref]
+        best = max(ious, default=None)
+        out.append(0.0 if best is None else max(
+            mask_iou(a, r) for r, i in zip(ref, ious) if i == best))
+    return out
+
+
+def crop_expected_per_frame(cfg, amg, names, cuda: bool) -> dict:
+    """Kernel launches a frame of the crop cascade on this device: E for
+    each global block whose T is over kernel F's, F for the others, G for
+    each chunk of prompts once the decode takes the fused route."""
+    from llmseg_tpu_torch.ops import relpos_attention, twoway_kernel
+    enc = cfg.encoder
+    g = enc.img_size // enc.patch_size
+    glob = len(enc.global_attn_indexes) if g * g > relpos_attention.WINDOW_MAX_T else 0
+    chunks = -(-amg.points_per_side ** 2 // amg.points_per_batch)
+    fused = twoway_kernel.should_fuse(amg.points_per_batch, g * g, None, "cuda")
+    per = {"relpos_fwd": glob, "relpos_window": enc.depth - glob,
+           "factored_decode": chunks if fused else 0}
+    return {n: (per.get(n, 0) if cuda else 0) for n in names}
+
+
+def amg_crops_phase(C, S, AMG, CP, kernels_all, *, device="cuda", cfg=None,
+                    weights=CROP_WEIGHTS, cases=CROP_CASES) -> dict:
+    """AMG's crop cascade with survivors, on the card against the CPU.
+    ``crop_sam`` (float32) from ``seeded_sam(**weights)``, copied to the
+    card; the same weights stay on the CPU as the reference.  For each
+    (crop_n_layers, min_mask_region_area) of ``cases``, ``generate`` on
+    ``crop_image()`` (8 x 8 points, 16 a batch, filters opened, box NMS at
+    0.95) through the card's submit, prefetch and finish, then the CPU's on
+    the same image (its submit shared by the cases of one crop depth, whose
+    finish alone differs): every annotation equal (crop_box, bbox, area,
+    RLE, point exactly; the scores within kernel G's float32 limit on its
+    IoU output, SAM_DECODE_LIMIT["iou"], of max(1, |value|)); the crops'
+    survivors staged, upscaled and deduplicated (staged > annotations), the
+    full frame and at least one crop among the survivors; E, F and G
+    launched on every frame, as many times as ``crop_expected_per_frame``
+    says.  Then ``cli.prepare`` (``--crop_n_layers 1``, the same filters)
+    over images of CROP_PREP_SHAPES made from a seed (the decode stood in
+    for) from a checkpoint of those weights, its generators upcast to
+    float32, once with ``--device`` the card and once the CPU: the masks.json
+    documents equal, crops and full frames among the survivors.  Then
+    ``generate`` at one crop layer in bf16 on the card against the CPU in
+    bf16: the median IoU of masks matched by box (both ways) at
+    least CROP_BF16_MEDIAN_IOU, the counts within CROP_BF16_COUNT, a
+    full-frame mask among the survivors; beside it, the CPU's bf16 run
+    against its float32 run (what bf16 alone moves).  One line a run with
+    its ms beside the CPU's."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    cuda = torch.device(device).type == "cuda"
+    cfg = cfg or crop_sam(C)
+    ref_model = seeded_sam(cfg, **weights)
+    model = copy.deepcopy(ref_model).to(device)
+    image = crop_image()
+    names = [k.name for k in kernels_all]
+    frames = []
+
+    def per_frame(fn):
+        def run(self, *a, **kw):
+            for k in kernels_all:
+                k.launches = 0
+            out = fn(self, *a, **kw)
+            frames.append({k.name: k.launches for k in kernels_all})
+            return out
+        return run
+
+    def launches_ok(expect):
+        lit = [n for n in ("relpos_fwd", "relpos_window", "factored_decode") if expect[n]]
+        return (bool(frames) and all(f == expect for f in frames)
+                and (not cuda or len(lit) == 3))
+
+    def survivors(anns, hw):
+        full = [0, 0, hw[1], hw[0]]
+        boxes = [a["crop_box"] for a in anns]
+        return boxes.count(full), sum(b != full for b in boxes)
+
+    t_phase = time.perf_counter()
+    # the CPU tests hold the scores of two CPU libraries within 1e-5 of
+    # max(1, |value|); the card's float32 decode takes kernel G's limit on
+    # its IoU output against the plain version
+    tol = SAM_DECODE_LIMIT["iou"]
+    records, ref_handles, float32_refs = [], {}, {}
+    for layers, area in cases:
+        amg = C.AMGConfig(**CROP_AMG, min_mask_region_area=area, crop_n_layers=layers)
+        expect = crop_expected_per_frame(cfg, amg, names, cuda)
+        gen = AMG.AutomaticMaskGenerator(model, cfg, amg, device=device)
+        frames.clear()
+        with Wrapped((AMG.AutomaticMaskGenerator, "_submit_one", per_frame)):
+            t0 = time.perf_counter()
+            handle = gen.prefetch(gen.submit(image))
+            anns = gen.finish(handle)
+            sync(device)
+            ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ref_gen = AMG.AutomaticMaskGenerator(ref_model, cfg, amg, device="cpu")
+        if layers not in ref_handles:
+            ref_handles[layers] = ref_gen.prefetch(ref_gen.submit(image))
+        ref = float32_refs[layers, area] = ref_gen.finish(ref_handles[layers])
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        diffs = annotation_diffs(anns, ref, tol)
+        staged = sum(n for _, n, _, _, _ in handle["staged"])
+        full, from_crops = survivors(anns, image.shape[:2])
+        rec = {"phase": "amg_crops", "run": f"generate_layers_{layers}_min_area_{area}",
+               "dtype": "float32", "frames": len(handle["crops"]),
+               "launches_per_frame": frames[0] if frames else {},
+               "expected_launches_per_frame": expect, "launches_ok": launches_ok(expect),
+               "staged": staged, "annotations": len(anns), "full_frame": full,
+               "from_crops": from_crops, "equal_to_cpu": not diffs, "diffs": diffs[:8],
+               "max_score_gap": max(map(score_gap, anns, ref), default=0.0)
+               if len(anns) == len(ref) else None, "score_tol": tol,
+               "ms": ms, "cpu_ms": cpu_ms}
+        if diffs:
+            rec["matched_iou_min"] = min(match_by_box(anns, ref) or [0.0])
+        rec["ok"] = (rec["equal_to_cpu"] and rec["launches_ok"] and staged > len(anns)
+                     and full > 0 and from_crops > 0)
+        records.append(rec)
+
+    # cli.prepare over a corpus, from a checkpoint of the same weights
+    root = tempfile.mkdtemp(prefix="llmseg_crops_")
+    rng = np.random.RandomState(1)
+    images = {f"img{i}.jpg": rng.randint(0, 255, (*hw, 3), np.uint8)
+              for i, hw in enumerate(CROP_PREP_SHAPES)}
+    saved_imread, saved_vit_h = CP._imread_rgb, S.MODEL_REGISTRY["vit_h"]
+
+    def upcast(fn):
+        def run(self, model, *a, **kw):
+            fn(self, model.float(), *a, **kw)
+        return run
+
+    try:
+        ckpt = os.path.join(root, "sam.pth")
+        torch.save(host_copy(ref_sam(ref_model)), ckpt)
+        img_dir = os.path.join(root, "images")
+        os.makedirs(img_dir)
+        for name in images:
+            open(os.path.join(img_dir, name), "wb").close()     # found by the glob
+        CP._imread_rgb = lambda path: images[os.path.basename(path)]
+        S.MODEL_REGISTRY["vit_h"] = lambda: cfg
+        argv = ["--image_dir", img_dir, "--sam_ckpt", ckpt, "--crop_n_layers", "1",
+                "--points_per_side", str(CROP_AMG["points_per_side"]),
+                "--points_per_batch", str(CROP_AMG["points_per_batch"]),
+                "--pred_iou_thresh=-1e9", "--stability_score_thresh=-1",
+                "--box_nms_thresh", str(CROP_AMG["box_nms_thresh"])]
+        docs, times = {}, {}
+        expect = crop_expected_per_frame(cfg, C.AMGConfig(**CROP_AMG, crop_n_layers=1), names,
+                                         cuda)
+        frames.clear()
+        for side, dev in (("card", device), ("cpu", "cpu")):
+            out = os.path.join(root, f"masks_{side}.json")
+            wraps = [(AMG.AutomaticMaskGenerator, "__init__", upcast)]
+            if side == "card":
+                wraps.append((AMG.AutomaticMaskGenerator, "_submit_one", per_frame))
+            with Wrapped(*wraps):
+                t0 = time.perf_counter()
+                CP.main(argv + ["--output", out, "--device", dev])
+                sync(dev)
+                times[side] = (time.perf_counter() - t0) * 1e3
+            with open(out) as f:
+                docs[side] = json.load(f)
+    finally:
+        CP._imread_rgb, S.MODEL_REGISTRY["vit_h"] = saved_imread, saved_vit_h
+        shutil.rmtree(root, ignore_errors=True)
+    got, ref = docs["card"], docs["cpu"]
+    diffs = [] if [(d["image"], d["target_size"]) for d in got] == [
+        (d["image"], d["target_size"]) for d in ref] else [{"images": "differ"}]
+    for g, r in zip(got, ref):
+        diffs += [dict(d, image=g["image"]) for d in annotation_diffs(g["masks"], r["masks"], tol)]
+    counts = [survivors(d["masks"], d["target_size"]) for d in got]
+    rec = {"phase": "amg_crops", "run": "prepare_crop_layers_1", "dtype": "float32",
+           "images": [list(hw) for hw in CROP_PREP_SHAPES], "frames": len(frames),
+           "launches_per_frame": frames[0] if frames else {},
+           "expected_launches_per_frame": expect, "launches_ok": launches_ok(expect),
+           "annotations": [len(d["masks"]) for d in got],
+           "full_frame": [c[0] for c in counts], "from_crops": [c[1] for c in counts],
+           "equal_to_cpu": not diffs, "diffs": diffs[:8],
+           "max_score_gap": max((score_gap(a, b) for g, r in zip(got, ref)
+                                 if len(g["masks"]) == len(r["masks"])
+                                 for a, b in zip(g["masks"], r["masks"])), default=0.0),
+           "score_tol": tol, "ms_per_image": times["card"] / len(images),
+           "cpu_ms_per_image": times["cpu"] / len(images)}
+    rec["ok"] = (rec["equal_to_cpu"] and rec["launches_ok"]
+                 and len(frames) == len(images) * 5 and len(got) == len(images)
+                 and sum(rec["from_crops"]) > 0 and sum(rec["full_frame"]) > 0)
+    records.append(rec)
+
+    amg = C.AMGConfig(**CROP_AMG, crop_n_layers=1)
+    m16 = copy.deepcopy(ref_model).bfloat16()
+    gen = AMG.AutomaticMaskGenerator(copy.deepcopy(m16).to(device), cfg, amg, device=device)
+    t0 = time.perf_counter()
+    anns = gen.generate(image)
+    sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    ref = AMG.AutomaticMaskGenerator(m16, cfg, amg, device="cpu").generate(image)
+    fwd, back = match_by_box(anns, ref), match_by_box(ref, anns)
+    full, from_crops = survivors(anns, image.shape[:2])
+    f32 = float32_refs.get((1, 0))
+    moved = match_by_box(ref, f32) + match_by_box(f32, ref) if f32 is not None else []
+    rec = {"phase": "amg_crops", "run": "generate_layers_1_bf16", "dtype": "bfloat16",
+           "annotations": len(anns), "cpu_annotations": len(ref), "full_frame": full,
+           "from_crops": from_crops, "cpu_from_crops": survivors(ref, image.shape[:2])[1],
+           "matched_iou_min": min(fwd + back, default=0.0),
+           "matched_iou_median": float(np.median(fwd + back)) if fwd + back else 0.0,
+           "equal_to_cpu": not annotation_diffs(anns, ref, tol), "ms": ms,
+           "cpu_bf16_vs_float32_matched_iou_median":
+               float(np.median(moved)) if moved else None,
+           "limits": {"matched_iou_median": CROP_BF16_MEDIAN_IOU,
+                      "count": CROP_BF16_COUNT}}
+    rec["ok"] = (abs(len(anns) - len(ref)) <= CROP_BF16_COUNT
+                 and rec["matched_iou_median"] >= CROP_BF16_MEDIAN_IOU and full > 0)
+    records.append(rec)
+    for r in records:
+        emit(r)
+    enc = cfg.encoder
+    rec = {"phase": "amg_crops", "run": "all", "seconds": time.perf_counter() - t_phase,
+           "config": f"{enc.img_size}-px input at patch {enc.patch_size} "
+                     f"({enc.grid} x {enc.grid} grid), encoder {enc.embed_dim} wide, "
+                     f"decoder {cfg.decoder.transformer_dim} wide",
+           "weights": dict(weights),
+           "runs": {r["run"]: r["ok"] for r in records}}
+    rec["ok"] = all(r["ok"] for r in records)
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit("the amg_crops phase failed")
+    return {"records": records, "launches_per_frame": records[0]["launches_per_frame"]}
+
+
+# ---------------------------------------------------------------------------
 # The pixel-decoder entry point: kernels H, I and J
 # ---------------------------------------------------------------------------
 
@@ -1569,12 +1921,20 @@ def pixel_kernel_phase(C, A, TK) -> dict:
     return main
 
 
-def pixel_images(S, cfg, n: int, seed: int):
-    """n seeded uint8 images of 768 x 1024, preprocessed for the SAM encoder."""
+def pixel_images(S, cfg, n: int, seed: int, device="cuda", input_hw=PIXEL_HW["input_hw"]):
+    """n seeded uint8 images of ``input_hw`` (768 x 1024), preprocessed for
+    the SAM encoder."""
     import torch
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randint(0, 256, (n, *PIXEL_HW["input_hw"], 3), device="cuda", generator=g)
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(0, 256, (n, *input_hw, 3), device=device, generator=g)
     return S.preprocess(x, cfg)
+
+
+def first_row_everywhere(inputs: dict) -> dict:
+    """``inputs`` with every row's CLIP image and text made row 0's, so that
+    every row generates the same tokens (the SAM images stay one a row)."""
+    return dict(inputs, **{k: inputs[k][:1].expand_as(inputs[k]).contiguous()
+                           for k in ("images_clip", "input_ids")})
 
 
 def top2_gap(logits) -> float:
@@ -1583,7 +1943,9 @@ def top2_gap(logits) -> float:
     return (top[..., 0] - top[..., 1]).min().item()
 
 
-def pixel_in_place(C, S, R, TK, IE, PD, GEN, make_batch, A) -> dict:
+def pixel_in_place(C, S, R, TK, IE, PD, GEN, make_batch, A, *, device="cuda", cfg=None,
+                   scfg=None, images: int = PIXEL_IMAGES, hw=PIXEL_HW,
+                   text_len: int = 512) -> dict:
     """The pixel decoder at llmseg_7b and sam_vit_h widths, depth cut (two
     LLaMA layers, CLIP 3 blocks, SAM encoder 2 blocks, one global), float32,
     8 images, 8 new tokens: generation (prefill through kernel A), the SAM
@@ -1593,39 +1955,66 @@ def pixel_in_place(C, S, R, TK, IE, PD, GEN, make_batch, A) -> dict:
     max|ref|, masks (before the [SEG] select) and IoU within the decoder
     limits.  The smallest top-1 / top-2 logit gap of the choices made
     (the first token and the 7 after it) is printed beside the largest
-    logit error of the steps, which it must exceed."""
+    logit error of the steps, which it must exceed.  Then every row takes
+    row 0's CLIP image and text (``first_row_everywhere``; random weights
+    give the rows no token in common), ``evaluate`` runs once, the first
+    token it emitted is declared [SEG] and ``evaluate`` runs again on both
+    routes: the same tokens, a [SEG] in every row, every mask
+    value over -1e8 and the masks within MODULE_LIMIT of max|ref|.  ``device``, ``cfg``, ``scfg``, ``images``,
+    ``hw`` and ``text_len`` let a CPU test run it small (no launches
+    there)."""
     import torch
     from llmseg_tpu_torch.models import llama, llmseg, vit
     from llmseg_tpu_torch.models.llava import splice_image_tokens
-    cfg = cut_config(C)
-    scfg = cut_sam(C)
-    model = llmseg.init(cfg, seed=11, device="cuda")
-    sam_model = S.init(scfg, seed=12, device="cuda")
-    batch = make_batch(cfg, num_images=PIXEL_IMAGES, rows_per_image=1, text_len=512, seed=6)
-    images_sam = pixel_images(S, scfg, PIXEL_IMAGES, seed=7)
+    cuda = torch.device(device).type == "cuda"
+    cfg = cfg or cut_config(C)
+    scfg = scfg or cut_sam(C)
+    model = llmseg.init(cfg, seed=11, device=device)
+    sam_model = S.init(scfg, seed=12, device=device)
+    batch = make_batch(cfg, num_images=images, rows_per_image=1, text_len=text_len, seed=6,
+                       device=device)
+    images_sam = pixel_images(S, scfg, images, seed=7, device=device, input_hw=hw["input_hw"])
     inputs = dict(images_clip=batch["images_clip"], input_ids=batch["input_ids"],
                   image_pos=batch["image_pos"], max_new_tokens=8)
     kernels = A.KERNELS + R.KERNELS + TK.KERNELS
+    base_cfg, seg_cfg = model.cfg, model.cfg
 
     def path():
         tokens, hiddens = PD.generate_answer(model, **inputs)
         prompts, _ = PD.seg_prompts(model, tokens, hiddens)
-        return tokens, hiddens, PD.decode_seg_masks(sam_model, images_sam, prompts, **PIXEL_HW)
+        return tokens, hiddens, PD.decode_seg_masks(sam_model, images_sam, prompts, **hw)
 
-    for kern in kernels:
-        kern.launches = 0
-    tok_k, hid_k, (mask_k, iou_k) = path()
-    launches = {kern.name: kern.launches for kern in kernels if kern.launches}
+    same = first_row_everywhere(inputs)
 
-    def plain_relpos(q, k, v, rel_h, rel_w, hw, scale=None):
-        bias = R.decomposed_rel_pos_bias(q.transpose(1, 2), rel_h, rel_w, hw)
+    def planted():
+        model.cfg = seg_cfg
+        try:
+            return PD.evaluate(model, sam_model, images_sam=images_sam, device=device,
+                               **same, **hw)
+        finally:
+            model.cfg = base_cfg
+
+    def counted(fn):
+        for kern in kernels:
+            kern.launches = 0
+        out = fn()
+        return out, {kern.name: kern.launches for kern in kernels if kern.launches}
+
+    (tok_k, hid_k, (mask_k, iou_k)), launches = counted(path)
+    tok_same = planted()[0]
+    seg = int(tok_same[0, 0])
+    seg_cfg = C.replace(base_cfg, seg_token_id=seg)
+    (seg_tok_k, seg_masks_k), seg_launches = counted(planted)
+
+    def plain_relpos(q, k, v, rel_h, rel_w, grid, scale=None):
+        bias = R.decomposed_rel_pos_bias(q.transpose(1, 2), rel_h, rel_w, grid)
         return A.attention_plain(q, k, v, bias=bias, scale=scale)
 
     def plain_decode(sam_model_, images, prompts, input_hw, original_hw):
         emb = S.encode_image(sam_model_, images)
         pe_mod = sam_model_.prompt_encoder
         sparse, dense = pe_mod(text_embeds=prompts[:, None, :], batch=emb.shape[0])
-        m, i = sam_model_.mask_decoder(emb, pe_mod.dense_pe(64)[None], sparse, dense,
+        m, i = sam_model_.mask_decoder(emb, pe_mod.dense_pe(emb.shape[1])[None], sparse, dense,
                                        multimask_output=False, impl="xla")
         return S.postprocess_masks(m, input_hw, original_hw, sam_model_.cfg), i
 
@@ -1637,6 +2026,7 @@ def pixel_in_place(C, S, R, TK, IE, PD, GEN, make_batch, A) -> dict:
     llm = model.llava.llm
     try:
         tok_p, hid_p, (mask_p, iou_p) = path()
+        seg_tok_p, seg_masks_p = planted()
         with torch.inference_mode():   # the prompt's last hidden state: the first choice
             img = model.llava.encode_images(inputs["images_clip"])
             text = llm.embed_tokens(inputs["input_ids"])
@@ -1655,14 +2045,15 @@ def pixel_in_place(C, S, R, TK, IE, PD, GEN, make_batch, A) -> dict:
 
     rec = {"phase": "pixel_in_place", "config": "llmseg_7b (LLaMA 2 layers, towers 2-3 blocks) "
            "+ sam_vit_h (2 encoder blocks, 1 global)", "dtype": "float32",
-           "images": PIXEL_IMAGES, "new_tokens": 8, "launches": launches,
+           "images": images, "new_tokens": 8, "launches": launches,
            "tokens_equal": bool(torch.equal(tok_k, tok_p)),
            "hidden_err_vs_max_ref": rel(hid_k, hid_p),
            "masks_err_vs_max_ref": rel(mask_k, mask_p), "iou_err_vs_max_ref": rel(iou_k, iou_p),
            "min_top2_logit_gap": min(gaps),
            "max_logit_err": (lg_k - lg_p).abs().max().item(),
            "limits": {"hidden": MODULE_LIMIT, **SAM_DECODE_LIMIT}}
-    expect = {"flash_fwd": 2, "relpos_fwd": 1, "relpos_window": 1, "twoway_decode": 1}
+    expect = {"flash_fwd": 2, "relpos_fwd": 1, "relpos_window": 1, "twoway_decode": 1} \
+        if cuda else {}
     rec["expected_launches"] = expect
     rec["ok"] = (rec["tokens_equal"] and launches == expect
                  and rec["hidden_err_vs_max_ref"] <= MODULE_LIMIT
@@ -1670,11 +2061,27 @@ def pixel_in_place(C, S, R, TK, IE, PD, GEN, make_batch, A) -> dict:
                  and rec["iou_err_vs_max_ref"] <= SAM_DECODE_LIMIT["iou"]
                  and rec["min_top2_logit_gap"] > rec["max_logit_err"])
     emit(rec)
+    has_seg = (seg_tok_k == seg).any(1)
+    rec_seg = {"phase": "pixel_in_place", "run": "planted_seg", "seg_token_id": seg,
+               "rows_with_seg": int(has_seg.sum()), "rows": images, "launches": seg_launches,
+               "expected_launches": expect,
+               "tokens_equal": bool(torch.equal(seg_tok_k, seg_tok_p)
+                                    and torch.equal(seg_tok_k, tok_same)),
+               "mask_min": seg_masks_k.float().min().item(),
+               "finite": bool(torch.isfinite(seg_masks_k).all()),
+               "masks_err_vs_max_ref": rel(seg_masks_k, seg_masks_p), "limit": MODULE_LIMIT}
+    rec_seg["ok"] = (bool(has_seg.all()) and seg_launches == expect
+                     and rec_seg["tokens_equal"] and rec_seg["finite"]
+                     and rec_seg["mask_min"] > -1e8
+                     and rec_seg["masks_err_vs_max_ref"] <= MODULE_LIMIT)
+    emit(rec_seg)
     del model, sam_model
-    torch.cuda.empty_cache()
-    if not rec["ok"]:
-        raise SystemExit(f"the pixel path through the kernels disagrees with the plain path: {rec}")
-    return rec
+    if cuda:
+        torch.cuda.empty_cache()
+    if not (rec["ok"] and rec_seg["ok"]):
+        raise SystemExit(f"the pixel path through the kernels disagrees with the plain path: "
+                         f"{rec} {rec_seg}")
+    return {"pixel_in_place": rec, "planted_seg": rec_seg}
 
 
 def pixel_phase(C, llmseg, S, PD, GEN, make_batch, kernels_all) -> dict:
@@ -1685,7 +2092,13 @@ def pixel_phase(C, llmseg, S, PD, GEN, make_batch, kernels_all) -> dict:
     select are checked too.  1 warm-up, the launch counts of one run, then
     3 timed; peak memory of those; the split of one evaluate, each part
     timed alone with CUDA events (the decode steps, the SAM decode and the
-    rest by difference)."""
+    rest by difference).  Then every row takes row 0's CLIP image and text
+    (``first_row_everywhere``: random weights give the rows no token in
+    common), evaluate runs once, its first emitted token is declared [SEG]
+    and evaluate runs again, counted once and timed 3 times:
+    the same tokens, a [SEG] in every row, every row's mask finite, over
+    -1e8 and equal to the same run's mask before the select, the same
+    launches."""
     import torch
     from llmseg_tpu_torch.models.llava import splice_image_tokens
     bf16 = torch.bfloat16
@@ -1756,7 +2169,54 @@ def pixel_phase(C, llmseg, S, PD, GEN, make_batch, kernels_all) -> dict:
            "peak_mem_gb": peak_gb, "split_ms": split}
     rec["ok"] = launches == expect and shapes and finite and rec["tokens_repeat"]
     emit(rec)
-    if not rec["ok"]:
+
+    # every row with row 0's CLIP image and text (the SAM images stay one a
+    # row), the first token emitted declared [SEG], evaluate again: the select keeps every row's mask; the mask before the select
+    # is taken from the same run
+    same = first_row_everywhere(inputs)
+    run_same = lambda: PD.evaluate(model, sam_model, images_sam=images_sam,
+                                   max_new_tokens=new, **same, **PIXEL_HW)
+    tokens_same = run_same()[0]
+    seg = int(tokens_same[0, 0])
+    base_cfg, pre = model.cfg, []
+
+    def keep(fn):
+        def decode(*a, **kw):
+            out = fn(*a, **kw)
+            pre.append(out[0])
+            return out
+        return decode
+
+    model.cfg = C.replace(base_cfg, seg_token_id=seg)
+    try:
+        for kern in kernels_all:
+            kern.launches = 0
+        with Wrapped((PD, "decode_seg_masks", keep)):
+            seg_tokens, seg_masks = run_same()
+        torch.cuda.synchronize()
+        seg_launches = {kern.name: kern.launches for kern in kernels_all}
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run_same()
+        torch.cuda.synchronize()
+        seg_ms = (time.perf_counter() - t0) * 1e3 / steps
+    finally:
+        model.cfg = base_cfg
+    has_seg = (seg_tokens == seg).any(1)
+    rec_seg = {"phase": "pixel", "run": "planted_seg", "config": "llmseg_7b + sam_vit_h",
+               "dtype": "bfloat16", "inputs": "row 0's CLIP image and text in every row",
+               "seg_token_id": seg, "rows_with_seg": int(has_seg.sum()),
+               "images": PIXEL_IMAGES, "launches": seg_launches, "expected_launches": expect,
+               "tokens_repeat": bool(torch.equal(seg_tokens, tokens_same)),
+               "finite": bool(torch.isfinite(seg_masks).all()),
+               "mask_range": [seg_masks.float().min().item(), seg_masks.float().max().item()],
+               "equal_to_preselect": bool(torch.equal(seg_masks, pre[0][:, 0])),
+               "ms_per_evaluate": seg_ms, "ms_per_evaluate_no_seg": ms}
+    rec_seg["ok"] = (bool(has_seg.all()) and seg_launches == expect
+                     and rec_seg["tokens_repeat"] and rec_seg["finite"]
+                     and rec_seg["mask_range"][0] > -1e8 and rec_seg["equal_to_preselect"])
+    emit(rec_seg)
+    if not (rec["ok"] and rec_seg["ok"]):
         raise SystemExit("pixel phase failed")
     return {"run": run, "launches": launches, "keep": (model, sam_model)}
 
@@ -5171,6 +5631,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from llmseg_tpu_torch import config as C
     from llmseg_tpu_torch import serving as SV
+    from llmseg_tpu_torch.cli import prepare as CP
     from llmseg_tpu_torch.data.synthetic import make_batch
     from llmseg_tpu_torch.import_weights import torch_import as TI
     from llmseg_tpu_torch.models import generate as GEN
@@ -5412,6 +5873,8 @@ def main() -> int:
                                                      "factored_decode")})
     rle_phase(AMG.AutomaticMaskGenerator(amg["model"], C.sam_vit_h(), C.AMGConfig(
         pred_iou_thresh=-1e9, stability_score_thresh=-1.0, box_nms_thresh=1.0)), amg["images"])
+    # the crop cascade with survivors, on a SAM whose frames take E, F and G
+    crops = amg_crops_phase(C, S, AMG, CP, all_kernels)
 
     # profiled after every timed phase: an AMG image, a predict step by kernel
     # family, and the library yardstick of kernels C and D
@@ -5508,6 +5971,10 @@ def main() -> int:
             tp2 = mesh["full_tp2"]
             r = dict(r, mesh_tp2_launches_per_step_a_rank=tp2["launches_per_step_a_rank"][0][-1][
                 name], **({"mesh_tp2_heads": tp2["heads"][-1][name]} if name in MESH_POS else {}))
+        if name in crops["launches_per_frame"] and name in ("relpos_fwd", "relpos_window",
+                                                            "factored_decode"):
+            # the crop cascade with survivors: a frame of crop_sam
+            r = dict(r, amg_crops_launches_per_frame=crops["launches_per_frame"][name])
         if name in q_pred:
             r = dict(r, qmesh_tp2_predict_launches_a_rank=q_pred[name],
                      **({"qmesh_tp2_qlora_step_launches_a_rank": q_step[name]}
@@ -5521,7 +5988,8 @@ def main() -> int:
                                           "int_mm_q2_device_ms", "sft_launches_per_step",
                                           "sft_shape", "mesh_tp2_launches_per_step_a_rank",
                                           "mesh_tp2_heads", "qmesh_tp2_predict_launches_a_rank",
-                                          "qmesh_tp2_qlora_step_launches_a_rank") if k in r}})
+                                          "qmesh_tp2_qlora_step_launches_a_rank",
+                                          "amg_crops_launches_per_frame") if k in r}})
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -29,8 +29,6 @@ from llmseg_tpu_torch import config as TC
 from llmseg_tpu_torch.models.sam import amg as tamg
 from llmseg_tpu_torch.ops import amg_utils as tau
 
-from test_torch_cli_prepare import seeded_sam
-
 torch.set_num_threads(1)
 SCORE_TOL = 1e-5
 
@@ -68,7 +66,7 @@ def weights(tmp_path_factory):
     """One SAM checkpoint read by both importers: the port's model and
     JAX's tree."""
     path = str(tmp_path_factory.mktemp("sam") / "sam.pth")
-    model = seeded_sam()
+    model = CS.seeded_sam()
     torch.save(CS.host_copy(CS.ref_sam(model)), path)
     return model, JI.import_sam_pth(path, JC.sam_tiny())
 
@@ -101,18 +99,11 @@ def test_amg_select_crop_edge_filter_matches_jax(weights):
     assert 0 < int(rt["valid"].sum()) < int(plain["valid"].sum())
 
 
-@pytest.mark.parametrize("layers,min_area", [(1, 0), (2, 0), (1, 20), (2, 20)])
-def test_generate_crop_cascade_matches_jax(weights, layers, min_area):
-    """``generate()`` through the crop cascade: every annotation equal to
-    JAX's; masks from the crops survive the cross-crop dedup beside
-    full-frame ones, and the dedup removed masks."""
-    model, params = weights
-    img = np.random.RandomState(1).randint(0, 255, (48, 64, 3), np.uint8)
-    kw = dict(points_per_side=8, points_per_batch=16, pred_iou_thresh=-1e9,
-              stability_score_thresh=-1.0, box_nms_thresh=0.95, max_masks=64,
-              min_mask_region_area=min_area, crop_n_layers=layers)
-    aj = jamg.AutomaticMaskGenerator(params, JC.sam_tiny(), JC.AMGConfig(**kw)).generate(img)
-    gen = tamg.AutomaticMaskGenerator(model, TC.sam_tiny(), TC.AMGConfig(**kw), device="cpu")
+def _generate_matches_jax(model, params, tcfg, jcfg, layers, min_area):
+    img = CS.crop_image()
+    kw = dict(CS.CROP_AMG, min_mask_region_area=min_area, crop_n_layers=layers)
+    aj = jamg.AutomaticMaskGenerator(params, jcfg, JC.AMGConfig(**kw)).generate(img)
+    gen = tamg.AutomaticMaskGenerator(model, tcfg, TC.AMGConfig(**kw), device="cpu")
     handle = gen.prefetch(gen.submit(img))
     at = gen.finish(handle)
     assert len(handle["crops"]) == 1 + sum(4 ** i for i in range(1, layers + 1))
@@ -128,5 +119,39 @@ def test_generate_crop_cascade_matches_jax(weights, layers, min_area):
     crops = [a["crop_box"] for a in at]
     assert [0, 0, 64, 48] in crops and any(c != [0, 0, 64, 48] for c in crops)
     assert staged > len(at)
+    return gen, img, at
+
+
+@pytest.mark.parametrize("layers,min_area", [(1, 0), (2, 0), (1, 20), (2, 20)])
+def test_generate_crop_cascade_matches_jax(weights, layers, min_area):
+    """``generate()`` through the crop cascade: every annotation equal to
+    JAX's; masks from the crops survive the cross-crop dedup beside
+    full-frame ones, and the dedup removed masks."""
+    model, params = weights
+    gen, img, at = _generate_matches_jax(model, params, TC.sam_tiny(), JC.sam_tiny(), layers,
+                                         min_area)
     # generate() is submit, prefetch and finish
     assert gen.generate(img) == at
+
+
+@pytest.fixture(scope="module")
+def crop_weights(tmp_path_factory):
+    """``chip_smoke.py``'s amg_crops SAM (``crop_sam``: a 32 x 32 grid, SAM's
+    decoder widths; its upscale's taps tied) read by both importers."""
+    path = str(tmp_path_factory.mktemp("crop_sam") / "sam.pth")
+    model = CS.seeded_sam(CS.crop_sam(TC), **CS.CROP_WEIGHTS)
+    torch.save(CS.host_copy(CS.ref_sam(model)), path)
+    return model, JI.import_sam_pth(path, CS.crop_sam(JC))
+
+
+@pytest.mark.parametrize("layers,min_area", [(1, 0), (1, 20)])
+def test_generate_crop_cascade_matches_jax_at_crop_sam(crop_weights, layers, min_area):
+    """The card's amg_crops configuration on the CPU: a frame's decode
+    takes JAX's fused route there (1024 image tokens) and its global block
+    kernel E's (T = 1024), so this is the configuration the card holds to
+    its CPU run; here the port's plain versions against JAX's, every
+    annotation equal, crop masks surviving beside full-frame ones.  One
+    crop layer: a second adds 16 frames and no survivor (its crops are
+    narrower than the 20-pixel band allows)."""
+    model, params = crop_weights
+    _generate_matches_jax(model, params, CS.crop_sam(TC), CS.crop_sam(JC), layers, min_area)

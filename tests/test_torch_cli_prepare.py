@@ -29,12 +29,14 @@ import chip_smoke as CS
 from cli import convert_h5 as jconvert
 from cli import prepare as jprepare
 from llmseg_tpu import config as JC
+from llmseg_tpu.import_weights import torch_import as JI
 from llmseg_tpu.models.sam import amg as jamg
 from llmseg_tpu.models.sam import sam as jsam
 from llmseg_tpu_torch import config as TC
 from llmseg_tpu_torch.cli import convert_h5 as tconvert
 from llmseg_tpu_torch.cli import prepare as tprepare
 from llmseg_tpu_torch.data.mask_reader import SamMaskReader
+from llmseg_tpu_torch.import_weights import torch_import as TI
 from llmseg_tpu_torch.models.sam import amg as tamg
 from llmseg_tpu_torch.models.sam import sam as tsam
 
@@ -44,23 +46,10 @@ OPEN = ["--points_per_side", "8", "--points_per_batch", "16", "--pred_iou_thresh
         "--stability_score_thresh=-1"]
 
 
-def seeded_sam(seed=1, amp=0.5):
-    """``sam_tiny`` from ``sam.init(seed)`` plus seeded noise of ``amp``:
-    weights under which the crops of a 48 x 64 image keep masks away from
-    their inner edges (the reference's 20-pixel band), so the cross-crop
-    dedup has work."""
-    m = tsam.init(TC.sam_tiny(), device="cpu", seed=seed)
-    g = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for p in m.parameters():
-            p.add_(amp * torch.randn(p.shape, generator=g))
-    return m
-
-
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
     root = tmp_path_factory.mktemp("prepare")
-    torch.save(CS.host_copy(CS.ref_sam(seeded_sam())), str(root / "sam.pth"))
+    torch.save(CS.host_copy(CS.ref_sam(CS.seeded_sam())), str(root / "sam.pth"))
     rng = np.random.RandomState(1)
     (root / "imgs").mkdir()
     for name, hw in (("a.jpg", (48, 64)), ("b.jpg", (64, 40)), ("c.jpg", (96, 128))):
@@ -143,6 +132,84 @@ def test_prepare_shards_and_limit_match_jax(corpus, float32_generators, tmp_path
     got, ref = (json.loads((tmp_path / n).read_text()) for n in ("t.json", "j.json"))
     assert [d["image"] for d in got] == ["a.jpg"]
     assert_docs_equal(got, ref)
+
+
+def _bf16_ulps(a, b):
+    """|a - b| in units of the bf16 spacing at the larger magnitude."""
+    m = np.maximum(np.abs(a), np.abs(b)).astype(np.float64)
+    return np.abs(a.astype(np.float64) - b) / 2.0 ** (np.floor(np.log2(np.maximum(m, 1e-30))) - 7)
+
+
+BF16_EMB_MEDIAN_ULPS = 4      # measured 2.0 on each image
+BF16_EMB_MAX_REL = 0.03       # max |port - JAX| of max |JAX|; measured 0.0115-0.0136
+BF16_OWN_ROUNDING = 1.5       # the port's median ulps from float32 over JAX's; measured 1.07-1.10
+BF16_COUNT_GAP = 8            # annotations an image; measured 0, 0, 1 and 6, 0, 1
+BF16_MASK_IOU_MEDIAN = 0.7    # masks matched by box, both ways; measured 0.872 and 0.913
+
+
+@pytest.mark.parametrize("layers", [0, 1])
+def test_prepare_in_bf16_against_jax(layers, corpus, monkeypatch, tmp_path):
+    """Both CLIs as users run them, in bf16 (the checkpoint loaded in bf16
+    and the generators on it), over the seeded corpus.  The two libraries'
+    bf16 SAM forwards round differently, so the documents are held by
+    measures, bounded with a margin over what was measured (sam_tiny, these
+    weights and images):
+      * the image embedding (each generator's own encode of each image):
+        median gap 2.0 bf16 ulps on every image, max 133.5-222 ulps (at
+        values near zero), the largest |port - JAX| 1.15-1.36 % of max
+        |JAX|; each library's median distance from a float32 forward of
+        the same weights 1.40-1.58 ulps (port) and 1.29-1.48 (JAX): the
+        port rounds as JAX does, to a tenth of an ulp;
+      * the masks.json masks: annotations an image 2/2, 2/2, 5/4 (port /
+        JAX) at crop layers 0, 8/14, 2/2, 5/4 at 1; the IoU of each mask
+        with its match by box, both ways, median 0.872 and 0.913, the
+        smallest 0.006 (a 5-pixel mask).
+    """
+    monkeypatch.setitem(jsam.MODEL_REGISTRY, "vit_h", JC.sam_tiny)
+    monkeypatch.setitem(tsam.MODEL_REGISTRY, "vit_h", TC.sam_tiny)
+    ckpt = str(corpus / "sam.pth")
+    argv = ["--image_dir", str(corpus / "imgs"), "--sam_ckpt", ckpt,
+            "--crop_n_layers", str(layers)] + OPEN
+    docs = {}
+    for side, main, extra in (("jax", jprepare.main, []),
+                              ("port", tprepare.main, ["--device", "cpu"])):
+        out = tmp_path / f"{side}.json"
+        main(argv + ["--output", str(out)] + extra)
+        docs[side] = json.loads(out.read_text())
+    assert [d["image"] for d in docs["port"]] == [d["image"] for d in docs["jax"]]
+    ious = []
+    for got, ref in zip(docs["port"], docs["jax"]):
+        assert got["masks"] and abs(len(got["masks"]) - len(ref["masks"])) <= BF16_COUNT_GAP
+        ious += CS.match_by_box(got["masks"], ref["masks"]) + CS.match_by_box(ref["masks"],
+                                                                             got["masks"])
+    assert np.median(ious) >= BF16_MASK_IOU_MEDIAN, ious
+
+    # each generator's encode of each image: its bf16 model, the image as
+    # prepare reads it
+    cfg_j, cfg_t = JC.sam_tiny(), TC.sam_tiny()
+    params = jax.tree.map(lambda x: jnp.asarray(x, jnp.bfloat16), JI.import_sam_pth(ckpt, cfg_j))
+    port = TI.load_sam_into(tsam.build(cfg_t, device="cpu", dtype=torch.bfloat16), ckpt,
+                            device="cpu")
+    f32 = TI.load_sam_into(tsam.build(cfg_t, device="cpu", dtype=torch.bfloat16), ckpt,
+                           device="cpu").float()
+    s = cfg_t.encoder.img_size
+    for name in sorted(d["image"] for d in docs["port"]):
+        img = tprepare.preprocess_image(tprepare._imread_rgb(str(corpus / "imgs" / name)), s)
+        h, w = img.shape[:2]
+        padded = np.zeros((s, s, 3), np.uint8)
+        padded[:h, :w] = img
+        region = np.zeros((1, s, s, 1), np.float32)
+        region[:, :h, :w] = 1.0
+        ej = np.asarray(jamg._prep_encode(params, cfg_j, jnp.asarray(padded)[None],
+                                          jnp.asarray(region)).astype(jnp.float32))
+        x = tsam.preprocess(torch.from_numpy(padded)[None], cfg_t) * torch.tensor(region)
+        with torch.no_grad():
+            et = tsam.encode_image(port, x).float().numpy()
+            e32 = tsam.encode_image(f32, x).numpy()
+        assert np.median(_bf16_ulps(et, ej)) <= BF16_EMB_MEDIAN_ULPS, name
+        assert np.abs(et - ej).max() <= BF16_EMB_MAX_REL * np.abs(ej).max(), name
+        assert np.median(_bf16_ulps(et, e32)) <= BF16_OWN_ROUNDING * np.median(
+            _bf16_ulps(ej, e32)), name
 
 
 def test_prepare_in_bf16_writes_the_reference_schema(corpus, monkeypatch, tmp_path):

@@ -85,3 +85,76 @@ def test_smoke_mpt_phase_runs_on_the_cpu(capsys):
     rec = CS.mpt_phase(TC, device="cpu")
     (line,) = _lines(capsys, "mpt")
     assert line["ok"] and set(rec["max_err_vs_max_ref"]) == {"alibi", "mqa_qk_ln_clip"}
+
+
+def test_smoke_amg_crops_phase_runs_small_on_the_cpu(capsys):
+    """``chip_smoke.py``'s amg_crops phase with ``device="cpu"`` (its card
+    side on the CPU too, so no launches), at ``sam_tiny`` from the CPU
+    tests' seeded weights, one case at crop layers 1 and one at 2 with the
+    small-region cleanup: generate equal to the reference run, crop masks
+    staged and deduplicated with full-frame and crop masks among the
+    survivors; cli.prepare over three images, equal, five frames an image;
+    the bf16 run matched by box; a line a run and one for the phase."""
+    from llmseg_tpu_torch.cli import prepare as CP
+    from llmseg_tpu_torch.models.sam import amg as AMG
+    from llmseg_tpu_torch.models.sam import sam as S
+    from llmseg_tpu_torch.ops import relpos_attention as R
+    from llmseg_tpu_torch.ops import twoway_kernel as TK
+
+    rec = CS.amg_crops_phase(TC, S, AMG, CP, A.KERNELS + R.KERNELS + TK.KERNELS, device="cpu",
+                             cfg=TC.sam_tiny(), weights=dict(seed=1, amp=0.5),
+                             cases=((1, 0), (2, 20)))
+    lines = _lines(capsys, "amg_crops")
+    assert [r["run"] for r in lines] == ["generate_layers_1_min_area_0",
+                                         "generate_layers_2_min_area_20",
+                                         "prepare_crop_layers_1", "generate_layers_1_bf16", "all"]
+    assert all(r["ok"] for r in lines)
+    for r, frames in zip(lines[:2], (5, 21)):
+        assert r["equal_to_cpu"] and r["launches_ok"] and r["frames"] == frames
+        assert r["staged"] > r["annotations"] and r["full_frame"] > 0 and r["from_crops"] > 0
+    prep = lines[2]
+    assert prep["equal_to_cpu"] and prep["frames"] == 15 and sum(prep["from_crops"]) > 0
+    assert lines[3]["matched_iou_median"] == 1.0 and lines[3]["equal_to_cpu"]
+    assert set(rec["launches_per_frame"].values()) == {0}
+
+
+def test_crop_sam_frames_take_e_f_and_g_on_the_card():
+    """Why amg_crops runs ``crop_sam`` and not ``sam_tiny``: a frame of
+    ``sam_tiny`` (a 4 x 4 grid) takes neither kernel E (its global block's
+    16 tokens go to F) nor G (16 image tokens: the decode's plain route), a
+    frame of ``crop_sam`` takes E, F and G, G once a chunk of 16 prompts."""
+    from llmseg_tpu_torch.ops import relpos_attention as R
+    from llmseg_tpu_torch.ops import twoway_kernel as TK
+
+    names = [k.name for k in R.KERNELS + TK.KERNELS]
+    amg = TC.AMGConfig(**CS.CROP_AMG, crop_n_layers=1)
+    tiny = CS.crop_expected_per_frame(TC.sam_tiny(), amg, names, cuda=True)
+    crop = CS.crop_expected_per_frame(CS.crop_sam(TC), amg, names, cuda=True)
+    assert (tiny["relpos_fwd"], tiny["relpos_window"], tiny["factored_decode"]) == (0, 2, 0)
+    assert (crop["relpos_fwd"], crop["relpos_window"], crop["factored_decode"]) == (1, 1, 4)
+    assert set(CS.crop_expected_per_frame(CS.crop_sam(TC), amg, names, cuda=False).values()) \
+        == {0}
+
+
+def test_smoke_pixel_in_place_plants_seg_on_the_cpu(capsys):
+    """``chip_smoke.py``'s pixel_in_place at ``llmseg_tiny`` + ``sam_tiny``
+    with ``device="cpu"`` (both routes plain here): the rows share no
+    generated token, so the planted run gives every row row 0's CLIP image
+    and text, declares its first emitted token [SEG], and every row keeps
+    its mask (over -1e8) through evaluate's select."""
+    from llmseg_tpu_torch.models import generate as GEN
+    from llmseg_tpu_torch.models import pixel_decoder as PD
+    from llmseg_tpu_torch.models.sam import image_encoder as IE
+    from llmseg_tpu_torch.models.sam import sam as S
+    from llmseg_tpu_torch.ops import relpos_attention as R
+    from llmseg_tpu_torch.ops import twoway_kernel as TK
+
+    rec = CS.pixel_in_place(TC, S, R, TK, IE, PD, GEN, make_batch, A, device="cpu",
+                            cfg=TC.llmseg_tiny(), scfg=TC.sam_tiny(), images=4,
+                            hw=dict(input_hw=(48, 64), original_hw=(96, 128)), text_len=32)
+    lines = _lines(capsys, "pixel_in_place")
+    assert [r.get("run") for r in lines] == [None, "planted_seg"]
+    assert all(r["ok"] for r in lines)
+    seg = rec["planted_seg"]
+    assert seg["rows_with_seg"] == seg["rows"] == 4
+    assert seg["mask_min"] > -1e8 and seg["finite"] and seg["masks_err_vs_max_ref"] == 0.0
