@@ -29,6 +29,7 @@ from llmseg_tpu_torch.models.llava import Llava
 from llmseg_tpu_torch.models.selection_head import SelectionHead, mask_pooling
 from llmseg_tpu_torch.parallel import ddp
 from llmseg_tpu_torch.parallel import mesh as M
+from llmseg_tpu_torch.utils import profiling
 
 POOL_ROUTES = ("adjoint", "unfused")
 
@@ -212,34 +213,40 @@ def forward(model: LLMSeg, batch: Dict, *, pool: str = "adjoint",
     """Shared train/inference forward; ``pool`` picks the pooling route
     ("adjoint", the default, or "unfused": upsampled features, then
     mask_pooling); ``remat`` and ``quant_stats`` (SmoothQuant's calibration
-    collector) are passed to the LLaMA layers."""
+    collector) are passed to the LLaMA layers.  Its four stages are the
+    spans ``llmseg.dino``, ``llmseg.clip``, ``llmseg.llm`` and
+    ``llmseg.head``, timed on the CUDA stream too (``utils.profiling``)."""
     if pool not in POOL_ROUTES:
         raise ValueError(f"pool must be one of {POOL_ROUTES}, got {pool!r}")
     cfg = model.cfg
-    if pool == "adjoint":
-        pooled = _pool_dino_proposals(model, batch)
-    else:
-        feat_flat = dino_features(model, batch["images_dino"])
-        B, K = batch["sam_segs"].shape[:2]
-        segs = batch["sam_segs"].reshape(B, K, -1).to(feat_flat.dtype)
-        pooled = mask_pooling(feat_flat, segs)
-    with torch.no_grad():  # CLIP tower and projector are frozen
-        img_embeds = model.llava.encode_images(batch["images_clip"])
+    on_card = batch["input_ids"].is_cuda
+    with profiling.span("llmseg.dino", device=on_card):
+        if pool == "adjoint":
+            pooled = _pool_dino_proposals(model, batch)
+        else:
+            feat_flat = dino_features(model, batch["images_dino"])
+            B, K = batch["sam_segs"].shape[:2]
+            segs = batch["sam_segs"].reshape(B, K, -1).to(feat_flat.dtype)
+            pooled = mask_pooling(feat_flat, segs)
+    with profiling.span("llmseg.clip", device=on_card), torch.no_grad():
+        img_embeds = model.llava.encode_images(batch["images_clip"])  # frozen tower, projector
 
     row_img = batch["row_to_image"].long()
-    prop_embeds = pooled[row_img]
-    prop_valid = batch["prop_valid"][row_img]
-    hidden = model.llava(input_ids=batch["input_ids"],
-                         image_pos=batch["image_pos"],
-                         image_embeds=img_embeds[row_img],
-                         lora=model.lora, lora_cfg=lora_cfg, remat=remat,
-                         quant_stats=quant_stats)
+    with profiling.span("llmseg.llm", device=on_card):
+        hidden = model.llava(input_ids=batch["input_ids"],
+                             image_pos=batch["image_pos"],
+                             image_embeds=img_embeds[row_img],
+                             lora=model.lora, lora_cfg=lora_cfg, remat=remat,
+                             quant_stats=quant_stats)
 
-    seg_idx, has_seg = seg_hidden_index(batch["input_ids"], cfg)
-    seg_hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device), seg_idx]
-    pred_embeddings = model.select.project_text(seg_hidden)
-    similarity, pred_iou, seg_features = model.select(
-        prop_embeds, pred_embeddings, prop_valid)
+    with profiling.span("llmseg.head", device=on_card):
+        prop_embeds = pooled[row_img]
+        prop_valid = batch["prop_valid"][row_img]
+        seg_idx, has_seg = seg_hidden_index(batch["input_ids"], cfg)
+        seg_hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device), seg_idx]
+        pred_embeddings = model.select.project_text(seg_hidden)
+        similarity, pred_iou, seg_features = model.select(
+            prop_embeds, pred_embeddings, prop_valid)
     return {
         "hidden": hidden,
         "similarity": similarity,
@@ -308,6 +315,7 @@ def predict(model: LLMSeg, batch: Dict, *, device="cuda", pool: str = "adjoint",
     for t in (next(model.parameters()), batch["input_ids"]):
         if t.device.type != dev.type:
             raise ValueError(f"expected tensors on {dev}, got {t.device}")
-    out = forward(model, batch, pool=pool, lora_cfg=lora_cfg)
+    with profiling.span("llmseg.predict", request=profiling.next_request()):
+        out = forward(model, batch, pool=pool, lora_cfg=lora_cfg)
     return {"pred_similarity": out["similarity"], "pred_iou": out["pred_iou"],
             "prop_valid": out["prop_valid"], "row_valid": out["row_valid"]}

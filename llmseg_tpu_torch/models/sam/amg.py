@@ -28,6 +28,7 @@ from llmseg_tpu_torch.data import image_ops
 from llmseg_tpu_torch.device import require
 from llmseg_tpu_torch.models.sam import sam as sam_lib
 from llmseg_tpu_torch.ops import amg_utils, device_rle, nms, rle
+from llmseg_tpu_torch.utils import profiling
 
 # per-column run-start budget of the device RLE; blobby SAM masks have 1-2
 MAX_RUNS_PER_COL = 8
@@ -41,8 +42,9 @@ def _candidate_filters(low_masks, iou_pred, amg: AMGConfig, cfg: SamConfig,
     row = torch.arange(S, device=low_masks.device)
     region = ((row < valid_hw[0])[:, None] & (row < valid_hw[1])[None, :])[None]
     neg = cfg.mask_threshold - 2.0 * amg.stability_score_offset - 1.0
-    masked = torch.where(region, low_masks, torch.tensor(neg, dtype=low_masks.dtype,
-                                                         device=low_masks.device))
+    with profiling.span("amg.upload"):   # from pageable memory: waits for the stream
+        fill = torch.tensor(neg, dtype=low_masks.dtype, device=low_masks.device)
+    masked = torch.where(region, low_masks, fill)
     keep = iou_pred > amg.pred_iou_thresh
     stability = amg_utils.calculate_stability_score(masked, cfg.mask_threshold,
                                                     amg.stability_score_offset)
@@ -71,31 +73,34 @@ def amg_select(model, amg: AMGConfig, image_embedding: torch.Tensor, points: tor
     labels = torch.ones(B, 1, dtype=torch.int32, device=points.device)
     masks, ious = [], []
     cache = {}    # every chunk shares the image: kernel G's sequence is recorded once
-    for c in range(n_chunks):
-        m, i = sam_lib.decode_masks(model, image_embedding, points=pts[c], labels=labels,
-                                    multimask_output=True, cache=cache)
-        masks.append(m.to(torch.bfloat16))   # the filters see bf16 logits
-        ious.append(i)
-    masks = torch.stack(masks).reshape(-1, S4, S4)
-    iou_pred = torch.stack(ious).reshape(-1)
-    M = masks.shape[0]
-    point_per_mask = pts.reshape(-1, 2).repeat_interleave(3, 0)
-    real = torch.arange(M, device=masks.device) // 3 < P
-    img = cfg.encoder.img_size
-    lowres_hw = (max(valid_hw[0] * S4 // img, 1), max(valid_hw[1] * S4 // img, 1))
-    keep, stability, masked = _candidate_filters(masks, iou_pred, amg, cfg, lowres_hw)
-    keep &= real
-    binary = masked > cfg.mask_threshold
-    boxes = amg_utils.batched_mask_to_box(binary) * (img / S4)
-    keep &= binary.any(-1).any(-1)
-    if crop_box is not None:
-        sc = torch.as_tensor(box_scale, dtype=torch.float32, device=boxes.device).repeat(2)
-        keep &= ~amg_utils.is_box_near_crop_edge(boxes * sc, crop_box, orig_box)
-    keep_nms = nms.nms(boxes, iou_pred, amg.box_nms_thresh, valid=keep)
-    score = torch.where(keep_nms, iou_pred, -torch.inf)
-    top = torch.argsort(-score, stable=True)[:amg.max_masks]
-    return {"masks_low": masks[top], "iou": iou_pred[top], "stability": stability[top],
-            "boxes": boxes[top], "points": point_per_mask[top], "valid": keep_nms[top]}
+    with profiling.span("amg.decode"):
+        for c in range(n_chunks):
+            m, i = sam_lib.decode_masks(model, image_embedding, points=pts[c], labels=labels,
+                                        multimask_output=True, cache=cache)
+            masks.append(m.to(torch.bfloat16))   # the filters see bf16 logits
+            ious.append(i)
+    with profiling.span("amg.select"):  # filters, boxes, NMS, top K
+        masks = torch.stack(masks).reshape(-1, S4, S4)
+        iou_pred = torch.stack(ious).reshape(-1)
+        M = masks.shape[0]
+        point_per_mask = pts.reshape(-1, 2).repeat_interleave(3, 0)
+        real = torch.arange(M, device=masks.device) // 3 < P
+        img = cfg.encoder.img_size
+        lowres_hw = (max(valid_hw[0] * S4 // img, 1), max(valid_hw[1] * S4 // img, 1))
+        keep, stability, masked = _candidate_filters(masks, iou_pred, amg, cfg, lowres_hw)
+        keep &= real
+        binary = masked > cfg.mask_threshold
+        boxes = amg_utils.batched_mask_to_box(binary) * (img / S4)
+        keep &= binary.any(-1).any(-1)
+        if crop_box is not None:
+            sc = torch.as_tensor(box_scale, dtype=torch.float32, device=boxes.device).repeat(2)
+            keep &= ~amg_utils.is_box_near_crop_edge(boxes * sc, crop_box, orig_box)
+        with profiling.span("nms"):
+            keep_nms = nms.nms(boxes, iou_pred, amg.box_nms_thresh, valid=keep)
+        score = torch.where(keep_nms, iou_pred, -torch.inf)
+        top = torch.argsort(-score, stable=True)[:amg.max_masks]
+        return {"masks_low": masks[top], "iou": iou_pred[top], "stability": stability[top],
+                "boxes": boxes[top], "points": point_per_mask[top], "valid": keep_nms[top]}
 
 
 def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -159,9 +164,14 @@ class AutomaticMaskGenerator:
         if max(h, w) > s_in:
             raise ValueError(f"image {h}x{w} exceeds the SAM input {s_in}; "
                              "resize its longest side first")
-        if self.amg.crop_n_layers > 0:
-            return self._submit_crops(image)
-        return {"out": self._submit_one(image, self._grid), "hw": (h, w)}
+        request = profiling.next_request()
+        with profiling.span("amg.submit", request=request):
+            if self.amg.crop_n_layers > 0:
+                handle = self._submit_crops(image)
+            else:
+                handle = {"out": self._submit_one(image, self._grid), "hw": (h, w)}
+        handle["request"] = request
+        return handle
 
     def _submit_one(self, image: np.ndarray, grid: np.ndarray, crop_box=None,
                     orig_hw=None) -> Dict:
@@ -174,9 +184,15 @@ class AutomaticMaskGenerator:
         # normalise, then zero outside the image, as the reference pads
         region = torch.zeros(1, s_in, s_in, 1, device=self.device)
         region[:, :h, :w] = 1.0
-        x = torch.from_numpy(padded)[None].to(self.device)
-        emb = sam_lib.encode_image(self.model, sam_lib.preprocess(x, self.cfg) * region)
-        points = torch.tensor(grid * np.array([w, h]), dtype=torch.float32, device=self.device)
+        # each upload from pageable memory waits for the stream: the image
+        # for the previous image's work, the grid for the encoder's
+        with profiling.span("amg.upload"):
+            x = torch.from_numpy(padded)[None].to(self.device)
+        with profiling.span("amg.encode"):
+            emb = sam_lib.encode_image(self.model, sam_lib.preprocess(x, self.cfg) * region)
+        with profiling.span("amg.upload"):
+            points = torch.tensor(grid * np.array([w, h]), dtype=torch.float32,
+                                  device=self.device)
         kw = {}
         if crop_box is not None:
             x0, y0, x1, y1 = crop_box
@@ -212,9 +228,13 @@ class AutomaticMaskGenerator:
     @staticmethod
     def _pull_survivors(out: Dict):
         """One frame's survivor count and metadata, on the host."""
-        small = {k: out[k].float().cpu().numpy() for k in ("iou", "stability", "boxes", "points")}
-        small["valid"] = out["valid"].cpu().numpy()
-        return int(small["valid"].sum()), small
+        with profiling.span("amg.pull"):
+            small = {k: out[k].float().cpu().numpy()
+                     for k in ("iou", "stability", "boxes", "points")}
+            small["valid"] = out["valid"].cpu().numpy()
+        n = int(small["valid"].sum())
+        profiling.count("amg.survivors", n)
+        return n, small
 
     @torch.inference_mode()
     def prefetch(self, handle: Dict) -> Dict:
@@ -222,45 +242,60 @@ class AutomaticMaskGenerator:
         (run boundaries on the device, or bit-packed bitmaps when small
         regions are cleaned; in the crop cascade, each crop's bitmaps at
         its own extent).  Idempotent; ``finish`` calls it."""
-        if "crops" in handle:
-            if "staged" not in handle:
+        if ("staged" if "crops" in handle else "n") in handle:
+            return handle
+        with profiling.span("amg.prefetch", request=handle.get("request")):
+            if "crops" in handle:
                 handle["staged"] = self._stage_crops(handle)
-            return handle
-        if "n" in handle:
-            return handle
+            else:
+                self._prefetch_one(handle)
+        return handle
+
+    def _prefetch_one(self, handle: Dict) -> None:
         out = handle["out"]
         n, small = self._pull_survivors(out)
         handle["n"], handle["small"] = n, small
         if not n:
-            return handle
+            return
         s_in = self.cfg.encoder.img_size
-        if self.amg.min_mask_region_area == 0:
-            handle["rle_dev"] = device_rle.upscale_rle(
-                out["masks_low"], handle["hw"], (s_in, s_in), self.cfg.mask_threshold,
-                bucket=self._bucket(n), max_per_col=MAX_RUNS_PER_COL)
-        else:
-            handle["packed_dev"] = upscale_binary(out["masks_low"], (s_in, s_in),
-                                                  self.cfg.mask_threshold, bucket=self._bucket(n))
-        return handle
+        with profiling.span("amg.upscale"):
+            if self.amg.min_mask_region_area == 0:
+                handle["rle_dev"] = device_rle.upscale_rle(
+                    out["masks_low"], handle["hw"], (s_in, s_in), self.cfg.mask_threshold,
+                    bucket=self._bucket(n), max_per_col=MAX_RUNS_PER_COL)
+            else:
+                handle["packed_dev"] = upscale_binary(out["masks_low"], (s_in, s_in),
+                                                      self.cfg.mask_threshold,
+                                                      bucket=self._bucket(n))
 
     def finish(self, handle: Dict) -> List[Dict]:
         """Download a submit()'s survivors and assemble the annotations."""
+        with profiling.span("amg.finish", request=handle.get("request")):
+            self.prefetch(handle)
+            return self._finish(handle)
+
+    def _finish(self, handle: Dict) -> List[Dict]:
         h, w = handle["hw"]
-        self.prefetch(handle)
         if "crops" in handle:
-            return self._assemble(*self._finish_crops(handle), h, w)
+            with profiling.span("amg.rle"):
+                return self._assemble(*self._finish_crops(handle), h, w)
         s_in = self.cfg.encoder.img_size
         n, small = handle["n"], handle["small"]
         if n == 0:
             return []
         iou, stability, pts = small["iou"][:n], small["stability"][:n], small["points"][:n]
         if "rle_dev" in handle:
-            payload16, meta32 = (t.cpu().numpy() for t in handle["rle_dev"])
-            return self._assemble_rle(payload16, meta32, handle, n, iou, stability, pts, h, w)
-        packed = handle["packed_dev"].cpu().numpy()
-        masks = np.unpackbits(packed[:n], axis=-1, count=s_in).reshape(n, s_in, s_in)
-        masks = masks[:, :h, :w].astype(bool)
-        return self._assemble(masks, iou, stability, pts, [(0, 0, w, h)] * n, h, w)
+            with profiling.span("amg.download"):
+                payload16, meta32 = (t.cpu().numpy() for t in handle["rle_dev"])
+            with profiling.span("amg.rle"):
+                return self._assemble_rle(payload16, meta32, handle, n, iou, stability, pts,
+                                          h, w)
+        with profiling.span("amg.download"):
+            packed = handle["packed_dev"].cpu().numpy()
+        with profiling.span("amg.rle"):
+            masks = np.unpackbits(packed[:n], axis=-1, count=s_in).reshape(n, s_in, s_in)
+            masks = masks[:, :h, :w].astype(bool)
+            return self._assemble(masks, iou, stability, pts, [(0, 0, w, h)] * n, h, w)
 
     def _assemble_rle(self, payload16, meta32, handle, n: int, iou, stability, pts,
                       h: int, w: int) -> List[Dict]:
@@ -269,15 +304,17 @@ class AutomaticMaskGenerator:
         s_in = self.cfg.encoder.img_size
         decoded = device_rle.annotations_from_rle_payload(payload16, meta32, n, h, w, s_in,
                                                           MAX_RUNS_PER_COL)
-        packed = None
-        if any(d is None for d in decoded):
-            with torch.inference_mode():
+        overflowed = sum(d is None for d in decoded)
+        profiling.count("amg.rle_overflow", overflowed)
+        if overflowed:
+            with profiling.span("amg.overflow_path"), torch.inference_mode():
                 packed = upscale_binary(handle["out"]["masks_low"], (s_in, s_in),
                                         self.cfg.mask_threshold,
                                         bucket=self._bucket(n)).cpu().numpy()
+                decoded = [rle.encode_packed(packed[i], h, w) if d is None else d
+                           for i, d in enumerate(decoded)]
         anns = []
-        for i, d in enumerate(decoded):
-            r, area_i, bbox = rle.encode_packed(packed[i], h, w) if d is None else d
+        for i, (r, area_i, bbox) in enumerate(decoded):
             if area_i == 0:
                 continue
             anns.append({"segmentation": r, "area": int(area_i),
@@ -304,8 +341,10 @@ class AutomaticMaskGenerator:
             rh, rw = c["rhw"]
             scale = torch.tensor([(x1 - x0) / rw, (y1 - y0) / rh], dtype=torch.float32)
             pts = amg_utils.uncrop_points(torch.from_numpy(small["points"][:n]) * scale, box)
-            packed = upscale_crop_binary(out["masks_low"], (rh, rw), (y1 - y0, x1 - x0), s_in,
-                                         self.cfg.mask_threshold, bucket=self._bucket(n))
+            with profiling.span("amg.upscale"):
+                packed = upscale_crop_binary(out["masks_low"], (rh, rw), (y1 - y0, x1 - x0),
+                                             s_in, self.cfg.mask_threshold,
+                                             bucket=self._bucket(n))
             staged.append((box, n, small, pts.numpy(), packed))
         return staged
 

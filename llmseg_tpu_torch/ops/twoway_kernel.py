@@ -72,6 +72,7 @@ from torch import nn
 
 from llmseg_tpu_torch.models.layers import gelu_tanh
 from llmseg_tpu_torch.ops.kernels import Kernel, library
+from llmseg_tpu_torch.utils import profiling
 
 FACTORED_DECODE = Kernel("factored_decode")   # kernel G, csrc/factored_decode.cu
 TWOWAY_DECODE = Kernel("twoway_decode", source="twoway_fused")            # kernel H
@@ -1503,8 +1504,12 @@ def factored_decode(twt, decoder, image_embedding, image_pe, tokens, num_heads: 
             t.is_cuda for t in (image_pe, tokens)):
         raise ValueError("expected CUDA tensors in bf16 or float32")
     weights = list(twt.parameters()) + list(decoder.parameters())
-    plan = cached(cache, "factored_decode", [image_embedding, image_pe] + weights,
-                  lambda *_: _Plan(twt, decoder, image_embedding, image_pe, tokens, num_heads),
+    def record(*_):   # the only place G's sequence is recorded
+        profiling.count("twoway.g_records")
+        with profiling.span("twoway.g_record"):
+            return _Plan(twt, decoder, image_embedding, image_pe, tokens, num_heads)
+
+    plan = cached(cache, "factored_decode", [image_embedding, image_pe] + weights, record,
                   extra=(id(twt), id(decoder), tuple(tokens.shape), num_heads))
     return plan.run(tokens)
 

@@ -1,0 +1,10 @@
+"""Stream ms a predict call of the program's span ``llmseg.llm``
+(``models/llmseg.forward``: the splice and the decoder): CUDA events on the stream
+at the stage's start and end.  Idle included: where the host launches the
+stage more slowly than the card runs it, as under the profiler, this is
+the host's pace and not the stage's kernels' time."""
+
+
+def read(ctx):
+    from pbcore.spans import span_ms
+    return span_ms(ctx, ["llmseg.llm"], "stream_ms")

@@ -15,7 +15,6 @@ the kernels' op nodes."""
 
 import collections
 import os
-import time
 
 import jax
 import jax.numpy as jnp
@@ -42,7 +41,7 @@ from llmseg_tpu_torch.models.sam import sam as tsam
 from llmseg_tpu_torch.ops import attention as TA
 from llmseg_tpu_torch.ops import quant as TQ
 from llmseg_tpu_torch.utils.logging import MetricLogger
-from llmseg_tpu_torch.utils.profiling import StepTimer, trace
+from llmseg_tpu_torch.utils.profiling import trace
 
 torch.set_num_threads(1)
 TOL = dict(atol=2e-5, rtol=0)
@@ -377,21 +376,6 @@ def test_fake_cuda_export_holds_the_kernel_ops():
 # ---------------------------------------------------------------------------
 # utils.profiling and utils.logging, as tests/test_profiling.py
 # ---------------------------------------------------------------------------
-
-
-def test_step_timer():
-    t = StepTimer()
-    time.sleep(0.01)
-    t.mark("data")
-    time.sleep(0.02)
-    t.mark("step")
-    time.sleep(0.01)
-    t.mark("data")
-    avg = t.averages()
-    assert avg["data"] > 0 and avg["step"] > 0
-    assert abs(avg["data"] - 0.01) < 0.01
-    t.reset()
-    assert t.averages() == {}
 
 
 def test_trace_disabled_noop(tmp_path):
