@@ -1257,8 +1257,8 @@ def sam_in_place(C, S, R, TK, IE) -> dict:
             return attention_plain(q, k, v, bias=bias, scale=scale)
 
         IE.relpos_flash_attention = plain_relpos
-        try:
-            ref = S.encode_image(model, x)
+        try:   # eagerly: encode_image replays the graph its first call captured
+            ref = model.image_encoder(x)
         finally:
             IE.relpos_flash_attention = R.relpos_flash_attention
         pe = model.prompt_encoder.dense_pe(64)[None]
@@ -2011,7 +2011,7 @@ def pixel_in_place(C, S, R, TK, IE, PD, GEN, make_batch, A, *, device="cuda", cf
         return A.attention_plain(q, k, v, bias=bias, scale=scale)
 
     def plain_decode(sam_model_, images, prompts, input_hw, original_hw):
-        emb = S.encode_image(sam_model_, images)
+        emb = sam_model_.image_encoder(images)   # eagerly, through plain_relpos
         pe_mod = sam_model_.prompt_encoder
         sparse, dense = pe_mod(text_embeds=prompts[:, None, :], batch=emb.shape[0])
         m, i = sam_model_.mask_decoder(emb, pe_mod.dense_pe(emb.shape[1])[None], sparse, dense,

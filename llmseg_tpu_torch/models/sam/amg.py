@@ -41,10 +41,9 @@ def _candidate_filters(low_masks, iou_pred, amg: AMGConfig, cfg: SamConfig,
     S = low_masks.shape[-1]
     row = torch.arange(S, device=low_masks.device)
     region = ((row < valid_hw[0])[:, None] & (row < valid_hw[1])[None, :])[None]
+    # a Python scalar, rounded to the logits' dtype where it is written
     neg = cfg.mask_threshold - 2.0 * amg.stability_score_offset - 1.0
-    with profiling.span("amg.upload"):   # from pageable memory: waits for the stream
-        fill = torch.tensor(neg, dtype=low_masks.dtype, device=low_masks.device)
-    masked = torch.where(region, low_masks, fill)
+    masked = torch.where(region, low_masks, neg)
     keep = iou_pred > amg.pred_iou_thresh
     stability = amg_utils.calculate_stability_score(masked, cfg.mask_threshold,
                                                     amg.stability_score_offset)
@@ -181,18 +180,18 @@ class AutomaticMaskGenerator:
         s_in = self.cfg.encoder.img_size
         padded = np.zeros((s_in, s_in, 3), image.dtype)
         padded[:h, :w] = image
+        # an upload from pageable memory waits for the stream: the image for
+        # the previous image's work, then the grid for nothing more; from
+        # here to the NMS nothing waits
+        with profiling.span("amg.upload"):
+            x = torch.from_numpy(padded)[None].to(self.device)
+            points = torch.tensor(grid * np.array([w, h]), dtype=torch.float32,
+                                  device=self.device)
         # normalise, then zero outside the image, as the reference pads
         region = torch.zeros(1, s_in, s_in, 1, device=self.device)
         region[:, :h, :w] = 1.0
-        # each upload from pageable memory waits for the stream: the image
-        # for the previous image's work, the grid for the encoder's
-        with profiling.span("amg.upload"):
-            x = torch.from_numpy(padded)[None].to(self.device)
         with profiling.span("amg.encode"):
             emb = sam_lib.encode_image(self.model, sam_lib.preprocess(x, self.cfg) * region)
-        with profiling.span("amg.upload"):
-            points = torch.tensor(grid * np.array([w, h]), dtype=torch.float32,
-                                  device=self.device)
         kw = {}
         if crop_box is not None:
             x0, y0, x1, y1 = crop_box

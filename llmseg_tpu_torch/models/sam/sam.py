@@ -2,11 +2,13 @@
 preprocess -> image encoder -> prompt encoder -> mask decoder ->
 postprocess, NHWC.  ``init`` builds a seeded random model on the card by
 default and raises without CUDA unless the CPU is asked for.
+``encode_image`` replays a CUDA graph of the encoder on the card.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import weakref
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +22,8 @@ from llmseg_tpu_torch.models.sam.mask_decoder import MaskDecoder
 from llmseg_tpu_torch.models.sam.prompt_encoder import PromptEncoder
 from llmseg_tpu_torch.ops import twoway_kernel
 from llmseg_tpu_torch.ops.amg_utils import resize_bilinear
+from llmseg_tpu_torch.ops.kernels import launch_counts
+from llmseg_tpu_torch.utils import profiling
 
 MODEL_REGISTRY = {
     "vit_h": sam_vit_h,
@@ -73,19 +77,93 @@ def init(cfg: SamConfig, *, seed: int = 0, device="cuda", dtype=torch.float32) -
     return random_init_(build(cfg, device=dev, dtype=dtype), gen)
 
 
+_PIXEL_STATS: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
 def preprocess(x: torch.Tensor, cfg: SamConfig) -> torch.Tensor:
     """(B, H, W, 3) pixels -> normalised float32, zero-padded bottom/right
-    to the square input."""
-    mean = torch.tensor(cfg.pixel_mean, device=x.device)
-    std = torch.tensor(cfg.pixel_std, device=x.device)
+    to the square input.  The mean and std are kept on each device, made
+    once (a copy from the host waits for the stream)."""
+    key = (cfg.pixel_mean, cfg.pixel_std, x.device)
+    stats = _PIXEL_STATS.get(key)
+    if stats is None:
+        with torch.inference_mode(False):
+            stats = _PIXEL_STATS[key] = (torch.tensor(cfg.pixel_mean, device=x.device),
+                                         torch.tensor(cfg.pixel_std, device=x.device))
+    mean, std = stats
     x = (x.float() - mean) / std
     s = cfg.encoder.img_size
     return F.pad(x, (0, 0, 0, s - x.shape[2], 0, s - x.shape[1]))
 
 
+class _EncoderGraph:
+    """One CUDA graph of an image encoder at one input shape, dtype and
+    device: a static input, the captured kernels, a static output, the
+    weights' storage it was captured on, and the launches each replay
+    makes of every ``Kernel`` (E and F launch through ctypes on the
+    capturing stream, so the graph holds them)."""
+
+    def __init__(self, encoder: ImageEncoder, x: torch.Tensor):
+        self.params = list(encoder.parameters())
+        self.stamp = [p.data_ptr() for p in self.params]
+        cur = torch.cuda.current_stream(x.device)
+        with torch.inference_mode(False), torch.no_grad():
+            self.x = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+            self.x.copy_(x)
+            side = torch.cuda.Stream(x.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):   # the warm-up, and the first call's result
+                self.first = encoder(self.x)
+            cur.wait_stream(side)
+            self.first.record_stream(cur)
+            before = launch_counts()
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                self.out = encoder(self.x)
+        self.launches = {k: n - before.get(k, 0) for k, n in launch_counts().items()
+                         if n != before.get(k, 0)}
+        for k, n in self.launches.items():   # the capture ran nothing on the card
+            k.launches -= n
+        profiling.count("sam.encoder_graph_captures")
+
+    def current(self) -> bool:
+        return self.stamp == [p.data_ptr() for p in self.params]
+
+    def replay(self, x: torch.Tensor) -> torch.Tensor:
+        self.x.copy_(x)
+        self.graph.replay()
+        for k, n in self.launches.items():
+            k.launches += n
+        profiling.count("sam.encoder_graph_replays")
+        return self.out.clone()
+
+
+# encoder -> {(shape, dtype, device): _EncoderGraph}; dropped with the encoder
+_GRAPHS = weakref.WeakKeyDictionary()
+
+
 def encode_image(model: Sam, x: torch.Tensor) -> torch.Tensor:
-    """(B, img, img, 3) preprocessed -> (B, grid, grid, out_chans)."""
-    return model.image_encoder(x)
+    """(B, img, img, 3) preprocessed -> (B, grid, grid, out_chans).
+
+    On the card with grad off, the encoder runs as one CUDA graph for each
+    input shape, dtype and device: the first call at one runs it eagerly
+    (the warm-up) and captures it; later calls copy ``x`` into the graph's
+    input, replay it with no host sync, and return a copy of its output,
+    so every call gets a tensor of its own.  A graph is captured again
+    where a weight has moved to other storage (``.to``, ``.float``);
+    in-place changes to the weights are read by every replay.  On the CPU,
+    or with grad on, the encoder runs eagerly."""
+    encoder = model.image_encoder
+    if not x.is_cuda or torch.is_grad_enabled():
+        return encoder(x)
+    graphs = _GRAPHS.setdefault(encoder, {})
+    key = (tuple(x.shape), x.dtype, x.device)
+    g = graphs.get(key)
+    if g is not None and g.current():
+        return g.replay(x)
+    g = graphs[key] = _EncoderGraph(encoder, x)
+    first, g.first = g.first, None   # the graph keeps no caller's tensor
+    return first
 
 
 def decode_masks(model: Sam, image_embedding: torch.Tensor, *, points=None, labels=None,

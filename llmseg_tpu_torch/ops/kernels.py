@@ -51,6 +51,7 @@ SIGNATURES = {
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_INSTANCES: list = []    # every Kernel made, in order
 
 
 def _nvcc() -> str:
@@ -127,6 +128,7 @@ class Kernel:
         self.name = name
         self.source = source or name
         self.launches = 0
+        _INSTANCES.append(self)
 
     def launch(self, *args) -> None:
         lib = library(self.source)
@@ -136,6 +138,12 @@ class Kernel:
             msg = getattr(lib, f"{self.source}_error_string")(err).decode()
             raise RuntimeError(f"{self.name} launch failed: {msg} ({err})")
         self.launches += 1
+
+
+def launch_counts() -> Dict[Kernel, int]:
+    """Every kernel's launch count; a CUDA graph's capture takes back what
+    it moved and its replays add it again (``models/sam/sam.py``)."""
+    return {k: k.launches for k in _INSTANCES}
 
 
 NAMESPACE = "llmseg"

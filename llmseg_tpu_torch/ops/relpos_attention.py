@@ -25,7 +25,9 @@ version beside each (:func:`relpos_fwd_plain`, :func:`relpos_window_plain`).
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import Dict
 
 import torch
 
@@ -38,14 +40,38 @@ KERNELS = (RELPOS_FWD, RELPOS_WINDOW)
 WINDOW_MAX_T = 512                        # the JAX dispatch: T <= 512 -> F
 
 
+_TABLE_INDEX: Dict[tuple, torch.Tensor] = {}    # (q_size, k_size, device) -> index
+
+
+def _table_index(q_size: int, k_size: int, device: torch.device) -> torch.Tensor:
+    """rel_pos_table's (q_size, k_size) int64 index, made on ``device`` once
+    and kept there: no later call copies it from the host (a copy that
+    waits for the stream), so a CUDA graph can hold the encoder."""
+    key = (q_size, k_size, device)
+    idx = _TABLE_INDEX.get(key)
+    if idx is None:
+        with torch.inference_mode(False):   # kept: usable under autograd too
+            q_coords = torch.arange(q_size, device=device)[:, None] * max(k_size / q_size, 1.0)
+            k_coords = torch.arange(k_size, device=device)[None, :] * max(q_size / k_size, 1.0)
+            idx = _TABLE_INDEX[key] = (
+                (q_coords - k_coords) + (k_size - 1) * max(q_size / k_size, 1.0)).long()
+    return idx
+
+
 def rel_pos_table(rel_pos: torch.Tensor, q_size: int, k_size: int) -> torch.Tensor:
     """(2*max(q, k)-1, D) table -> (q_size, k_size, D); q_size == k_size."""
     if rel_pos.shape[0] != 2 * max(q_size, k_size) - 1:
         raise ValueError(f"rel_pos table {rel_pos.shape[0]} != {2 * max(q_size, k_size) - 1}")
-    q_coords = torch.arange(q_size)[:, None] * max(k_size / q_size, 1.0)
-    k_coords = torch.arange(k_size)[None, :] * max(q_size / k_size, 1.0)
-    rel = (q_coords - k_coords) + (k_size - 1) * max(q_size / k_size, 1.0)
-    return rel_pos[rel.long().to(rel_pos.device)]
+    return rel_pos[_table_index(q_size, k_size, rel_pos.device)]
+
+
+@functools.lru_cache(maxsize=None)
+def in_dtype(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float: a tensor times it
+    equals, to the bit, the tensor times a 0-dim tensor of ``value`` in
+    ``dtype`` (both products run in float32 or wider), with no copy to the
+    card."""
+    return float(torch.tensor(value, dtype=dtype))
 
 
 def decomposed_rel_pos_bias(q: torch.Tensor, rel_pos_h: torch.Tensor,
@@ -156,7 +182,7 @@ def relpos_flash_attention(q, k, v, rel_pos_h, rel_pos_w, grid_g: int, *,
         raise ValueError(f"T = {T} is not {G}^2")
     scale = (1.0 / math.sqrt(D)) if scale is None else scale
     rh, rw = relpos_tables(q, rel_pos_h, rel_pos_w, G)
-    qs = q * torch.tensor(scale * LOG2E, dtype=q.dtype, device=q.device)
+    qs = q * in_dtype(scale * LOG2E, q.dtype)
 
     def prep(x):
         return x.permute(0, 2, 1, 3).reshape(B * H, T, D).contiguous()

@@ -226,3 +226,28 @@ def test_generator_guards():
         gen.submit(np.zeros((80, 40, 3), np.uint8))
     # the crop cascade runs (held to JAX in tests/test_torch_amg_crops.py)
     assert isinstance(gen.generate(np.zeros((48, 64, 3), np.uint8)), list)
+
+
+@pytest.mark.parametrize("crop_n_layers", [0, 1])
+def test_encoder_graph_counters_stay_zero_on_the_cpu(crop_n_layers):
+    """On the CPU the encoder runs eagerly: no CUDA graph is captured or
+    replayed, so the counters that ``amg.encoder_graph_replays_per_image``
+    reads stay absent while spans record, and no launch counter moves."""
+    from llmseg_tpu_torch.ops.kernels import launch_counts
+    from llmseg_tpu_torch.utils import profiling
+    m = tsam.init(TC.sam_tiny(), device="cpu")
+    gen = tamg.AutomaticMaskGenerator(m, amg=TC.AMGConfig(
+        points_per_side=4, points_per_batch=8, crop_n_layers=crop_n_layers), device="cpu")
+    before = launch_counts()
+    profiling.reset()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            for _ in range(2):
+                gen.generate(np.zeros((48, 64, 3), np.uint8))
+            counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.reset()
+    assert "amg.survivors" in counters
+    assert not {"sam.encoder_graph_captures", "sam.encoder_graph_replays"} & set(counters)
+    assert m.image_encoder not in tsam._GRAPHS
+    assert launch_counts() == before

@@ -1133,3 +1133,142 @@ def test_native_rle_builds_and_loads():
     assert native.mask_to_counts(m) == rle._runs(m).tolist()
     packed = np.packbits(m, axis=-1)
     assert rle.encode_packed(packed, 57, 31) == rle.encode_stats(m)
+
+
+@pytest.fixture(scope="module")
+def _sam_h():
+    """sam_vit_h in bf16 on the card, rel-pos tables drawn nonzero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from llmseg_tpu_torch.models.sam import sam as S_
+    model = S_.init(C.sam_vit_h(), seed=11, device="cuda", dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    with torch.no_grad():
+        for blk in model.image_encoder.blocks:
+            for t in (blk.attn.rel_pos_h, blk.attn.rel_pos_w):
+                t.copy_(torch.randn(t.shape, device="cuda", generator=g) * 0.5)
+    return model
+
+
+@pytest.fixture
+def sam_h(_sam_h):
+    """The module's model with no encoder graph captured yet."""
+    from llmseg_tpu_torch.models.sam import sam as S_
+    S_._GRAPHS.pop(_sam_h.image_encoder, None)
+    yield _sam_h
+    S_._GRAPHS.pop(_sam_h.image_encoder, None)
+
+
+def _sam_images(n, batch=1, seed=13):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(batch, 1024, 1024, 3, device="cuda", generator=g) for _ in range(n)]
+
+
+def _relpos_launches():
+    return R.RELPOS_FWD.launches, R.RELPOS_WINDOW.launches
+
+
+def test_encoder_graph_equals_the_eager_encoder(sam_h):
+    """encode_image on the card with grad off: the first call runs the
+    encoder eagerly and captures it, later calls replay the graph on their
+    own input. Each image's embedding equals the eager encoder's to the bit,
+    each call returns a tensor of its own, and E and F launch 4 and 28
+    times a call, the capture adding none."""
+    from llmseg_tpu_torch.models.sam import sam as S_
+    xs = _sam_images(3)
+    with torch.inference_mode():
+        ref = [sam_h.image_encoder(x) for x in xs]
+        got = []
+        for x in xs:
+            before = _relpos_launches()
+            got.append(S_.encode_image(sam_h, x))
+            after = _relpos_launches()
+            assert (after[0] - before[0], after[1] - before[1]) == (4, 28)
+    assert len(S_._GRAPHS[sam_h.image_encoder]) == 1
+    assert len({e.data_ptr() for e in got}) == 3
+    for e, r in zip(got, ref):
+        assert e.shape == (1, 64, 64, 256) and e.dtype == torch.bfloat16
+        assert torch.equal(e, r)
+    assert not torch.equal(got[1], got[2])
+
+
+def test_encoder_graph_per_shape_and_its_counters(sam_h):
+    """A second input shape captures a second graph; the program's counters
+    count each capture and each replay, and the launch counters stay true."""
+    from llmseg_tpu_torch.models.sam import sam as S_
+    from llmseg_tpu_torch.utils import profiling
+    one, = _sam_images(1)
+    two, = _sam_images(1, batch=2, seed=14)
+    profiling.reset()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]), \
+                torch.inference_mode():
+            before = _relpos_launches()
+            for x in (one, one, two, two, two):
+                S_.encode_image(sam_h, x)
+            after = _relpos_launches()
+            counters = profiling.snapshot()["counters"]
+            e2 = S_.encode_image(sam_h, two)
+            r2 = sam_h.image_encoder(two)
+    finally:
+        profiling.reset()
+    assert counters["sam.encoder_graph_captures"] == 2
+    assert counters["sam.encoder_graph_replays"] == 3
+    assert (after[0] - before[0], after[1] - before[1]) == (5 * 4, 5 * 28)
+    assert set(S_._GRAPHS[sam_h.image_encoder]) == {
+        ((1, 1024, 1024, 3), torch.float32, one.device),
+        ((2, 1024, 1024, 3), torch.float32, one.device)}
+    assert torch.equal(e2, r2)
+
+
+def test_encoder_with_grad_on_runs_eagerly(sam_h):
+    """With grad on the encoder runs eagerly: no graph, the same result."""
+    from llmseg_tpu_torch.models.sam import sam as S_
+    x, = _sam_images(1)
+    with torch.no_grad():
+        want = sam_h.image_encoder(x)
+    with torch.enable_grad():
+        before = _relpos_launches()
+        got = S_.encode_image(sam_h, x)
+        after = _relpos_launches()
+    assert sam_h.image_encoder not in S_._GRAPHS
+    assert (after[0] - before[0], after[1] - before[1]) == (4, 28)
+    assert got.requires_grad and torch.equal(got.detach(), want)
+
+
+def test_amg_submit_waits_for_nothing_between_the_upload_and_the_nms(sam_h, monkeypatch):
+    """After the first image (the encoder's capture), an image's submit from
+    its upload (the end of ``amg.upload``: preprocess is the next call) to
+    the start of the NMS makes no call that syncs with the host, and the
+    image's annotations equal the first run's, whose encoder ran eagerly."""
+    import numpy as np
+
+    from llmseg_tpu_torch.models.sam import amg as AMG
+    from llmseg_tpu_torch.models.sam import sam as S_
+    from llmseg_tpu_torch.ops import nms as N
+    gen = AMG.AutomaticMaskGenerator(sam_h, amg=C.AMGConfig(
+        points_per_side=16, points_per_batch=64, pred_iou_thresh=-1e9,
+        stability_score_thresh=-1.0, box_nms_thresh=1.1, max_masks=20))
+    img = np.random.RandomState(0).randint(0, 255, (683, 1024, 3), np.uint8)
+    first = gen.generate(img)
+    seen = []
+    preprocess, nms = S_.preprocess, N.nms
+
+    def checked_preprocess(*a, **kw):
+        seen.append("preprocess")
+        torch.cuda.set_sync_debug_mode("error")
+        return preprocess(*a, **kw)
+
+    def unchecked_nms(*a, **kw):
+        torch.cuda.set_sync_debug_mode("default")
+        seen.append("nms")
+        return nms(*a, **kw)
+
+    monkeypatch.setattr(S_, "preprocess", checked_preprocess)
+    monkeypatch.setattr(N, "nms", unchecked_nms)
+    try:
+        handle = gen.submit(img)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert seen == ["preprocess", "nms"]
+    assert gen.finish(handle) == first and len(first) == 20

@@ -116,3 +116,34 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
     torch.testing.assert_close(R.relpos_window(*prep, th, tw),
                                R.relpos_window_plain(*prep, th, tw))
     assert (R.RELPOS_FWD.launches, R.RELPOS_WINDOW.launches) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [16, 64, 80])
+def test_q_times_the_rounded_scale_equals_the_tensor_product(dtype, D):
+    """q times the scale rounded to q's dtype as a Python float (no copy to
+    the card) equals, to the bit, q times a 0-dim tensor of the scale in
+    q's dtype, the product the kernels were held to before."""
+    q = torch.tensor(np.random.RandomState(D).randn(2, 196, 3, D) * 4).to(dtype)
+    scale = D ** -0.5 * R.LOG2E
+    old = q * torch.tensor(scale, dtype=dtype, device=q.device)
+    new = q * R.in_dtype(scale, dtype)
+    assert new.dtype == dtype
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(new.view(bits), old.view(bits))
+
+
+@pytest.mark.parametrize("size", [3, 7, 14, 64])
+def test_rel_pos_table_index_is_made_on_the_tables_device_once(size):
+    """The index rel_pos_table takes is the one the host used to build and
+    copy (the same integers), made on the table's device and kept there."""
+    q_coords = torch.arange(size)[:, None] * 1.0
+    k_coords = torch.arange(size)[None, :] * 1.0
+    old = ((q_coords - k_coords) + (size - 1) * 1.0).long()
+    table = torch.tensor(np.random.RandomState(size).randn(2 * size - 1, 8).astype(np.float32))
+    idx = R._table_index(size, size, table.device)
+    assert idx.dtype == torch.int64 and idx.device == table.device
+    assert torch.equal(idx, old) and R._table_index(size, size, table.device) is idx
+    assert torch.equal(R.rel_pos_table(table, size, size), table[old])
+    with torch.inference_mode():   # kept as a normal tensor, usable under autograd
+        assert not R._table_index(size, size, table.device).is_inference()

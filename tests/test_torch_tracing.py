@@ -28,8 +28,8 @@ AMG_PARENTS = {"amg.submit": None, "amg.encode": "amg.submit", "amg.decode": "am
                "amg.upscale": "amg.prefetch", "amg.download": "amg.finish",
                "amg.rle": "amg.finish", "amg.overflow_path": "amg.rle"}
 # the uploads that wait for the stream: the image and the grid in submit,
-# the filters' fill in select
-UPLOADS = {"amg.submit": 2, "amg.select": 1}
+# one span before the encoder (the filters' fill is a scalar, no upload)
+UPLOADS = {"amg.submit": 1}
 STAGES = ("llmseg.dino", "llmseg.clip", "llmseg.llm", "llmseg.head")
 
 
