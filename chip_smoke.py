@@ -311,6 +311,7 @@ FLIP_UNITS = 4                # and a handful of units flip at most
 PLANTED_FAULT = 1e-3          # qlora_in_place's control: LLaMA's attention output scaled
                               # by 1 + this must fail the same gates
 OUT_DIR = "chiprun_out"
+MLA_ROW = "flash_fwd_192_128"  # kernel A at q/k head dim 192, v 128 (latent attention)
 
 
 def emit(obj) -> None:
@@ -388,9 +389,10 @@ def causal_pairs(T: int, S: int) -> int:
     return sum(min(i + 1, S) for i in range(T))
 
 
-def fwd_inputs(A, BH, T, S, D, dtype, adversarial=False, mixed=False, seed=0):
+def fwd_inputs(A, BH, T, S, D, dtype, adversarial=False, mixed=False, seed=0, DV=None):
     """Seeded q (pre-scaled by scale*log2(e)), k and v of a forward kernel
-    case, and the generator, for what the case draws next."""
+    case, and the generator, for what the case draws next; v's head dim is
+    ``DV`` (D by default)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = dict(device="cuda", dtype=torch.float32)
@@ -408,21 +410,23 @@ def fwd_inputs(A, BH, T, S, D, dtype, adversarial=False, mixed=False, seed=0):
     else:
         q = torch.randn(BH, T, D, generator=g, **dev)
         k = torch.randn(BH, S, D, generator=g, **dev)
-    v = torch.randn(BH, S, D, generator=g, **dev)
+    v = torch.randn(BH, S, D if DV is None else DV, generator=g, **dev)
     q = (q.to(dtype) * torch.tensor(scale * A.LOG2E, dtype=dtype, device="cuda")).contiguous()
     return q, k.to(dtype).contiguous(), v.to(dtype).contiguous(), g
 
 
 def kernel_case(A, name, *, BH, T, S, D, causal=None, dtype, adversarial=False,
-                mixed=False, bias=False, lse=False, timed=False, seed=0):
+                mixed=False, bias=False, lse=False, timed=False, seed=0, DV=None):
     """One comparison of a kernel with its plain version; with ``timed``
     also the kernel's, the plain version's and the library call's times.
     ``bias``: False, True (one per head) or "broadcast" (one for all heads,
     stride 0); ``mixed``: with ``adversarial``, every third query row is a
-    small one that needs no rescue, beside rows that do."""
+    small one that needs no rescue, beside rows that do; ``DV``: v's head
+    dim, D by default (kernel A also takes q/k 192 with v 128)."""
     import torch
     import torch.nn.functional as F
-    q, k, v, g = fwd_inputs(A, BH, T, S, D, dtype, adversarial, mixed, seed)
+    DV = D if DV is None else DV
+    q, k, v, g = fwd_inputs(A, BH, T, S, D, dtype, adversarial, mixed, seed, DV)
     dev = dict(device="cuda", dtype=torch.float32)
     b = (torch.randn(1 if bias == "broadcast" else BH, T, S, generator=g, **dev) * A.LOG2E
          if bias else None)
@@ -454,7 +458,7 @@ def kernel_case(A, name, *, BH, T, S, D, causal=None, dtype, adversarial=False,
         if lse:
             err_lse = max(err_lse, (l2[sl] - rl).abs().max().item())
     rec = {"phase": "kernel", "kernel": name, "BH": BH, "T": T, "S": S, "D": D,
-           "causal": causal, "dtype": str(dtype).split(".")[-1], "bias": bias,
+           **({"DV": DV} if DV != D else {}), "causal": causal, "dtype": str(dtype).split(".")[-1], "bias": bias,
            "lse": lse, "adversarial": adversarial, "mixed": mixed, "max_abs_err": err,
            "atol": atol, "rtol": rtol}
     if lse:
@@ -467,8 +471,8 @@ def kernel_case(A, name, *, BH, T, S, D, causal=None, dtype, adversarial=False,
         rec["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=bool(causal), scale=1.0 / A.LOG2E), 20)
         pairs = causal_pairs(T, S) if causal else T * S
-        nbytes = q.element_size() * BH * D * (2 * T + 2 * S)
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4.0 * BH * D * pairs)
+        nbytes = q.element_size() * BH * (D + DV) * (T + S)     # q, k, v read, o written
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2.0 * BH * (D + DV) * pairs)
     rec["ok"] = ok
     emit(rec)
     if not ok:
@@ -531,19 +535,21 @@ def bwd_device_times(A, *, BH, T, S, D, causal, dtype, seed=0) -> dict:
 
 def fwd_device_times(A, R) -> dict:
     """Device time (device_ms) of the forward kernels at their main shapes
-    and of one library call on the same inputs (library_device_ms): A, B and
-    J (B's and J's with the kmax reduction of their C call) against SDPA's
-    forward, E and F against SDPA with the rel-pos bias as a float attn_mask
+    and of one library call on the same inputs (library_device_ms): A (also
+    at latent attention's head dims, ``MLA_ROW``), B and J (B's and J's
+    with the kmax reduction of their C call) against SDPA's forward, E and F against SDPA with the rel-pos bias as a float attn_mask
     (built outside the timing).  Near 50 us the event clock of kernel_case
     and relpos_case may also count the wrappers' host time."""
     import torch
     import torch.nn.functional as F
     out = {}
-    for name, (BH, T, D, causal) in (("flash_fwd", (128, 767, 128, True)),
-                                     ("flash_fwd_1pass", (64, 4097, 64, False)),
-                                     ("flash_fwd_1pass_t", (64, 4097, 64, False))):
-        q, k, v, _ = fwd_inputs(A, BH, T, T, D, torch.bfloat16)
+    for name, (BH, T, D, DV, causal) in (("flash_fwd", (128, 767, 128, 128, True)),
+                                         (MLA_ROW, (192, 767, 192, 128, True)),
+                                         ("flash_fwd_1pass", (64, 4097, 64, 64, False)),
+                                         ("flash_fwd_1pass_t", (64, 4097, 64, 64, False))):
+        q, k, v, _ = fwd_inputs(A, BH, T, T, D, torch.bfloat16, DV=DV)
         run = {"flash_fwd": lambda: A.flash_fwd(q, k, v, causal=True),
+               MLA_ROW: lambda: A.flash_fwd(q, k, v, causal=True),
                "flash_fwd_1pass": lambda: A.flash_fwd_1pass(q, k, v),
                "flash_fwd_1pass_t": lambda: A.flash_fwd_1pass_t(q, k, v)}[name]
         q4, k4, v4 = (x.unsqueeze(0) for x in (q, k, v))
@@ -932,6 +938,59 @@ def kernels_in_place(C, llmseg, make_batch, A) -> dict:
                                                  "flash_fwd_1pass_t": 0})
     if not rec["ok"]:
         raise SystemExit(f"kernels disagree with the plain path inside the model: {rec}")
+    return rec
+
+
+def mla_moe_main(C, llmseg, make_batch, A) -> dict:
+    """``llmseg_kimi_vl_a3b`` (Kimi-VL-A3B's DeepSeek-V3 decoder at its
+    published widths and depth, LLM-Seg's towers) in bf16 through
+    ``llmseg.predict`` on the benchmark cell's batch, 4 images x 3
+    questions of 512 text tokens: the launches of each attention kernel a
+    call (A at (192, 767, 767, 192/128) once a decoder layer, B once a
+    DINOv2 block), the grouped products a call (two a MoE layer), the time
+    of a call and the peak memory."""
+    import torch
+    from llmseg_tpu_torch.utils import profiling
+
+    cfg = C.llmseg_kimi_vl_a3b()
+    llm = cfg.llava.llm
+    model = llmseg.fold_frozen_inplace(llmseg.init(cfg, seed=0, device="cuda",
+                                                   dtype=torch.bfloat16))
+    with torch.no_grad():
+        for m in model.llava.llm.moe_layers():     # a spread that moves the choice
+            m.router.correction_bias.normal_(0.0, 0.1)
+    batch = make_batch(cfg, num_images=4, rows_per_image=3, text_len=512, seed=0)
+    llmseg.predict(model, batch)
+    torch.cuda.synchronize()
+    for kern in A.KERNELS:
+        kern.launches = 0
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = llmseg.predict(model, batch)
+    torch.cuda.synchronize()
+    launches = {kern.name: kern.launches for kern in A.KERNELS}
+    counters = profiling.snapshot()["counters"]
+    n_moe = llm.num_layers - llm.first_k_dense_replace
+    expect = {"flash_fwd": llm.num_layers, "flash_fwd_1pass": cfg.dino.depth,
+              "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_fwd_1pass_t": 0}
+    sim, iou = out["pred_similarity"], out["pred_iou"]
+    finite = bool(torch.isfinite(sim).all() and torch.isfinite(iou).all())
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: llmseg.predict(model, batch), 5)
+    rec = {"phase": "mla_moe_main", "config": "llmseg_kimi_vl_a3b", "dtype": "bfloat16",
+           "batch_images": 4, "rows_per_image": 3, "text_len": 512,
+           "seq_len": 512 + cfg.llava.num_image_tokens - 1, "launches": launches,
+           "expected_launches": expect, "grouped_gemms": counters.get("moe.grouped_gemms"),
+           "expected_grouped_gemms": 2 * n_moe, "shape": list(sim.shape), "finite": finite,
+           "ms_per_step": step_ms, "img_per_s": 4 * 1e3 / step_ms,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    rec["ok"] = (finite and launches == expect and rec["grouped_gemms"] == 2 * n_moe
+                 and tuple(sim.shape) == (12, cfg.max_proposals))
+    emit(rec)
+    del model, out, batch
+    torch.cuda.empty_cache()
+    if not rec["ok"]:
+        raise SystemExit(f"the MLA/MoE predict failed: {rec}")
     return rec
 
 
@@ -5685,6 +5744,13 @@ def main() -> int:
     kernel_case(A, "flash_fwd", BH=4, T=300, S=200, D=128, causal=False, dtype=bf16,
                 bias="broadcast", lse=True)
     kernel_case(A, "flash_fwd", BH=8, T=300, S=300, D=64, causal=True, dtype=bf16, lse=True)
+    # latent attention's heads (q/k 192, v 128) at the MLA/MoE predict's
+    # shape, 12 rows x 16 heads of 767, and off the 128-row tiles
+    main_mla = kernel_case(A, "flash_fwd", BH=12 * 16, T=767, S=767, D=192, DV=128,
+                           causal=True, dtype=bf16, timed=True)
+    kernel_case(A, "flash_fwd", BH=12 * 16, T=767, S=767, D=192, DV=128, causal=True, dtype=f32)
+    kernel_case(A, "flash_fwd", BH=4 * 16, T=300, S=300, D=192, DV=128, causal=True, dtype=bf16)
+    kernel_case(A, "flash_fwd", BH=2, T=300, S=300, D=192, DV=128, causal=True, dtype=f32)
     main_b = kernel_case(A, "flash_fwd_1pass", BH=4 * 16, T=4097, S=4097, D=64,
                          dtype=bf16, timed=True)
     kernel_case(A, "flash_fwd_1pass", BH=16, T=4097, S=4097, D=64, dtype=bf16,
@@ -5716,6 +5782,7 @@ def main() -> int:
                                 (True, 1, 767, 767, 128)):
         bwd_case(A, BH=bh, T=t, S=s, D=d, causal=causal, dtype=bf16, repeat=t == 767)
     timed.update({r["kernel"]: r for r in (main_a, main_b)})
+    timed[MLA_ROW] = main_mla
     timed.update(main_cd)
     timed.update(sam_kernel_phase(C, R, TK))
     timed.update(pixel_kernel_phase(C, A, TK))
@@ -5749,6 +5816,7 @@ def main() -> int:
     emit(sam_in_place(C, S, R, TK, IE))
     emit(w8a8_in_place(C, llmseg, make_batch, Q))
     pixel_in_place(C, S, R, TK, IE, PD, GEN, make_batch, A)
+    mla_moe = mla_moe_main(C, llmseg, make_batch, A)
 
     # 4. the main path: llmseg_7b, bf16, batch 4
     cfg = C.llmseg_7b()
@@ -5914,6 +5982,9 @@ def main() -> int:
     # C and D per train step, E, F and G per AMG image, H and I per evaluate
     sources = {"flash_fwd": ("llmseg_tpu_torch/csrc/flash_fwd.cu",
                              "llmseg_tpu/ops/attention.py:100"),
+               MLA_ROW: ("llmseg_tpu_torch/csrc/flash_fwd.cu flash_fwd_bf16<192, 128>",
+                         "none: the JAX package has no latent attention (the port's "
+                         "DeepSeek-V3 decoder, kernel A at q/k 192, v 128)"),
                "flash_fwd_1pass": ("llmseg_tpu_torch/csrc/flash_fwd_1pass.cu",
                                    "llmseg_tpu/ops/attention.py:285"),
                "flash_bwd_dq": ("llmseg_tpu_torch/csrc/flash_bwd_dq.cu",
@@ -5956,6 +6027,7 @@ def main() -> int:
     q_step = qmesh["full_int8_tp2"]["launches_per_step_a_rank"][0][-1]
     for name in ("row_absmax", "quantize_rows_scaled", "w8a8_int32", "w8a8_epilogue"):
         launches[name] = q_pred[name]
+    launches[MLA_ROW] = mla_moe["launches"]["flash_fwd"]
     rows = []
     for name, (src, rep) in sources.items():
         r = timed[name]

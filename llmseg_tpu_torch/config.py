@@ -1,15 +1,19 @@
-"""Model configuration: the port's own copy of the JAX package's dataclasses.
+"""Model configuration: the port's copy of the JAX package's dataclasses,
+and one decoder the JAX package lacks.
 
 Every dataclass and preset of ``llmseg_tpu.config`` is kept.  Field names,
 defaults and presets match, so one preset name means one architecture in
-both packages.
+both packages.  :class:`DeepseekV3Config` (latent attention and routed
+experts, ``models/deepseek_v3.py``) and its presets are the port's own: an
+``LlavaConfig`` whose ``llm`` is one builds that decoder in place of the
+LLaMA.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Tuple, Union
 
 
 def replace(cfg, **kw):
@@ -87,6 +91,57 @@ def llama_tiny(vocab_size: int = 256) -> LlamaConfig:
 
 
 @dataclass(frozen=True)
+class DeepseekV3Config:
+    """DeepSeek-V3's decoder, as Kimi-VL-A3B-Instruct's language model
+    publishes it (the defaults): multi-head latent attention without q
+    compression, ``first_k_dense_replace`` leading dense SwiGLU layers, then
+    layers of ``n_routed_experts`` SwiGLU experts of which a sigmoid router
+    with a correction bias picks ``num_experts_per_tok`` (``noaux_tc`` in
+    one group, the weights normalised and scaled by
+    ``routed_scaling_factor``) beside ``n_shared_experts`` shared ones
+    (one SwiGLU of their summed width).  Inference only."""
+
+    vocab_size: int = 163844         # 163840 + [SEG], <im_start>, <im_end>, pad
+    hidden_size: int = 2048
+    intermediate_size: int = 11264   # the leading dense layers' SwiGLU
+    moe_intermediate_size: int = 1408
+    num_layers: int = 27
+    num_heads: int = 16
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    first_k_dense_replace: int = 1
+    routed_scaling_factor: float = 2.446
+    max_seq_len: int = 1024
+    rope_theta: float = 800000.0
+    rms_norm_eps: float = 1e-5
+    kv_norm_eps: float = 1e-6        # kv_a_layernorm: the modeling code's default
+    tie_embeddings: bool = False
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+def kimi_vl_a3b_llm() -> DeepseekV3Config:
+    """moonshotai/Kimi-VL-A3B-Instruct's text config, with LLM-Seg's four
+    added tokens."""
+    return DeepseekV3Config()
+
+
+def deepseek_v3_tiny(vocab_size: int = 256) -> DeepseekV3Config:
+    return DeepseekV3Config(vocab_size=vocab_size, hidden_size=64, intermediate_size=128,
+                            moe_intermediate_size=32, num_layers=3, num_heads=4,
+                            kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+                            v_head_dim=16, n_routed_experts=8, num_experts_per_tok=2,
+                            n_shared_experts=1, max_seq_len=512)
+
+
+@dataclass(frozen=True)
 class MptConfig:
     """MPT decoder (the reference's model/llava/model/language_model/mpt/,
     a LLaVA backbone no entry point selects).  Defaults are MPT-7B's:
@@ -131,10 +186,11 @@ class LoraConfig:
 
 @dataclass(frozen=True)
 class LlavaConfig:
-    """CLIP tower + linear projector + LLaMA."""
+    """CLIP tower + linear projector + LLaMA (or, with a
+    :class:`DeepseekV3Config`, DeepSeek-V3's decoder)."""
 
     vision: ViTConfig = field(default_factory=clip_vit_l14)
-    llm: LlamaConfig = field(default_factory=llama_7b)
+    llm: Union[LlamaConfig, DeepseekV3Config] = field(default_factory=llama_7b)
     mm_hidden_size: int = 1024
     vision_select_layer: int = -2
     num_image_tokens: int = 256       # 224/14 squared
@@ -221,6 +277,20 @@ def llmseg_tiny() -> LLMSegConfig:
         select=selection_head_tiny(llm_dim=llava.llm.hidden_size,
                                    dino_dim=dino.hidden_size),
         max_proposals=8, seg_grid=16, seg_token_id=200, max_seq_len=512)
+
+
+def llmseg_kimi_vl_a3b() -> LLMSegConfig:
+    """LLM-Seg with Kimi-VL-A3B-Instruct's decoder in place of the LLaMA:
+    LLM-Seg's own CLIP-L/14 tower and projector, DINOv2-L and selection
+    head; ``[SEG]`` the first added token."""
+    llm = kimi_vl_a3b_llm()
+    return LLMSegConfig(llava=LlavaConfig(llm=llm), select=SelectionHeadConfig(
+        llm_dim=llm.hidden_size), seg_token_id=163840)
+
+
+def llmseg_mla_moe_tiny() -> LLMSegConfig:
+    cfg = llmseg_tiny()
+    return replace(cfg, llava=replace(cfg.llava, llm=deepseek_v3_tiny()))
 
 
 @dataclass(frozen=True)

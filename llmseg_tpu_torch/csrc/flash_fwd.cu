@@ -29,6 +29,14 @@
 // every CTA pays its pipeline fill and epilogue alone; a persistent CTA
 // that prefetches its next block is the next step.
 //
+// Head dims (D of q and k, DV of v and o): (64, 64), (128, 128), and (192,
+// 128), multi-head latent attention's heads (DeepSeek-V3, Kimi-VL: a 128-wide
+// part from the latent plus a 64-wide rotary part shared by the heads).  At
+// (192, 128) q and k take three 64-column boxes, v two; the ring keeps two
+// stages (208 KB), and S takes twelve k-steps where D = 128 takes eight,
+// with the same registers as (128, 128).  At 16 heads of 767 rows that is
+// bound by bytes, as LLaMA's shape is.
+//
 // float32 inputs take a plain SIMT kernel (one warp per query row) with the
 // same math; it exists for exact comparisons, not for speed.
 #include "fwd_core.cuh"
@@ -97,13 +105,13 @@ struct OnlineSoftmax {
   }
 };
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(hopper::FWD_THREADS, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, const float* __restrict__ bias,
                long long bias_bh_stride, bf16* __restrict__ o, float* __restrict__ lse, int T,
                int S, int causal) {
-  using L = hopper::FwdLayout<D>;
+  using L = hopper::FwdLayout<D, DV>;
   __shared__ hopper::FwdBars bars;
   extern __shared__ unsigned char smem[];
   const uint32_t base = hopper::align1024(smem);
@@ -118,7 +126,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   __syncthreads();
   if (wg == 2) {
     if (threadIdx.x == hopper::PRODUCER_THREAD)
-      hopper::produce<D>(&tq, &tk, &tv, base, bars, q0, bh, n_tiles);
+      hopper::produce<D, DV>(&tq, &tk, &tv, base, bars, q0, bh, n_tiles);
     return;
   }
   const int c = wg, warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31, t = lane & 3;
@@ -130,10 +138,10 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   sm.row0 = q0 + 64 * c;
   sm.ra = sm.row0 + 16 * warp + (lane >> 2);
   sm.rb = sm.ra + 8;
-  float acc[D / 2];
-  hopper::consume<D>(base, bars, c, n_tiles, sm, acc);
+  float acc[DV / 2];
+  hopper::consume<D, DV>(base, bars, c, n_tiles, sm, acc);
 
-  bf16* ob = o + (size_t)bh * T * D;
+  bf16* ob = o + (size_t)bh * T * DV;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = h ? sm.rb : sm.ra;
@@ -141,8 +149,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     const float ls = l == 0.f ? 1.f : l, inv = 1.f / ls;
     if (row >= T) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * D + 8 * j + 2 * t) =
+    for (int j = 0; j < DV / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * DV + 8 * j + 2 * t) =
           __floats2bfloat162_rn(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
     if (lse && t == 0) lse[(size_t)bh * T + row] = sm.m[h] + log2f(ls);
   }
@@ -151,13 +159,13 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
 // float32: one warp per query row, the keys 32 at a time (one per lane).
 constexpr int F32_ROWS = 4;
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(F32_ROWS * 32)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ bias,
               long long bias_bh_stride, float* __restrict__ o, float* __restrict__ lse,
               int T, int S, int causal) {
-  constexpr int E = D / 32;
+  constexpr int E = DV / 32;
   __shared__ float sq[F32_ROWS][D];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int bh = blockIdx.y, row = blockIdx.x * F32_ROWS + warp;
@@ -165,7 +173,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int c = lane; c < D; c += 32) sq[warp][c] = q[((size_t)bh * T + row) * D + c];
   __syncwarp();
   const float* kb = k + (size_t)bh * S * D;
-  const float* vb = v + (size_t)bh * S * D;
+  const float* vb = v + (size_t)bh * S * DV;
   const float* biasb = bias ? bias + (size_t)bh * bias_bh_stride + (size_t)row * S : nullptr;
   const int hi = causal ? min(S, row + 1) : S;  // masked keys weigh exp2(-1e9 - m) = 0
   float acc[E];
@@ -191,39 +199,39 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int n = min(32, hi - j0);
     for (int jj = 0; jj < n; ++jj) {
       const float pj = __shfl_sync(0xffffffffu, p, jj);
-      const float* vr = vb + (size_t)(j0 + jj) * D;
+      const float* vr = vb + (size_t)(j0 + jj) * DV;
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[e] = fmaf(pj, vr[lane + 32 * e], acc[e]);
     }
   }
   const float l_safe = (l == 0.f) ? 1.f : l;
 #pragma unroll
-  for (int e = 0; e < E; ++e) o[((size_t)bh * T + row) * D + lane + 32 * e] = acc[e] / l_safe;
+  for (int e = 0; e < E; ++e) o[((size_t)bh * T + row) * DV + lane + 32 * e] = acc[e] / l_safe;
   if (lse && lane == 0) lse[(size_t)bh * T + row] = m + log2f(l_safe);
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            long long bias_bh_stride, void* o, void* lse, int BH, int T, int S, int is_bf16,
            int causal, cudaStream_t st) {
   if (T < 1 || S < 1) return (int)cudaErrorInvalidValue;
   if (is_bf16) {
-    using L = hopper::FwdLayout<D>;
+    using L = hopper::FwdLayout<D, DV>;
     constexpr int SMEM = L::BYTES + 1024;  // + the slack of aligning the base to 1024
     static const cudaError_t ready = cudaFuncSetAttribute(
-        flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+        flash_fwd_bf16<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (ready != cudaSuccess) return (int)ready;
     CUtensorMap tq, tk, tv;
     cudaError_t e = hopper::tensor_map_3d(&tq, q, D, T, BH, L::BQ);
     if (e == cudaSuccess) e = hopper::tensor_map_3d(&tk, k, D, S, BH, L::BN);
-    if (e == cudaSuccess) e = hopper::tensor_map_3d(&tv, v, D, S, BH, L::BN);
+    if (e == cudaSuccess) e = hopper::tensor_map_3d(&tv, v, DV, S, BH, L::BN);
     if (e != cudaSuccess) return (int)e;
     dim3 grid(BH, (T + L::BQ - 1) / L::BQ);
-    flash_fwd_bf16<D><<<grid, hopper::FWD_THREADS, SMEM, st>>>(
+    flash_fwd_bf16<D, DV><<<grid, hopper::FWD_THREADS, SMEM, st>>>(
         tq, tk, tv, (const float*)bias, bias_bh_stride, (bf16*)o, (float*)lse, T, S, causal);
   } else {
     dim3 grid((T + F32_ROWS - 1) / F32_ROWS, BH);
-    flash_fwd_f32<D><<<grid, F32_ROWS * 32, 0, st>>>(
+    flash_fwd_f32<D, DV><<<grid, F32_ROWS * 32, 0, st>>>(
         (const float*)q, (const float*)k, (const float*)v, (const float*)bias, bias_bh_stride,
         (float*)o, (float*)lse, T, S, causal);
   }
@@ -232,15 +240,20 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
 
 }  // namespace
 
-// q (BH, T, D) pre-scaled, k/v (BH, S, D), o like q; bias (B*H or 1, T, S)
-// float32 log2-domain or null (bias_bh_stride = T*S, or 0 to broadcast);
-// lse (BH, T) float32 or null.  Returns the launch's cudaError_t.
+// q (BH, T, D) pre-scaled, k (BH, S, D), v (BH, S, DV), o (BH, T, DV);
+// bias (B*H or 1, T, S) float32 log2-domain or null (bias_bh_stride = T*S, or
+// 0 to broadcast); lse (BH, T) float32 or null.  (D, DV) is (64, 64),
+// (128, 128) or (192, 128).  Returns the launch's cudaError_t.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* bias,
                          long long bias_bh_stride, void* o, void* lse, int BH, int T, int S,
-                         int D, int is_bf16, int causal, void* stream) {
+                         int D, int DV, int is_bf16, int causal, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 64) return launch<64>(q, k, v, bias, bias_bh_stride, o, lse, BH, T, S, is_bf16, causal, st);
-  if (D == 128) return launch<128>(q, k, v, bias, bias_bh_stride, o, lse, BH, T, S, is_bf16, causal, st);
+  if (D == 64 && DV == 64)
+    return launch<64, 64>(q, k, v, bias, bias_bh_stride, o, lse, BH, T, S, is_bf16, causal, st);
+  if (D == 128 && DV == 128)
+    return launch<128, 128>(q, k, v, bias, bias_bh_stride, o, lse, BH, T, S, is_bf16, causal, st);
+  if (D == 192 && DV == 128)
+    return launch<192, 128>(q, k, v, bias, bias_bh_stride, o, lse, BH, T, S, is_bf16, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -11,12 +11,14 @@
 //   * warpgroups 0 and 1, the consumers, 64 query rows each: S = q k^T as
 //     wgmma m64n128k16 from shared memory (D / 16 k-steps), the policy's
 //     probability step on S in registers, then O += P v with P from
-//     registers (8 k-steps of m64nDk16, v MN-major).
+//     registers (8 k-steps of m64nDVk16, v MN-major).
+// q and k have head dim D, v and o DV (D unless given): kernel A takes
+// (64, 64), (128, 128) and (192, 128), MLA's heads; kernel J (D, D).
 // Schedule of a consumer over tiles j at D = 64 (FlashAttention-3's
 // intra-warpgroup overlap): start S_j and the previous tile's P_{j-1}
 // v_{j-1} together, wait for S_j only, compute P_j's floats while the PV
 // product runs, then wait for it, release the stage, let the policy rescale
-// O and pack P_j to bf16.  At D = 128 (see OVERLAPS) one tile's S, softmax
+// O and pack P_j to bf16.  At DV = 128 (see OVERLAPS) one tile's S, softmax
 // and PV run in turn.  Either way the two consumers run unsynchronised, so
 // one warpgroup's exp2 pass overlaps the other's tensor-core work as the
 // warp schedulers interleave them.  (Strict turns, FA3's ping-pong on two
@@ -44,18 +46,19 @@ constexpr int FWD_THREADS = 288;
 constexpr int PRODUCER_THREAD = 256;
 
 // Shared memory of a CTA from a 1024-aligned base: the q block (NB boxes of
-// BQ lines), then STAGES k tiles, then STAGES v tiles (NB boxes of BN lines
-// each); the kernel's own space starts at BYTES.
-template <int D>
+// BQ lines), then STAGES k tiles (NB boxes of BN lines each), then STAGES v
+// tiles (NBV boxes); the kernel's own space starts at BYTES.  At (192, 128)
+// that is 48 + 2 x 48 + 2 x 32 = 208 KB of the 227 KB a CTA may hold.
+template <int D, int DV = D>
 struct FwdLayout {
   static constexpr int BQ = 128, BN = 128;
-  static constexpr int NB = D / 64;
+  static constexpr int NB = D / 64, NBV = DV / 64;
   static constexpr int STAGES = D == 64 ? 3 : 2;
   static constexpr uint32_t QBOX = BQ * 128, KBOX = BN * 128;
-  static constexpr uint32_t QBYTES = NB * QBOX, TILE = NB * KBOX;
+  static constexpr uint32_t QBYTES = NB * QBOX, TILE = NB * KBOX, VTILE = NBV * KBOX;
   static constexpr uint32_t OFF_K = QBYTES;
   static constexpr uint32_t OFF_V = OFF_K + STAGES * TILE;
-  static constexpr uint32_t BYTES = OFF_V + STAGES * TILE;
+  static constexpr uint32_t BYTES = OFF_V + STAGES * VTILE;
 };
 
 struct FwdBars {
@@ -87,11 +90,11 @@ __device__ __forceinline__ void init_bars(FwdBars& b) {
 }
 
 // The producer thread: q rows q0.. of head bh, then n_tiles tiles of k and v.
-template <int D>
+template <int D, int DV = D>
 __device__ __forceinline__ void produce(const CUtensorMap* tq, const CUtensorMap* tk,
                                         const CUtensorMap* tv, uint32_t base, FwdBars& b, int q0,
                                         int bh, int n_tiles) {
-  using L = FwdLayout<D>;
+  using L = FwdLayout<D, DV>;
   mbar_expect_tx(&b.q, L::QBYTES);
 #pragma unroll
   for (int nb = 0; nb < L::NB; ++nb) tma_load_3d(base + nb * L::QBOX, tq, nb * 64, q0, bh, &b.q);
@@ -103,28 +106,29 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq, const CUtensorMap
     for (int nb = 0; nb < L::NB; ++nb)
       tma_load_3d(base + L::OFF_K + st * L::TILE + nb * L::KBOX, tk, nb * 64, j * L::BN, bh,
                   &b.full_k[st]);
-    mbar_expect_tx(&b.full_v[st], L::TILE);
+    mbar_expect_tx(&b.full_v[st], L::VTILE);
 #pragma unroll
-    for (int nb = 0; nb < L::NB; ++nb)
-      tma_load_3d(base + L::OFF_V + st * L::TILE + nb * L::KBOX, tv, nb * 64, j * L::BN, bh,
+    for (int nb = 0; nb < L::NBV; ++nb)
+      tma_load_3d(base + L::OFF_V + st * L::VTILE + nb * L::KBOX, tv, nb * 64, j * L::BN, bh,
                   &b.full_v[st]);
   }
 }
 
 // Whether a consumer keeps S_j and the PV product of tile j - 1 in flight
-// together: the registers of S, P and O at once (160 at D = 128) do not fit
-// in 168 (ptxas spills and serialises the wgmma, C7512), so D = 128 runs S,
+// together: the registers of S, P and O at once (160 at DV = 128) do not fit
+// in 168 (ptxas spills and serialises the wgmma, C7512), so DV = 128 runs S,
 // softmax, PV one after another and overlaps across the two warpgroups only.
-template <int D>
-constexpr bool OVERLAPS = D == 64;
+// q's head dim only lengthens S's chain of k-steps, not its registers.
+template <int DV>
+constexpr bool OVERLAPS = DV == 64;
 
 // One consumer warpgroup (wg = 0 or 1, rows 64 wg .. of the q block) over
 // all n_tiles >= 1 tiles; o (accumulator layout) = sum over tiles of P v,
 // rescaled by the policy as it goes.
-template <int D, class Softmax>
+template <int D, int DV = D, class Softmax>
 __device__ __forceinline__ void consume(uint32_t base, FwdBars& b, int wg, int n_tiles,
-                                        Softmax& sm, float (&o)[D / 2], uint32_t ones = 0) {
-  using L = FwdLayout<D>;
+                                        Softmax& sm, float (&o)[DV / 2], uint32_t ones = 0) {
+  using L = FwdLayout<D, DV>;
   constexpr int NS = L::STAGES;
   const bool lead = (threadIdx.x & 31) == 0;
   const uint32_t qs = base + wg * 64 * 128;
@@ -135,7 +139,7 @@ __device__ __forceinline__ void consume(uint32_t base, FwdBars& b, int wg, int n
 #pragma unroll
   for (int i = 0; i < 32; ++i) p[i] = 0u;
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   if constexpr (Softmax::ROWSUM) sm.lsum[0] = sm.lsum[1] = sm.lsum[2] = sm.lsum[3] = 0.f;
   auto fence_acc = [&]() {
     reg_fence(o);
@@ -150,10 +154,10 @@ __device__ __forceinline__ void consume(uint32_t base, FwdBars& b, int wg, int n
                     desc_kmajor(ks + (kk / 4) * L::KBOX + (kk % 4) * 32), kk > 0);
   };
   auto pv = [&](int st) {
-    const uint32_t vs = base + L::OFF_V + st * L::TILE;
+    const uint32_t vs = base + L::OFF_V + st * L::VTILE;
 #pragma unroll
     for (int kk = 0; kk < L::BN / 16; ++kk)
-      wgmma_rs<D>(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+      wgmma_rs<DV>(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
                   desc_mnmajor(vs + kk * 16 * 128, L::KBOX), 1);
     if constexpr (Softmax::ROWSUM) {
 #pragma unroll
@@ -169,7 +173,7 @@ __device__ __forceinline__ void consume(uint32_t base, FwdBars& b, int wg, int n
   };
 
   mbar_wait(&b.q, 0);
-  if constexpr (!OVERLAPS<D>) {
+  if constexpr (!OVERLAPS<DV>) {
     for (int j = 0; j < n_tiles; ++j) {
       const int st = j % NS, ph = (j / NS) & 1;
       mbar_wait(&b.full_k[st], ph);

@@ -16,8 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from llmseg_tpu_torch.config import LlavaConfig, LoraConfig, MptConfig
+from llmseg_tpu_torch.config import DeepseekV3Config, LlavaConfig, LoraConfig, MptConfig
 from llmseg_tpu_torch.models import vit
+from llmseg_tpu_torch.models.deepseek_v3 import DeepseekV3
 from llmseg_tpu_torch.models.llama import Llama, LlamaLora
 from llmseg_tpu_torch.models.mpt import Mpt
 from llmseg_tpu_torch.parallel import ddp
@@ -27,7 +28,9 @@ IGNORE_INDEX = -100
 
 class Llava(nn.Module):
     """With ``mpt_cfg`` the language model is an ``Mpt`` (the reference's
-    llava_mpt.py; :meth:`forward_mpt`) in place of the LLaMA."""
+    llava_mpt.py; :meth:`forward_mpt`) in place of the LLaMA; with a
+    ``DeepseekV3Config`` as ``cfg.llm``, DeepSeek-V3's decoder
+    (``models/deepseek_v3.py``), which :meth:`forward` runs as the LLaMA."""
 
     def __init__(self, cfg: LlavaConfig, *, mpt_cfg: Optional[MptConfig] = None,
                  device=None, dtype=None):
@@ -37,7 +40,12 @@ class Llava(nn.Module):
         self.vision_tower = vit.ViT(cfg.vision, **kw)
         llm_dim = cfg.llm.hidden_size if mpt_cfg is None else mpt_cfg.d_model
         self.mm_projector = nn.Linear(cfg.mm_hidden_size, llm_dim, **kw)
-        self.llm = Llama(cfg.llm, **kw) if mpt_cfg is None else Mpt(mpt_cfg, **kw)
+        if mpt_cfg is not None:
+            self.llm = Mpt(mpt_cfg, **kw)
+        elif isinstance(cfg.llm, DeepseekV3Config):
+            self.llm = DeepseekV3(cfg.llm, **kw)
+        else:
+            self.llm = Llama(cfg.llm, **kw)
 
     def encode_images(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) CLIP input -> (B, N, llm_dim) projected tokens."""

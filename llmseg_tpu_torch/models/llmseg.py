@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from llmseg_tpu_torch import losses as LS
-from llmseg_tpu_torch.config import LLMSegConfig, LoraConfig
+from llmseg_tpu_torch.config import DeepseekV3Config, LLMSegConfig, LoraConfig
 from llmseg_tpu_torch.device import require
 from llmseg_tpu_torch.models import llama, llava, vit
 from llmseg_tpu_torch.models.llama import LlamaLora
@@ -45,6 +45,9 @@ class LLMSeg(nn.Module):
         self.llava = Llava(cfg.llava, **kw)
         self.dino = vit.ViT(cfg.dino, **kw)
         self.select = SelectionHead(cfg.select, **kw)
+        if lora_cfg is not None and isinstance(cfg.llava.llm, DeepseekV3Config):
+            from llmseg_tpu_torch.models.deepseek_v3 import refuse
+            raise refuse("LoRA")
         self.lora = (None if lora_cfg is None
                      else LlamaLora(cfg.llava.llm, lora_cfg, **kw))
 
@@ -62,7 +65,10 @@ def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     weights (std 1/sqrt(fan_in)), zero biases, unit norm scales, truncated
     normal (std 0.02) token / position / cls embeddings (MPT's ``wte`` and
     ``wpe`` too), LayerScale 1e-5,
-    LoRA B zero."""
+    LoRA B zero; a router's correction bias (a buffer) zero."""
+    for name, b in model.named_buffers():
+        if name.endswith("correction_bias"):
+            b.zero_()
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if name.endswith("embed_tokens.weight") or leaf in ("pos_embed", "cls_token", "wte",

@@ -9,6 +9,9 @@ q (B, T, H, D), k/v (B, S, H, D) -> (B, T, H, D).
 * :func:`flash_attention` keeps ``flash_attention``'s contract: q is
   multiplied by ``scale * log2(e)`` in q's own dtype, logits live in the
   exp2 domain, statistics are float32, D other than 64/128 is zero-padded.
+  v may have a head dim of its own: (192, 128), multi-head latent
+  attention's q/k and v heads, runs kernel A unpadded, for inference only
+  (kernels C and D take equal head dims).
   The kernels mask the ragged key tile themselves, so T and S need no
   padding and no query rows are sliced off.  Under autograd it enters
   :class:`FlashAttentionFn`, the counterpart of ``_flash_attention``'s
@@ -44,6 +47,8 @@ import torch
 from llmseg_tpu_torch.ops.kernels import Kernel, kernel_op
 
 NEG_INF = -1e9   # finite: fully masked rows stay NaN-free
+HEAD_DIMS = ((64, 64), (128, 128))             # (q and k, v) that kernels B, C, D, J take
+HEAD_DIMS_A = HEAD_DIMS + ((192, 128),)        # kernel A's: MLA's heads too
 LOG2E = 1.4426950408889634
 INV_LOG2E = 1.0 / LOG2E
 RESCUE_L = 1e-12  # kernel B redoes a row whose bound-shifted sum is this small
@@ -84,8 +89,9 @@ def attention_plain(q, k, v, *, bias=None, causal=False, scale=None):
 
 def flash_fwd_plain(q, k, v, *, causal: bool, bias=None, with_lse=False):
     """Kernel A's function, step by step.  q (BH, T, D) pre-scaled by
-    scale*log2(e); k, v (BH, S, D); bias (BH or 1, T, S) log2-domain.
-    Returns (o, lse or None); lse (BH, T) float32 in log2."""
+    scale*log2(e); k (BH, S, D), v (BH, S, DV); bias (BH or 1, T, S)
+    log2-domain.  Returns (o (BH, T, DV), lse or None); lse (BH, T)
+    float32 in log2."""
     T, S = q.shape[1], k.shape[1]
     s = torch.matmul(q.float(), k.float().transpose(1, 2))
     if bias is not None:
@@ -102,23 +108,24 @@ def flash_fwd_plain(q, k, v, *, causal: bool, bias=None, with_lse=False):
     return o.to(q.dtype), lse
 
 
-def _check_shapes(q, k, v) -> None:
-    if q.dim() != 3 or k.shape != v.shape or k.dim() != 3 \
+def _check_shapes(q, k, v, dims=HEAD_DIMS) -> None:
+    """q (BH, T, D), k (BH, S, D), v (BH, S, DV) with (D, DV) in ``dims``."""
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 or k.shape[:2] != v.shape[:2] \
             or q.shape[0] != k.shape[0] or q.shape[2] != k.shape[2]:
-        raise ValueError(f"expected q (BH, T, D), k/v (BH, S, D); got "
+        raise ValueError(f"expected q (BH, T, D), k (BH, S, D), v (BH, S, DV); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if k.dtype != q.dtype or v.dtype != q.dtype or q.dtype not in (torch.bfloat16,
                                                                    torch.float32):
         raise ValueError(f"q/k/v must share dtype bf16 or float32, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if q.shape[2] not in (64, 128):
-        raise ValueError(f"head dim {q.shape[2]} not in (64, 128)")
+    if (q.shape[2], v.shape[2]) not in dims:
+        raise ValueError(f"head dims (q/k {q.shape[2]}, v {v.shape[2]}) not in {dims}")
 
 
-def _check_cuda(q, k, v) -> None:
+def _check_cuda(q, k, v, dims=HEAD_DIMS) -> None:
     """The kernels' contract on CUDA tensors: :func:`_check_shapes`, then
     each tensor contiguous and 16-byte aligned on the card."""
-    _check_shapes(q, k, v)
+    _check_shapes(q, k, v, dims)
     for t in (q, k, v):
         if not t.is_cuda:
             raise ValueError(f"expected CUDA tensors, got {t.device}")
@@ -146,11 +153,11 @@ def _flash_fwd_cpu(q, k, v, bias, causal, with_lse):
 
 
 def _flash_fwd_fake(q, k, v, bias, causal, with_lse):
-    _check_shapes(q, k, v)
+    _check_shapes(q, k, v, HEAD_DIMS_A)
     if bias is not None:
         _check_bias(bias, q, k.shape[1])
     lse = q.new_empty(q.shape[:2], dtype=torch.float32) if with_lse else _no_lse(q)
-    return q.new_empty(q.shape), lse
+    return q.new_empty((*q.shape[:2], v.shape[2])), lse
 
 
 @kernel_op("flash_fwd", cpu=_flash_fwd_cpu, fake=_flash_fwd_fake)
@@ -158,7 +165,7 @@ def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bias: Optional[torch.Tensor], causal: bool,
                   with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel A on the card: checks, then one launch."""
-    _check_cuda(q, k, v)
+    _check_cuda(q, k, v, HEAD_DIMS_A)
     BH, T, D = q.shape
     S = k.shape[1]
     stride = 0
@@ -167,13 +174,13 @@ def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not bias.is_cuda or not bias.is_contiguous():
             raise ValueError("bias must be contiguous CUDA float32 (B*H or 1, T, S)")
         stride = T * S if bias.shape[0] == BH else 0
-    o = torch.empty_like(q)
+    o = q.new_empty((BH, T, v.shape[2]))
     lse = (torch.empty((BH, T), dtype=torch.float32, device=q.device)
            if with_lse else _no_lse(q))
     FLASH_FWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      None if bias is None else bias.data_ptr(), stride,
                      o.data_ptr(), lse.data_ptr() if with_lse else None,
-                     BH, T, S, D, int(q.dtype == torch.bfloat16), int(causal))
+                     BH, T, S, D, v.shape[2], int(q.dtype == torch.bfloat16), int(causal))
     return o, lse
 
 
@@ -400,25 +407,30 @@ class FlashAttentionFn(torch.autograd.Function):
 
 
 def _heads_major(q, k, v, scale):
-    """(B, T, H, D) q and (B, S, H, D) k, v -> (B*H, L, Dp) contiguous, D
-    zero-padded to 64 or 128, q times scale*log2(e) rounded to q's dtype
-    (the JAX package multiplies by that constant in q's dtype: the product
-    of two values of q's dtype is exact in float32 and rounds once either
-    way).  Returns (qf, kf, vf, Dp)."""
+    """(B, T, H, D) q, (B, S, H, D) k and (B, S, H, DV) v -> (B*H, L, .)
+    contiguous, q times scale*log2(e) rounded to q's dtype (the JAX package
+    multiplies by that constant in q's dtype: the product of two values of
+    q's dtype is exact in float32 and rounds once either way).  Equal head
+    dims are zero-padded to 64 or 128; (192, 128) stays as it is.  Returns
+    (qf, kf, vf, DVp), DVp v's padded head dim."""
     B, T, H, D = q.shape
-    S = k.shape[1]
-    if D > 128:
-        raise ValueError(f"head dim {D} > 128")
+    S, DV = k.shape[1], v.shape[3]
+    if (D, DV) == (192, 128):
+        pad = 0
+    elif D != DV or D > 128:
+        raise ValueError(f"head dims (q/k {D}, v {DV}): the kernels take equal ones up to "
+                         f"128, or (192, 128)")
+    else:
+        pad = (D if D in (64, 128) else (64 if D < 64 else 128)) - D
     scale = (1.0 / math.sqrt(D)) if scale is None else scale
-    Dp = D if D in (64, 128) else (64 if D < 64 else 128)
 
     def prep(x, L):
-        if Dp != D:
-            x = torch.nn.functional.pad(x, (0, Dp - D))
-        return x.permute(0, 2, 1, 3).reshape(B * H, L, Dp).contiguous()
+        if pad:
+            x = torch.nn.functional.pad(x, (0, pad))
+        return x.permute(0, 2, 1, 3).reshape(B * H, L, -1).contiguous()
 
     qs = q * float(torch.tensor(scale * LOG2E, dtype=q.dtype))
-    return prep(qs, T), prep(k, S), prep(v, S), Dp
+    return prep(qs, T), prep(k, S), prep(v, S), DV + pad
 
 
 def flash_attention(q, k, v, *, causal=False, scale=None):
@@ -427,10 +439,15 @@ def flash_attention(q, k, v, *, causal=False, scale=None):
     every device.  Otherwise causal attention runs kernel A and non-causal
     kernel B, the inference forward (A with ``ONEPASS`` off, J with
     ``ONEPASS_T`` on); the grad path never takes kernel B or J, as in the
-    JAX package."""
-    B, T, H, D = q.shape
-    qf, kf, vf, Dp = _heads_major(q, k, v, scale)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    JAX package.  v of its own head dim (192, 128) is causal inference only:
+    kernel A."""
+    (B, T, H), DV = q.shape[:3], v.shape[3]
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    if q.shape[3] != DV and (grad or not causal):
+        raise NotImplementedError(f"head dims (q/k {q.shape[3]}, v {DV}): kernel A's causal "
+                                  f"inference forward only (kernels B, C, D, J take equal ones)")
+    qf, kf, vf, DVp = _heads_major(q, k, v, scale)
+    if grad:
         o = FlashAttentionFn.apply(qf, kf, vf, causal)
     elif causal or not ONEPASS:
         o, _ = flash_fwd(qf, kf, vf, causal=causal)
@@ -438,7 +455,7 @@ def flash_attention(q, k, v, *, causal=False, scale=None):
         o = flash_fwd_1pass_t(qf, kf, vf).transpose(1, 2)
     else:
         o = flash_fwd_1pass(qf, kf, vf)
-    return o.reshape(B, H, T, Dp).permute(0, 2, 1, 3)[..., :D]
+    return o.reshape(B, H, T, DVp).permute(0, 2, 1, 3)[..., :DV]
 
 
 def flash_attention_bias(q, k, v, bias, *, scale=None):
@@ -447,11 +464,11 @@ def flash_attention_bias(q, k, v, bias, *, scale=None):
     its exp2 domain (times log2(e) in float32).  q (B, T, H, D); k, v (B, S,
     H, D); bias (B*H or 1, T, S) float32 or bf16.  No gradient, as in the
     JAX package (which calls it from no entry point)."""
-    B, T, H, D = q.shape
-    qf, kf, vf, Dp = _heads_major(q, k, v, scale)
+    (B, T, H), DV = q.shape[:3], v.shape[3]
+    qf, kf, vf, DVp = _heads_major(q, k, v, scale)
     b = (bias.float() * LOG2E).contiguous()
     o, _ = flash_fwd(qf, kf, vf, causal=False, bias=b)
-    return o.reshape(B, H, T, Dp).permute(0, 2, 1, 3)[..., :D]
+    return o.reshape(B, H, T, DVp).permute(0, 2, 1, 3)[..., :DV]
 
 
 def attention(q, k, v, *, bias=None, causal=False, scale=None):

@@ -37,7 +37,7 @@ ARCH = "arch=compute_90a,code=sm_90a"
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signature of each source's launcher, in csrc/<name>.cu
 SIGNATURES = {
-    "flash_fwd": [_P, _P, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "flash_fwd": [_P, _P, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "flash_fwd_1pass": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_P],
     "flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_P],

@@ -307,7 +307,11 @@ def shard_params(model: nn.Module, mesh: Mesh) -> Dict[str, Spec]:
     LLaMA's quantized projections, in place to this rank's block
     (:func:`param_spec`) and hand the mesh to the model and its LLaMA.
     Returns the specs."""
+    from llmseg_tpu_torch.models.deepseek_v3 import DeepseekV3, refuse
     from llmseg_tpu_torch.ops import quant
+
+    if isinstance(model.llava.llm, DeepseekV3):
+        raise refuse("the (dp, fsdp, tp) mesh")
 
     specs = param_spec(model)
     if mesh.sharded:

@@ -82,6 +82,41 @@ def test_kernel_a_matches_plain(dtype, causal, BH, T, S, D, bias):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,BH,T,S", [(True, 192, 767, 767), (True, 16, 300, 300),
+                                           (False, 3, 300, 200), (True, 1, 1, 1)])
+def test_kernel_a_mla_head_dims_match_plain(dtype, causal, BH, T, S):
+    """Kernel A at q/k head dim 192 and v 128 (latent attention's heads):
+    12 x 16 heads of 767 rows, a ragged T of 300, non-causal with S != T,
+    one row; o (BH, T, 128) and the lse."""
+    q, k, _ = _inputs(BH, T, S, 192, dtype)
+    v = torch.randn(BH, S, 128, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(4)).to(dtype)
+    o, lse = A.flash_fwd(q, k, v, causal=causal, with_lse=True)
+    ro, rl = A.flash_fwd_plain(q.float(), k.float(), v.float(), causal=causal, with_lse=True)
+    assert o.shape == (BH, T, 128)
+    _assert_close(o, ro, dtype)
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mla_attention_routes_to_kernel_a(dtype):
+    """``attention(..., causal=True)`` at (B, T, H, 192) q/k and 128 v: one
+    launch of A, unpadded, against ``attention_plain``; autograd and the
+    non-causal kernels refuse the unequal head dims."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q, k = (torch.randn(2, 300, 4, 192, device="cuda", generator=g).to(dtype) for _ in "qk")
+    v = torch.randn(2, 300, 4, 128, device="cuda", generator=g).to(dtype)
+    before = A.FLASH_FWD.launches
+    got = A.attention(q, k, v, causal=True)
+    assert A.FLASH_FWD.launches == before + 1 and got.shape == (2, 300, 4, 128)
+    _assert_close(got, A.attention_plain(q.float(), k.float(), v.float(), causal=True), dtype)
+    with pytest.raises(NotImplementedError):
+        A.attention(q.requires_grad_(), k, v, causal=True)
+    with pytest.raises(NotImplementedError):
+        A.flash_attention(q.detach(), k, v, causal=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("adversarial", [False, True, "mixed"])
 @pytest.mark.parametrize("BH,T,S,D", [(4, 4097, 4097, 64), (4, 200, 300, 128),
                                       # lengths off the 128-row tiles, S != T both
@@ -1272,3 +1307,110 @@ def test_amg_submit_waits_for_nothing_between_the_upload_and_the_nms(sam_h, monk
         torch.cuda.set_sync_debug_mode("default")
     assert seen == ["preprocess", "nms"]
     assert gen.finish(handle) == first and len(first) == 20
+
+
+def _kimi_widths(layers: int):
+    """Kimi-VL-A3B's decoder at its published widths, ``layers`` deep (the
+    dense layer and layers - 1 MoE layers)."""
+    return C.replace(C.kimi_vl_a3b_llm(), num_layers=layers)
+
+
+def test_moe_grouped_products_match_a_loop_over_experts():
+    """One MoE layer at Kimi-VL's widths (64 experts of 1408, top 6, 2048
+    wide) in bf16 on 1,534 tokens: the grouped path against each expert's
+    SwiGLU run on its own tokens in float32, normwise (bf16 products)."""
+    from llmseg_tpu_torch.models import deepseek_v3 as DS, llmseg
+    cfg = _kimi_widths(2)
+    moe = DS.MoE(cfg, device="cuda", dtype=torch.bfloat16)
+    llmseg.random_init_(moe, torch.Generator(device="cuda").manual_seed(3))
+    with torch.no_grad():
+        moe.router.correction_bias.normal_(0.0, 0.1)
+        x = torch.randn(2, 767, cfg.hidden_size, device="cuda").to(torch.bfloat16)
+        got = moe(x).float().reshape(-1, cfg.hidden_size)
+        idx = moe.last_experts
+        xf = x.reshape(-1, cfg.hidden_size).float()
+        s = torch.sigmoid(xf @ moe.router.weight.float().t())
+        w = s.gather(1, idx)
+        w = w / (w.sum(-1, keepdim=True) + 1e-20) * cfg.routed_scaling_factor
+        ref = torch.zeros_like(xf)
+        E, I, d = cfg.n_routed_experts, cfg.moe_intermediate_size, cfg.hidden_size
+        gate_up = moe.experts.gate_up.float().view(E, 2 * I, d)
+        down = moe.experts.down.float().view(E, d, I)
+        for e in range(E):
+            tok, slot = (idx == e).nonzero(as_tuple=True)
+            gu = xf[tok] @ gate_up[e].t()
+            y = (torch.nn.functional.silu(gu[:, :I]) * gu[:, I:]) @ down[e].t()
+            ref.index_add_(0, tok, y * w[tok, slot, None])
+        ref += moe.shared(x).float().reshape(-1, cfg.hidden_size)
+    err = (got - ref).norm() / ref.norm()
+    assert err < 2e-2, float(err)
+
+
+def test_mla_moe_decoder_makes_no_host_sync_and_its_launches():
+    """A warm ``Llava`` forward (the splice and the decoder, ``llmseg.llm``'s
+    span) with the decoder at Kimi-VL's widths, 3 layers deep, on 12 rows
+    of 767 tokens: no host sync (``set_sync_debug_mode("error")``), one
+    launch of kernel A a layer, two grouped products a MoE layer."""
+    from llmseg_tpu_torch.models import deepseek_v3 as DS, llmseg
+    from llmseg_tpu_torch.utils import profiling
+    tiny = C.llmseg_tiny()
+    cfg = C.replace(tiny, llava=C.replace(tiny.llava, llm=_kimi_widths(3)),
+                    select=C.replace(tiny.select, llm_dim=2048))
+    model = llmseg.init(cfg, seed=5, device="cuda", dtype=torch.bfloat16)
+    assert isinstance(model.llava.llm, DS.DeepseekV3)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    ids = torch.randint(4, 1000, (12, 512), device="cuda", generator=g)
+    pos = torch.ones(12, dtype=torch.int32, device="cuda")
+    img = torch.randn(12, 256, 2048, device="cuda", generator=g).to(torch.bfloat16)
+
+    def llm():
+        return model.llava(input_ids=ids, image_pos=pos, image_embeds=img)
+
+    with torch.inference_mode():
+        llm()
+        torch.cuda.synchronize()
+        before = A.FLASH_FWD.launches
+        profiling.reset()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = llm()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    assert out.shape == (12, 767, 2048)
+    assert A.FLASH_FWD.launches - before == 3
+    snap = profiling.snapshot()
+    assert snap["counters"]["moe.grouped_gemms"] == 4
+    assert snap["counters"]["moe.routed_pairs"] == 2 * 12 * 767 * 6
+    assert snap["spans"]["llm.mla"]["n"] == 3 and snap["spans"]["llm.moe"]["n"] == 2
+    assert bool(torch.isfinite(out).all())
+
+
+def test_mla_moe_decoder_graphs_replay_the_eager_layers():
+    """The decoder at Kimi-VL's widths, 3 layers deep, on 12 rows of 767
+    tokens: the first call at a shape runs the layers eagerly and captures
+    them as CUDA graphs, later calls replay them.  A replay gives the eager
+    call's hidden states and choices for the same input, and the choices a
+    call leaves are its own: a later call at another input does not
+    overwrite them."""
+    from llmseg_tpu_torch.models import deepseek_v3 as DS, llmseg
+    llm = DS.DeepseekV3(_kimi_widths(3), device="cuda", dtype=torch.bfloat16)
+    llmseg.random_init_(llm, torch.Generator(device="cuda").manual_seed(7))
+    g = torch.Generator(device="cuda").manual_seed(8)
+    xa, xb = (torch.randn(12, 767, 2048, device="cuda", generator=g).to(torch.bfloat16)
+              for _ in range(2))
+    with torch.inference_mode():
+        for m in llm.moe_layers():
+            m.router.correction_bias.normal_(0.0, 0.1, generator=g)
+        eager = llm(inputs_embeds=xa)
+        eager_routes = [m.last_experts for m in llm.moe_layers()]
+        replay = llm(inputs_embeds=xa)
+        routes = [m.last_experts for m in llm.moe_layers()]
+        other = llm(inputs_embeds=xb)
+        torch.cuda.synchronize()
+    assert len(DS._GRAPHS[llm]) == 1
+    assert torch.equal(replay, eager)
+    assert all(torch.equal(r, e) for r, e in zip(routes, eager_routes))
+    assert not torch.equal(other, replay)
+    assert not any(torch.equal(m.last_experts, r) for m, r in zip(llm.moe_layers(), routes))
