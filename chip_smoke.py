@@ -290,6 +290,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12      # dense bf16 tensor-core peak
+FP32_FLOP_PER_S = 67e12       # float32 on the CUDA cores (not the tensor cores)
 INT8_OPS_PER_S = 1979e12      # dense int8 tensor-core peak
 # kernel vs float32 math on the same inputs: |err| <= atol + rtol * |ref|.
 # bf16 keeps 8 significant bits (output rounding alone is up to 2^-9 of the
@@ -1240,12 +1241,62 @@ def g_case(C, TK, dtype, *, timed=False, seed=0, prompts=64, repeat=False):
     return rec
 
 
+def nms_case(N, *, n: int = 3072, thr: float, timed: bool = False, seed: int = 0) -> dict:
+    """The greedy NMS kernel (csrc/greedy_nms.cu, through nms.nms) against
+    the fixpoint (nms.nms_fixpoint on the card) at n candidates, AMG's 3072
+    by default: boxes with integer edges and many duplicates, one inverted,
+    scores with ties, ~20 % invalid; the keep sets must be equal bit for bit,
+    with and without the validity mask.  With ``timed`` also the call's time
+    (the stable sort and the launch), its device time, the plain bitmask
+    sweep's and the fixpoint's, and the bound: the larger of the function's
+    own bytes (boxes, scores and validity in, keep out; not the bitmask,
+    which is the design's scratch) and its IoUs' float32 operations (12 a
+    pair of boxes) at the CUDA cores' peak.  The sweep's serial chain sets
+    its time, which neither counts."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    xy = torch.randint(0, 900, (n, 2), generator=g).float()
+    boxes = torch.cat([xy, xy + torch.randint(0, 200, (n, 2), generator=g).float()], 1)
+    boxes[torch.randint(0, n, (n // 3,), generator=g)] = boxes[
+        torch.randint(0, n, (n // 3,), generator=g)]
+    if n > 2:
+        boxes[1, 3] = boxes[1, 1] - 4
+    scores = torch.randint(0, 12, (n,), generator=g).float() / 11
+    valid = torch.rand(n, generator=g) > 0.2
+    boxes, scores, valid = boxes.cuda(), scores.cuda(), valid.cuda()
+    run = lambda: N.nms(boxes, scores, thr, valid=valid)
+    got = run()
+    want = N.nms_fixpoint(boxes, scores, thr, valid=valid)
+    rec = {"phase": "kernel", "kernel": "greedy_nms", "n": n, "threshold": thr,
+           "kept": int(got.sum()), "valid": int(valid.sum()),
+           "equal": torch.equal(got, want),
+           "equal_unmasked": torch.equal(N.nms(boxes, scores, thr),
+                                         N.nms_fixpoint(boxes, scores, thr)),
+           "max_abs_err": float((got != want).sum())}
+    rec["ok"] = rec["equal"] and rec["equal_unmasked"]
+    if timed:
+        rec["ms"] = cuda_ms(run, 20)
+        rec["device_ms"] = device_ms(run, 20)
+        rec["plain_ms"] = cuda_ms(lambda: N.nms_bitmask_plain(boxes, scores, thr, valid), 1)
+        rec["fixpoint_ms"] = cuda_ms(lambda: N.nms_fixpoint(boxes, scores, thr, valid), 3)
+        rec["library_ms"] = None   # no library NMS on the card's machine
+        rec["bound_ms"], rec["bound_by"] = bound((16 + 4 + 1 + 1) * n, 12 * n * (n - 1) // 2,
+                                                 FP32_FLOP_PER_S)
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"greedy_nms disagrees with the fixpoint: {rec}")
+    return rec
+
+
 def sam_kernel_phase(C, R, TK) -> dict:
     """E and F at sam_vit_h's shapes (global layer: 16 heads, 64 x 64 grid,
     D 80; windowed layer: 25 windows x 16 heads, 14 x 14) in bf16, each also
     in float32 at a smaller shape; G at the full decoder widths in bf16 and
-    float32."""
+    float32; the greedy NMS at AMG's 3072 candidates (thresholds 0.7 and
+    1.1) and off its 64-bit words."""
     import torch
+
+    from llmseg_tpu_torch.ops import nms as N
     bf16, f32 = torch.bfloat16, torch.float32
     main = {"relpos_fwd": relpos_case(R, "relpos_fwd", BH=16, G=64, D=80, dtype=bf16, timed=True),
             "relpos_window": relpos_case(R, "relpos_window", BH=400, G=14, D=80, dtype=bf16,
@@ -1273,6 +1324,10 @@ def sam_kernel_phase(C, R, TK) -> dict:
     g_case(C, TK, f32)
     for P in (1, 3):   # one prompt a chunk, and an odd count
         g_case(C, TK, bf16, prompts=P)
+    main["greedy_nms"] = nms_case(N, thr=0.7, timed=True)
+    nms_case(N, thr=1.1, seed=1)
+    for n in (1, 64, 65, 1000):
+        nms_case(N, n=n, thr=0.5, seed=n)
     return main
 
 
@@ -1371,10 +1426,12 @@ def amg_phase(C, S, AMG, kernels_all) -> dict:
     """sam_vit_h in bf16 from a seed, generate() with the default AMGConfig
     on three synthetic images of different sizes, then with the filters
     opened so that NMS, top-K, the upscale and the RLE run, then with NMS
-    off too.  Launch counts per image, annotation counts and schema,
-    ms/image (2 warm-up images, then the three timed; peak memory of the
-    default run), and a breakdown of one image."""
+    off too.  Launch counts per image (the greedy NMS's too), annotation
+    counts and schema, ms/image (2 warm-up images, then the three timed;
+    peak memory of the default run), and a breakdown of one image."""
     import torch
+
+    from llmseg_tpu_torch.ops import nms as N
     cfg = C.sam_vit_h()
     t0 = time.time()
     model = S.init(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
@@ -1396,10 +1453,10 @@ def amg_phase(C, S, AMG, kernels_all) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for img in images:
-        for kern in kernels_all:
+        for kern in kernels_all + (N.GREEDY_NMS,):
             kern.launches = 0
         anns = gen.generate(img)
-        per_image.append({kern.name: kern.launches for kern in kernels_all})
+        per_image.append({kern.name: kern.launches for kern in kernels_all + (N.GREEDY_NMS,)})
         counts.append(len(anns))
     torch.cuda.synchronize()
     ms_image = (time.perf_counter() - t0) * 1e3 / len(images)
@@ -1416,7 +1473,8 @@ def amg_phase(C, S, AMG, kernels_all) -> dict:
     ms_no_nms = (time.perf_counter() - t0) * 1e3 / len(images)
     anns_opened += anns_no_nms
     expect = {k.name: 0 for k in kernels_all}
-    expect.update({"relpos_fwd": 4, "relpos_window": 28, "factored_decode": 16})
+    expect.update({"relpos_fwd": 4, "relpos_window": 28, "factored_decode": 16,
+                   "greedy_nms": 1})
     schema = all(set(a) == ANN_KEYS and a["area"] > 0 and a["segmentation"]["size"] == list(img.shape[:2])
                  for anns, img in zip(anns_opened, images + images) for a in anns)
     finite = all(math.isfinite(a["predicted_iou"]) and math.isfinite(a["stability_score"])
@@ -5938,7 +5996,7 @@ def main() -> int:
     launches.update({k: pixel["launches"][k] for k in ("twoway_decode", "twoway_transformer")})
     amg = amg_phase(C, S, AMG, all_kernels)
     launches.update({k: amg["launches"][k] for k in ("relpos_fwd", "relpos_window",
-                                                     "factored_decode")})
+                                                     "factored_decode", "greedy_nms")})
     rle_phase(AMG.AutomaticMaskGenerator(amg["model"], C.sam_vit_h(), C.AMGConfig(
         pred_iou_thresh=-1e9, stability_score_thresh=-1.0, box_nms_thresh=1.0)), amg["images"])
     # the crop cascade with survivors, on a SAM whose frames take E, F and G
@@ -6020,7 +6078,10 @@ def main() -> int:
                               "its partial sums summed over tp by GSPMD (XLA code)"),
                "w8a8_epilogue": ("llmseg_tpu_torch/csrc/quant.cu",
                                  "llmseg_tpu/ops/quant.py:203 qdense_act's rescale after the "
-                                 "int32 sum (XLA code)")}
+                                 "int32 sum (XLA code)"),
+               "greedy_nms": ("llmseg_tpu_torch/csrc/greedy_nms.cu",
+                              "llmseg_tpu/ops/nms.py nms: the fixpoint iteration over the IoU "
+                              "matrix, a host test each step (XLA code)")}
     # this slice's path: the quantized mesh at tp = 2, a rank's W8A8 predict
     # (batch 2, 7B) and its QLoRA int8 step (32 layers)
     q_pred = qmesh["full_w8a8_tp2"]["launches_a_rank"]
@@ -6057,6 +6118,7 @@ def main() -> int:
                      "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                      **{k: r[k] for k in ("device_ms", "library_device_ms", "ex2_bound_ms",
+                                          "fixpoint_ms",
                                           "int_mm_q2_device_ms", "sft_launches_per_step",
                                           "sft_shape", "mesh_tp2_launches_per_step_a_rank",
                                           "mesh_tp2_heads", "qmesh_tp2_predict_launches_a_rank",

@@ -40,6 +40,7 @@ pairs and the grouped products (``utils/profiling.py``).
 from __future__ import annotations
 
 import contextlib
+import functools
 import weakref
 from typing import Optional
 
@@ -50,7 +51,7 @@ from torch import nn
 from llmseg_tpu_torch.config import DeepseekV3Config
 from llmseg_tpu_torch.models import layers as L
 from llmseg_tpu_torch.ops.attention import attention
-from llmseg_tpu_torch.ops.kernels import launch_counts
+from llmseg_tpu_torch.ops.kernels import capture, replay_or_capture, replayed, stamp, warm_up
 from llmseg_tpu_torch.utils import profiling
 
 
@@ -228,36 +229,25 @@ class _LayerGraphs:
 
     def __init__(self, model: "DeepseekV3", x: torch.Tensor):
         self.tensors = list(model.parameters()) + list(model.buffers())
-        self.stamp = [t.data_ptr() for t in self.tensors]
+        self.stamp = stamp(self.tensors)
         cfg = model.cfg
-        cur = torch.cuda.current_stream(x.device)
         with torch.inference_mode(False), torch.no_grad():
             cos, sin = L.rope_frequencies(cfg.qk_rope_head_dim, x.shape[1], cfg.rope_theta,
                                           device=x.device)
             self.x = torch.empty(x.shape, dtype=x.dtype, device=x.device)
             self.x.copy_(x)
-            side = torch.cuda.Stream(x.device)
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):   # the warm-up, and the first call's result
+
+            def layers():
                 h = self.x
                 for layer in model.layers:
                     h = layer(h, cos, sin)
-                self.first = h
-            cur.wait_stream(side)
-            routes = [(m, m.last_experts) for m in model.moe_layers()]
-            for t in [self.first] + [idx for _, idx in routes]:
-                t.record_stream(cur)
+                return h, [(m, m.last_experts) for m in model.moe_layers()]
+
+            self.first, routes = warm_up(layers, x.device)
             pool, h, self.halves = torch.cuda.graph_pool_handle(), self.x, []
             for layer in model.layers:
                 for name, step, moe in layer.halves(cos, sin):
-                    before = launch_counts()
-                    graph = torch.cuda.CUDAGraph()
-                    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
-                        h = step(h)
-                    launches = {k: n - before.get(k, 0) for k, n in launch_counts().items()
-                                if n != before.get(k, 0)}
-                    for k, n in launches.items():   # the capture ran nothing on the card
-                        k.launches -= n
+                    graph, h, launches = capture(functools.partial(step, h), pool=pool)
                     experts = None if moe is None else moe.last_experts
                     self.halves.append((name, graph, launches, moe, experts))
             self.out, self.rope = h, (cos, sin)   # the graphs read cos and sin
@@ -265,7 +255,7 @@ class _LayerGraphs:
                 m.last_experts = idx
 
     def current(self) -> bool:
-        return self.stamp == [t.data_ptr() for t in self.tensors]
+        return self.stamp == stamp(self.tensors)
 
     def replay(self, x: torch.Tensor) -> torch.Tensor:
         """The last layer's output for ``x``, in the graphs' own storage."""
@@ -276,8 +266,7 @@ class _LayerGraphs:
                 if moe is not None:
                     moe.last_experts = experts.clone()
                     moe.count()
-            for k, n in launches.items():
-                k.launches += n
+            replayed(launches)
         return self.out
 
 
@@ -335,11 +324,5 @@ class DeepseekV3(nn.Module):
         host sync.  They are captured again where a weight has moved to
         other storage; in-place changes to the weights are read by every
         replay."""
-        graphs = _GRAPHS.setdefault(self, {})
-        key = (tuple(x.shape), x.dtype, x.device)
-        g = graphs.get(key)
-        if g is not None and g.current():
-            return g.replay(x)
-        g = graphs[key] = _LayerGraphs(self, x)
-        first, g.first = g.first, None   # the graphs keep no caller's tensor
-        return first
+        return replay_or_capture(_GRAPHS, self, (tuple(x.shape), x.dtype, x.device),
+                                 functools.partial(_LayerGraphs, self), x)

@@ -5,10 +5,13 @@
 chunks of ``points_per_batch`` (kernel G on the card), casts the low-res
 logits to bf16, filters by predicted IoU and stability, takes inclusive
 boxes, runs NMS and keeps the top ``max_masks`` by predicted IoU, all on the
-device.  ``AutomaticMaskGenerator`` drives it: ``submit`` (encode + select),
+device; on the card, a whole image's work up to the NMS is one CUDA graph
+and the NMS a kernel, and none of it waits for the host.
+``AutomaticMaskGenerator`` drives it: ``submit`` (encode + select),
 ``prefetch`` (survivor metadata, then the upscale of the survivors: run
 boundaries computed on the device, or bit-packed bitmaps when small regions
-are cleaned), ``finish`` (RLE and the annotation schema on the host).  The
+are cleaned, and their copy to the host), ``finish`` (RLE and the annotation
+schema on the host, which overlaps the next image's device work).  The
 crop cascade (``crop_n_layers > 0``) runs the full frame and every crop
 (resized to the SAM input with ``data.image_ops.resize_longest_side``)
 through the same ``amg_select``, drops candidates on a crop's inner edge,
@@ -18,6 +21,8 @@ dedups across crops on the host, smaller crops first.
 
 from __future__ import annotations
 
+import functools
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -28,16 +33,19 @@ from llmseg_tpu_torch.data import image_ops
 from llmseg_tpu_torch.device import require
 from llmseg_tpu_torch.models.sam import sam as sam_lib
 from llmseg_tpu_torch.ops import amg_utils, device_rle, nms, rle
+from llmseg_tpu_torch.ops.kernels import (capture, replay_or_capture, replayed, stamp,
+                                          warm_up)
 from llmseg_tpu_torch.utils import profiling
 
 # per-column run-start budget of the device RLE; blobby SAM masks have 1-2
 MAX_RUNS_PER_COL = 8
 
 
-def _candidate_filters(low_masks, iou_pred, amg: AMGConfig, cfg: SamConfig,
-                       valid_hw: Tuple[int, int]):
+def _candidate_filters(low_masks, iou_pred, amg: AMGConfig, cfg: SamConfig, valid_hw):
     """IoU and stability filters on low-res logits (N, S, S) outside the
-    padded area.  Returns (keep, stability, masked logits)."""
+    padded area; ``valid_hw`` the extent on that grid, two ints or a (2,)
+    integer tensor on the logits' device.  Returns (keep, stability, masked
+    logits)."""
     S = low_masks.shape[-1]
     row = torch.arange(S, device=low_masks.device)
     region = ((row < valid_hw[0])[:, None] & (row < valid_hw[1])[None, :])[None]
@@ -51,55 +59,184 @@ def _candidate_filters(low_masks, iou_pred, amg: AMGConfig, cfg: SamConfig,
     return keep, stability, masked
 
 
-@torch.no_grad()
+def _lowres_hw(valid_hw, S4: int, img: int):
+    """The image's extent (h, w) on the low-res grid, at least 1: ints from
+    ints, a (2,) int64 tensor on the device from a tensor there, by the same
+    integer arithmetic."""
+    if isinstance(valid_hw, torch.Tensor):
+        return (valid_hw.long() * S4 // img).clamp_min(1)
+    return tuple(max(v * S4 // img, 1) for v in valid_hw)
+
+
+def _chunks(points: torch.Tensor, B: int) -> torch.Tensor:
+    """(P, 2) -> (ceil(P / B), B, 1, 2), zero-padded."""
+    n_chunks = -(-points.shape[0] // B)
+    pts = torch.nn.functional.pad(points, (0, 0, 0, n_chunks * B - points.shape[0]))
+    return pts.reshape(n_chunks, B, 1, 2)
+
+
+def _decode(model, image_embedding: torch.Tensor, pts: torch.Tensor, cache: Dict):
+    """Every chunk of prompts against the image embedding: (bf16 logits (M,
+    S4, S4), iou (M,)), M = 3 a prompt.  ``cache`` (new for each image)
+    keeps what the chunks share, kernel G's recorded sequence among it."""
+    S4 = model.cfg.prompt.image_embedding_size * 4
+    labels = torch.ones(pts.shape[1], 1, dtype=torch.int32, device=pts.device)
+    masks, ious = [], []
+    for c in range(pts.shape[0]):
+        m, i = sam_lib.decode_masks(model, image_embedding, points=pts[c], labels=labels,
+                                    multimask_output=True, cache=cache)
+        masks.append(m.to(torch.bfloat16))   # the filters see bf16 logits
+        ious.append(i)
+    return torch.stack(masks).reshape(-1, S4, S4), torch.stack(ious).reshape(-1)
+
+
+def _candidates(model, amg: AMGConfig, masks, iou_pred, pts, P: int, valid_hw,
+                crop_box=None, orig_box=None, box_scale=None) -> Dict:
+    """The filters, the inclusive boxes and the crop-edge test on every
+    candidate: the NMS's input (``keep``, its validity) beside the
+    candidates' logits, IoU, stability, boxes and points."""
+    cfg = model.cfg
+    S4, M = masks.shape[-1], masks.shape[0]
+    point_per_mask = pts.reshape(-1, 2).repeat_interleave(3, 0)
+    real = torch.arange(M, device=masks.device) // 3 < P
+    img = cfg.encoder.img_size
+    keep, stability, masked = _candidate_filters(masks, iou_pred, amg, cfg,
+                                                 _lowres_hw(valid_hw, S4, img))
+    keep &= real
+    binary = masked > cfg.mask_threshold
+    boxes = amg_utils.batched_mask_to_box(binary) * (img / S4)
+    keep &= binary.any(-1).any(-1)
+    if crop_box is not None:
+        sc = torch.as_tensor(box_scale, dtype=torch.float32, device=boxes.device).repeat(2)
+        keep &= ~amg_utils.is_box_near_crop_edge(boxes * sc, crop_box, orig_box)
+    return {"masks_low": masks, "iou": iou_pred, "stability": stability, "boxes": boxes,
+            "points": point_per_mask, "keep": keep}
+
+
+def _nms_top(cand: Dict, amg: AMGConfig) -> Dict:
+    """NMS over the candidates, then the top ``max_masks`` by predicted IoU:
+    rows gathered into tensors of their own."""
+    with profiling.span("nms"):
+        keep_nms = nms.nms(cand["boxes"], cand["iou"], amg.box_nms_thresh, valid=cand["keep"])
+    score = torch.where(keep_nms, cand["iou"], -torch.inf)
+    top = torch.argsort(-score, stable=True)[:amg.max_masks]
+    out = {k: cand[k][top] for k in ("masks_low", "iou", "stability", "boxes", "points")}
+    out["valid"] = keep_nms[top]
+    return out
+
+
+class _SelectGraph:
+    """One CUDA graph of ``amg_select``'s work from the image embedding to
+    the NMS's input (the chunks' prompt encoding and kernel G, the stack of
+    the logits, the filters, the boxes and ``keep``), at one embedding
+    shape, dtype and device, grid size and filter settings.  Static inputs:
+    the embedding, the points and the image's extent (h, w), so one graph
+    serves every image size; the captured work reads the extent on the
+    card.  G's sequence is recorded in the capture, once, and kept with the
+    graph (its records, packed operands and scratch); each replay adds the
+    launches the capture took back (G: one a chunk).  The weights' storage
+    and versions are stamped: a weight moved or changed captures anew."""
+
+    def __init__(self, model, amg: AMGConfig, image_embedding, points, valid_hw):
+        self.params = list(model.prompt_encoder.parameters()) + list(
+            model.mask_decoder.parameters())
+        self.stamp = stamp(self.params, versions=True)
+        dev = image_embedding.device
+        with torch.inference_mode(False), torch.no_grad():
+            self.emb = torch.empty(image_embedding.shape, dtype=image_embedding.dtype,
+                                   device=dev)
+            self.points = torch.empty(points.shape, dtype=torch.float32, device=dev)
+            self.hw = torch.empty(2, dtype=torch.int64, device=dev)
+            self._load(image_embedding, points, valid_hw)
+            self.first = warm_up(lambda: self._run(model, amg), dev)
+            self.graph, self.out, self.launches = capture(lambda: self._run(model, amg))
+        profiling.count("amg.select_graph_captures")
+
+    def current(self) -> bool:
+        return self.stamp == stamp(self.params, versions=True)
+
+    def _load(self, image_embedding, points, valid_hw) -> None:
+        self.emb.copy_(image_embedding)
+        self.points.copy_(points)
+        self.hw.copy_(valid_hw if isinstance(valid_hw, torch.Tensor)
+                      else torch.as_tensor(valid_hw))
+
+    def _run(self, model, amg: AMGConfig) -> Dict:
+        pts = _chunks(self.points, amg.points_per_batch)
+        self.cache = {}   # G's plan: one recording, kept while the graph lives
+        masks, iou = _decode(model, self.emb, pts, self.cache)
+        return _candidates(model, amg, masks, iou, pts, self.points.shape[0], self.hw)
+
+    def replay(self, image_embedding, points, valid_hw) -> Dict:
+        """The graph's outputs for this image: read them before the next
+        replay on this stream (``_nms_top`` gathers the kept rows)."""
+        self._load(image_embedding, points, valid_hw)
+        self.graph.replay()
+        replayed(self.launches)
+        profiling.count("amg.select_graph_replays")
+        return self.out
+
+
+# model -> {key: _SelectGraph}; dropped with the model
+_SELECT_GRAPHS = weakref.WeakKeyDictionary()
+
+
+def _select_graph(model, amg: AMGConfig, image_embedding, points, valid_hw) -> Dict:
+    """The candidates of one image from its selection graph: a replay, or
+    the capture's warm-up result on the first call at a key."""
+    key = (tuple(image_embedding.shape), image_embedding.dtype, image_embedding.device,
+           points.shape[0], amg.points_per_batch, amg.pred_iou_thresh,
+           amg.stability_score_thresh, amg.stability_score_offset,
+           id(model.prompt_encoder), id(model.mask_decoder))
+    return replay_or_capture(_SELECT_GRAPHS, model, key,
+                             functools.partial(_SelectGraph, model, amg),
+                             image_embedding, points, valid_hw)
+
+
 def amg_select(model, amg: AMGConfig, image_embedding: torch.Tensor, points: torch.Tensor,
-               valid_hw: Tuple[int, int], crop_box=None, orig_box=None,
-               box_scale=None) -> Dict:
+               valid_hw, crop_box=None, orig_box=None, box_scale=None) -> Dict:
     """Grid prompts -> filtered, NMS'd top-K candidates.  image_embedding
     (1, G, G, C); points (P, 2) input-frame pixels; valid_hw the image's
-    extent.  In the crop cascade, ``crop_box`` and ``orig_box`` are xyxy in
-    the full image's pixels and ``box_scale`` (sx, sy) maps this frame's
-    boxes to the crop's pixels: a candidate whose box touches the crop's
-    edge but not the image's is dropped before the NMS.  Returns K =
-    max_masks rows: masks_low (K, S, S) bf16, iou, stability, boxes (K, 4)
-    input-frame xyxy, points (K, 2), valid (K,)."""
-    cfg = model.cfg
-    P = points.shape[0]
-    B = amg.points_per_batch
-    n_chunks = -(-P // B)
-    S4 = cfg.prompt.image_embedding_size * 4
-    pts = torch.nn.functional.pad(points, (0, 0, 0, n_chunks * B - P)).reshape(n_chunks, B, 1, 2)
-    labels = torch.ones(B, 1, dtype=torch.int32, device=points.device)
-    masks, ious = [], []
-    cache = {}    # every chunk shares the image: kernel G's sequence is recorded once
-    with profiling.span("amg.decode"):
-        for c in range(n_chunks):
-            m, i = sam_lib.decode_masks(model, image_embedding, points=pts[c], labels=labels,
-                                        multimask_output=True, cache=cache)
-            masks.append(m.to(torch.bfloat16))   # the filters see bf16 logits
-            ious.append(i)
-    with profiling.span("amg.select"):  # filters, boxes, NMS, top K
-        masks = torch.stack(masks).reshape(-1, S4, S4)
-        iou_pred = torch.stack(ious).reshape(-1)
-        M = masks.shape[0]
-        point_per_mask = pts.reshape(-1, 2).repeat_interleave(3, 0)
-        real = torch.arange(M, device=masks.device) // 3 < P
-        img = cfg.encoder.img_size
-        lowres_hw = (max(valid_hw[0] * S4 // img, 1), max(valid_hw[1] * S4 // img, 1))
-        keep, stability, masked = _candidate_filters(masks, iou_pred, amg, cfg, lowres_hw)
-        keep &= real
-        binary = masked > cfg.mask_threshold
-        boxes = amg_utils.batched_mask_to_box(binary) * (img / S4)
-        keep &= binary.any(-1).any(-1)
-        if crop_box is not None:
-            sc = torch.as_tensor(box_scale, dtype=torch.float32, device=boxes.device).repeat(2)
-            keep &= ~amg_utils.is_box_near_crop_edge(boxes * sc, crop_box, orig_box)
-        with profiling.span("nms"):
-            keep_nms = nms.nms(boxes, iou_pred, amg.box_nms_thresh, valid=keep)
-        score = torch.where(keep_nms, iou_pred, -torch.inf)
-        top = torch.argsort(-score, stable=True)[:amg.max_masks]
-        return {"masks_low": masks[top], "iou": iou_pred[top], "stability": stability[top],
-                "boxes": boxes[top], "points": point_per_mask[top], "valid": keep_nms[top]}
+    extent (h, w), two ints or a (2,) tensor on the embedding's device.  In
+    the crop cascade, ``crop_box`` and ``orig_box`` are xyxy in the full
+    image's pixels and ``box_scale`` (sx, sy) maps this frame's boxes to the
+    crop's pixels: a candidate whose box touches the crop's edge but not the
+    image's is dropped before the NMS.  Returns K = max_masks rows:
+    masks_low (K, S, S) bf16, iou, stability, boxes (K, 4) input-frame
+    xyxy, points (K, 2), valid (K,).
+
+    On the card with grad off, a frame of the whole image replays its
+    selection graph (:class:`_SelectGraph`) and then launches the NMS
+    kernel and the top K: nothing waits for the host.  On the CPU, with
+    grad on, or for a crop, the work runs eagerly."""
+    if image_embedding.is_cuda and not torch.is_grad_enabled() and crop_box is None:
+        with profiling.span("amg.decode"):
+            cand = _select_graph(model, amg, image_embedding, points, valid_hw)
+        with profiling.span("amg.select"):  # NMS, top K
+            return _nms_top(cand, amg)
+    with torch.no_grad():
+        pts = _chunks(points, amg.points_per_batch)
+        with profiling.span("amg.decode"):
+            masks, iou = _decode(model, image_embedding, pts, {})
+        with profiling.span("amg.select"):  # filters, boxes, NMS, top K
+            cand = _candidates(model, amg, masks, iou, pts, points.shape[0], valid_hw,
+                               crop_box, orig_box, box_scale)
+            return _nms_top(cand, amg)
+
+
+def _to_host(tensors) -> Tuple[List[torch.Tensor], Optional[torch.cuda.Event]]:
+    """Host copies of a frame's upscaled survivors: from the card, into
+    pinned memory, enqueued on the current stream with an event after them,
+    so that ``finish`` waits for these copies alone and not for the work
+    enqueued after them (the next image's); CPU tensors as they are."""
+    if not tensors[0].is_cuda:
+        return list(tensors), None
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for dst, src in zip(host, tensors):
+        dst.copy_(src, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(tensors[0].device))
+    return host, ready
 
 
 def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -149,6 +286,7 @@ class AutomaticMaskGenerator:
         self.cfg = cfg or model.cfg
         self.amg = amg or AMGConfig()
         self._grid = amg_utils.build_point_grid(self.amg.points_per_side)
+        self._aside = None    # the overflow path's stream on the card (_overflow_bitmaps)
 
     def generate(self, image: np.ndarray) -> List[Dict]:
         """image (H, W, 3) uint8 with its longest side <= the SAM input size
@@ -182,11 +320,14 @@ class AutomaticMaskGenerator:
         padded[:h, :w] = image
         # an upload from pageable memory waits for the stream: the image for
         # the previous image's work, then the grid for nothing more; from
-        # here to the NMS nothing waits
+        # here to the end of a whole image's submit nothing waits (a crop's
+        # edge test uploads its boxes)
         with profiling.span("amg.upload"):
             x = torch.from_numpy(padded)[None].to(self.device)
-            points = torch.tensor(grid * np.array([w, h]), dtype=torch.float32,
-                                  device=self.device)
+            # the grid in pixels and, in its last row, the extent (h, w)
+            grid_hw = np.concatenate([grid * np.array([w, h]), [[h, w]]])
+            grid_hw = torch.from_numpy(grid_hw.astype(np.float32)).to(self.device)
+        points, valid_hw = grid_hw[:-1], grid_hw[-1]
         # normalise, then zero outside the image, as the reference pads
         region = torch.zeros(1, s_in, s_in, 1, device=self.device)
         region[:, :h, :w] = 1.0
@@ -197,7 +338,7 @@ class AutomaticMaskGenerator:
             x0, y0, x1, y1 = crop_box
             kw = dict(crop_box=crop_box, orig_box=(0, 0, orig_hw[1], orig_hw[0]),
                       box_scale=((x1 - x0) / w, (y1 - y0) / h))
-        return amg_select(self.model, self.amg, emb, points, (h, w), **kw)
+        return amg_select(self.model, self.amg, emb, points, valid_hw, **kw)
 
     def _submit_crops(self, image: np.ndarray) -> Dict:
         """The crop cascade: the full frame and 4^i overlapping crops a
@@ -240,7 +381,10 @@ class AutomaticMaskGenerator:
         """Pull the survivor metadata and enqueue the survivors' upscale
         (run boundaries on the device, or bit-packed bitmaps when small
         regions are cleaned; in the crop cascade, each crop's bitmaps at
-        its own extent).  Idempotent; ``finish`` calls it."""
+        its own extent) and, for a whole image, its copy to the host.
+        Called before the next image's ``submit``, it lets that image's
+        device work overlap this one's ``finish``.  Idempotent; ``finish``
+        calls it."""
         if ("staged" if "crops" in handle else "n") in handle:
             return handle
         with profiling.span("amg.prefetch", request=handle.get("request")):
@@ -259,13 +403,13 @@ class AutomaticMaskGenerator:
         s_in = self.cfg.encoder.img_size
         with profiling.span("amg.upscale"):
             if self.amg.min_mask_region_area == 0:
-                handle["rle_dev"] = device_rle.upscale_rle(
+                dev = device_rle.upscale_rle(
                     out["masks_low"], handle["hw"], (s_in, s_in), self.cfg.mask_threshold,
                     bucket=self._bucket(n), max_per_col=MAX_RUNS_PER_COL)
             else:
-                handle["packed_dev"] = upscale_binary(out["masks_low"], (s_in, s_in),
-                                                      self.cfg.mask_threshold,
-                                                      bucket=self._bucket(n))
+                dev = (upscale_binary(out["masks_low"], (s_in, s_in), self.cfg.mask_threshold,
+                                      bucket=self._bucket(n)),)
+            handle["host"], handle["ready"] = _to_host(dev)
 
     def finish(self, handle: Dict) -> List[Dict]:
         """Download a submit()'s survivors and assemble the annotations."""
@@ -283,33 +427,50 @@ class AutomaticMaskGenerator:
         if n == 0:
             return []
         iou, stability, pts = small["iou"][:n], small["stability"][:n], small["points"][:n]
-        if "rle_dev" in handle:
-            with profiling.span("amg.download"):
-                payload16, meta32 = (t.cpu().numpy() for t in handle["rle_dev"])
-            with profiling.span("amg.rle"):
-                return self._assemble_rle(payload16, meta32, handle, n, iou, stability, pts,
-                                          h, w)
         with profiling.span("amg.download"):
-            packed = handle["packed_dev"].cpu().numpy()
+            if handle["ready"] is not None:
+                handle["ready"].synchronize()
+            host = [t.numpy() for t in handle["host"]]
+        if self.amg.min_mask_region_area == 0:
+            with profiling.span("amg.rle"):
+                return self._assemble_rle(*host, handle, n, iou, stability, pts, h, w)
         with profiling.span("amg.rle"):
-            masks = np.unpackbits(packed[:n], axis=-1, count=s_in).reshape(n, s_in, s_in)
+            masks = np.unpackbits(host[0][:n], axis=-1, count=s_in).reshape(n, s_in, s_in)
             masks = masks[:, :h, :w].astype(bool)
             return self._assemble(masks, iou, stability, pts, [(0, 0, w, h)] * n, h, w)
+
+    def _overflow_bitmaps(self, handle: Dict, n: int) -> np.ndarray:
+        """The survivors' bit-packed bitmaps on the host.  On the card they
+        are made on a stream of their own that starts after the image's
+        upscale (``handle["ready"]``), so they wait neither for nor behind
+        the work enqueued since on the current stream (the next image's)."""
+        s_in = self.cfg.encoder.img_size
+        masks_low = handle["out"]["masks_low"]
+
+        def bitmaps():
+            return upscale_binary(masks_low, (s_in, s_in), self.cfg.mask_threshold,
+                                  bucket=self._bucket(n)).cpu().numpy()
+
+        if handle["ready"] is None:
+            return bitmaps()
+        if self._aside is None:
+            self._aside = torch.cuda.Stream(self.device)
+        self._aside.wait_event(handle["ready"])
+        with torch.cuda.stream(self._aside):   # its copy to the host syncs this stream
+            return bitmaps()
 
     def _assemble_rle(self, payload16, meta32, handle, n: int, iou, stability, pts,
                       h: int, w: int) -> List[Dict]:
         """Annotations from the device run boundaries; masks whose columns
         overflowed take the bit-packed path, in one batch."""
-        s_in = self.cfg.encoder.img_size
-        decoded = device_rle.annotations_from_rle_payload(payload16, meta32, n, h, w, s_in,
+        decoded = device_rle.annotations_from_rle_payload(payload16, meta32, n, h, w,
+                                                          self.cfg.encoder.img_size,
                                                           MAX_RUNS_PER_COL)
         overflowed = sum(d is None for d in decoded)
         profiling.count("amg.rle_overflow", overflowed)
         if overflowed:
             with profiling.span("amg.overflow_path"), torch.inference_mode():
-                packed = upscale_binary(handle["out"]["masks_low"], (s_in, s_in),
-                                        self.cfg.mask_threshold,
-                                        bucket=self._bucket(n)).cpu().numpy()
+                packed = self._overflow_bitmaps(handle, n)
                 decoded = [rle.encode_packed(packed[i], h, w) if d is None else d
                            for i, d in enumerate(decoded)]
         anns = []

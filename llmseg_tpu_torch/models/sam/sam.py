@@ -7,6 +7,7 @@ default and raises without CUDA unless the CPU is asked for.
 
 from __future__ import annotations
 
+import functools
 import weakref
 from typing import Dict, Tuple
 
@@ -22,7 +23,8 @@ from llmseg_tpu_torch.models.sam.mask_decoder import MaskDecoder
 from llmseg_tpu_torch.models.sam.prompt_encoder import PromptEncoder
 from llmseg_tpu_torch.ops import twoway_kernel
 from llmseg_tpu_torch.ops.amg_utils import resize_bilinear
-from llmseg_tpu_torch.ops.kernels import launch_counts
+from llmseg_tpu_torch.ops.kernels import (capture, replay_or_capture, replayed, stamp,
+                                          warm_up)
 from llmseg_tpu_torch.utils import profiling
 
 MODEL_REGISTRY = {
@@ -105,35 +107,21 @@ class _EncoderGraph:
 
     def __init__(self, encoder: ImageEncoder, x: torch.Tensor):
         self.params = list(encoder.parameters())
-        self.stamp = [p.data_ptr() for p in self.params]
-        cur = torch.cuda.current_stream(x.device)
+        self.stamp = stamp(self.params)
         with torch.inference_mode(False), torch.no_grad():
             self.x = torch.empty(x.shape, dtype=x.dtype, device=x.device)
             self.x.copy_(x)
-            side = torch.cuda.Stream(x.device)
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):   # the warm-up, and the first call's result
-                self.first = encoder(self.x)
-            cur.wait_stream(side)
-            self.first.record_stream(cur)
-            before = launch_counts()
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-                self.out = encoder(self.x)
-        self.launches = {k: n - before.get(k, 0) for k, n in launch_counts().items()
-                         if n != before.get(k, 0)}
-        for k, n in self.launches.items():   # the capture ran nothing on the card
-            k.launches -= n
+            self.first = warm_up(lambda: encoder(self.x), x.device)
+            self.graph, self.out, self.launches = capture(lambda: encoder(self.x))
         profiling.count("sam.encoder_graph_captures")
 
     def current(self) -> bool:
-        return self.stamp == [p.data_ptr() for p in self.params]
+        return self.stamp == stamp(self.params)
 
     def replay(self, x: torch.Tensor) -> torch.Tensor:
         self.x.copy_(x)
         self.graph.replay()
-        for k, n in self.launches.items():
-            k.launches += n
+        replayed(self.launches)
         profiling.count("sam.encoder_graph_replays")
         return self.out.clone()
 
@@ -156,14 +144,8 @@ def encode_image(model: Sam, x: torch.Tensor) -> torch.Tensor:
     encoder = model.image_encoder
     if not x.is_cuda or torch.is_grad_enabled():
         return encoder(x)
-    graphs = _GRAPHS.setdefault(encoder, {})
-    key = (tuple(x.shape), x.dtype, x.device)
-    g = graphs.get(key)
-    if g is not None and g.current():
-        return g.replay(x)
-    g = graphs[key] = _EncoderGraph(encoder, x)
-    first, g.first = g.first, None   # the graph keeps no caller's tensor
-    return first
+    return replay_or_capture(_GRAPHS, encoder, (tuple(x.shape), x.dtype, x.device),
+                             functools.partial(_EncoderGraph, encoder), x)
 
 
 def decode_masks(model: Sam, image_embedding: torch.Tensor, *, points=None, labels=None,

@@ -17,6 +17,13 @@ kernels A (``flash_fwd``), B (``flash_fwd_1pass``) and J
 Q2 (``w8a8_linear``) in ``ops/quant.py``.  Importing ``llmseg_tpu_torch.ops``
 (so any module of it, this one included) registers all five, which is what
 a program exported through them needs before ``torch.export.load``.
+
+:func:`capture` records a CUDA graph of a function and keeps every
+kernel's launch count true across its capture and replays (:func:`replayed`);
+:func:`warm_up`, :func:`stamp` and :func:`replay_or_capture` are what the
+port's graphs (SAM's encoder, AMG's selection, the MoE decoder's layers)
+share around it: the eager first call, the weights it was captured on, and
+the lookup of one graph a key that captures anew where they moved.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ SIGNATURES = {
     "flash_fwd_1pass_t": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "quant": [_I] + [_P] * 7 + [_I] * 4 + [_F, _P],
     "w8a8_gemm": [_P] * 7 + [_I] * 4 + [_P],
+    "greedy_nms": [_P] * 5 + [_I, _F, _P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -141,9 +149,82 @@ class Kernel:
 
 
 def launch_counts() -> Dict[Kernel, int]:
-    """Every kernel's launch count; a CUDA graph's capture takes back what
-    it moved and its replays add it again (``models/sam/sam.py``)."""
+    """Every kernel's launch count."""
     return {k: k.launches for k in _INSTANCES}
+
+
+def capture(fn: Callable, pool=None):
+    """``fn()`` captured as a CUDA graph on the current stream's device:
+    (the graph, ``fn``'s output, the launches it holds of each Kernel).  A
+    Kernel launches through ctypes on the capturing stream, so the graph
+    holds it; the capture itself ran nothing on the card, so what it moved
+    of each ``Kernel.launches`` is taken back, and :func:`replayed` adds it
+    for every replay.  ``pool``: a memory pool shared with other graphs."""
+    before = launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+        out = fn()
+    launches = {k: n - before.get(k, 0) for k, n in launch_counts().items()
+                if n != before.get(k, 0)}
+    for k, n in launches.items():
+        k.launches -= n
+    return graph, out, launches
+
+
+def replayed(launches: Dict[Kernel, int]) -> None:
+    """Count the launches of one replay of a graph (:func:`capture`)."""
+    for k, n in launches.items():
+        k.launches += n
+
+
+def _tensors(out) -> list:
+    """The tensors of a tensor, or of a list, tuple or dict of them, nested."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        out = list(out.values())
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in _tensors(o)]
+    return []
+
+
+def warm_up(fn: Callable, device):
+    """``fn()`` run eagerly, as a capture's warm-up, on a side stream that
+    starts after the current stream's work and that the current stream
+    then waits for; its output's tensors are marked as used on the current
+    stream, so that it is the first call's result."""
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        out = fn()
+    cur.wait_stream(side)
+    for t in _tensors(out):
+        t.record_stream(cur)
+    return out
+
+
+def stamp(tensors: Iterable[torch.Tensor], versions: bool = False) -> list:
+    """What a graph was captured on: each tensor's storage and, with
+    ``versions``, its version, which every in-place change moves (for a
+    graph that holds values made from the weights at its capture)."""
+    return [(t.data_ptr(), t._version if versions else 0) for t in tensors]
+
+
+def replay_or_capture(graphs, owner, key, make: Callable, *inputs):
+    """The result of ``owner``'s graph at ``key`` for ``inputs``.  ``graphs``
+    maps owner -> {key: graph} (a ``WeakKeyDictionary``, dropped with the
+    owner).  A graph whose ``current()`` holds replays
+    (``graph.replay(*inputs)``); otherwise ``make(*inputs)`` warms up and
+    captures a new one, whose warm-up result (``graph.first``) is returned
+    and no longer kept by the graph."""
+    table = graphs.setdefault(owner, {})
+    g = table.get(key)
+    if g is not None and g.current():
+        return g.replay(*inputs)
+    g = table[key] = make(*inputs)
+    first, g.first = g.first, None   # the graph keeps no caller's tensor
+    return first
 
 
 NAMESPACE = "llmseg"

@@ -72,6 +72,11 @@ from torch import nn
 
 from llmseg_tpu_torch.models.layers import gelu_tanh
 from llmseg_tpu_torch.ops.kernels import Kernel, library
+# the greedy NMS after G in AMG's selection (ops/nms.py), named here too:
+# perfbench/pbcore/program.py counts the launches of the kernels that
+# attention, relpos_attention, twoway_kernel and quant name.  Drop it when
+# that module reads ops.kernels.launch_counts() instead (ROADMAP.md, AMG's host path)
+from llmseg_tpu_torch.ops.nms import GREEDY_NMS  # noqa: F401
 from llmseg_tpu_torch.utils import profiling
 
 FACTORED_DECODE = Kernel("factored_decode")   # kernel G, csrc/factored_decode.cu

@@ -251,3 +251,47 @@ def test_encoder_graph_counters_stay_zero_on_the_cpu(crop_n_layers):
     assert not {"sam.encoder_graph_captures", "sam.encoder_graph_replays"} & set(counters)
     assert m.image_encoder not in tsam._GRAPHS
     assert launch_counts() == before
+
+
+@pytest.mark.parametrize("hw", [(48, 64), (64, 40), (1, 1), (3, 61), (64, 64)])
+def test_candidate_filters_with_the_extent_as_a_tensor(hw):
+    """The filters read the image's extent as two ints or as a (2,) tensor
+    (the card's selection graph takes it as data): the low-res extent, the
+    keep mask, the stability and the masked logits are equal."""
+    cfg = TC.sam_tiny()
+    amg = TC.AMGConfig(pred_iou_thresh=0.3, stability_score_thresh=0.4)
+    rng = np.random.RandomState(sum(hw))
+    low = torch.tensor(rng.randn(12, 16, 16) * 3).bfloat16()
+    iou = torch.tensor(rng.rand(12).astype(np.float32))
+    img, S4 = cfg.encoder.img_size, low.shape[-1]
+    ints = tamg._lowres_hw(hw, S4, img)
+    dev = tamg._lowres_hw(torch.tensor(hw, dtype=torch.float32), S4, img)
+    assert dev.dtype == torch.int64 and tuple(dev.tolist()) == ints
+    want = tamg._candidate_filters(low, iou, amg, cfg, ints)
+    got = tamg._candidate_filters(low, iou, amg, cfg, dev)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("crop_n_layers", [0, 1])
+def test_cpu_generator_counts_no_select_graph(crop_n_layers):
+    """On the CPU amg_select runs eagerly: no selection graph is captured or
+    replayed, its counters stay absent while spans record, and no launch
+    counter moves."""
+    from llmseg_tpu_torch.ops.kernels import launch_counts
+    from llmseg_tpu_torch.utils import profiling
+    m = tsam.init(TC.sam_tiny(), device="cpu")
+    gen = tamg.AutomaticMaskGenerator(m, amg=TC.AMGConfig(
+        points_per_side=4, points_per_batch=8, crop_n_layers=crop_n_layers), device="cpu")
+    before = launch_counts()
+    profiling.reset()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            gen.generate(np.zeros((48, 64, 3), np.uint8))
+            snap = profiling.snapshot()
+    finally:
+        profiling.reset()
+    assert not {"amg.select_graph_captures", "amg.select_graph_replays"} & set(snap["counters"])
+    assert {"amg.decode", "amg.select", "nms"} <= set(snap["spans"])
+    assert m not in tamg._SELECT_GRAPHS
+    assert launch_counts() == before

@@ -1272,15 +1272,17 @@ def test_encoder_with_grad_on_runs_eagerly(sam_h):
 
 
 def test_amg_submit_waits_for_nothing_between_the_upload_and_the_nms(sam_h, monkeypatch):
-    """After the first image (the encoder's capture), an image's submit from
-    its upload (the end of ``amg.upload``: preprocess is the next call) to
-    the start of the NMS makes no call that syncs with the host, and the
-    image's annotations equal the first run's, whose encoder ran eagerly."""
+    """After the first image (the captures of the encoder and of the
+    selection), an image's submit from its upload (the end of
+    ``amg.upload``: preprocess is the next call) to its end, the NMS and
+    the top K included, makes no call that syncs with the host, and the
+    image's annotations equal the first run's, which ran eagerly."""
     import numpy as np
 
     from llmseg_tpu_torch.models.sam import amg as AMG
     from llmseg_tpu_torch.models.sam import sam as S_
     from llmseg_tpu_torch.ops import nms as N
+    AMG._SELECT_GRAPHS.pop(sam_h, None)
     gen = AMG.AutomaticMaskGenerator(sam_h, amg=C.AMGConfig(
         points_per_side=16, points_per_batch=64, pred_iou_thresh=-1e9,
         stability_score_thresh=-1.0, box_nms_thresh=1.1, max_masks=20))
@@ -1294,19 +1296,199 @@ def test_amg_submit_waits_for_nothing_between_the_upload_and_the_nms(sam_h, monk
         torch.cuda.set_sync_debug_mode("error")
         return preprocess(*a, **kw)
 
-    def unchecked_nms(*a, **kw):
-        torch.cuda.set_sync_debug_mode("default")
+    def seen_nms(*a, **kw):
         seen.append("nms")
         return nms(*a, **kw)
 
     monkeypatch.setattr(S_, "preprocess", checked_preprocess)
-    monkeypatch.setattr(N, "nms", unchecked_nms)
+    monkeypatch.setattr(N, "nms", seen_nms)
     try:
         handle = gen.submit(img)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert seen == ["preprocess", "nms"]
     assert gen.finish(handle) == first and len(first) == 20
+    AMG._SELECT_GRAPHS.pop(sam_h, None)
+
+
+# ---------------------------------------------------------------------------
+# The greedy NMS kernel (csrc/greedy_nms.cu) and AMG's selection graph
+# ---------------------------------------------------------------------------
+
+
+def _nms_case(n, seed, device="cuda"):
+    """AMG-like boxes (integer edges, many duplicates), zero-area and
+    inverted boxes, scores with ties, ~20 % invalid."""
+    g = torch.Generator().manual_seed(seed)
+    xy = torch.randint(0, 900, (n, 2), generator=g).float()
+    wh = torch.randint(0, 200, (n, 2), generator=g).float()
+    boxes = torch.cat([xy, xy + wh], 1)
+    dup = torch.randint(0, n, (n // 3,), generator=g)
+    boxes[torch.randint(0, n, (n // 3,), generator=g)] = boxes[dup]
+    if n > 2:
+        boxes[1, 3] = boxes[1, 1] - 4             # inverted: zero area
+    scores = torch.randint(0, 12, (n,), generator=g).float() / 11
+    valid = torch.rand(n, generator=g) > 0.2
+    return boxes.to(device), scores.to(device), valid.to(device)
+
+
+@pytest.mark.parametrize("thr", [0.0, 0.5, 0.7, 1.1])
+@pytest.mark.parametrize("n", [1, 2, 63, 64, 65, 200, 1000, 3072])
+def test_greedy_nms_kernel_equals_the_fixpoint(n, thr):
+    """The kernel's keep set equals the fixpoint's bit for bit, the fixpoint
+    run on the card and on the CPU, with and without a validity mask; one
+    launch a call."""
+    from llmseg_tpu_torch.ops import nms as N
+    boxes, scores, valid = _nms_case(n, seed=n + int(10 * thr))
+    for v in (valid, None):
+        before = N.GREEDY_NMS.launches
+        got = N.nms(boxes, scores, thr, valid=v)
+        assert N.GREEDY_NMS.launches == before + 1
+        assert got.dtype == torch.bool and got.shape == (n,)
+        assert torch.equal(got, N.nms_fixpoint(boxes, scores, thr, valid=v))
+        cpu = N.nms_fixpoint(boxes.cpu(), scores.cpu(), thr,
+                             valid=None if v is None else v.cpu())
+        assert torch.equal(got.cpu(), cpu)
+
+
+def test_greedy_nms_kernel_on_ious_at_the_threshold():
+    """IoUs equal to the threshold's float32, one ulp either side, and an
+    empty input."""
+    import numpy as np
+
+    from llmseg_tpu_torch.ops import nms as N
+    boxes = torch.tensor([[0, 0, 10, 10], [0, 0, 10, 7], [0, 0, 10, 10], [0, 3, 10, 10],
+                          [0, 0, 10, 10], [0, 0, 7, 10]], dtype=torch.float32, device="cuda")
+    scores = torch.tensor([0.9, 0.8, 0.7, 0.6, 0.5, 0.4], device="cuda")
+    for thr in (0.7, float(np.nextafter(np.float32(0.7), 0)), float(np.nextafter(0.7, 1)), 0.69):
+        assert torch.equal(N.nms(boxes, scores, thr), N.nms_fixpoint(boxes, scores, thr)), thr
+    assert N.nms(boxes[:0], scores[:0], 0.7).shape == (0,)
+
+
+def _eager_select(AMG, monkeypatch):
+    """Make ``amg_select`` run eagerly inside ``submit``: grad on (it takes
+    no graph then, and computes under no_grad)."""
+    select = AMG.amg_select
+
+    def eager(*a, **kw):
+        with torch.enable_grad():
+            return select(*a, **kw)
+
+    monkeypatch.setattr(AMG, "amg_select", eager)
+
+
+@pytest.mark.parametrize("nms_thresh", [0.7, 1.1])
+def test_select_graph_equals_eager_generate(sam_h, monkeypatch, nms_thresh):
+    """Two image sizes on one captured selection graph: every image's
+    annotations equal the eager selection's exactly; the graph is captured
+    once and replayed once an image, G's sequence is recorded in no replay,
+    and G counts 4 launches an image (4 chunks) either way."""
+    import numpy as np
+
+    from llmseg_tpu_torch.models.sam import amg as AMG
+    from llmseg_tpu_torch.utils import profiling
+    AMG._SELECT_GRAPHS.pop(sam_h, None)
+    gen = AMG.AutomaticMaskGenerator(sam_h, amg=C.AMGConfig(
+        points_per_side=16, points_per_batch=64, pred_iou_thresh=-1e9,
+        stability_score_thresh=-1.0, box_nms_thresh=nms_thresh, max_masks=20))
+    rng = np.random.RandomState(1)
+    imgs = [rng.randint(0, 255, hw + (3,), np.uint8) for hw in ((683, 1024), (1024, 768))]
+    with monkeypatch.context() as mp:
+        _eager_select(AMG, mp)
+        want = [gen.generate(img) for img in imgs]
+    assert sam_h not in AMG._SELECT_GRAPHS
+    first = gen.generate(imgs[0])     # the capture; its result from the warm-up
+    profiling.reset()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            g0 = TK.FACTORED_DECODE.launches
+            got = [gen.generate(img) for img in imgs + imgs[:1]]
+            g1 = TK.FACTORED_DECODE.launches
+            counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.reset()
+    assert first == want[0] and got == want + want[:1]
+    assert len(AMG._SELECT_GRAPHS[sam_h]) == 1
+    assert counters["amg.select_graph_replays"] == 3
+    assert "amg.select_graph_captures" not in counters
+    assert "twoway.g_records" not in counters
+    assert g1 - g0 == 3 * 4
+    if nms_thresh == 1.1:
+        assert all(len(a) == 20 for a in want)
+    AMG._SELECT_GRAPHS.pop(sam_h, None)
+
+
+def test_select_graph_counts_its_capture_and_captures_again_for_a_moved_weight(sam_h):
+    """A capture counts itself; a weight moved to other storage captures
+    anew (the selection then equals the old storage's), and a second
+    threshold setting has a graph of its own."""
+    import dataclasses
+
+    import numpy as np
+
+    from llmseg_tpu_torch.models.sam import amg as AMG
+    from llmseg_tpu_torch.models.sam import sam as S_
+    from llmseg_tpu_torch.utils import profiling
+    AMG._SELECT_GRAPHS.pop(sam_h, None)
+    amg = C.AMGConfig(points_per_side=16, points_per_batch=64, pred_iou_thresh=-1e9,
+                      stability_score_thresh=-1.0, box_nms_thresh=1.1, max_masks=20)
+    x, = _sam_images(1)
+    pts = torch.tensor(np.random.RandomState(2).rand(256, 2) * 1000, dtype=torch.float32,
+                       device="cuda")
+    hw = torch.tensor([1000.0, 1000.0], device="cuda")
+    with torch.inference_mode():
+        emb = S_.encode_image(sam_h, S_.preprocess(x, sam_h.cfg))
+        profiling.reset()
+        try:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+                a = AMG.amg_select(sam_h, amg, emb, pts, hw)
+                b = AMG.amg_select(sam_h, amg, emb, pts, hw)
+                counters = profiling.snapshot()["counters"]
+        finally:
+            profiling.reset()
+        assert counters["amg.select_graph_captures"] == 1
+        assert counters["amg.select_graph_replays"] == 1
+        graph = next(iter(AMG._SELECT_GRAPHS[sam_h].values()))
+        tok = sam_h.mask_decoder.iou_token
+        old = tok.data
+        tok.data = old.clone()
+        try:
+            c = AMG.amg_select(sam_h, amg, emb, pts, hw)
+            assert next(iter(AMG._SELECT_GRAPHS[sam_h].values())) is not graph
+            AMG.amg_select(sam_h, dataclasses.replace(amg, pred_iou_thresh=0.0), emb, pts, hw)
+            assert len(AMG._SELECT_GRAPHS[sam_h]) == 2
+        finally:
+            tok.data = old
+    for k in a:
+        assert torch.equal(a[k], b[k]) and torch.equal(a[k], c[k]), k
+    AMG._SELECT_GRAPHS.pop(sam_h, None)
+
+
+def test_select_with_grad_on_runs_eagerly(sam_h):
+    """With grad on amg_select captures nothing and gives the graph's
+    result."""
+    import numpy as np
+
+    from llmseg_tpu_torch.models.sam import amg as AMG
+    from llmseg_tpu_torch.models.sam import sam as S_
+    AMG._SELECT_GRAPHS.pop(sam_h, None)
+    amg = C.AMGConfig(points_per_side=16, points_per_batch=64, pred_iou_thresh=-1e9,
+                      stability_score_thresh=-1.0, box_nms_thresh=0.7, max_masks=20)
+    x, = _sam_images(1, seed=15)
+    pts = torch.tensor(np.random.RandomState(3).rand(256, 2) * 1000, dtype=torch.float32,
+                       device="cuda")
+    with torch.no_grad():
+        emb = S_.encode_image(sam_h, S_.preprocess(x, sam_h.cfg))
+    with torch.enable_grad():
+        eager = AMG.amg_select(sam_h, amg, emb, pts, (1000, 1000))
+    assert sam_h not in AMG._SELECT_GRAPHS
+    with torch.no_grad():
+        AMG.amg_select(sam_h, amg, emb, pts, (1000, 1000))
+        graph = AMG.amg_select(sam_h, amg, emb, pts, (1000, 1000))
+    assert len(AMG._SELECT_GRAPHS[sam_h]) == 1
+    for k in eager:
+        assert torch.equal(eager[k], graph[k]), k
+    AMG._SELECT_GRAPHS.pop(sam_h, None)
 
 
 def _kimi_widths(layers: int):
