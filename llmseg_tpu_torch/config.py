@@ -6,14 +6,15 @@ defaults and presets match, so one preset name means one architecture in
 both packages.  :class:`DeepseekV3Config` (latent attention and routed
 experts, ``models/deepseek_v3.py``) and its presets are the port's own: an
 ``LlavaConfig`` whose ``llm`` is one builds that decoder in place of the
-LLaMA.
+LLaMA.  A decoder's config names the paths not ported for it (``unported``,
+not a field); :func:`require_ported` is the one check of them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple, Union
+from typing import Any, ClassVar, FrozenSet, Optional, Tuple, Union
 
 
 def replace(cfg, **kw):
@@ -63,6 +64,26 @@ def vit_tiny(img_size: int = 28, patch_size: int = 14) -> ViTConfig:
                      depth=2, num_heads=2)
 
 
+# the paths a decoder may not port, by name, and what its error calls each
+UNPORTED = {
+    "lora": "LoRA",
+    "quant_stats": "SmoothQuant's calibration (quant_stats)",
+    "training": "training (a forward with grad enabled)",
+    "cache": "decoding with a (latent) cache",
+    "quantization": "quantization (int8, int4, W8A8)",
+    "mesh": "the (dp, fsdp, tp) mesh",
+}
+
+
+def require_ported(cfg, path: str) -> None:
+    """Raise ``NotImplementedError`` if ``path`` (a key of :data:`UNPORTED`)
+    is not ported for the decoder that ``cfg`` configures; only the
+    DeepSeek-V3 decoder leaves paths unported."""
+    if path in cfg.unported:
+        raise NotImplementedError(f"{UNPORTED[path]} is not ported for the DeepSeek-V3 "
+                                  f"decoder (inference of models/deepseek_v3.py only)")
+
+
 @dataclass(frozen=True)
 class LlamaConfig:
     """LLaMA decoder."""
@@ -78,6 +99,7 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    unported: ClassVar[FrozenSet[str]] = frozenset()
 
 
 def llama_7b() -> LlamaConfig:
@@ -121,6 +143,7 @@ class DeepseekV3Config:
     rms_norm_eps: float = 1e-5
     kv_norm_eps: float = 1e-6        # kv_a_layernorm: the modeling code's default
     tie_embeddings: bool = False
+    unported: ClassVar[FrozenSet[str]] = frozenset(UNPORTED)
 
     @property
     def qk_head_dim(self) -> int:

@@ -31,7 +31,8 @@ On the card the layers run as CUDA graphs, one for each half of a layer
 it launched about a hundred operations, and so stays ahead of the card.
 
 Training, LoRA, SmoothQuant statistics, W8A8, the mesh and decoding with a
-latent cache are not ported for this decoder: each raises.  Spans
+latent cache are not ported for this decoder (``DeepseekV3Config.unported``):
+each raises (``config.require_ported``).  Spans
 ``llm.mla`` and ``llm.moe`` time a layer's attention and MoE block on the
 host; counters ``moe.routed_pairs`` and ``moe.grouped_gemms`` count the
 pairs and the grouped products (``utils/profiling.py``).
@@ -48,17 +49,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from llmseg_tpu_torch.config import DeepseekV3Config
+from llmseg_tpu_torch.config import DeepseekV3Config, require_ported
 from llmseg_tpu_torch.models import layers as L
 from llmseg_tpu_torch.ops.attention import attention
 from llmseg_tpu_torch.ops.kernels import capture, replay_or_capture, replayed, stamp, warm_up
 from llmseg_tpu_torch.utils import profiling
-
-
-def refuse(what: str):
-    """The error for a path that is not ported for this decoder."""
-    return NotImplementedError(f"{what} is not ported for the DeepSeek-V3 decoder "
-                               f"(inference of models/deepseek_v3.py only)")
 
 
 def apply_rope_pairs(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -220,12 +215,13 @@ class _LayerGraphs:
     """A decoder's layers as CUDA graphs at one input shape, dtype and
     device: one graph for each half of a layer (``DeepseekV3Layer.halves``),
     captured in order into one memory pool, each half's input the output of
-    the half before, so a replay copies in only the first input.  Between
-    the halves' replays the host keeps what the eager path does: the
-    spans, the MoE counters, a copy of each MoE layer's chosen experts (the
-    captured index tensor is the same storage at every replay), and the
-    launches of the port's kernels (kernel A launches through ctypes on
-    the capturing stream, so its graph holds it)."""
+    the half before, so a replay copies in only the first input.  It is a
+    sequence and not one ``StaticGraph`` because the host works between
+    the halves' replays, as the eager path does: the spans, the MoE
+    counters, a copy of each MoE layer's chosen experts (the captured index
+    tensor is the same storage at every replay), and the launches of the
+    port's kernels (kernel A launches through ctypes on the capturing
+    stream, so its graph holds it).  The weights' storage is stamped."""
 
     def __init__(self, model: "DeepseekV3", x: torch.Tensor):
         self.tensors = list(model.parameters()) + list(model.buffers())
@@ -299,11 +295,11 @@ class DeepseekV3(nn.Module):
         ``torch.inference_mode``; ``Llama.forward``'s other arguments are
         refused unless empty."""
         if lora is not None or lora_cfg is not None:
-            raise refuse("LoRA")
+            require_ported(self.cfg, "lora")
         if quant_stats is not None:
-            raise refuse("SmoothQuant's calibration (quant_stats)")
+            require_ported(self.cfg, "quant_stats")
         if remat not in (False, None, "none") or torch.is_grad_enabled():
-            raise refuse("training (a forward with grad enabled)")
+            require_ported(self.cfg, "training")
         cfg = self.cfg
         x = self.embed(input_ids) if inputs_embeds is None else inputs_embeds
         T = x.shape[1]

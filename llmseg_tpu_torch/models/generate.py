@@ -18,10 +18,9 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from llmseg_tpu_torch.config import LoraConfig
+from llmseg_tpu_torch.config import LoraConfig, require_ported
 from llmseg_tpu_torch.models import layers as L
 from llmseg_tpu_torch.models import llama
-from llmseg_tpu_torch.models.deepseek_v3 import DeepseekV3, refuse
 from llmseg_tpu_torch.models.llama import Llama, LlamaLora
 from llmseg_tpu_torch.ops.attention import NEG_INF, attention, attention_plain
 
@@ -36,8 +35,7 @@ def prefill_cache(llm: Llama, inputs_embeds: torch.Tensor, total_len: int, *,
     """The prompt (B, T, C) through the model, recording K and V.  Returns
     (final-norm hidden states (B, T, C), per layer (k, v) caches of shape
     (B, total_len, H_kv, Dh), positions T and later zero)."""
-    if isinstance(llm, DeepseekV3):
-        raise refuse("decoding with a (latent) cache")
+    require_ported(llm.cfg, "cache")
     if llm.mesh is not None:
         raise NotImplementedError("generation runs on a whole LLaMA, not one sharded "
                                   "over a mesh with fsdp or tp above 1")
@@ -85,8 +83,7 @@ def greedy_generate(llm: Llama, inputs_embeds: torch.Tensor, max_new_tokens: int
     each generated position.  A row is done once it has emitted EOS or a
     ``stop_token_ids`` token (checked before the next token is chosen);
     then it repeats EOS, and every row runs all N steps."""
-    if isinstance(llm, DeepseekV3):
-        raise refuse("decoding with a (latent) cache")
+    require_ported(llm.cfg, "cache")
     cfg = llm.cfg
     B, T, _ = inputs_embeds.shape
     total = T + max_new_tokens

@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from llmseg_tpu_torch import losses as LS
-from llmseg_tpu_torch.config import DeepseekV3Config, LLMSegConfig, LoraConfig
+from llmseg_tpu_torch.config import LLMSegConfig, LoraConfig, require_ported
 from llmseg_tpu_torch.device import require
 from llmseg_tpu_torch.models import llama, llava, vit
 from llmseg_tpu_torch.models.llama import LlamaLora
@@ -45,9 +45,8 @@ class LLMSeg(nn.Module):
         self.llava = Llava(cfg.llava, **kw)
         self.dino = vit.ViT(cfg.dino, **kw)
         self.select = SelectionHead(cfg.select, **kw)
-        if lora_cfg is not None and isinstance(cfg.llava.llm, DeepseekV3Config):
-            from llmseg_tpu_torch.models.deepseek_v3 import refuse
-            raise refuse("LoRA")
+        if lora_cfg is not None:
+            require_ported(cfg.llava.llm, "lora")
         self.lora = (None if lora_cfg is None
                      else LlamaLora(cfg.llava.llm, lora_cfg, **kw))
 

@@ -33,8 +33,7 @@ from llmseg_tpu_torch.data import image_ops
 from llmseg_tpu_torch.device import require
 from llmseg_tpu_torch.models.sam import sam as sam_lib
 from llmseg_tpu_torch.ops import amg_utils, device_rle, nms, rle
-from llmseg_tpu_torch.ops.kernels import (capture, replay_or_capture, replayed, stamp,
-                                          warm_up)
+from llmseg_tpu_torch.ops.kernels import StaticGraph, replay_or_capture
 from llmseg_tpu_torch.utils import profiling
 
 # per-column run-start budget of the device RLE; blobby SAM masks have 1-2
@@ -125,72 +124,40 @@ def _nms_top(cand: Dict, amg: AMGConfig) -> Dict:
     return out
 
 
-class _SelectGraph:
-    """One CUDA graph of ``amg_select``'s work from the image embedding to
-    the NMS's input (the chunks' prompt encoding and kernel G, the stack of
-    the logits, the filters, the boxes and ``keep``), at one embedding
-    shape, dtype and device, grid size and filter settings.  Static inputs:
-    the embedding, the points and the image's extent (h, w), so one graph
-    serves every image size; the captured work reads the extent on the
-    card.  G's sequence is recorded in the capture, once, and kept with the
-    graph (its records, packed operands and scratch); each replay adds the
-    launches the capture took back (G: one a chunk).  The weights' storage
-    and versions are stamped: a weight moved or changed captures anew."""
-
-    def __init__(self, model, amg: AMGConfig, image_embedding, points, valid_hw):
-        self.params = list(model.prompt_encoder.parameters()) + list(
-            model.mask_decoder.parameters())
-        self.stamp = stamp(self.params, versions=True)
-        dev = image_embedding.device
-        with torch.inference_mode(False), torch.no_grad():
-            self.emb = torch.empty(image_embedding.shape, dtype=image_embedding.dtype,
-                                   device=dev)
-            self.points = torch.empty(points.shape, dtype=torch.float32, device=dev)
-            self.hw = torch.empty(2, dtype=torch.int64, device=dev)
-            self._load(image_embedding, points, valid_hw)
-            self.first = warm_up(lambda: self._run(model, amg), dev)
-            self.graph, self.out, self.launches = capture(lambda: self._run(model, amg))
-        profiling.count("amg.select_graph_captures")
-
-    def current(self) -> bool:
-        return self.stamp == stamp(self.params, versions=True)
-
-    def _load(self, image_embedding, points, valid_hw) -> None:
-        self.emb.copy_(image_embedding)
-        self.points.copy_(points)
-        self.hw.copy_(valid_hw if isinstance(valid_hw, torch.Tensor)
-                      else torch.as_tensor(valid_hw))
-
-    def _run(self, model, amg: AMGConfig) -> Dict:
-        pts = _chunks(self.points, amg.points_per_batch)
-        self.cache = {}   # G's plan: one recording, kept while the graph lives
-        masks, iou = _decode(model, self.emb, pts, self.cache)
-        return _candidates(model, amg, masks, iou, pts, self.points.shape[0], self.hw)
-
-    def replay(self, image_embedding, points, valid_hw) -> Dict:
-        """The graph's outputs for this image: read them before the next
-        replay on this stream (``_nms_top`` gathers the kept rows)."""
-        self._load(image_embedding, points, valid_hw)
-        self.graph.replay()
-        replayed(self.launches)
-        profiling.count("amg.select_graph_replays")
-        return self.out
+def _select(model, amg: AMGConfig, cache: Dict, image_embedding, points, valid_hw) -> Dict:
+    """The selection's work from the image embedding to the NMS's input
+    (the chunks' prompt encoding and kernel G, the stack of the logits, the
+    filters, the boxes and ``keep``), as its graph captures it; ``cache``
+    keeps G's plan, whose buffers the captured kernels read."""
+    pts = _chunks(points, amg.points_per_batch)
+    masks, iou = _decode(model, image_embedding, pts, cache)
+    return _candidates(model, amg, masks, iou, pts, points.shape[0], valid_hw)
 
 
-# model -> {key: _SelectGraph}; dropped with the model
+# model -> {key: StaticGraph}; dropped with the model
 _SELECT_GRAPHS = weakref.WeakKeyDictionary()
 
 
 def _select_graph(model, amg: AMGConfig, image_embedding, points, valid_hw) -> Dict:
     """The candidates of one image from its selection graph: a replay, or
-    the capture's warm-up result on the first call at a key."""
+    the capture's warm-up result on the first call at a key.  One graph an
+    embedding shape, dtype and device, grid size and filter settings.  Its
+    static inputs are the embedding, the points and the image's extent (h,
+    w), which the captured work reads on the card, so one graph serves
+    every image size.  G's sequence is recorded in the capture, once, and
+    kept with the graph; each replay adds the launches the capture took
+    back (G: one a chunk).  The weights' storage and versions are stamped:
+    a weight moved or changed captures anew.  The outputs are the graph's
+    own: ``_nms_top`` gathers the kept rows before the next replay."""
     key = (tuple(image_embedding.shape), image_embedding.dtype, image_embedding.device,
            points.shape[0], amg.points_per_batch, amg.pred_iou_thresh,
            amg.stability_score_thresh, amg.stability_score_offset,
            id(model.prompt_encoder), id(model.mask_decoder))
-    return replay_or_capture(_SELECT_GRAPHS, model, key,
-                             functools.partial(_SelectGraph, model, amg),
-                             image_embedding, points, valid_hw)
+    hw = torch.as_tensor(valid_hw, device=image_embedding.device)
+    return replay_or_capture(_SELECT_GRAPHS, model, key, lambda *inputs: StaticGraph(
+        functools.partial(_select, model, amg), *inputs, versions=True,
+        tensors=[*model.prompt_encoder.parameters(), *model.mask_decoder.parameters()],
+        counter="amg.select_graph"), image_embedding, points, hw)
 
 
 def amg_select(model, amg: AMGConfig, image_embedding: torch.Tensor, points: torch.Tensor,
@@ -206,7 +173,7 @@ def amg_select(model, amg: AMGConfig, image_embedding: torch.Tensor, points: tor
     xyxy, points (K, 2), valid (K,).
 
     On the card with grad off, a frame of the whole image replays its
-    selection graph (:class:`_SelectGraph`) and then launches the NMS
+    selection graph (:func:`_select_graph`) and then launches the NMS
     kernel and the top K: nothing waits for the host.  On the CPU, with
     grad on, or for a crop, the work runs eagerly."""
     if image_embedding.is_cuda and not torch.is_grad_enabled() and crop_box is None:

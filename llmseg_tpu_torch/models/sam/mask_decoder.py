@@ -24,6 +24,7 @@ from llmseg_tpu_torch.config import SamDecoderConfig
 from llmseg_tpu_torch.models import layers as L
 from llmseg_tpu_torch.models.sam.two_way_transformer import TwoWayTransformer
 from llmseg_tpu_torch.ops import twoway_kernel
+from llmseg_tpu_torch.ops.kernels import cached
 
 
 class ConvTranspose2x2(nn.Module):
@@ -88,7 +89,7 @@ class MaskDecoder(nn.Module):
         S, C).  Returns (masks (B, nt, 4S, 4S), iou (B, nt)): from kernels G
         and H in the image dtype, from the plain tail in float32.  ``cache``:
         keeps the shared base and kernel G's recorded sequence while their
-        inputs are unchanged (``twoway_kernel.cached``)."""
+        inputs are unchanged (``kernels.cached``)."""
         B = sparse_prompt.shape[0]
         d = self.cfg.transformer_dim
         nt = self.cfg.num_multimask_outputs + 1
@@ -102,8 +103,7 @@ class MaskDecoder(nn.Module):
         grad = torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
         nh = self.cfg.transformer_num_heads
         if fuse and shared and not grad:
-            src = twoway_kernel.cached(cache, "base", [image_embeddings, dense_prompt[:1]],
-                                       torch.add)
+            src = cached(cache, "base", [image_embeddings, dense_prompt[:1]], torch.add)
             return twoway_kernel.fused_decode_apply(self.transformer, self, src, image_pe,
                                                     tokens, nh, cache=cache)
         src = image_embeddings

@@ -7,7 +7,6 @@ default and raises without CUDA unless the CPU is asked for.
 
 from __future__ import annotations
 
-import functools
 import weakref
 from typing import Dict, Tuple
 
@@ -21,11 +20,8 @@ from llmseg_tpu_torch.device import require
 from llmseg_tpu_torch.models.sam.image_encoder import ImageEncoder
 from llmseg_tpu_torch.models.sam.mask_decoder import MaskDecoder
 from llmseg_tpu_torch.models.sam.prompt_encoder import PromptEncoder
-from llmseg_tpu_torch.ops import twoway_kernel
 from llmseg_tpu_torch.ops.amg_utils import resize_bilinear
-from llmseg_tpu_torch.ops.kernels import (capture, replay_or_capture, replayed, stamp,
-                                          warm_up)
-from llmseg_tpu_torch.utils import profiling
+from llmseg_tpu_torch.ops.kernels import StaticGraph, cached, replay_or_capture
 
 MODEL_REGISTRY = {
     "vit_h": sam_vit_h,
@@ -98,35 +94,7 @@ def preprocess(x: torch.Tensor, cfg: SamConfig) -> torch.Tensor:
     return F.pad(x, (0, 0, 0, s - x.shape[2], 0, s - x.shape[1]))
 
 
-class _EncoderGraph:
-    """One CUDA graph of an image encoder at one input shape, dtype and
-    device: a static input, the captured kernels, a static output, the
-    weights' storage it was captured on, and the launches each replay
-    makes of every ``Kernel`` (E and F launch through ctypes on the
-    capturing stream, so the graph holds them)."""
-
-    def __init__(self, encoder: ImageEncoder, x: torch.Tensor):
-        self.params = list(encoder.parameters())
-        self.stamp = stamp(self.params)
-        with torch.inference_mode(False), torch.no_grad():
-            self.x = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-            self.x.copy_(x)
-            self.first = warm_up(lambda: encoder(self.x), x.device)
-            self.graph, self.out, self.launches = capture(lambda: encoder(self.x))
-        profiling.count("sam.encoder_graph_captures")
-
-    def current(self) -> bool:
-        return self.stamp == stamp(self.params)
-
-    def replay(self, x: torch.Tensor) -> torch.Tensor:
-        self.x.copy_(x)
-        self.graph.replay()
-        replayed(self.launches)
-        profiling.count("sam.encoder_graph_replays")
-        return self.out.clone()
-
-
-# encoder -> {(shape, dtype, device): _EncoderGraph}; dropped with the encoder
+# encoder -> {(shape, dtype, device): StaticGraph}; dropped with the encoder
 _GRAPHS = weakref.WeakKeyDictionary()
 
 
@@ -145,7 +113,9 @@ def encode_image(model: Sam, x: torch.Tensor) -> torch.Tensor:
     if not x.is_cuda or torch.is_grad_enabled():
         return encoder(x)
     return replay_or_capture(_GRAPHS, encoder, (tuple(x.shape), x.dtype, x.device),
-                             functools.partial(_EncoderGraph, encoder), x)
+                             lambda x: StaticGraph(lambda _, x: encoder(x), x,
+                                                   tensors=encoder.parameters(),
+                                                   counter="sam.encoder_graph"), x).clone()
 
 
 def decode_masks(model: Sam, image_embedding: torch.Tensor, *, points=None, labels=None,
@@ -157,13 +127,13 @@ def decode_masks(model: Sam, image_embedding: torch.Tensor, *, points=None, labe
     ``cache``: a dict kept across prompt batches, which keeps what is the
     same for every batch of one image (the positional encoding, kernel G's
     recorded sequence) while its inputs are unchanged
-    (``twoway_kernel.cached``)."""
+    (``kernels.cached``)."""
     pe_mod = model.prompt_encoder
     sparse, dense = pe_mod(points=points, labels=labels, boxes=boxes, masks=masks,
                            text_embeds=text_embeds, batch=image_embedding.shape[0])
     size = model.cfg.prompt.image_embedding_size
-    pe = twoway_kernel.cached(cache, "dense_pe", [pe_mod.pe.gaussian],
-                              lambda _: pe_mod.dense_pe(size)[None], extra=(size,))
+    pe = cached(cache, "dense_pe", [pe_mod.pe.gaussian], lambda _: pe_mod.dense_pe(size)[None],
+                extra=(size,))
     return model.mask_decoder(image_embedding, pe, sparse, dense,
                               multimask_output=multimask_output,
                               dense_shared=masks is None, cache=cache)

@@ -18,12 +18,14 @@ Q2 (``w8a8_linear``) in ``ops/quant.py``.  Importing ``llmseg_tpu_torch.ops``
 (so any module of it, this one included) registers all five, which is what
 a program exported through them needs before ``torch.export.load``.
 
-:func:`capture` records a CUDA graph of a function and keeps every
-kernel's launch count true across its capture and replays (:func:`replayed`);
-:func:`warm_up`, :func:`stamp` and :func:`replay_or_capture` are what the
-port's graphs (SAM's encoder, AMG's selection, the MoE decoder's layers)
-share around it: the eager first call, the weights it was captured on, and
-the lookup of one graph a key that captures anew where they moved.
+:func:`stamp` is the port's one test of whether recorded work has gone
+stale: :func:`cached` keeps a value (kernel G's, H's and I's plans, SAM's
+positional encoding) while its inputs' stamps hold.  :func:`capture`
+records a CUDA graph of a function and keeps every kernel's launch count
+true across its capture and replays (:func:`replayed`); :class:`StaticGraph`
+is one such graph on static inputs (SAM's encoder, AMG's selection), built
+with :func:`warm_up` and looked up a key by :func:`replay_or_capture`,
+which the MoE decoder's sequence of graphs shares.
 """
 
 from __future__ import annotations
@@ -33,9 +35,11 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
+
+from llmseg_tpu_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -204,11 +208,70 @@ def warm_up(fn: Callable, device):
     return out
 
 
-def stamp(tensors: Iterable[torch.Tensor], versions: bool = False) -> list:
-    """What a graph was captured on: each tensor's storage and, with
-    ``versions``, its version, which every in-place change moves (for a
-    graph that holds values made from the weights at its capture)."""
-    return [(t.data_ptr(), t._version if versions else 0) for t in tensors]
+def stamp(tensors: Iterable[torch.Tensor], versions: bool = False) -> tuple:
+    """What recorded work was made from: each tensor's storage, dtype, shape
+    and stride and, with ``versions``, its version counter, which every
+    in-place change moves (for work that holds values made from the
+    tensors).  An inference tensor has no version counter: it reads as
+    having none, and its in-place changes are not seen."""
+    return tuple((t.data_ptr(), t.dtype, t.shape, t.stride(),
+                  t._version if versions and not t.is_inference() else None)
+                 for t in tensors)
+
+
+def cached(cache: Optional[Dict], name: str, inputs, fn, extra=()):
+    """``fn(*inputs)``, kept in ``cache[name]`` while every input is the
+    same tensor, unchanged (:func:`stamp` with versions) and ``extra`` is
+    equal; anything else computes it anew.  The entry holds the inputs, so
+    their storage is not reused by another tensor while it is kept.
+    ``cache`` None: no caching."""
+    if cache is None:
+        return fn(*inputs)
+    key = (stamp(inputs, versions=True), tuple(extra))
+    hit = cache.get(name)
+    if hit is None or hit[0] != key:
+        hit = cache[name] = (key, tuple(inputs), fn(*inputs))
+    return hit[2]
+
+
+class StaticGraph:
+    """``fn(keep, *inputs)`` as one CUDA graph on static inputs: buffers of
+    the first call's inputs' shapes, dtypes and devices, into which each
+    replay copies its inputs.  The first call runs ``fn`` eagerly (the
+    warm-up, whose result is ``first``) and then captures it.  ``keep`` is
+    a dict, new for each of the two, in which ``fn`` leaves what its
+    kernels read besides its inputs and outputs (kernel G's plan); the
+    graph keeps the capture's.  ``tensors`` (the weights) are stamped,
+    with ``versions`` where the captured work holds values made from them:
+    :meth:`current` fails once one has moved or, with versions, changed.
+    Counters ``<counter>_captures`` and ``<counter>_replays``."""
+
+    def __init__(self, fn: Callable, *inputs: torch.Tensor, tensors, counter: str,
+                 versions: bool = False):
+        self.tensors, self.versions, self.counter = list(tensors), versions, counter
+        self.stamp = stamp(self.tensors, versions)
+        with torch.inference_mode(False), torch.no_grad():
+            self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                           for t in inputs]
+            for buf, t in zip(self.inputs, inputs):
+                buf.copy_(t)
+            self.first = warm_up(lambda: fn({}, *self.inputs), inputs[0].device)
+            self.keep = {}
+            self.graph, self.out, self.launches = capture(lambda: fn(self.keep, *self.inputs))
+        profiling.count(f"{counter}_captures")
+
+    def current(self) -> bool:
+        return self.stamp == stamp(self.tensors, self.versions)
+
+    def replay(self, *inputs):
+        """The captured outputs for ``inputs``, in the graph's own storage:
+        read them before the next replay on this stream."""
+        for buf, t in zip(self.inputs, inputs):
+            buf.copy_(t)
+        self.graph.replay()
+        replayed(self.launches)
+        profiling.count(f"{self.counter}_replays")
+        return self.out
 
 
 def replay_or_capture(graphs, owner, key, make: Callable, *inputs):

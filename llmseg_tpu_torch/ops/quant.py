@@ -53,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from llmseg_tpu_torch.config import require_ported
 from llmseg_tpu_torch.models import layers as L
 from llmseg_tpu_torch.ops.kernels import Kernel, kernel_op
 from llmseg_tpu_torch.parallel import mesh as M
@@ -842,13 +843,6 @@ def _llama_pred(path) -> bool:
     return "attn" in joined or "mlp" in joined or "lm_head" in joined
 
 
-def _only_llama(llm: nn.Module) -> None:
-    """Quantization is ported for the LLaMA alone."""
-    from llmseg_tpu_torch.models.deepseek_v3 import DeepseekV3, refuse
-    if isinstance(llm, DeepseekV3):
-        raise refuse("quantization (int8, int4, W8A8)")
-
-
 def quantize_llama(llm: nn.Module, bits: int = 8, w8a8: bool = False, smooth_stats=None,
                    alpha: Optional[float] = None, head_dim: Optional[int] = None) -> nn.Module:
     """A quantized copy of a ``Llama``: its projections and lm_head;
@@ -857,7 +851,7 @@ def quantize_llama(llm: nn.Module, bits: int = 8, w8a8: bool = False, smooth_sta
     AWQ-style protection for int4 (``W4_SMOOTH_ALPHA`` by default); int8
     weight-only ignores them.  With a LoRA overlay at inference use
     :func:`quantize_llama_inplace` (``lora=``)."""
-    _only_llama(llm)
+    require_ported(llm.cfg, "quantization")
     if smooth_stats is not None and (w8a8 or bits == 4):
         if alpha is None and not w8a8:
             alpha = W4_SMOOTH_ALPHA
@@ -882,7 +876,7 @@ def quantize_llama_inplace(llm: nn.Module, bits: int = 8, w8a8: bool = False,
     blocks and quantized one whole projection at a time, its codes and
     scales left as this rank's blocks: the extra memory is still one
     weight's."""
-    _only_llama(llm)
+    require_ported(llm.cfg, "quantization")
     if smooth_stats is not None and (w8a8 or bits == 4):
         if alpha is None and not w8a8:
             alpha = W4_SMOOTH_ALPHA

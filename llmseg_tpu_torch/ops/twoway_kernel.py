@@ -52,7 +52,7 @@ Kernels H and I keep the keys state materialised, (P, L, C) in device
 memory.  Their sequence (:func:`tw_program`) is recorded on the same
 :class:`Program` and run by the same record interpreter
 (``csrc/records.cuh``) from one C call of ``csrc/twoway_fused.cu``; a
-plan (:class:`_TwPlan`) records it once for a set of weights and shapes,
+plan (:class:`_Plan`, as for G) records it once for a set of weights and shapes,
 with input buffers of its own, and replays it on every call.  In bf16 the
 three parts that sweep over L are fused kernels on wgmma and TMA
 (``csrc/twoway_sweeps.cuh``) with every keys-side projection folded into
@@ -71,7 +71,7 @@ import torch
 from torch import nn
 
 from llmseg_tpu_torch.models.layers import gelu_tanh
-from llmseg_tpu_torch.ops.kernels import Kernel, library
+from llmseg_tpu_torch.ops.kernels import Kernel, cached, library
 # the greedy NMS after G in AMG's selection (ops/nms.py), named here too:
 # perfbench/pbcore/program.py counts the launches of the kernels that
 # attention, relpos_attention, twoway_kernel and quant name.  Drop it when
@@ -1448,49 +1448,6 @@ def fused_record_errors(prog: Program, kernel: Kernel = FACTORED_DECODE) -> List
     return out
 
 
-class _Plan:
-    """Kernel G's launch sequence for one shared base, recorded once with a
-    token buffer of its own and replayed for every chunk of prompts: the
-    shared precomputes, the records and their packing are the same for
-    every chunk of an image."""
-
-    def __init__(self, twt, decoder, image_embedding, image_pe, tokens, num_heads: int):
-        self.tokens = torch.empty(tokens.shape, dtype=image_embedding.dtype,
-                                  device=tokens.device)
-        self.prog, self.cols, self.iou = g_program(twt, decoder, image_embedding, image_pe,
-                                                   self.tokens, num_heads)
-        self.packed = self.prog.pack()
-        self.hw = image_embedding.shape[1:3]
-
-    def run(self, tokens: torch.Tensor):
-        self.tokens.copy_(tokens)
-        launch_records(self.packed)
-        P, nt = tokens.shape[0], self.iou.shape[-1]
-        # both copies leave the buffers free for the next chunk (same stream)
-        return unpermute_masks(self.cols, P, *self.hw, nt), self.iou[:, 0].clone()
-
-
-def _stamp(t: torch.Tensor) -> tuple:
-    # an inference tensor has no version counter: its in-place changes are not seen
-    version = -1 if t.is_inference() else t._version
-    return t.data_ptr(), version, t.dtype, tuple(t.shape), t.stride()
-
-
-def cached(cache: Optional[Dict], name: str, inputs, fn, extra=()):
-    """``fn(*inputs)``, kept in ``cache[name]`` while every input is the
-    same tensor, unchanged (same storage, shape and version counter) and
-    ``extra`` is equal; anything else computes it anew.  The entry holds the
-    inputs, so their storage is not reused by another tensor while it is
-    kept.  ``cache`` None: no caching."""
-    if cache is None:
-        return fn(*inputs)
-    key = tuple(_stamp(t) for t in inputs) + tuple(extra)
-    hit = cache.get(name)
-    if hit is None or hit[0] != key:
-        hit = cache[name] = (key, tuple(inputs), fn(*inputs))
-    return hit[2]
-
-
 def factored_decode(twt, decoder, image_embedding, image_pe, tokens, num_heads: int,
                     cache: Optional[Dict] = None):
     """Kernel G wrapper: shapes and result as :func:`factored_decode_plain`.
@@ -1512,7 +1469,8 @@ def factored_decode(twt, decoder, image_embedding, image_pe, tokens, num_heads: 
     def record(*_):   # the only place G's sequence is recorded
         profiling.count("twoway.g_records")
         with profiling.span("twoway.g_record"):
-            return _Plan(twt, decoder, image_embedding, image_pe, tokens, num_heads)
+            return _Plan(FACTORED_DECODE, twt, decoder, image_embedding, image_pe, tokens,
+                         num_heads)
 
     plan = cached(cache, "factored_decode", [image_embedding, image_pe] + weights, record,
                   extra=(id(twt), id(decoder), tuple(tokens.shape), num_heads))
@@ -1779,41 +1737,54 @@ def _tw_head(prog, decoder, fused, Q, K, P: int, N: int, Hs: int, Ws: int, scrat
     return masks, iou
 
 
-class _TwPlan:
-    """Kernel H's or I's launch sequence for one set of weights and shapes,
-    recorded once with input buffers of its own and replayed on every call:
-    the float32 copies of the biases and norm weights, the upscale's matmul
-    weights, the scratch and the packed records are made once.  A call
-    copies its base, positional encoding and tokens in, runs the records
-    in one C call and copies the outputs out (the buffers are the next
-    call's).  Besides its inputs, a plan holds the keys state (P, L, C),
-    the outputs and the token side's small buffers; the float32 route also
-    holds one layer's intermediates over L (``tw_program``'s scratch slots,
-    shared by the layers and the upscale: 1.3 GB at 64 prompts of
-    sam_vit_h's decoder).  Plans live while their transformer module does
-    (``_PLANS``)."""
+class _Plan:
+    """Kernel G's, H's or I's launch sequence (``kernel``) for one set of
+    weights and shapes, recorded once with input buffers of its own and
+    replayed on every call: the float32 copies of the biases and norm
+    weights, the upscale's matmul weights, the scratch and the packed
+    records are made once.  A call copies its inputs in, runs the records
+    in one C call (:meth:`launch`) and copies the outputs out (the buffers
+    are the next call's).  G's sequence (:func:`g_program`) holds the
+    shared precomputes of one base and positional encoding, so only the
+    tokens are copied in, and it is kept while they are unchanged
+    (:func:`factored_decode`'s cache).  H's and I's (:func:`tw_program`)
+    copy in the base, the positional encoding and the tokens; they hold
+    the keys state (P, L, C), the outputs and the token side's small
+    buffers, and on the float32 route one layer's intermediates over L
+    (1.3 GB at 64 prompts of sam_vit_h's decoder); they live while their
+    transformer module does (``_PLANS``)."""
 
-    def __init__(self, kernel, twt, decoder, image_embedding, tokens, num_heads):
+    def __init__(self, kernel: Kernel, twt, decoder, image_embedding, image_pe, tokens,
+                 num_heads: int):
         Bi, Hs, Ws, C = image_embedding.shape
         dt, dev = image_embedding.dtype, image_embedding.device
         self.kernel, self.hw = kernel, (Hs, Ws)
-        self.base = torch.empty(image_embedding.shape, dtype=dt, device=dev)
-        self.pe = torch.empty(Hs * Ws, C, dtype=dt, device=dev)
         self.tokens = torch.empty(tokens.shape, dtype=dt, device=dev)
-        self.prog, self.outs = tw_program(twt, decoder, self.base, self.pe, self.tokens,
-                                          num_heads)
+        if kernel is FACTORED_DECODE:
+            self.prog, *self.outs = g_program(twt, decoder, image_embedding, image_pe,
+                                              self.tokens, num_heads)
+            self.inputs = [self.tokens]
+        else:
+            self.base = torch.empty(image_embedding.shape, dtype=dt, device=dev)
+            self.pe = torch.empty(Hs * Ws, C, dtype=dt, device=dev)
+            self.prog, self.outs = tw_program(twt, decoder, self.base, self.pe, self.tokens,
+                                              num_heads)
+            self.inputs = [self.base, self.pe, self.tokens]
         self.packed = self.prog.pack()
 
     def launch(self) -> None:
         launch_records(self.packed, kernel=self.kernel)
 
-    def run(self, image_embedding, image_pe, tokens):
-        self.base.copy_(image_embedding)
-        self.pe.copy_(image_pe.reshape(-1, *self.pe.shape)[0])
-        self.tokens.copy_(tokens)
+    def run(self, *inputs):
+        """G: ``run(tokens)``; H and I: ``run(image_embedding, image_pe,
+        tokens)``."""
+        for buf, t in zip(self.inputs, inputs):
+            buf.copy_(t.reshape(buf.shape))   # the encoding (S, S, C) or (1, S, S, C)
         self.launch()
         a, b = self.outs
-        if self.kernel is TWOWAY_DECODE and a.dim() == 3:   # mask columns
+        if self.kernel is FACTORED_DECODE:
+            b = b[:, 0]   # iou (P, 1, nt)
+        if self.kernel is not TWOWAY_TRANSFORMER and a.dim() == 3:   # mask columns
             return unpermute_masks(a, a.shape[0], *self.hw, b.shape[-1]), b.clone()
         return a.clone(), b.clone()
 
@@ -1859,13 +1830,14 @@ def _check_fused(twt, decoder, image_embedding, image_pe, tokens, num_heads: int
 _PLANS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def _plan(kernel: Kernel, twt, decoder, image_embedding, tokens, num_heads: int) -> _TwPlan:
+def _plan(kernel: Kernel, twt, decoder, image_embedding, tokens, num_heads: int) -> _Plan:
     """The plan kept for kernel H or I (``kernel``) with these weights and
     shapes (:func:`cached`): recorded anew when a weight changed, or P, N,
     the base's batch, the dtype or the kernel did."""
     weights = list(twt.parameters()) + ([] if decoder is None else list(decoder.parameters()))
     return cached(_PLANS.setdefault(twt, {}), kernel.name, weights,
-                  lambda *_: _TwPlan(kernel, twt, decoder, image_embedding, tokens, num_heads),
+                  lambda *_: _Plan(kernel, twt, decoder, image_embedding, None, tokens,
+                                   num_heads),
                   extra=(id(decoder), tuple(image_embedding.shape), tuple(tokens.shape),
                          image_embedding.dtype, num_heads))
 

@@ -57,6 +57,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from llmseg_tpu_torch.config import require_ported
 from llmseg_tpu_torch.parallel import ddp
 
 AXES = ("dp", "fsdp", "tp")
@@ -307,11 +308,9 @@ def shard_params(model: nn.Module, mesh: Mesh) -> Dict[str, Spec]:
     LLaMA's quantized projections, in place to this rank's block
     (:func:`param_spec`) and hand the mesh to the model and its LLaMA.
     Returns the specs."""
-    from llmseg_tpu_torch.models.deepseek_v3 import DeepseekV3, refuse
     from llmseg_tpu_torch.ops import quant
 
-    if isinstance(model.llava.llm, DeepseekV3):
-        raise refuse("the (dp, fsdp, tp) mesh")
+    require_ported(model.llava.llm.cfg, "mesh")
 
     specs = param_spec(model)
     if mesh.sharded:

@@ -1464,6 +1464,34 @@ def test_select_graph_counts_its_capture_and_captures_again_for_a_moved_weight(s
     AMG._SELECT_GRAPHS.pop(sam_h, None)
 
 
+def test_select_graph_on_inference_weights_equals_eager_selection():
+    """A SAM whose weights were made under ``torch.inference_mode`` (inference
+    tensors: no version counter to stamp): amg_select captures its
+    selection graph and replays it, and both results equal the eager
+    selection's."""
+    import numpy as np
+
+    from llmseg_tpu_torch.models.sam import amg as AMG
+    from llmseg_tpu_torch.models.sam import sam as S_
+    with torch.inference_mode():
+        model = S_.init(C.sam_vit_h(), seed=16, device="cuda", dtype=torch.bfloat16)
+    assert all(p.is_inference() for p in model.parameters())
+    amg = C.AMGConfig(points_per_side=16, points_per_batch=64, pred_iou_thresh=-1e9,
+                      stability_score_thresh=-1.0, box_nms_thresh=0.7, max_masks=20)
+    x, = _sam_images(1, seed=17)
+    pts = torch.tensor(np.random.RandomState(4).rand(256, 2) * 1000, dtype=torch.float32,
+                       device="cuda")
+    with torch.inference_mode():
+        emb = S_.encode_image(model, S_.preprocess(x, model.cfg))
+        graphed = [AMG.amg_select(model, amg, emb, pts, (1000, 1000)) for _ in range(2)]
+    with torch.enable_grad():
+        eager = AMG.amg_select(model, amg, emb, pts, (1000, 1000))
+    assert len(AMG._SELECT_GRAPHS[model]) == 1
+    for got in graphed:
+        for k in eager:
+            assert torch.equal(eager[k], got[k]), k
+
+
 def test_select_with_grad_on_runs_eagerly(sam_h):
     """With grad on amg_select captures nothing and gives the graph's
     result."""

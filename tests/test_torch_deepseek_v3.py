@@ -182,24 +182,84 @@ def test_predict_through_the_tiny_mla_moe_llm_matches_the_reference():
 
 
 def test_refuses_lora_quant_stats_training_and_the_rest():
-    cfg = C.llmseg_mla_moe_tiny()
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        llmseg.build(cfg, device="cpu", lora_cfg=C.LoraConfig())
-    model = llmseg.init(cfg, seed=1, device="cpu")
-    batch = make_batch(cfg, num_images=1, rows_per_image=1, text_len=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="quant_stats"):
-        llmseg.calibrate_quant_stats(model, batch)
-    with pytest.raises(NotImplementedError, match="training"):
-        llmseg.forward(model, batch)                       # grad on: the training path
-    llm = model.llava.llm
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="LoRA"):
-        llm(inputs_embeds=_x(1, 8), lora_cfg=C.LoraConfig())
+    """The decoder's config names every path not ported for it, and the one
+    check raises for each with the words its callers are matched on;
+    LLaMA's config names none."""
+    words = {"lora": "LoRA", "quant_stats": "quant_stats", "training": "training",
+             "cache": "cache", "quantization": "quantization", "mesh": "mesh"}
+    assert C.DeepseekV3Config.unported == set(words) == set(C.UNPORTED)
+    for path, word in words.items():
+        with pytest.raises(NotImplementedError, match=word):
+            C.require_ported(CFG, path)
+        C.require_ported(C.llama_tiny(), path)
+    assert not C.LlamaConfig.unported
+
+
+def _refusal_sites():
+    """Each place that refuses an unported path of the decoder: (the path,
+    a call that reaches it)."""
     from llmseg_tpu_torch.models import generate
     from llmseg_tpu_torch.ops import quant
-    with pytest.raises(NotImplementedError, match="cache"):
-        generate.greedy_generate(llm, _x(1, 8), 2)
-    with pytest.raises(NotImplementedError, match="quantization"):
-        quant.quantize_llama_inplace(llm, w8a8=True)
+    from llmseg_tpu_torch.parallel import mesh
+
+    def model():
+        return llmseg.init(C.llmseg_mla_moe_tiny(), seed=1, device="cpu")
+
+    def forward(**kw):
+        def call():
+            with torch.no_grad():
+                return _decoder()(inputs_embeds=_x(1, 8), **kw)
+        return call
+
+    def training():
+        return _decoder()(inputs_embeds=_x(1, 8))          # grad on
+
+    return {
+        "llmseg.LLMSeg(lora_cfg)": ("lora", lambda: llmseg.build(
+            C.llmseg_mla_moe_tiny(), device="cpu", lora_cfg=C.LoraConfig())),
+        "generate.prefill_cache": ("cache", lambda: generate.prefill_cache(
+            _decoder(), _x(1, 8), 10)),
+        "generate.greedy_generate": ("cache", lambda: generate.greedy_generate(
+            _decoder(), _x(1, 8), 2)),
+        "quant.quantize_llama": ("quantization", lambda: quant.quantize_llama(_decoder())),
+        "quant.quantize_llama_inplace": ("quantization", lambda: quant.quantize_llama_inplace(
+            _decoder(), w8a8=True)),
+        "mesh.shard_params": ("mesh", lambda: mesh.shard_params(model(), mesh.Mesh(tp=2))),
+        "DeepseekV3.forward(lora_cfg)": ("lora", forward(lora_cfg=C.LoraConfig())),
+        "DeepseekV3.forward(quant_stats)": ("quant_stats", forward(quant_stats=[])),
+        "DeepseekV3.forward(grad on)": ("training", training),
+    }
+
+
+@pytest.mark.parametrize("site", list(_refusal_sites()))
+def test_each_refusal_site_raises_the_configs_message(site):
+    path, call = _refusal_sites()[site]
+    with pytest.raises(NotImplementedError) as want:
+        C.require_ported(CFG, path)
+    with pytest.raises(NotImplementedError) as got:
+        call()
+    assert str(got.value) == str(want.value)
+
+
+def test_ops_and_parallel_import_no_decoder_module():
+    """The decoder's refusals live in its config: no module under ops/ or
+    parallel/ imports models.deepseek_v3 (read from the sources)."""
+    import ast
+    import pathlib
+
+    import llmseg_tpu_torch
+    root = pathlib.Path(llmseg_tpu_torch.__file__).parent
+    files = sorted([*root.glob("ops/**/*.py"), *root.glob("parallel/**/*.py")])
+    assert files
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module] + [f"{node.module}.{a.name}" for a in node.names]
+            elif isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            else:
+                continue
+            assert "llmseg_tpu_torch.models.deepseek_v3" not in names, f
 
 
 def test_plain_attention_takes_vs_own_head_dim():

@@ -25,6 +25,7 @@ from llmseg_tpu_torch.config import SamDecoderConfig as TDC
 from llmseg_tpu_torch.import_weights.from_jax import load_
 from llmseg_tpu_torch.models.sam.mask_decoder import MaskDecoder
 from llmseg_tpu_torch.models.sam.two_way_transformer import TwoWayTransformer
+from llmseg_tpu_torch.ops import kernels as K
 from llmseg_tpu_torch.ops import twoway_kernel as tk
 
 torch.set_num_threads(1)
@@ -255,8 +256,8 @@ def test_cached_recomputes_when_an_input_changes():
     cache, calls = {}, []
 
     def get(*xs, extra=()):
-        return tk.cached(cache, "v", list(xs), lambda *a: calls.append(a) or len(calls),
-                         extra=extra)
+        return K.cached(cache, "v", list(xs), lambda *a: calls.append(a) or len(calls),
+                        extra=extra)
 
     x, y, lin = torch.zeros(4), torch.zeros(4), nn.Linear(4, 4)
     assert get(x, lin.weight) == get(x, lin.weight) == 1
@@ -268,7 +269,7 @@ def test_cached_recomputes_when_an_input_changes():
     assert get(y, lin.weight, extra=(1,)) == 5
     assert get(y[:2], lin.weight) == 6
     assert cache["v"][1][0].data_ptr() == y.data_ptr()    # the entry holds its inputs
-    assert tk.cached(None, "v", [y], lambda a: "uncached") == "uncached"
+    assert K.cached(None, "v", [y], lambda a: "uncached") == "uncached"
 
 
 def test_one_cache_for_two_images_gives_each_its_own_masks(decoders):

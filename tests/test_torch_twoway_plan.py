@@ -1,5 +1,6 @@
 """Kernels H's and I's recorded launch sequence (``twoway_kernel.tw_program``)
-interpreted with torch (``Program.run_torch``), and the plan that keeps it.
+interpreted with torch (``Program.run_torch``), and the plan that keeps it
+and G's.
 
 The sequence is what the card runs in one C call: in float32 the unfused
 records (the projections over the image tokens on the strided GEMM, the
@@ -148,7 +149,7 @@ def test_fused_record_matches_the_records_it_replaces(part, shared):
 @pytest.fixture
 def torch_launch(monkeypatch):
     """Plans whose launch is the torch interpretation of their records."""
-    monkeypatch.setattr(tk._TwPlan, "launch", lambda self: self.prog.run_torch())
+    monkeypatch.setattr(tk._Plan, "launch", lambda self: self.prog.run_torch())
 
 
 def test_plan_is_kept_for_its_weights_and_shapes(torch_launch):
@@ -189,12 +190,34 @@ def test_plan_replays_on_a_new_base_and_tokens(torch_launch):
             again = tk._plan(kern, dec.transformer, decoder, ins[1][0], ins[1][2], 2)
             assert again is plan
             second = again.run(*ins[1])
-            fresh = tk._TwPlan(kern, dec.transformer, decoder, ins[1][0], ins[1][2], 2).run(
-                *ins[1])
+            fresh = tk._Plan(kern, dec.transformer, decoder, ins[1][0], None, ins[1][2],
+                             2).run(*ins[1])
         for a, b in zip(second, fresh):
             assert torch.equal(a, b)
         for a, b in zip(first, kept):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_g_plan_replays_on_new_tokens(torch_launch, dtype):
+    """Kernel G on the same plan class as H and I: recorded once for one
+    shared base, a call copies only its tokens in; each call's result is
+    its own plain version's, and a later call leaves the earlier result as
+    it was (the bf16 route with the fused records)."""
+    dec = _decoder(sam_tiny().decoder, dtype, seed=6)
+    base, pe, _ = _inputs(1, 1, 6, 16, dtype, seed=30)
+    toks = [_inputs(5, 1, 6, 16, dtype, seed=s)[2] for s in (31, 32)]
+    with torch.no_grad():
+        plan = tk._Plan(tk.FACTORED_DECODE, dec.transformer, dec, base, pe, toks[0], 2)
+        first = plan.run(toks[0])
+        kept = [t.clone() for t in first]
+        second = plan.run(toks[1])
+        for t, got in zip(toks, (first, second)):
+            _normwise(got, tk.factored_decode_plain(dec.transformer, dec, base, pe, t, 2),
+                      TOL[dtype])
+    assert len(plan.inputs) == 1 and plan.inputs[0] is plan.tokens
+    for a, b in zip(first, kept):
+        assert torch.equal(a, b)
 
 
 def _bytes_over_l(prog, rows):
