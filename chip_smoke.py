@@ -951,6 +951,7 @@ def mla_moe_main(C, llmseg, make_batch, A) -> dict:
     DINOv2 block), the grouped products a call (two a MoE layer), the time
     of a call and the peak memory."""
     import torch
+    from llmseg_tpu_torch.ops import moe as MO
     from llmseg_tpu_torch.utils import profiling
 
     cfg = C.llmseg_kimi_vl_a3b()
@@ -963,17 +964,18 @@ def mla_moe_main(C, llmseg, make_batch, A) -> dict:
     batch = make_batch(cfg, num_images=4, rows_per_image=3, text_len=512, seed=0)
     llmseg.predict(model, batch)
     torch.cuda.synchronize()
-    for kern in A.KERNELS:
+    for kern in A.KERNELS + (MO.MOE_COMBINE,):
         kern.launches = 0
     profiling.reset()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         out = llmseg.predict(model, batch)
     torch.cuda.synchronize()
-    launches = {kern.name: kern.launches for kern in A.KERNELS}
+    launches = {kern.name: kern.launches for kern in A.KERNELS + (MO.MOE_COMBINE,)}
     counters = profiling.snapshot()["counters"]
     n_moe = llm.num_layers - llm.first_k_dense_replace
     expect = {"flash_fwd": llm.num_layers, "flash_fwd_1pass": cfg.dino.depth,
-              "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_fwd_1pass_t": 0}
+              "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_fwd_1pass_t": 0,
+              "moe_combine": n_moe}
     sim, iou = out["pred_similarity"], out["pred_iou"]
     finite = bool(torch.isfinite(sim).all() and torch.isfinite(iou).all())
     torch.cuda.reset_peak_memory_stats()
@@ -982,10 +984,13 @@ def mla_moe_main(C, llmseg, make_batch, A) -> dict:
            "batch_images": 4, "rows_per_image": 3, "text_len": 512,
            "seq_len": 512 + cfg.llava.num_image_tokens - 1, "launches": launches,
            "expected_launches": expect, "grouped_gemms": counters.get("moe.grouped_gemms"),
-           "expected_grouped_gemms": 2 * n_moe, "shape": list(sim.shape), "finite": finite,
+           "expected_grouped_gemms": 2 * n_moe,
+           "combine_kernels": counters.get("moe.combine_kernels"),
+           "shape": list(sim.shape), "finite": finite,
            "ms_per_step": step_ms, "img_per_s": 4 * 1e3 / step_ms,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     rec["ok"] = (finite and launches == expect and rec["grouped_gemms"] == 2 * n_moe
+                 and rec["combine_kernels"] == n_moe
                  and tuple(sim.shape) == (12, cfg.max_proposals))
     emit(rec)
     del model, out, batch
@@ -993,6 +998,73 @@ def mla_moe_main(C, llmseg, make_batch, A) -> dict:
     if not rec["ok"]:
         raise SystemExit(f"the MLA/MoE predict failed: {rec}")
     return rec
+
+
+def moe_combine_case(MO, *, N: int, k: int, d: int, dtype, shared: bool = True,
+                     timed: bool = False, seed: int = 0) -> dict:
+    """The MoE combine kernel (csrc/moe_combine.cu, through moe.combine)
+    against its plain version on the same inputs, bit for bit: N tokens of
+    k experts among 64 (expert 5 never chosen), rows sorted by expert as
+    the MoE layer sorts them.  With ``timed`` (the MoE cell's layer, 9,204
+    x 6 x 2,048 in bf16) also the call's time (the inverse scatter and the
+    launch) on the event clock and on the device clock, the plain version's,
+    the steps it replaced (index_copy_ to pair order, the float32 products,
+    the sum over k, the shared add and the cast: ``replaced_ms``) and the
+    bound: y read once, the shared rows read and the output written, the
+    indices and weights."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pool = torch.tensor([e for e in range(64) if e != 5], device="cuda")
+    idx = pool[torch.rand(N, len(pool), device="cuda", generator=g).argsort(-1)[:, :k]]
+    order = torch.sort(idx.reshape(-1), stable=True).indices
+    routed = MO.Routed(torch.randn(N * k, d, device="cuda", generator=g).to(dtype), order,
+                       torch.rand(N, k, device="cuda", generator=g) * 2.446)
+    sh = torch.randn(N, d, device="cuda", generator=g).to(dtype) if shared else None
+    run = lambda: MO.combine(routed, sh)
+    before = MO.MOE_COMBINE.launches
+    got = run()
+    want = MO.combine_plain(routed.y, MO.inverse(order), routed.w, sh)
+    rec = {"phase": "kernel", "kernel": "moe_combine", "N": N, "k": k, "d": d,
+           "dtype": str(dtype).split(".")[-1], "shared": shared,
+           "launched": MO.MOE_COMBINE.launches - before,
+           "equal": torch.equal(got, want), "repeat_equal": torch.equal(run(), got),
+           "max_abs_err": float((got.float() - want.float()).abs().max())}
+    rec["ok"] = rec["equal"] and rec["repeat_equal"] and rec["launched"] == 1
+    if timed:
+        def replaced():
+            y = torch.empty_like(routed.y).index_copy_(0, order, routed.y).view(N, k, d)
+            return ((y.float() * routed.w[..., None]).sum(1) + sh.float()).to(dtype)
+
+        rec["ms"] = cuda_ms(run, 50)
+        rec["device_ms"] = device_ms(run, 50)
+        rec["plain_ms"] = cuda_ms(lambda: MO.combine_plain(routed.y, MO.inverse(order),
+                                                           routed.w, sh), 10)
+        rec["replaced_ms"] = cuda_ms(replaced, 10)
+        rec["replaced_device_ms"] = device_ms(replaced, 10)
+        rec["library_ms"] = None   # no single PyTorch call computes the combine
+        es = routed.y.element_size()
+        nbytes = (N * k + 2 * N) * d * es + N * k * (8 + 4)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * N * k * d, FP32_FLOP_PER_S)
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"moe_combine disagrees with its plain version: {rec}")
+    return rec
+
+
+def moe_kernel_phase() -> dict:
+    """The MoE combine at the MoE cell's layer (timed) and off it: one token,
+    7 and 1,000, k = 1 and 8, d = 64, no shared rows, float32."""
+    import torch
+
+    from llmseg_tpu_torch.ops import moe as MO
+    bf16, f32 = torch.bfloat16, torch.float32
+    main = moe_combine_case(MO, N=9204, k=6, d=2048, dtype=bf16, timed=True)
+    for N, k, d, dtype, shared in ((1, 6, 2048, bf16, True), (7, 6, 2048, bf16, True),
+                                   (1000, 1, 2048, bf16, True), (1000, 8, 2048, bf16, True),
+                                   (7, 6, 64, bf16, True), (1000, 6, 2048, bf16, False),
+                                   (1000, 6, 2048, f32, True)):
+        moe_combine_case(MO, N=N, k=k, d=d, dtype=dtype, shared=shared, seed=N + k + d)
+    return main
 
 
 def stage_times(model, batch, step_ms: float) -> dict:
@@ -5846,6 +5918,7 @@ def main() -> int:
     timed.update(pixel_kernel_phase(C, A, TK))
     timed.update(quant_kernel_phase(Q))
     timed.update(mesh_quant_kernel_phase(Q))
+    timed["moe_combine"] = moe_kernel_phase()
     sft_kernels = sft_kernel_phase(A)
 
     # 3. the port's modules on the card against the CPU, tiny config
@@ -6081,7 +6154,11 @@ def main() -> int:
                                  "int32 sum (XLA code)"),
                "greedy_nms": ("llmseg_tpu_torch/csrc/greedy_nms.cu",
                               "llmseg_tpu/ops/nms.py nms: the fixpoint iteration over the IoU "
-                              "matrix, a host test each step (XLA code)")}
+                              "matrix, a host test each step (XLA code)"),
+               "moe_combine": ("llmseg_tpu_torch/csrc/moe_combine.cu",
+                               "none: the JAX package has no routed experts (the port's "
+                               "DeepSeek-V3 decoder: index_copy_, float32 products, the sum "
+                               "over k, the shared add and the cast, in one pass)")}
     # this slice's path: the quantized mesh at tp = 2, a rank's W8A8 predict
     # (batch 2, 7B) and its QLoRA int8 step (32 layers)
     q_pred = qmesh["full_w8a8_tp2"]["launches_a_rank"]
@@ -6089,6 +6166,7 @@ def main() -> int:
     for name in ("row_absmax", "quantize_rows_scaled", "w8a8_int32", "w8a8_epilogue"):
         launches[name] = q_pred[name]
     launches[MLA_ROW] = mla_moe["launches"]["flash_fwd"]
+    launches["moe_combine"] = mla_moe["launches"]["moe_combine"]
     rows = []
     for name, (src, rep) in sources.items():
         r = timed[name]
@@ -6118,7 +6196,7 @@ def main() -> int:
                      "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                      **{k: r[k] for k in ("device_ms", "library_device_ms", "ex2_bound_ms",
-                                          "fixpoint_ms",
+                                          "fixpoint_ms", "replaced_ms", "replaced_device_ms",
                                           "int_mm_q2_device_ms", "sft_launches_per_step",
                                           "sft_shape", "mesh_tp2_launches_per_step_a_rank",
                                           "mesh_tp2_heads", "qmesh_tp2_predict_launches_a_rank",

@@ -23,8 +23,10 @@ and ``llmseg.forward`` / ``predict`` run it unchanged.  Per layer, for x of
   capacity, nothing dropped.  On every device the layer runs without a
   host sync: the pairs sorted by expert, the groups' ends found on the
   device, the tokens gathered, two grouped products (gate and up fused,
-  then down: ``torch._grouped_mm``), the outputs put back in pair order and
-  summed per token with their weights in float32, plus the shared experts.
+  then down: ``torch._grouped_mm``), then the combine (``ops/moe.py``):
+  each token's k rows read back through the inverse of the sort's order,
+  weighted and summed in float32 with the shared experts' row, one
+  rounding; on the card one launch of ``csrc/moe_combine.cu``.
 
 On the card the layers run as CUDA graphs, one for each half of a layer
 (:class:`_LayerGraphs`): the host launches a layer in two replays where
@@ -34,8 +36,9 @@ Training, LoRA, SmoothQuant statistics, W8A8, the mesh and decoding with a
 latent cache are not ported for this decoder (``DeepseekV3Config.unported``):
 each raises (``config.require_ported``).  Spans
 ``llm.mla`` and ``llm.moe`` time a layer's attention and MoE block on the
-host; counters ``moe.routed_pairs`` and ``moe.grouped_gemms`` count the
-pairs and the grouped products (``utils/profiling.py``).
+host; counters ``moe.routed_pairs``, ``moe.grouped_gemms`` and
+``moe.combine_kernels`` count the pairs, the grouped products and the
+combines through the kernel (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from llmseg_tpu_torch.config import DeepseekV3Config, require_ported
 from llmseg_tpu_torch.models import layers as L
 from llmseg_tpu_torch.ops.attention import attention
 from llmseg_tpu_torch.ops.kernels import capture, replay_or_capture, replayed, stamp, warm_up
+from llmseg_tpu_torch.ops.moe import Routed, combine
 from llmseg_tpu_torch.utils import profiling
 
 
@@ -142,9 +146,11 @@ class Experts(nn.Module):
         self.gate_up = nn.Parameter(torch.empty(E * 2 * I, d, **kw))
         self.down = nn.Parameter(torch.empty(E * d, I, **kw))
 
-    def forward(self, x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """sum_i w_i E_i(x) per token, float32: x (N, d), idx and w (N, k)."""
-        N, k = idx.shape
+    def forward(self, x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> Routed:
+        """E_i(x) for each token's experts idx (N, k) on x (N, d): the rows in
+        expert order, with the sort's order and the weights w (N, k) that
+        ``ops.moe.combine`` sums them with."""
+        k = idx.shape[1]
         E, I = self.n, self.down.shape[1]
         gate_up, down = self.gate_up.view(E, 2 * I, -1), self.down.view(E, -1, I)
         experts, order = torch.sort(idx.reshape(-1), stable=True)
@@ -153,8 +159,7 @@ class Experts(nn.Module):
         xs = x.index_select(0, order // k)            # the pairs' tokens, by expert
         gu = torch._grouped_mm(xs, gate_up.transpose(1, 2), offs=ends)
         y = torch._grouped_mm(F.silu(gu[:, :I]) * gu[:, I:], down.transpose(1, 2), offs=ends)
-        y = torch.empty_like(y).index_copy_(0, order, y).view(N, k, -1)   # pair order
-        return (y.float() * w[..., None]).sum(1)
+        return Routed(y, order, w)
 
 
 class MoE(nn.Module):
@@ -175,14 +180,16 @@ class MoE(nn.Module):
         x = h.reshape(-1, h.shape[-1])
         idx, w = self.router(x)
         self.last_experts = idx
-        y = self.experts(x, idx, w) + self.shared(x).float()
-        return y.to(h.dtype).view(h.shape)
+        return combine(self.experts(x, idx, w), self.shared(x)).view(h.shape)
 
     def count(self) -> None:
-        """The counters of the last forward: its (token, expert) pairs and
-        its two grouped products."""
+        """The counters of the last forward: its (token, expert) pairs, its
+        two grouped products and, on the card, its combine through the
+        kernel (``ops.moe.combine`` launches it there or raises)."""
         profiling.count("moe.grouped_gemms", 2)
         profiling.count("moe.routed_pairs", self.last_experts.numel())
+        if self.last_experts.is_cuda:
+            profiling.count("moe.combine_kernels")
 
 
 class DeepseekV3Layer(nn.Module):
@@ -220,8 +227,9 @@ class _LayerGraphs:
     the halves' replays, as the eager path does: the spans, the MoE
     counters, a copy of each MoE layer's chosen experts (the captured index
     tensor is the same storage at every replay), and the launches of the
-    port's kernels (kernel A launches through ctypes on the capturing
-    stream, so its graph holds it).  The weights' storage is stamped."""
+    port's kernels (kernel A and the MoE combine launch through ctypes on
+    the capturing stream, so the graphs hold them).  The weights' storage
+    is stamped."""
 
     def __init__(self, model: "DeepseekV3", x: torch.Tensor):
         self.tensors = list(model.parameters()) + list(model.buffers())

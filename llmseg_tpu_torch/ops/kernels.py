@@ -60,6 +60,7 @@ SIGNATURES = {
     "quant": [_I] + [_P] * 7 + [_I] * 4 + [_F, _P],
     "w8a8_gemm": [_P] * 7 + [_I] * 4 + [_P],
     "greedy_nms": [_P] * 5 + [_I, _F, _P],
+    "moe_combine": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

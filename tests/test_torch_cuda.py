@@ -9,7 +9,8 @@ significant bits; the kernels also round the probabilities to bf16 before
 the second product, as the TPU kernels do); float32 within 1e-4 (another
 summation order); the backward kernels and kernels G, H and I normwise, as
 their tests state; the quant kernels Q1 and Q2 (their split forms of a
-mesh's row split, and the standalone rescale) as their tests state."""
+mesh's row split, and the standalone rescale) as their tests state; the MoE
+combine to the bit."""
 
 import math
 
@@ -18,6 +19,7 @@ import torch
 
 from llmseg_tpu_torch import config as C
 from llmseg_tpu_torch.ops import attention as A
+from llmseg_tpu_torch.ops import moe as MO
 from llmseg_tpu_torch.ops import quant as Q
 from llmseg_tpu_torch.ops import relpos_attention as R
 from llmseg_tpu_torch.ops import twoway_kernel as TK
@@ -1560,7 +1562,8 @@ def test_mla_moe_decoder_makes_no_host_sync_and_its_launches():
     """A warm ``Llava`` forward (the splice and the decoder, ``llmseg.llm``'s
     span) with the decoder at Kimi-VL's widths, 3 layers deep, on 12 rows
     of 767 tokens: no host sync (``set_sync_debug_mode("error")``), one
-    launch of kernel A a layer, two grouped products a MoE layer."""
+    launch of kernel A a layer, two grouped products and one combine
+    through its kernel a MoE layer."""
     from llmseg_tpu_torch.models import deepseek_v3 as DS, llmseg
     from llmseg_tpu_torch.utils import profiling
     tiny = C.llmseg_tiny()
@@ -1579,7 +1582,7 @@ def test_mla_moe_decoder_makes_no_host_sync_and_its_launches():
     with torch.inference_mode():
         llm()
         torch.cuda.synchronize()
-        before = A.FLASH_FWD.launches
+        before, combines = A.FLASH_FWD.launches, MO.MOE_COMBINE.launches
         profiling.reset()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
             torch.cuda.set_sync_debug_mode("error")
@@ -1590,8 +1593,10 @@ def test_mla_moe_decoder_makes_no_host_sync_and_its_launches():
         torch.cuda.synchronize()
     assert out.shape == (12, 767, 2048)
     assert A.FLASH_FWD.launches - before == 3
+    assert MO.MOE_COMBINE.launches - combines == 2
     snap = profiling.snapshot()
     assert snap["counters"]["moe.grouped_gemms"] == 4
+    assert snap["counters"]["moe.combine_kernels"] == 2
     assert snap["counters"]["moe.routed_pairs"] == 2 * 12 * 767 * 6
     assert snap["spans"]["llm.mla"]["n"] == 3 and snap["spans"]["llm.moe"]["n"] == 2
     assert bool(torch.isfinite(out).all())
@@ -1624,3 +1629,99 @@ def test_mla_moe_decoder_graphs_replay_the_eager_layers():
     assert all(torch.equal(r, e) for r, e in zip(routes, eager_routes))
     assert not torch.equal(other, replay)
     assert not any(torch.equal(m.last_experts, r) for m, r in zip(llm.moe_layers(), routes))
+
+
+def _routed_cuda(N, k, d, dtype=torch.bfloat16, E=64, skip=(5,), seed=0):
+    """A ``Routed`` as the MoE layer leaves it on the card: each token's k
+    distinct experts of E (never those in ``skip``: experts that get no
+    pair), the rows sorted stably by expert, seeded values; and a shared
+    row block."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pool = torch.tensor([e for e in range(E) if e not in skip], device="cuda")
+    idx = pool[torch.rand(N, len(pool), device="cuda", generator=g).argsort(-1)[:, :k]]
+    order = torch.sort(idx.reshape(-1), stable=True).indices
+    y = torch.randn(N * k, d, device="cuda", generator=g).to(dtype)
+    w = torch.rand(N, k, device="cuda", generator=g) * 2.446
+    shared = torch.randn(N, d, device="cuda", generator=g).to(dtype)
+    return MO.Routed(y, order, w), shared
+
+
+@pytest.mark.parametrize("N,k,d,dtype,with_shared", [
+    (9204, 6, 2048, torch.bfloat16, True),           # the MoE cell's layer
+    (1, 6, 2048, torch.bfloat16, True), (7, 6, 2048, torch.bfloat16, True),
+    (1000, 6, 2048, torch.bfloat16, True), (1000, 1, 2048, torch.bfloat16, True),
+    (1000, 8, 2048, torch.bfloat16, True), (7, 6, 64, torch.bfloat16, True),
+    (1000, 8, 64, torch.bfloat16, True), (1000, 6, 2048, torch.bfloat16, False),
+    (1000, 6, 2048, torch.float32, True), (7, 1, 64, torch.float32, False)])
+def test_moe_combine_matches_plain_bitwise(N, k, d, dtype, with_shared):
+    """The combine kernel against its plain version on the same inputs, to
+    the bit: the same float32 products and ordered sums, one rounding."""
+    routed, shared = _routed_cuda(N, k, d, dtype, seed=N + k + d)
+    shared = shared if with_shared else None
+    inv = MO.inverse(routed.order)
+    before = MO.MOE_COMBINE.launches
+    got = MO.combine(routed, shared)
+    assert MO.MOE_COMBINE.launches == before + 1
+    want = MO.combine_plain(routed.y, inv, routed.w, shared)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (N, d)
+    assert torch.equal(got, want)
+    assert torch.equal(MO.moe_combine(routed.y, inv, routed.w, shared), got)   # repeat
+
+
+def test_moe_combine_raises_on_what_it_does_not_take():
+    """d not a multiple of 8, k above 8, rows off 16 bytes, a float64
+    weight: the wrapper raises and launches nothing."""
+    before = MO.MOE_COMBINE.launches
+    routed, shared = _routed_cuda(4, 2, 12)
+    with pytest.raises(ValueError, match="d = 12"):
+        MO.combine(routed, shared)
+    routed, _ = _routed_cuda(4, 9, 16)
+    with pytest.raises(ValueError, match="k = 9"):
+        MO.combine(routed)
+    routed, shared = _routed_cuda(4, 2, 64)
+    y = routed.y.reshape(-1)
+    off = torch.empty(y.numel() + 1, dtype=y.dtype, device="cuda")[1:].copy_(y).view(8, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        MO.combine(MO.Routed(off, routed.order, routed.w), shared)
+    with pytest.raises(ValueError, match="w is torch.float64"):
+        MO.combine(MO.Routed(routed.y, routed.order, routed.w.double()), shared)
+    assert MO.MOE_COMBINE.launches == before
+
+
+def test_moe_layer_combines_through_the_kernel_eager_and_replayed(monkeypatch):
+    """One MoE layer at Kimi-VL's widths (the decoder 2 layers deep, the
+    second a MoE layer) on 4 rows of 767 tokens: the eager MoE block equals
+    the same block with the plain combine to the bit; the layers' CUDA
+    graphs replay the eager call, with one combine launch and one
+    ``moe.combine_kernels`` a call, eager or replayed."""
+    from llmseg_tpu_torch.models import deepseek_v3 as DS, llmseg
+    from llmseg_tpu_torch.utils import profiling
+    llm = DS.DeepseekV3(_kimi_widths(2), device="cuda", dtype=torch.bfloat16)
+    llmseg.random_init_(llm, torch.Generator(device="cuda").manual_seed(11))
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(4, 767, 2048, device="cuda", generator=g).to(torch.bfloat16)
+    moe, = llm.moe_layers()
+    with torch.inference_mode():
+        moe.router.correction_bias.normal_(0.0, 0.1, generator=g)
+        kernel = moe(x)
+        with monkeypatch.context() as m:
+            m.setattr(MO, "moe_combine", MO.combine_plain)
+            plain = moe(x)
+        assert torch.equal(kernel, plain)
+        before = MO.MOE_COMBINE.launches
+        eager = llm(inputs_embeds=x)          # the eager warm-up, then the capture
+        torch.cuda.synchronize()
+        assert MO.MOE_COMBINE.launches == before + 1
+        for _ in range(2):                    # replays
+            before = MO.MOE_COMBINE.launches
+            profiling.reset()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+                out = llm(inputs_embeds=x)
+            torch.cuda.synchronize()
+            counters = profiling.snapshot()["counters"]
+            profiling.reset()
+            assert MO.MOE_COMBINE.launches == before + 1
+            assert counters["moe.combine_kernels"] == 1 and counters["moe.grouped_gemms"] == 2
+            assert torch.equal(out, eager)
+    assert len(DS._GRAPHS[llm]) == 1

@@ -19,6 +19,7 @@ from llmseg_tpu_torch import config as C  # noqa: E402
 from llmseg_tpu_torch.data.synthetic import make_batch  # noqa: E402
 from llmseg_tpu_torch.models import deepseek_v3 as DS  # noqa: E402
 from llmseg_tpu_torch.models import llmseg  # noqa: E402
+from llmseg_tpu_torch.ops import moe as MO  # noqa: E402
 
 CFG = C.deepseek_v3_tiny()
 
@@ -111,9 +112,10 @@ def test_correction_bias_stays_float32_in_a_bf16_model():
 
 @pytest.mark.parametrize("N", [1, 7, 200])
 def test_grouped_products_match_a_loop_over_experts(N):
-    """``Experts.forward`` (sort, group ends, two grouped products, pair
-    order back) against each expert on its own tokens, with experts that
-    get no token at all."""
+    """``Experts.forward`` (sort, group ends, two grouped products) and its
+    combine (each token's rows read back through the inverse order, weighted
+    and summed) against each expert on its own tokens, with experts that get
+    no token at all."""
     llm = _decoder(seed=2)
     moe = llm.moe_layers()[0]
     g = torch.Generator().manual_seed(N)
@@ -121,10 +123,88 @@ def test_grouped_products_match_a_loop_over_experts(N):
     idx = torch.stack([torch.randperm(4, generator=g)[:2] for _ in range(N)])  # experts 0-3 only
     w = torch.rand(N, 2, generator=g)
     with torch.no_grad():
-        got = moe.experts(x, idx, w)
+        got = MO.combine(moe.experts(x, idx, w))
     W = {k: v for k, v in llm.state_dict().items()}
     want = ref.routed(W, "layers.1.mlp.", CFG, x, idx, w)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def _routed(N, k, d, E=10, seed=0, skip=None):
+    """A ``Routed`` as ``Experts.forward`` leaves it: random expert choices
+    (never ``skip``), the rows sorted stably by expert, seeded values."""
+    g = torch.Generator().manual_seed(seed)
+    experts = [e for e in range(E) if e != skip]
+    idx = torch.tensor(experts)[torch.stack([torch.randperm(len(experts), generator=g)[:k]
+                                             for _ in range(N)])]
+    order = torch.sort(idx.reshape(-1), stable=True).indices
+    y = torch.randn(N * k, d, generator=g)
+    w = torch.rand(N, k, generator=g) * 2.446
+    return MO.Routed(y, order, w), torch.randn(N, d, generator=g)
+
+
+@pytest.mark.parametrize("N,k,d", [(1, 1, 8), (7, 6, 64), (200, 8, 24), (33, 2, 16)])
+def test_plain_combine_matches_the_previous_formula(N, k, d):
+    """The combine's plain version (the inverse order, an ordered float32
+    sum, the shared row last, one rounding) against the steps it replaced:
+    ``index_copy_`` back to pair order, the float32 products, ``.sum(1)``,
+    the shared row added; within float32 rounding, and one bf16 rounding
+    of the same sums in bf16 (an expert that gets no pair)."""
+    routed, shared = _routed(N, k, d, seed=N + k, skip=3)
+    y, order, w = routed
+    inv = MO.inverse(order)
+    assert torch.equal(order[inv], torch.arange(N * k)) and torch.equal(inv[order], order[inv])
+    before = torch.empty_like(y).index_copy_(0, order, y).view(N, k, d)
+    before = (before.float() * w[..., None]).sum(1)
+    for sh in (None, shared):
+        got = MO.combine(routed, sh)
+        want = before if sh is None else before + sh
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    b16 = MO.Routed(y.bfloat16(), order, w)
+    got = MO.combine(b16, shared.bfloat16())
+    want = (torch.empty_like(b16.y).index_copy_(0, order, b16.y).view(N, k, d).float()
+            * w[..., None]).sum(1) + shared.bfloat16().float()
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.bfloat16().float(), atol=1e-2, rtol=2 ** -8)
+
+
+def test_the_wrapper_names_what_the_kernel_does_not_take():
+    """``moe_combine`` raises before any launch: d not a multiple of 8, k
+    above 8, a weight that is not float32, tensors off the card."""
+    routed, shared = _routed(4, 2, 12)
+    inv = MO.inverse(routed.order)
+    with pytest.raises(ValueError, match=r"d = 12.*not all on one card"):
+        MO.moe_combine(routed.y, inv, routed.w, shared)
+    routed, _ = _routed(2, 9, 16, E=12)
+    with pytest.raises(ValueError, match=r"k = 9"):
+        MO.moe_combine(routed.y, MO.inverse(routed.order), routed.w)
+    routed, _ = _routed(2, 2, 16)
+    with pytest.raises(ValueError, match=r"w is torch.float64"):
+        MO.moe_combine(routed.y, MO.inverse(routed.order), routed.w.double())
+
+
+def test_moe_counts_once_a_block_and_combines_plain_on_the_cpu():
+    """Under the profiler each MoE block counts its two grouped products and
+    its pairs once a forward; on the CPU the combine is the plain version,
+    so ``moe.combine_kernels`` stays 0 and the kernel never launches."""
+    from llmseg_tpu_torch.utils import profiling
+    llm = _decoder()
+    n_moe = len(llm.moe_layers())
+    launches = MO.MOE_COMBINE.launches
+    profiling.reset()
+    try:
+        with torch.no_grad(), torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            llm(inputs_embeds=_x())
+            llm(inputs_embeds=_x(seed=4))
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.reset()
+    assert n_moe == 2
+    assert counters["moe.grouped_gemms"] == 2 * 2 * n_moe
+    assert counters["moe.routed_pairs"] == 2 * n_moe * 2 * 40 * CFG.num_experts_per_tok
+    assert counters.get("moe.combine_kernels", 0) == 0
+    assert MO.MOE_COMBINE.launches == launches
 
 
 def test_rope_pair_layout():
